@@ -4,14 +4,16 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, drives the main path (the
-``mppi4-non-liner`` closed loop through the CLI entry function, and the
-device-resident chain of the same loop), and times kernels against plain
-versions with CUDA events. It prints one JSON line per phase, then the
-kernels line, the ``nvidia-smi`` name and power limit, and last the line
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; so
-does a machine without CUDA, or a directory without the ``mpc_rs_tpu_torch``
-package. Imports nothing of JAX.
+against its plain PyTorch version on the card, drives the main paths (the
+``mppi4-non-liner`` closed loop through the CLI entry function and the
+device-resident chain of the same loop; then the scenario fleet through the
+CLI entry function, cartpole4 over 10 s and flagship6 over 3 s with the
+pulse, at B = 1024, plus short runs of the other samplers and the exact
+tier), and times kernels against plain versions with CUDA events. It prints
+one JSON line per phase, then the kernels line, the ``nvidia-smi`` name and
+power limit, and last the line ``{"ok": true, "device": {...}}``. Any
+failure raises and exits non-zero; so does a machine without CUDA, or a
+directory without the ``mpc_rs_tpu_torch`` package. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +30,10 @@ N = 8
 X0 = (0.5, 0.0, 0.1, 0.0)
 F32_BAND = dict(rtol=1e-3, atol=2e-4)  # the JAX package's band (tests/test_pallas.py:59)
 SOURCE = "mpc_rs_tpu_torch/ops/csrc/mppi_kernels.cu"
+FASTMATH_SOURCE = "mpc_rs_tpu_torch/ops/csrc/fastmath.cuh"
+COMMON_SOURCE = "mpc_rs_tpu_torch/ops/csrc/mppi_common.cuh"  # the partials kernel, the samplers
+PALLAS = "mpc_rs_tpu/ops/mppi_pallas.py"
+SAMPLER_LINES = {"box-muller": 194, "clt4": 140, "clt4a": 150, "wallace": 238}  # _fill_vbuf branches
 
 
 def emit(obj) -> None:
@@ -46,8 +52,11 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def check_band(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     """|got − want| ≤ atol + rtol·|want| elementwise; returns the max abs error."""
     g, w = got.double().cpu(), want.double().cpu()
-    ok = bool(((g - w).abs() <= F32_BAND["atol"] + F32_BAND["rtol"] * w.abs()).all())
-    check(ok, f"{what}: outside rtol 1e-3 / atol 2e-4 (got {g.tolist()}, want {w.tolist()})")
+    out = (g - w).abs() > F32_BAND["atol"] + F32_BAND["rtol"] * w.abs()
+    if bool(out.any()):
+        i = int(((g - w).abs() / (F32_BAND["atol"] + F32_BAND["rtol"] * w.abs())).flatten().argmax())
+        check(False, f"{what}: {int(out.sum())} of {g.numel()} outside rtol 1e-3 / atol 2e-4, worst "
+                     f"got {g.flatten()[i].item()} want {w.flatten()[i].item()}")
     return max_err(g, w)
 
 
@@ -66,12 +75,257 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one call: the sum of its kernels' durations
+    under torch.profiler over ``reps`` calls, divided by ``reps`` (the
+    wrapper's host cost is not in it)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
+    """The scenario fleet's kernels and main path: the fast-math device
+    functions, the batched kernel with external noise and with each
+    in-kernel sampler, the per-scenario failure probes, the fleet CLI runs,
+    and the timings. Returns the kernels line's entries."""
+    from mpc_rs_tpu_torch.apps import run as cli
+    from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+    from mpc_rs_tpu_torch.ops import fastmath, mppi_cuda, philox
+    from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Flagship4Diag4
+
+    def model(which, fast=True):
+        if which == "cartpole4":
+            return CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=fast)
+        return Flagship4Diag4(CartPoleParams.two_wheel(), 0.15, fast=fast)
+
+    def fcfg(which, k, lam):
+        sd = 10.0 if which == "cartpole4" else 4.0
+        return MppiConfig(n_horizon=N, n_rollouts=k, lambda_=lam, std_dev=sd, limit=(-10.0, 10.0))
+
+    app_lambda = {"cartpole4": 0.5, "flagship6": 1.4}
+    # where each model's f32 solve is well conditioned (the plain f32
+    # version is then within a tenth of the band of float64; PERF.md)
+    band_lambda = {"cartpole4": 20.0, "flagship6": 50.0}
+    gen = torch.Generator(device=dev).manual_seed(99)
+
+    def inputs(b, which):
+        xs = 0.2 * torch.randn((b, 4), generator=gen, device=dev)
+        if which == "cartpole4":
+            xs = xs + torch.tensor(X0, device=dev)
+        return xs, 0.5 * torch.randn((b, N), generator=gen, device=dev)
+
+    def plain_solve(cfg, m, xs, u_ns, noise, dtype):
+        parts = mppi_cuda.mppi_batch_partials_plain(cfg, m, xs.to(dtype), u_ns.to(dtype), noise.to(dtype))
+        return mppi_cuda.finalize_batch_plain(cfg, parts)
+
+    # F1. the fast-math device functions over 2**20 points against the plain
+    # versions on the card, with the bounds of tests/test_fastmath.py
+    n_pts = 1 << 20
+    ranges = {"fsin": (-100, 100), "fcos": (-100, 100), "flog": (1e-7, 100)}
+    exact = {"fsin": torch.sin, "fcos": torch.cos, "flog": torch.log, "frsqrt": torch.rsqrt,
+             "fsqrt": torch.sqrt, "freciprocal": torch.reciprocal}
+    fm_err = 0.0
+    for fn in mppi_cuda.FASTMATH_FNS:
+        lo, hi = ranges.get(fn, (1e-3, 1e4))
+        a = lo + (hi - lo) * torch.rand(n_pts, generator=gen, device=dev)
+        b = 0.5 + 1.5 * torch.rand(n_pts, generator=gen, device=dev) if fn == "fdiv" else None
+        got = mppi_cuda.fastmath_eval(fn, a, b).double()
+        plain = (getattr(fastmath, fn)(a) if b is None else fastmath.fdiv(a, b)).double()
+        ref = (exact[fn](a.double()) if b is None else a.double() / b.double())
+        abs_err, rel_err = float((got - plain).abs().max()), float(((got - ref) / ref).abs().max())
+        if fn in ("fsin", "fcos"):
+            check(float((got - ref).abs().max()) < 1e-5 and abs_err < 1e-6, f"{fn}: {abs_err}")
+        elif fn == "flog":
+            check(float((got - ref).abs().max()) < 2e-6 and abs_err < 1e-6, f"{fn}: {abs_err}")
+        elif fn in ("frsqrt", "fsqrt"):
+            check(rel_err < 1e-6, f"{fn}: relative error {rel_err}")
+        else:
+            check(rel_err < 3e-5, f"{fn}: relative error {rel_err} (rcp budget 3e-5)")
+        if fn in ("fsin", "fcos", "flog"):
+            fm_err = max(fm_err, abs_err)
+        emit({"phase": "fastmath", "fn": fn, "points": n_pts, "max_abs_err_vs_plain": abs_err,
+              "max_rel_err_vs_exact": rel_err})
+
+    # F2. the batched kernel with external noise against the plain version in
+    # float64, at the fleets' shapes and a multi-block one. The band holds at
+    # band_lambda; at the apps' λ the f32 problem itself is ill-conditioned
+    # (1.2 s of an unstable pendulum amplifies a rollout's last bit about a
+    # thousandfold: the plain f32 version misses float64 by ~1e-3), so there
+    # the kernel is held to twice the plain f32 version's distance.
+    batch_err = 0.0
+    for which, b, k, fast in (("cartpole4", 1024, 1024, True), ("flagship6", 1024, 8192, True),
+                              ("cartpole4", 8, 65_536, False)):
+        m = model(which, fast)
+        for lam in (band_lambda[which], app_lambda[which]):
+            cfg = fcfg(which, k, lam)
+            xs, u_ns = inputs(b, which)
+            noise = cfg.std_dev * torch.randn((b, k, N), generator=gen, device=dev)
+            got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, noise=noise)
+            want_u, want_st = plain_solve(cfg, m, xs, u_ns, noise, torch.float64)
+            check(bool((got_st == 0).all()) and bool((want_st == 0).all()), f"batch {which} K={k} statuses")
+            row = {"phase": "batch_external_noise", "model": which, "b": b, "k": k, "fast": fast, "lambda": lam}
+            if lam == band_lambda[which]:
+                row["max_abs_err"] = check_band(got_u, want_u, f"batch {which} B={b} K={k}")
+                batch_err = max(batch_err, row["max_abs_err"])
+            else:
+                f32_u, _ = plain_solve(cfg, m, xs, u_ns, noise, torch.float32)
+                row["max_abs_err"] = max_err(got_u, want_u)
+                row["plain_f32_max_abs_err"] = max_err(f32_u, want_u)
+                check(row["max_abs_err"] <= 2.0 * row["plain_f32_max_abs_err"] + 2e-4,
+                      f"batch {which} at λ={lam}: {row}")
+            emit(row)
+            del noise
+
+    # F3. in-kernel sampling: the kernel's noise (written through noise_out)
+    # against ops/philox.py's words on the card, the solve against the
+    # plain version fed that noise, and the noise's moments
+    sampler_err = {}
+    b, k = 1024, 1024
+    for sampler in philox.SAMPLERS:
+        for fast in (True, False):
+            m, cfg = model("cartpole4", fast), fcfg("cartpole4", k, 20.0)
+            xs, u_ns = inputs(b, "cartpole4")
+            seeds = torch.randint(-2**31, 2**31 - 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+            out = torch.empty((b, k, N), device=dev)
+            parts = mppi_cuda.mppi_batch_partials_fused(cfg, m, xs, u_ns, seeds=seeds, sampler=sampler,
+                                                        noise_out=out)
+            got_u, got_st = mppi_cuda.finalize_batch_fused(cfg, parts)
+            words = mppi_cuda.batch_noise(cfg, m, seeds, sampler)
+            noise_err = max_err(out, words)
+            if sampler in ("clt4", "clt4a"):
+                check(torch.equal(out, words), f"{sampler}: kernel noise differs from the plain words")
+            else:
+                check(noise_err < 1e-4, f"{sampler} fast={fast}: kernel noise vs plain {noise_err}")
+            want_u, want_st = plain_solve(cfg, m, xs, u_ns, out, torch.float64)
+            check(bool((got_st == 0).all()) and bool((want_st == 0).all()), f"{sampler} statuses")
+            err = check_band(got_u, want_u, f"{sampler} fast={fast} solve vs plain")
+            sampler_err[sampler] = max(sampler_err.get(sampler, 0.0), err, noise_err)
+            z = (out / cfg.std_dev).double().flatten()
+            mean, var = float(z.mean()), float(z.var())
+            kurt = float(((z - z.mean()) ** 4).mean() / z.var() ** 2)
+            check(abs(mean) < 5e-3 and abs(var - 1.0) < 5e-3 and abs(kurt - 3.0) < 0.02,
+                  f"{sampler} moments: mean {mean} var {var} kurtosis {kurt}")
+            row = {"phase": "batch_sampler", "sampler": sampler, "fast": fast, "b": b, "k": k,
+                   "noise_max_abs_err": noise_err, "max_abs_err": err, "mean": mean, "var": var, "kurtosis": kurt}
+            if sampler == "clt4a":
+                row["pair_sum_max_abs"] = float((out[:, 0::2] + out[:, 1::2]).abs().max())
+                check(row["pair_sum_max_abs"] == 0.0, "clt4a: a pair's noise does not sum to exactly 0")
+            emit(row)
+            del out, words
+
+    # F4. failure probes, per scenario
+    seeds = torch.arange(8, dtype=torch.int32, device=dev)
+    xs = torch.tensor([X0] * 8, device=dev)
+    xs[3, 0] = float("nan")
+    u, st = mppi_cuda.mppi_solve_batch_fused(fcfg("cartpole4", 1024, 0.5), model("cartpole4"), xs,
+                                             torch.zeros(8, N, device=dev), seeds=seeds, sampler="clt4")
+    check(st.tolist() == [0, 0, 0, MppiStatus.NO_FINITE, 0, 0, 0, 0], f"NaN x0 probe: statuses {st.tolist()}")
+    check(bool((u[3] == 0).all()) and bool(torch.isfinite(u).all()), "NaN x0 probe: zeros there, finite elsewhere")
+    emit({"phase": "batch_failure_probe", "probe": "nan_x0_in_scenario_3", "statuses": st.tolist()})
+    u, st = mppi_cuda.mppi_solve_batch_fused(fcfg("flagship6", 8192, 0.0), model("flagship6"),
+                                             torch.zeros(8, 4, device=dev), torch.zeros(8, N, device=dev),
+                                             seeds=seeds, sampler="clt4a")
+    check(bool((st == MppiStatus.INVALID_U).all()) and bool((u == 0).all()), f"λ=0 probe: {st.tolist()}")
+    emit({"phase": "batch_failure_probe", "probe": "lambda_0", "statuses": sorted(set(st.tolist()))})
+
+    # F5. the main path: the fleet through the CLI entry function
+    runs = (
+        (["--model", "cartpole4", "--t-end", "10"], 0.99),
+        (["--model", "flagship6", "--t-end", "3"], 0.95),
+        (["--model", "cartpole4", "--t-end", "2", "--no-fast-math"], 0.99),  # exact tier, wallace
+        (["--model", "flagship6", "--t-end", "1.5", "--sampler", "box-muller"], 0.95),
+    )
+    mppi_cuda.reset_launches()
+    ticks = 0
+    for extra, min_survival in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.main(["fleet", "--scenarios", "1024", *extra])
+        run_s = time.perf_counter() - t0
+        ticks += res.ticks
+        tick_ms = [1e3 * t for t in res.tick_seconds]
+        check(res.survival >= min_survival, f"fleet {extra}: survival {res.survival} < {min_survival}")
+        check(res.statuses_ok, f"fleet {extra}: a status was not 0")
+        check(bool(torch.isfinite(res.carry.x).all()) and bool(torch.isfinite(res.carry.ukf.x).all()),
+              f"fleet {extra}: non-finite states")
+        emit({"phase": "fleet_main_path", "args": extra, "scenarios": res.scenarios,
+              "survived": res.scenarios - res.tipped, "ticks": res.ticks, "survival": res.survival,
+              "statuses_ok": res.statuses_ok, "median_max_theta": res.median_max_theta,
+              "tick_ms_median": statistics.median(tick_ms), "tick_ms_p99": sorted(tick_ms)[int(0.99 * len(tick_ms))],
+              "scenario_ticks_per_s": res.scenario_ticks_per_s, "run_s": run_s, **card})
+    counts = dict(mppi_cuda.launches)
+    check(counts["mppi_batch_partials_fused"] >= ticks and counts["finalize_batch_fused"] >= ticks,
+          f"batched launches {counts} < ticks {ticks}")
+    for key in ("fast_tier", *(f"sampler:{s_}" for s_ in philox.SAMPLERS)):
+        check(counts[key] >= 1, f"{key} was not launched on the fleet's main path")
+    emit({"phase": "fleet_main_path_launches", "ticks": ticks, "launches": counts})
+
+    # F6. timings by CUDA events, kernel and plain in turns, on one card
+    timing = {}
+    for label, which, b, k, fast, sampler in (
+        ("cartpole4", "cartpole4", 1024, 1024, True, "clt4"),
+        ("flagship6", "flagship6", 1024, 8192, True, "clt4a"),
+        ("flagship6_exact", "flagship6", 1024, 8192, False, "wallace"),
+        ("multi_block", "cartpole4", 8, 65_536, False, "wallace"),
+        *(("cartpole4:" + s_, "cartpole4", 1024, 1024, True, s_) for s_ in philox.SAMPLERS),
+    ):
+        m, cfg = model(which, fast), fcfg(which, k, app_lambda[which])
+        xs, u_ns = inputs(b, which)
+        seeds = torch.randint(0, 2**31 - 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+        kern = median_ms(lambda: mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, seeds=seeds,
+                                                                  sampler=sampler), reps=50)
+        parts_dev = device_ms(lambda: mppi_cuda.mppi_batch_partials_fused(cfg, m, xs, u_ns, seeds=seeds,
+                                                                          sampler=sampler))
+        solve_dev = device_ms(lambda: mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, seeds=seeds,
+                                                                       sampler=sampler))
+        plain_t = median_ms(lambda: plain_solve(cfg, m, xs, u_ns, mppi_cuda.batch_noise(cfg, m, seeds, sampler),
+                                                torch.float32), reps=5, warmup=1)
+        kern2 = median_ms(lambda: mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, seeds=seeds,
+                                                                   sampler=sampler), reps=50)
+        timing[label] = (min(kern, kern2), plain_t)
+        emit({"phase": "timing_batch", "shape": label, "b": b, "k": k, "fast": fast, "sampler": sampler,
+              "kernel_us_per_solve": [1e3 * kern, 1e3 * kern2], "device_us_partials": 1e3 * parts_dev,
+              "device_us_finalize": 1e3 * (solve_dev - parts_dev), "plain_us_per_solve": 1e3 * plain_t,
+              **card})
+    a = 200.0 * torch.rand(n_pts, generator=gen, device=dev) - 100.0
+    fm_kern = median_ms(lambda: mppi_cuda.fastmath_eval("fsin", a), reps=50)
+    fm_plain = median_ms(lambda: fastmath.fsin(a), reps=20)
+    emit({"phase": "timing_fastmath", "fn": "fsin", "points": n_pts, "kernel_us": 1e3 * fm_kern,
+          "plain_us": 1e3 * fm_plain, **card})
+
+    fleet_launches = counts["mppi_batch_partials_fused"]
+    return [
+        {"name": "mppi_partials_kernel+fleet_finalize_kernel (K5, mppi_solve_batch_fused)", "route": "cuda",
+         "source": SOURCE, "replaces": f"{PALLAS}:692", "launches": fleet_launches,
+         "max_abs_err": batch_err, "ms": timing["flagship6"][0], "plain_ms": timing["flagship6"][1]},
+        {"name": "mppi_partials_kernel+fleet_finalize_kernel, multi-block K (K6)", "route": "cuda",
+         "source": SOURCE, "replaces": f"{PALLAS}:739", "launches": fleet_launches,
+         "max_abs_err": batch_err, "ms": timing["multi_block"][0], "plain_ms": timing["multi_block"][1]},
+        *({"name": f"mppi_partials_kernel sampler={s_} (K3, _fill_vbuf)", "route": "cuda",
+           "source": COMMON_SOURCE, "replaces": f"{PALLAS}:{SAMPLER_LINES[s_]}",
+           "launches": counts[f"sampler:{s_}"], "max_abs_err": sampler_err[s_],
+           "ms": timing["cartpole4:" + s_][0], "plain_ms": timing["cartpole4:" + s_][1]}
+          for s_ in philox.SAMPLERS),
+        {"name": "fastmath.cuh fsin/fcos/flog/frsqrt/fsqrt/freciprocal/fdiv (K4, fast tier)", "route": "cuda",
+         "source": FASTMATH_SOURCE, "replaces": "mpc_rs_tpu/ops/fastmath.py:64",
+         "launches": counts["fast_tier"], "max_abs_err": fm_err, "ms": fm_kern, "plain_ms": fm_plain},
+    ]
 
 
 def main() -> None:
@@ -104,12 +358,14 @@ def main() -> None:
           "count": torch.cuda.device_count(), "torch": torch.__version__, "cuda": torch.version.cuda})
     check(cap == (9, 0), f"compute capability {cap}, the kernels are built for sm_90a")
 
-    # 2. build
+    # 2. build: one nvcc, one library
+    t0 = time.perf_counter()
     so, build_s = build.build()
     build.load_library()
+    build_wall = time.perf_counter() - t0
     log = so.with_suffix(".log").read_text() if so.with_suffix(".log").is_file() else ""
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "library": so.name, "build_s": build_s,
+    emit({"phase": "build", "library": so.name, "build_s": build_s, "build_wall_s": build_wall,
           "horizon": mppi_cuda.HORIZON, "ptxas": ptxas})
 
     # 3. K2 with external noise against the plain version in float64
@@ -260,15 +516,18 @@ def main() -> None:
         emit({"phase": "timing_k1", "k": k, "n": N, "j": jj, "kernel_us_per_solve": 1e3 * kern,
               "plain_us_per_solve": 1e3 * plain_t, **card})
 
+    fleet = fleet_phases(dev, card)
+
     emit({"kernels": [
         {"name": "mppi_partials_kernel+mppi_finalize_kernel (K2, mppi_solve_fused)", "route": "cuda",
-         "source": SOURCE, "replaces": "mpc_rs_tpu/ops/mppi_pallas.py:438",
+         "source": SOURCE, "replaces": f"{PALLAS}:438",
          "launches": counts["mppi_solve_fused"], "max_abs_err": k2_err,
          "ms": timing[k_app][0], "plain_ms": timing[k_app][1]},
         {"name": "mpc_mppi_chain (K1, mppi_chain_fused)", "route": "cuda",
-         "source": SOURCE, "replaces": "mpc_rs_tpu/ops/mppi_pallas.py:1004",
+         "source": SOURCE, "replaces": f"{PALLAS}:1004",
          "launches": counts["mppi_chain_fused"], "max_abs_err": k1_err,
          "ms": chain_timing[k_app][0], "plain_ms": chain_timing[k_app][1]},
+        *fleet,
     ]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -7,10 +7,11 @@ JAX package becomes a CUDA kernel written for Hopper (``ops/csrc/``), with a
 plain PyTorch version beside it that the CPU tests hold against the JAX
 package.
 
-Ported so far: the ``mppi4-non-liner`` slice — models (params, nonlinear
-cart-pole, shaped4 cost), the MPPI controller, the fused single-solve and
-chain kernels with their Philox sampler, the CSV logger, and the
-``python -m mpc_rs_tpu_torch.apps.run mppi4-non-liner`` CLI.
+Ported so far: the ``mppi4-non-liner`` slice (models, the MPPI controller,
+the fused single-solve and chain kernels, the CSV logger, its CLI) and the
+scenario fleet (the flagship and fast-tier models, the fleet's SoA UKF, the
+scenario-batched kernel with the clt4/clt4a/wallace samplers and the fast
+math, the fleet tick and ``python -m mpc_rs_tpu_torch.apps.run fleet``).
 """
 
 __version__ = "0.1.0"

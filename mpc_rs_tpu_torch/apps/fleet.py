@@ -1,0 +1,183 @@
+"""Scenario-fleet runner — B independent MPPI + UKF closed loops per tick.
+
+Port of ``mpc_rs_tpu/apps/fleet.py:58-248,367-421`` (``build_fleet`` and
+``fleet``) for one GPU, with the JAX package's per-model defaults:
+
+- ``cartpole4``: the mppi4-non-liner-s.rs closed loop (σ=10, limit ±10,
+  K=1024 per scenario), 20 Hz control with the 0.1 s model step, 100 Hz
+  plant/sensor/UKF (5 substeps) at sensor noise σ=[50, 50, 0.5], gen_q4 UKF,
+  tip guard 60°.
+- ``flagship6``: the mppi4-non-liner-ukf.rs stack (two-wheel plant, UKF(6,5)
+  on the IMU observation, MPPI λ=1.4 σ=4 limit ±10, K=8192 per scenario),
+  100 Hz control and sensor at σ=[200, 200, 10, 0.05, 0.05] with σ as R,
+  x0 = 0, the 2 N pulse during t∈(1, 1.5) s, tip guard π/2.
+
+Both run the fast tier by default (polynomial sin/cos, one approximate
+reciprocal in the kernel) with the clt4 sampler below K=2048 and clt4a from
+K=2048; ``--no-fast-math`` runs the exact tier with wallace. The UKF uses
+α=1, the f32 fleets' spread (``fleet.py:84-98``), and the Jacobi sigma
+root of the SoA estimator.
+
+Not ported: the QP fleet, ``--resume`` and checkpoints, the AoS estimator
+layout and the estimator-chain kernel; the CLI has no flags for them.
+"""
+
+from __future__ import annotations
+
+import math
+import statistics
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mpc_rs_tpu_torch.apps.common import Elapsed, resolve_device
+from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
+from mpc_rs_tpu_torch.estimators.ukf import ukf_init
+from mpc_rs_tpu_torch.models import dynamics, noise, observation
+from mpc_rs_tpu_torch.models.params import CartPoleParams
+from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Flagship4Diag4
+from mpc_rs_tpu_torch.parallel.scenario import init_scenario_carry, make_scenario_step
+from mpc_rs_tpu_torch.runtime.loop import pulse_disturbance
+
+MODELS = ("cartpole4", "flagship6")
+
+
+def _vector_fn(step, n: int):
+    """Component-wise ``step(*xs, u, *extra)`` as f(x (..., n), u, *extra)."""
+
+    def f(x, u, *extra):
+        out = step(*(x[..., i] for i in range(n)), u, *extra)
+        return torch.stack(torch.broadcast_tensors(*out), dim=-1)
+
+    return f
+
+
+class Fleet(NamedTuple):
+    tick: object  # step(carry, generator) -> carry
+    carry: object  # ScenarioCarry
+    generator: torch.Generator
+    dt: float  # control tick [s]
+    theta_idx: int  # plant-state index of θ
+    guard: float  # tip-over guard [rad]
+    cfg: MppiConfig
+    sampler: str
+
+
+def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: int = 1024,
+                feed_true_state: bool = False, fast_math: bool | None = None,
+                sampler: str | None = None, ukf_alpha: float | None = None) -> Fleet:
+    """The tick, the initial float32 carry and a seeded generator of a fleet
+    model on ``device``."""
+    device = resolve_device(device)
+    f32 = dict(dtype=torch.float32, device=device)
+    fast = True if fast_math is None else fast_math
+    alpha = 1.0 if ukf_alpha is None else ukf_alpha
+    if model == "flagship6":
+        dt = 0.01  # 100 Hz control+sensor
+        k = k or 8192
+        p = CartPoleParams.two_wheel()
+        plant6 = dynamics.make_flagship6(p)
+        plant_fx = _vector_fn(lambda x0, x1, x2, x3, x4, x5, u, f:
+                              plant6(x0, x1, x2, x3, x4, x5, u, dt, f), 6)
+        ukf_fx = _vector_fn(lambda x0, x1, x2, x3, x4, x5, u:
+                            plant6(x0, x1, x2, x3, x4, x5, u, dt, 0.0), 6)
+        ctrl = Flagship4Diag4(p, 1.2 / 8, (0.1, 0.1, 1.0, 0.5), fast=fast)
+        hx = observation.make_hx_imu6(p)
+        sens = torch.tensor([200.0, 200.0, 10.0, 0.05, 0.05], **f32)
+        p0 = 0.1 * torch.eye(6, **f32)
+        # ~2.15·dt in gen_q6's dt powers: absorbs the unmodeled 2 N push
+        q = noise.gen_q6(torch.tensor(2.15 * dt, **f32))
+        params, ukf0 = ukf_init(torch.zeros(6, **f32), p0, q, torch.diag(sens), alpha=alpha)
+        cfg = MppiConfig(n_horizon=8, n_rollouts=k, lambda_=1.4, std_dev=4.0, limit=(-10.0, 10.0))
+        kw = dict(state_slice=(0, 1, 3, 4), n_substeps=1, disturbance=pulse_disturbance(1.0, 1.5, 2.0))
+        x0 = torch.zeros(6, **f32)
+        theta_idx, guard = 3, math.pi / 2
+    elif model == "cartpole4":
+        dt = 0.05  # 20 Hz control; the model step stays T/N = 0.1
+        n_sub = 5  # 100 Hz plant/sensor/UKF
+        k = k or 1024
+        p = CartPoleParams.single_wheel()
+        ctrl = CartPoleShaped4(p, 0.1, fast=fast)
+        plant_fx = ukf_fx = _vector_fn(dynamics.make_cartpole_nonlinear(p, dt / n_sub), 4)
+        hx = observation.make_hx_rpm_gyro4(p)
+        sens = torch.tensor([50.0, 50.0, 0.5], **f32)
+        x0 = torch.tensor([0.5, 0.0, 0.1, 0.0], **f32)
+        p0 = 0.1 * torch.eye(4, **f32)
+        q = noise.gen_q4(dt / n_sub, dtype=torch.float32).to(device)
+        params, ukf0 = ukf_init(x0, p0, q, torch.diag(sens * sens), alpha=alpha)
+        cfg = MppiConfig(n_horizon=8, n_rollouts=k, lambda_=0.5, std_dev=10.0, limit=(-10.0, 10.0))
+        kw = dict(n_substeps=n_sub)
+        theta_idx, guard = 2, math.radians(60.0)
+    else:
+        raise ValueError(f"unknown fleet model {model!r}; choose from {MODELS}")
+    sampler = sampler or (("clt4a" if k >= 2048 else "clt4") if fast else "wallace")
+    tick = make_scenario_step(cfg, ctrl, plant_fx, params, ukf_fx, hx, sens, dt_tick=dt,
+                              ukf_p_reset=p0, feed_true_state=feed_true_state, sampler=sampler, **kw)
+    carry = init_scenario_carry(scenarios, x0, torch.zeros(8, **f32), ukf0)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return Fleet(tick, carry, gen, dt, theta_idx, guard, cfg, sampler)
+
+
+class FleetResult(NamedTuple):
+    carry: object  # the final ScenarioCarry
+    scenarios: int
+    ticks: int
+    tipped: int  # scenarios whose |θ| ever passed the guard
+    survival: float
+    statuses_ok: bool  # every MPPI status of every tick was 0
+    median_max_theta: float  # median over scenarios of max |θ| in the last report chunk
+    tick_seconds: list  # host wall time of each tick, synchronised
+    scenario_ticks_per_s: float  # over the whole run, host clock
+
+
+def run_fleet(fl: Fleet, *, t_end: float, report_every: float) -> FleetResult:
+    """Run whole report chunks until ``t_end`` and print one line per chunk
+    (survival, median max |θ|, scenario-ticks/s), as ``fleet.py:391-418``."""
+    carry, b = fl.carry, fl.carry.x.shape[0]
+    dev = carry.x.device
+    chunk = max(1, min(int(round(report_every / fl.dt)), int(t_end / fl.dt)))
+    n_ticks = int(t_end / fl.dt)
+    done, ticks, wall_total = 0, [], 0.0
+    ever_tipped = np.zeros(b, bool)
+    bad_status = torch.zeros(b, dtype=torch.bool, device=dev)
+    med = float("nan")
+    while done < n_ticks:
+        t0 = time.perf_counter()
+        th_max = torch.zeros(b, dtype=carry.x.dtype, device=dev)
+        for _ in range(chunk):
+            t1 = time.perf_counter()
+            carry = fl.tick(carry, fl.generator)
+            th_max = torch.maximum(th_max, carry.x[:, fl.theta_idx].abs())
+            bad_status |= carry.status != 0
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ticks.append(time.perf_counter() - t1)
+        th = th_max.cpu().numpy()  # readback = sync
+        wall = time.perf_counter() - t0
+        wall_total += wall
+        done += chunk
+        ever_tipped |= ~(th <= fl.guard)  # a NaN state counts as tipped
+        surv = 1.0 - ever_tipped.mean()
+        med = float(np.median(th))
+        print(f"t={done * fl.dt:6.1f}s  survival={surv:6.3f}  median max|θ|={med:.4f}  "
+              f"{b * chunk / wall:,.0f} scenario-ticks/s", flush=True)
+    tipped = int(ever_tipped.sum())
+    return FleetResult(carry, b, done, tipped, 1.0 - tipped / b, not bool(bad_status.any()),
+                       med, ticks, b * done / wall_total)
+
+
+def fleet(args) -> FleetResult:
+    """The ``fleet`` CLI entry: build, run, and print a summary."""
+    fl = build_fleet(args.model, args.k, args.device, seed=args.seed, scenarios=args.scenarios,
+                     fast_math=args.fast_math, sampler=args.sampler, ukf_alpha=args.ukf_alpha)
+    print(f"fleet {args.model}: B={args.scenarios} K={fl.cfg.n_rollouts} sampler={fl.sampler} "
+          f"fast_math={args.fast_math is not False} device={fl.carry.x.device}", flush=True)
+    el = Elapsed()
+    res = run_fleet(fl, t_end=args.t_end, report_every=args.report_every)
+    el.print()
+    print(f"survived {res.scenarios - res.tipped}/{res.scenarios} over {res.ticks} ticks; "
+          f"median tick {1e3 * statistics.median(res.tick_seconds):.3f} ms; "
+          f"all statuses 0: {res.statuses_ok}")
+    return res

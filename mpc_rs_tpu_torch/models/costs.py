@@ -1,7 +1,7 @@
 """Stage costs of the port, component-wise on tensors.
 
-Port of ``mpc_rs_tpu/models/costs.py``; the kernels carry the same cost as
-the ``Shaped4`` device functor (``ops/csrc/mppi_kernels.cu``).
+Port of ``mpc_rs_tpu/models/costs.py``; the kernels carry the same costs as
+the ``Shaped4`` and ``Diag4`` device functors (``ops/csrc/mppi_common.cuh``).
 """
 
 from __future__ import annotations
@@ -25,3 +25,14 @@ def shaped4(x0, x1, x2, x3):
     t3 = 5.0 * (b * b)
     t4 = 1.2 * x3 * x3
     return t1 + t2 + t3 + t4
+
+
+def make_diag4(c0: float, c1: float, c2: float, c3: float):
+    """Diagonal quadratic Σ cᵢ xᵢ² — examples/mppi4-non-liner-ukf.rs:21,33-35
+    (C = [0.1, 0.1, 1.0, 0.5]). The kernels carry it as the ``Diag4``
+    device functor."""
+
+    def cost(x0, x1, x2, x3):
+        return c0 * x0 * x0 + c1 * x1 * x1 + c2 * x2 * x2 + c3 * x3 * x3
+
+    return cost

@@ -3,11 +3,18 @@
 Port of ``mpc_rs_tpu/models/dynamics.py``. A step takes the state as
 unpacked tensors (any common shape, any float dtype) plus the control and
 returns the next-state components, so one definition serves the (K,)-wide
-rollouts of the plain MPPI tier and the float64 host step of the apps.
+rollouts of the plain MPPI tier, the (B,)-wide fleet plant and estimator,
+and the float64 host step of the apps.
 
-Only the exact tier of the nonlinear cart-pole is ported so far. The
-CUDA kernels carry the same model as a device functor
-(``ops/csrc/mppi_kernels.cu``, ``CartPoleNonlinear``).
+The operation order and the grouping of Python-float constants are those of
+the JAX package: a leading product of floats is folded in double and meets
+the tensor once. The CUDA kernels carry the controller models as device
+functors with the same constants folded on the host
+(``ops/csrc/mppi_common.cuh``: ``CartPoleNonlinearT``, ``Flagship4``).
+
+``fast=True`` swaps sin/cos for the polynomials of ``ops/fastmath.py`` and
+divides once, by ``fdiv``/``freciprocal``: exact division here, the hardware
+approximate reciprocal inside the kernel.
 """
 
 from __future__ import annotations
@@ -15,6 +22,13 @@ from __future__ import annotations
 import torch
 
 from mpc_rs_tpu_torch.models.params import CartPoleParams
+from mpc_rs_tpu_torch.ops import fastmath
+
+
+def _sincos(fast: bool):
+    if fast:
+        return fastmath.fsincos
+    return lambda th: (torch.sin(th), torch.cos(th))
 
 
 def make_cartpole_nonlinear(p: CartPoleParams, dt: float | None = None, *, fast: bool = False):
@@ -24,30 +38,27 @@ def make_cartpole_nonlinear(p: CartPoleParams, dt: float | None = None, *, fast:
     denominator d = D0 − M2²L²cos²θ. State: [x, dx, theta, dtheta].
     If ``dt`` is None the returned step takes dt as a trailing argument
     (examples/mppi4-non-liner-s.rs:195-209).
-
-    The operation order and the grouping of Python-float constants are those
-    of the JAX package (``mpc_rs_tpu/models/dynamics.py:74-99``): a leading
-    product of floats is folded in double and meets the tensor once.
     """
-    if fast:
-        raise NotImplementedError(
-            "fast=True (polynomial sin/cos and the approximate reciprocal of "
-            "ops/fastmath.py) is not ported yet; see ROADMAP.md, queue 1, "
-            "'the fast=True tier'"
-        )
+    sincos = _sincos(fast)
     d0 = p.d0
     ml = p.m2 * p.l
 
     def step_dt(x0, x1, x2, x3, u, dt):
-        s, c = torch.sin(x2), torch.cos(x2)
+        s, c = sincos(x2)
         d = d0 - ml * ml * c * c
         thrust = p.kt * u / p.r_w + ml * x3 * x3 * s
         term1 = p.mass_line * p.m2 * p.g * p.l * s
         term2 = thrust * ml * c
         term3 = (p.j2 + p.m2 * p.l * p.l) * thrust
         term4 = p.m2 * p.g * p.l * p.l * s * c
-        n3 = x3 + (term1 - term2) / d * dt
-        n1 = x1 + (term3 + term4) / d * dt
+        if fast:
+            # one reciprocal feeds both accelerations (dynamics.py:85-93)
+            inv_d_dt = fastmath.fdiv(dt, d)
+            n3 = x3 + (term1 - term2) * inv_d_dt
+            n1 = x1 + (term3 + term4) * inv_d_dt
+        else:
+            n3 = x3 + (term1 - term2) / d * dt
+            n1 = x1 + (term3 + term4) / d * dt
         n2 = x2 + x3 * dt
         n0 = x0 + x1 * dt
         return n0, n1, n2, n3
@@ -55,3 +66,100 @@ def make_cartpole_nonlinear(p: CartPoleParams, dt: float | None = None, *, fast:
     if dt is None:
         return step_dt
     return lambda x0, x1, x2, x3, u: step_dt(x0, x1, x2, x3, u, dt)
+
+
+def make_ddot(p: CartPoleParams, *, fast: bool = False):
+    """Second-order core (ddot_x, ddot_theta) — mppi4-non-liner-ukf.rs:126-139.
+
+    Takes (dx, theta, dtheta, u, f) with f the disturbance force; two driven
+    wheels. A literal Python ``0.0`` for f specialises the model as the JAX
+    package does at trace time (``dynamics.py:126-157``): the controller
+    rollout never evaluates cos(dtheta) or the force terms.
+    """
+    sincos = _sincos(fast)
+    fcos = fastmath.fcos if fast else torch.cos
+    d1 = p.d1_two
+    ml = p.m2 * p.l
+    mll_j2 = p.m2 * p.l * p.l + p.j2
+
+    def ddot_fn(dx, theta, dtheta, u, f):
+        f_zero = isinstance(f, (int, float)) and f == 0.0
+        s, c = sincos(theta)
+        d = d1 - (ml * c) ** 2
+        if fast:
+            # one reciprocal feeds both quotients (same denominator)
+            inv_d = fastmath.freciprocal(d)
+            num_x = (
+                mll_j2 * ml * dtheta * dtheta * s
+                - (ml**2) * p.g * s * c
+                + (2.0 * mll_j2 / p.r_w) * p.kt * u
+            )
+            fs = p.m2 * p.g * s if f_zero else p.m2 * p.g * s - 2.0 * f
+            num_th = (
+                -(ml**2) * dtheta * dtheta * s * c
+                + fs * (p.l * p.mass_line_two)
+                - (2.0 * ml / p.r_w) * p.kt * u * c
+            )
+            if not f_zero:
+                cdt = fcos(dtheta)
+                num_x = num_x + mll_j2 * f * cdt
+                num_th = num_th - ml * f * cdt * cdt
+            return inv_d * num_x, inv_d * num_th
+        # ddot_x — mppi4-non-liner-ukf.rs:128-133
+        term1 = mll_j2 * ml / d * dtheta * dtheta * s
+        term2 = -(ml**2) * p.g / d * s * c
+        term3 = 2.0 * mll_j2 / (d * p.r_w) * p.kt * u
+        ddot_x = term1 + term2 + term3
+        if not f_zero:
+            ddot_x = ddot_x + mll_j2 / d * f * fcos(dtheta)
+        # ddot_theta — mppi4-non-liner-ukf.rs:134-138
+        t1 = -(ml**2) / d * dtheta * dtheta * s * c
+        fs = p.m2 * p.g * s if f_zero else p.m2 * p.g * s - 2.0 * f
+        t2 = fs * p.l * p.mass_line_two / d
+        t3 = -2.0 * ml / (d * p.r_w) * p.kt * u * c
+        ddot_theta = t1 + t2 + t3
+        if not f_zero:
+            ddot_theta = ddot_theta - ml * f * fcos(dtheta) ** 2 / d
+        return ddot_x, ddot_theta
+
+    return ddot_fn
+
+
+def make_flagship4(p: CartPoleParams, dt: float, *, fast: bool = False):
+    """4-state controller model of the flagship — mppi4-non-liner-ukf.rs:141-148.
+
+    State [x, dx, theta, dtheta]; semi-implicit: theta from new dtheta,
+    x from new dx.
+    """
+    ddot = make_ddot(p, fast=fast)
+
+    def step(x0, x1, x2, x3, u):
+        ddx, ddth = ddot(x1, x2, x3, u, 0.0)
+        n3 = x3 + ddth * dt
+        n2 = x2 + n3 * dt
+        n1 = x1 + ddx * dt
+        n0 = x0 + n1 * dt
+        return n0, n1, n2, n3
+
+    return step
+
+
+def make_flagship6(p: CartPoleParams):
+    """6-state plant/UKF model — mppi4-non-liner-ukf.rs:150-159.
+
+    State [x, dx, ddx, theta, dtheta, ddtheta]; accelerations are states.
+    Sequential cascade using *new* values; takes (u, dt, f) at call time.
+    """
+    ddot = make_ddot(p)
+
+    def step(x0, x1, x2, x3, x4, x5, u, dt, f=0.0):
+        ddx, ddth = ddot(x1, x3, x4, u, f)
+        n5 = ddth
+        n4 = x4 + n5 * dt
+        n3 = x3 + n4 * dt
+        n2 = ddx
+        n1 = x1 + n2 * dt
+        n0 = x0 + n1 * dt
+        return n0, n1, n2, n3, n4, n5
+
+    return step

@@ -1,0 +1,47 @@
+"""Observation models (hx) of the fleets.
+
+Port of ``mpc_rs_tpu/models/observation.py:19-66``. Vector form: ``hx(x)``
+takes x of shape (..., n_state) and returns z of shape (..., n_obs), so the
+same function maps a (B, n) batch or an (m, B, n) sigma-point stack.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mpc_rs_tpu_torch.models.params import CartPoleParams
+
+_RAD2DEG = 180.0 / math.pi
+
+
+def make_hx_rpm_gyro4(p: CartPoleParams):
+    """4-state → [rpm, rpm, deg/s] — examples/ukf-pen2.rs:47-53,
+    mppi4-non-liner-s.rs:242-248. Wheel odometry 60/(2π R_W)·dx on both
+    encoders, gyro θ̇ in deg/s."""
+    k = 60.0 / (2.0 * math.pi * p.r_w)
+
+    def hx(x):
+        rpm = k * x[..., 1]
+        return torch.stack([rpm, rpm, x[..., 3] * _RAD2DEG], dim=-1)
+
+    return hx
+
+
+def make_hx_imu6(p: CartPoleParams, gear: float = 36.0):
+    """6-state → [rpm, −rpm, deg/s, az/G, ax/G] — mppi4-non-liner-ukf.rs:169-179.
+
+    State [x, dx, ddx, theta, dtheta, ddtheta]; encoders geared (×36, one
+    negated); ax = G sinθ + ẍ cosθ + L θ̈ ;  az = G cosθ − ẍ sinθ + L θ̇².
+    """
+    k = gear * 60.0 / (2.0 * math.pi * p.r_w)
+
+    def hx(x):
+        dx, ddx = x[..., 1], x[..., 2]
+        th, dth, ddth = x[..., 3], x[..., 4], x[..., 5]
+        ax = p.g * torch.sin(th) + ddx * torch.cos(th) + p.l * ddth
+        az = p.g * torch.cos(th) - ddx * torch.sin(th) + p.l * dth * dth
+        return torch.stack([k * dx, -k * dx, dth * _RAD2DEG, az / p.g, ax / p.g], dim=-1)
+
+    return hx

@@ -1,10 +1,10 @@
-"""Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``ops/csrc/mppi_kernels.cu``).
 
-The sources are compiled with ``nvcc`` into a shared library with a plain C
-interface, loaded through ``ctypes``. The build runs at first use and is
-keyed by a hash of the sources and flags, so a fresh checkout builds once and
-a changed source rebuilds. Output goes to ``mpc_rs_tpu_torch/_build/``;
-delete that directory to force a rebuild.
+The source is compiled with one ``nvcc`` into a shared library with a plain
+C interface, loaded through ``ctypes``. The build runs at first use and is
+keyed by a hash of the source, its headers and the flags, so a fresh
+checkout builds once and a changed source rebuilds. Output goes to
+``mpc_rs_tpu_torch/_build/``; delete that directory to force a rebuild.
 
 Nothing here runs at import time: this module imports on machines without
 ``nvcc`` or a GPU, and only ``load_library()`` needs them.
@@ -23,12 +23,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("mppi_kernels.cu",)
+SOURCE = "mppi_kernels.cu"  # K1/K2, the fleet's K5/K6 and the fast-math probe
+HEADERS = ("mppi_common.cuh", "fastmath.cuh")
 
-# The exact tier: no --use_fast_math (sinf/cosf/logf/expf and '/' stay the
-# accurate forms), and -fmad=false so that every product and sum is rounded
-# on its own, as in the plain PyTorch version's one-op-per-kernel arithmetic
-# and the JAX reference. sm_90a is Hopper's architecture-specific target.
+# No --use_fast_math (sinf/cosf/logf/expf and '/' stay the accurate forms;
+# the fast tier writes its polynomials and rcp.approx out in fastmath.cuh),
+# and -fmad=false so that every product and sum is rounded on its own, as in
+# the plain PyTorch version's one-op-per-kernel arithmetic and the JAX
+# reference. sm_90a is Hopper's architecture-specific target.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,26 +50,26 @@ def find_nvcc() -> str:
 
 def _source_key() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for f in (SOURCE, *HEADERS):
+        h.update(f.encode())
+        h.update((CSRC / f).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
 def build() -> tuple[Path, float]:
-    """Compile the sources if no library for their hash exists.
+    """Compile the source if no library for its hash exists.
 
     Returns (library path, seconds spent compiling; 0.0 when cached). The
     compiler's output, ptxas register and spill counts included, is kept in
-    ``_build/<name>.log``. A failed compile raises with that output.
+    ``_build/<library>.log``. A failed compile raises with that output.
     """
     so = BUILD_DIR / f"libmpc_kernels_{_source_key()}.so"
     if so.is_file():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCE)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -102,5 +104,15 @@ def load_library() -> ctypes.CDLL:
         _P, _P, _P, _P,  # partials, u0s, statuses, stream
     ]
     lib.mpc_mppi_chain.restype = _I
+    lib.mpc_fleet_partials.argtypes = [
+        _I, _I, _I, _P, _P,  # model, fast, sampler, model_consts, cost_consts
+        _I, _I, _I, _F, _F, _F, _F, _F,  # n, b, k, lambda, inv, lo, hi, std_dev
+        _F, _F, _F,  # clt_a, clt_b, mix
+        _P, _P, _P, _P, _P, _P, _P,  # x, u_n, noise, seeds, partials, noise_out, stream
+    ]
+    lib.mpc_fleet_partials.restype = _I
+    lib.mpc_fleet_finalize.argtypes = [_I, _I, _I, _F, _P, _P, _P, _P]
+    lib.mpc_fleet_finalize.restype = _I
+    lib.mpc_fastmath_eval.argtypes = [_I, _I, _P, _P, _P, _P]
+    lib.mpc_fastmath_eval.restype = _I
     return lib
-

@@ -1,0 +1,474 @@
+// Device code of the MPPI kernels (mppi_kernels.cu): constants, the
+// NaN-propagating clamp, Philox4x32-10, the samplers, warp and block
+// reductions, the model and cost functors, and the one partials kernel
+// that every MPPI solve runs (mppi_partials_kernel, at the end).
+//
+// The functors carry the models of mpc_rs_tpu/models/{dynamics,costs}.py.
+// Products of parameters are folded in double on the host and rounded to
+// float once, as the JAX trace folds Python floats; the remaining operation
+// order is the JAX one (the plain PyTorch versions are
+// mpc_rs_tpu_torch/models/{dynamics,costs}.py, which keep the same order).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fastmath.cuh"
+
+namespace mpc {
+
+constexpr int kN = 8;  // the horizon the kernels are built for
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr float kNegBig = -3.4e38f;        // mppi_pallas.py:302
+constexpr float kNoFiniteBelow = -3.3e38f;  // mppi_pallas.py:898,1022
+constexpr float kTwoPi = 6.283185307179586f;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+enum Status : int { kOk = 0, kNoFinite = 1, kSumZero = 2, kInvalidU = 3 };
+
+// NaN-propagating clamp, as jnp.clip / torch.clamp (fminf/fmaxf would
+// drop a NaN and turn a non-finite rollout into a finite one).
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// Nonlinear cart-pole (mpc_rs_tpu/models/dynamics.py:57-103), exact or fast
+// tier; the fast tier divides once, by the hardware approximate reciprocal.
+template <bool Fast>
+struct CartPoleNonlinearT {
+  float d0;       // p.d0
+  float mlml;     // ml * ml
+  float ml;       // p.m2 * p.l
+  float kt;       // p.kt
+  float r_w;      // p.r_w
+  float c_term1;  // p.mass_line * p.m2 * p.g * p.l
+  float c_term3;  // p.j2 + p.m2 * p.l * p.l
+  float c_term4;  // p.m2 * p.g * p.l * p.l
+  float dt;
+
+  __device__ __forceinline__ void step(float& x0, float& x1, float& x2, float& x3,
+                                       float u) const {
+    float s, c;
+    sincos_tier<Fast>(x2, s, c);
+    const float d = d0 - mlml * c * c;
+    const float thrust = kt * u / r_w + ml * x3 * x3 * s;
+    const float term1 = c_term1 * s;
+    const float term2 = thrust * ml * c;
+    const float term3 = c_term3 * thrust;
+    const float term4 = c_term4 * s * c;
+    float n3, n1;
+    if constexpr (Fast) {
+      const float inv_d_dt = fm::fdiv(dt, d);
+      n3 = x3 + (term1 - term2) * inv_d_dt;
+      n1 = x1 + (term3 + term4) * inv_d_dt;
+    } else {
+      n3 = x3 + (term1 - term2) / d * dt;
+      n1 = x1 + (term3 + term4) / d * dt;
+    }
+    const float n2 = x2 + x3 * dt;
+    const float n0 = x0 + x1 * dt;
+    x0 = n0;
+    x1 = n1;
+    x2 = n2;
+    x3 = n3;
+  }
+};
+
+using CartPoleNonlinear = CartPoleNonlinearT<false>;
+
+// Flagship two-wheel controller model (dynamics.py:110-194: make_ddot with
+// f ≡ 0, make_flagship4), exact or fast tier. Semi-implicit: theta from the
+// new dtheta, x from the new dx. Host folding (ml = m2·l, mll_j2 = m2·l² + j2):
+struct Flagship4Consts {
+  float d1;   // p.d1_two
+  float ml;   // ml
+  float k1;   // mll_j2 * ml
+  float k2;   // -(ml**2) * g
+  float k3;   // 2 * mll_j2
+  float r_w;  // p.r_w
+  float kt;   // p.kt
+  float k4;   // -(ml**2)
+  float k5;   // m2 * g
+  float l;    // p.l
+  float mlt;  // p.mass_line_two
+  float k6;   // -2 * ml
+  float k7;   // (ml**2) * g
+  float k8;   // (2 * mll_j2 / r_w) * kt
+  float k9;   // l * mass_line_two
+  float k10;  // (2 * ml / r_w) * kt
+  float dt;
+};
+
+template <bool Fast>
+struct Flagship4 {
+  Flagship4Consts k;
+
+  __device__ __forceinline__ void step(float& x0, float& x1, float& x2, float& x3,
+                                       float u) const {
+    float s, c;
+    sincos_tier<Fast>(x2, s, c);
+    const float mc = k.ml * c;
+    const float d = k.d1 - mc * mc;
+    float ddx, ddth;
+    if constexpr (Fast) {
+      const float inv_d = fm::freciprocal(d);
+      const float num_x = k.k1 * x3 * x3 * s - k.k7 * s * c + k.k8 * u;
+      const float fs = k.k5 * s;
+      const float num_th = k.k4 * x3 * x3 * s * c + fs * k.k9 - k.k10 * u * c;
+      ddx = inv_d * num_x;
+      ddth = inv_d * num_th;
+    } else {
+      const float term1 = k.k1 / d * x3 * x3 * s;
+      const float term2 = k.k2 / d * s * c;
+      const float term3 = k.k3 / (d * k.r_w) * k.kt * u;
+      ddx = term1 + term2 + term3;
+      const float t1 = k.k4 / d * x3 * x3 * s * c;
+      const float fs = k.k5 * s;
+      const float t2 = fs * k.l * k.mlt / d;
+      const float t3 = k.k6 / (d * k.r_w) * k.kt * u * c;
+      ddth = t1 + t2 + t3;
+    }
+    const float n3 = x3 + ddth * k.dt;
+    const float n2 = x2 + n3 * k.dt;
+    const float n1 = x1 + ddx * k.dt;
+    const float n0 = x0 + n1 * k.dt;
+    x0 = n0;
+    x1 = n1;
+    x2 = n2;
+    x3 = n3;
+  }
+};
+
+// Shaped cart-pole cost (mpc_rs_tpu/models/costs.py:16-27).
+struct Shaped4 {
+  __device__ __forceinline__ float operator()(float x0, float x1, float x2,
+                                              float x3) const {
+    const float xc = clampf(x0, -2.0f, 2.0f);
+    const float t1 = 2.0f * xc * xc;
+    const float a = clampf(x1 + 2.0f * xc, -5.0f, 5.0f);
+    const float t2 = 3.0f * (a * a);
+    const float b = x2 + 0.35f * clampf(x0, -0.75f, 0.75f);
+    const float t3 = 5.0f * (b * b);
+    const float t4 = 1.2f * x3 * x3;
+    return t1 + t2 + t3 + t4;
+  }
+};
+
+// Diagonal quadratic Σ cᵢ xᵢ² (costs.py:30-37).
+struct Diag4 {
+  float c0, c1, c2, c3;
+  __device__ __forceinline__ float operator()(float x0, float x1, float x2,
+                                              float x3) const {
+    return c0 * x0 * x0 + c1 * x1 * x1 + c2 * x2 * x2 + c3 * x3 * x3;
+  }
+};
+
+// Philox4x32-10 (Salmon et al., SC'11); the plain version is
+// mpc_rs_tpu_torch/ops/philox.py, which documents the layout contract.
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]);
+    const uint32_t lo0 = 0xD2511F53u * c[0];
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]);
+    const uint32_t lo1 = 0xCD9E8D57u * c[2];
+    const uint32_t n0 = hi1 ^ c[1] ^ k0;
+    const uint32_t n2 = hi0 ^ c[3] ^ k1;
+    c[0] = n0;
+    c[1] = lo1;
+    c[2] = n2;
+    c[3] = lo0;
+  }
+}
+
+__device__ __forceinline__ float unit_open(uint32_t a) {  // (0, 1]
+  return 2.0f - __uint_as_float((a >> 9) | 0x3F800000u);
+}
+
+__device__ __forceinline__ float unit_closed_open(uint32_t b) {  // [0, 1)
+  return __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
+}
+
+template <bool Fast>
+__device__ __forceinline__ float log_tier(float x) {
+  if constexpr (Fast) return fm::flog(x); else return logf(x);
+}
+
+template <bool Fast>
+__device__ __forceinline__ float sqrt_tier(float x) {
+  if constexpr (Fast) return fm::fsqrt(x); else return sqrtf(x);
+}
+
+// Box-Muller pair from two words (mppi_pallas.py:67-70,194-207), with the
+// transcendentals of the tier (_sampling_math).
+template <bool Fast = false>
+__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float std_dev,
+                                           float& z_cos, float& z_sin) {
+  const float u1 = unit_open(a);
+  const float u2 = unit_closed_open(b);
+  const float r = std_dev * sqrt_tier<Fast>(-2.0f * log_tier<Fast>(u1));
+  const float ang = kTwoPi * u2;
+  float s, c;
+  sincos_tier<Fast>(ang, s, c);
+  z_cos = r * c;
+  z_sin = r * s;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+// Block-wide max; every thread gets the result.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
+  __syncthreads();  // red may be reused by the caller
+  return m;
+}
+
+// Block-wide sums of L values; thread i < L gets sum i in its return value.
+template <int L>
+__device__ __forceinline__ float block_sums(float (&acc)[L], float (*red)[L]) {
+#pragma unroll
+  for (int i = 0; i < L; ++i) acc[i] = warp_sum(acc[i]);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int i = 0; i < L; ++i) red[threadIdx.x >> 5][i] = acc[i];
+  }
+  __syncthreads();
+  float s = 0.0f;
+  if (threadIdx.x < L) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
+  }
+  return s;
+}
+
+// The status ladder and zero fallback of finalize_partials
+// (mppi_pallas.py:1021-1036) on merged totals (s, uw[0..N-1]); returns the
+// status and writes u (zeros unless kOk).
+template <int N>
+__device__ __forceinline__ int status_ladder(float m_all, const float* tot, float* u_out) {
+  const float s_all = tot[0];
+  const bool no_finite = m_all <= kNoFiniteBelow;
+  const bool sum_zero = s_all == 0.0f;
+  const float denom = sum_zero ? 1.0f : s_all;
+  float u[N];
+#pragma unroll
+  for (int t = 0; t < N; ++t) u[t] = tot[1 + t] / denom;
+  const int st = no_finite ? kNoFinite : sum_zero ? kSumZero : !isfinite(u[0]) ? kInvalidU : kOk;
+#pragma unroll
+  for (int t = 0; t < N; ++t) u_out[t] = st == kOk ? u[t] : 0.0f;
+  return st;
+}
+
+enum Sampler : int { kExternal = 0, kBoxMuller = 1, kClt4 = 2, kClt4a = 3, kWallace = 4 };
+
+constexpr float kCltInvSig = 0x1.bb688cp-8f;  // f32(1/sqrt(4 (256² − 1)/12))
+constexpr int kWallacePeriod = 8;
+
+struct PartialsArgs {
+  int k;          // rollouts K per problem
+  float lambda;   // softmax temperature (0 gives INVALID_U, as mppi_solve)
+  float inv;      // control-term coefficient (sigma^-2 or control_inv)
+  float lo, hi;   // control box
+  float std_dev;  // sampling sigma
+  float clt_a;    // f32(_CLT_A * sigma), clt4/clt4a
+  float clt_b;    // f32(_CLT_B * sigma), clt4/clt4a
+  float mix;      // f32(sigma / sqrt 2), wallace
+};
+
+// clt4: the sum of four 8-bit uniforms of one word, then the cubic
+// (mppi_pallas.py:140-149).
+__device__ __forceinline__ float clt4(uint32_t w, float ca, float cb) {
+  const uint32_t x2 = (w & 0x00FF00FFu) + ((w >> 8) & 0x00FF00FFu);
+  const uint32_t s4 = (x2 & 0xFFFFu) + (x2 >> 16);
+  const float z = ((float)(int)s4 - 510.0f) * kCltInvSig;
+  return z * (ca + cb * (z * z));
+}
+
+// The noise e[0..N-1] of rollout k (before u_n and the clamp): Philox key
+// `key`, counter (rollout or pair, call, word, 0), the branches of _fill_vbuf
+// (mppi_pallas.py:125-284) that the port has.
+template <int N, bool Fast, int S>
+__device__ __forceinline__ void sample(float (&e)[N], uint32_t k, uint32_t key, uint32_t word,
+                                       const PartialsArgs& a) {
+  constexpr int kCalls = (N + 3) / 4;
+  if constexpr (S == kBoxMuller) {
+#pragma unroll
+    for (int c = 0; c < kCalls; ++c) {
+      uint32_t w[4] = {k, (uint32_t)c, word, 0u};
+      philox4x32_10(w, key, 0u);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int t = 4 * c + 2 * p;
+        if (t < N) {
+          float z0, z1;
+          box_muller<Fast>(w[2 * p], w[2 * p + 1], a.std_dev, z0, z1);
+          e[t] = z0;
+          if (t + 1 < N) e[t + 1] = z1;
+        }
+      }
+    }
+  } else if constexpr (S == kClt4) {
+#pragma unroll
+    for (int c = 0; c < kCalls; ++c) {
+      uint32_t w[4] = {k, (uint32_t)c, word, 0u};
+      philox4x32_10(w, key, 0u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * c + i < N) e[4 * c + i] = clt4(w[i], a.clt_a, a.clt_b);
+    }
+  } else if constexpr (S == kClt4a) {
+    // rollouts 2j (+eps) and 2j+1 (-eps) share pair j's normals; each lane
+    // of the pair makes the calls of its own parity and they swap halves
+    const uint32_t parity = k & 1u;
+    float own[N];
+#pragma unroll
+    for (int t = 0; t < N; ++t) own[t] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kCalls; ++c) {
+      if ((uint32_t)(c & 1) == parity) {
+        uint32_t w[4] = {k >> 1, (uint32_t)c, word, 0u};
+        philox4x32_10(w, key, 0u);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (4 * c + i < N) own[4 * c + i] = clt4(w[i], a.clt_a, a.clt_b);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      const float other = __shfl_xor_sync(kFullMask, own[t], 1);
+      const float eps = (uint32_t)((t / 4) & 1) == parity ? own[t] : other;
+      e[t] = parity ? -eps : eps;
+    }
+  } else if constexpr (S == kWallace) {
+    // one exact Box-Muller pool per window of 8 steps; the other steps mix
+    // fresh sign bits of the pool's a with a warp-rotated partner's b
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int c = 0; c * kWallacePeriod < N; ++c) {
+      uint32_t w[4] = {k, (uint32_t)c, word, 0u};
+      philox4x32_10(w, key, 0u);
+      const float r = sqrt_tier<Fast>(-2.0f * log_tier<Fast>(unit_open(w[0])));
+      const float ang = kTwoPi * unit_closed_open(w[1]);
+      float s, co;
+      sincos_tier<Fast>(ang, s, co);
+      const float pa = r * co;
+      const float pb = r * s;
+#pragma unroll
+      for (int ph = 0; ph < kWallacePeriod; ++ph) {
+        const int t = c * kWallacePeriod + ph;
+        if (t < N) {
+          if (ph == 0) {
+            e[t] = a.std_dev * pa;
+          } else if (ph == 1) {
+            e[t] = a.std_dev * pb;
+          } else {
+            const int shift = (29 * ph + 13) % 32;
+            const float b_rot = __shfl_sync(kFullMask, pb, (lane - shift) & 31);
+            const float sa = ((w[2] << (ph - 2)) & 0x80000000u) ? -pa : pa;
+            e[t] = a.mix * (sa + b_rot);
+          }
+        }
+      }
+    }
+  }
+}
+
+// One block of one problem's rollouts: sample (or read) and clamp, roll out
+// N steps, score, and reduce to the row (m_b, s_b, uw_b[0..N-1]) of that
+// problem's partials. Grid (ceil(K/256), P): problem b = blockIdx.y starts
+// from x[b] (S = 4) with nominal u_n[b], reads noise (P, K, N) or samples
+// with key seeds[b] (base_seed when seeds is null) and counter word
+// word0 + b, and writes row (b, blockIdx.x) of partials (P, nb, N+2). The
+// fleet runs P = B scenarios with word0 = 0; a K2 solve is P = 1 with its
+// solve index in word0. Every thread samples (the warp shuffles of clt4a
+// and wallace need whole warps); rollouts k >= K count as non-finite
+// afterwards (exact-K masking, mppi_pallas.py:349-353). noise_out (P, K, N),
+// when not null, receives the noise used.
+template <int N, class Model, class Cost, bool Fast, int S>
+__global__ void __launch_bounds__(kThreads)
+mppi_partials_kernel(Model model, Cost cost, PartialsArgs a, const float* __restrict__ x,
+                     const float* __restrict__ u_n, const float* __restrict__ noise,
+                     const int* __restrict__ seeds, uint32_t base_seed, uint32_t word0,
+                     float* __restrict__ partials, float* __restrict__ noise_out) {
+  __shared__ float red_max[kWarps];
+  __shared__ float red_sum[kWarps][N + 1];
+
+  const int b = blockIdx.y;
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  const bool in_range = k < a.k;
+
+  float un[N], e[N], v[N];
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    un[t] = u_n[(size_t)b * N + t];
+    e[t] = 0.0f;
+  }
+  if constexpr (S == kExternal) {
+    if (in_range) {
+#pragma unroll
+      for (int t = 0; t < N; ++t) e[t] = noise[((size_t)b * a.k + k) * N + t];
+    }
+  } else {
+    const uint32_t key = seeds != nullptr ? (uint32_t)seeds[b] : base_seed;
+    sample<N, Fast, S>(e, (uint32_t)k, key, word0 + (uint32_t)b, a);
+  }
+  if (noise_out != nullptr && in_range) {
+#pragma unroll
+    for (int t = 0; t < N; ++t) noise_out[((size_t)b * a.k + k) * N + t] = e[t];
+  }
+
+  float score = 0.0f;
+  bool finite = false;
+#pragma unroll
+  for (int t = 0; t < N; ++t) v[t] = 0.0f;  // rollouts past K weigh 0 and carry 0
+  if (in_range) {
+#pragma unroll
+    for (int t = 0; t < N; ++t) v[t] = clampf(un[t] + e[t], a.lo, a.hi);
+    const float* xb = x + (size_t)b * 4;
+    float x0 = xb[0], x1 = xb[1], x2 = xb[2], x3 = xb[3];
+    float c_acc = 0.0f, ct = 0.0f;
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      model.step(x0, x1, x2, x3, v[t]);
+      c_acc = c_acc + cost(x0, x1, x2, x3);
+      ct = ct + un[t] * a.inv * v[t];
+    }
+    score = -c_acc - ct;
+    finite = isfinite(score);
+  }
+
+  const float m_b = block_max(finite ? score : kNegBig, red_max);
+  const float ew = finite ? expf((score - m_b) / a.lambda) : 0.0f;
+  float acc[N + 1];
+  acc[0] = ew;
+#pragma unroll
+  for (int t = 0; t < N; ++t) acc[t + 1] = ew * v[t];
+  const float s = block_sums<N + 1>(acc, red_sum);
+
+  float* row = partials + ((size_t)b * gridDim.x + blockIdx.x) * (N + 2);
+  if (threadIdx.x == 0) row[0] = m_b;
+  if (threadIdx.x < N + 1) row[1 + threadIdx.x] = s;
+}
+
+}  // namespace mpc

@@ -1,21 +1,28 @@
-"""Fused MPPI solve (K2) and receding-horizon chain (K1): CUDA kernels and
-their plain PyTorch versions.
+"""Fused MPPI kernels and their plain PyTorch versions: one solve (K2), the
+receding-horizon chain (K1) and the scenario batch of the fleet (K5/K6).
 
 Replaces ``mpc_rs_tpu/ops/mppi_pallas.py``: ``mppi_solve_fused`` stands for
-``mppi_solve_pallas`` (``mppi_pallas_partials`` + ``finalize_partials``) and
-``mppi_chain_fused`` for ``mppi_pallas_chain``. The kernels are in
-``ops/csrc/mppi_kernels.cu``; their design note says what bounds them.
+``mppi_solve_pallas`` (``mppi_pallas_partials`` + ``finalize_partials``),
+``mppi_chain_fused`` for ``mppi_pallas_chain``, and
+``mppi_batch_partials_fused`` + ``finalize_batch_fused`` for
+``mppi_pallas_batch_partials`` (both of its kernels) + the vmapped
+``finalize_partials``. All of them run one partials kernel
+(``mppi_partials_kernel`` in ``ops/csrc/mppi_common.cuh``); the finalize
+kernels and the launchers are in ``ops/csrc/mppi_kernels.cu``, whose design
+notes say what bounds them.
 
 Each wrapper takes tensors on one device. On CPU tensors it runs the plain
 version beside it (the CPU tests use it); on CUDA tensors it launches the
 kernel or raises — it never falls back. ``launches`` counts, per wrapper,
 the calls that launched the kernels (a solve is two launches, a chain of J
-solves 2J), so a run can show that it went through the kernels.
+solves 2J), so a run can show that it went through the kernels; the batched
+wrapper also counts its launches per sampler and in the fast tier.
 
-The kernels are specialised for one model, the exact-tier nonlinear
-cart-pole with the ``shaped4`` cost (``CartPoleShaped4``); the Pallas
-kernels traced arbitrary callables instead (``mppi_pallas.py:287-297``).
-Sampling is Philox4x32-10 + Box-Muller by the contract of ``ops/philox.py``.
+The kernels are specialised for the models of the apps instead of tracing
+arbitrary callables (``mppi_pallas.py:287-297``): the nonlinear cart-pole
+with ``shaped4`` (``CartPoleShaped4``; K1/K2 take its exact tier only) and
+the flagship controller model with ``diag4`` (``Flagship4Diag4``). Sampling
+is Philox4x32-10 by the contract of ``ops/philox.py``.
 """
 
 from __future__ import annotations
@@ -23,13 +30,15 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import torch
 
-from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus, rollout_scores
+from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
 from mpc_rs_tpu_torch.models import costs, dynamics
 from mpc_rs_tpu_torch.models.params import CartPoleParams
+from mpc_rs_tpu_torch.ops import fastmath, philox
 from mpc_rs_tpu_torch.ops.philox import philox_normal
 
 BLOCK = 256  # rollouts per block: the kernel's threads per block
@@ -39,7 +48,9 @@ NO_FINITE_BELOW = -3.3e38  # mppi_pallas.py:898,1022
 
 # Wrapper calls that launched their kernels since the last reset; CPU calls
 # do not count.
-launches = {"mppi_solve_fused": 0, "mppi_chain_fused": 0}
+launches = {"mppi_solve_fused": 0, "mppi_chain_fused": 0, "mppi_batch_partials_fused": 0,
+            "finalize_batch_fused": 0, "fastmath_eval": 0, "fast_tier": 0,
+            **{f"sampler:{name}": 0 for name in ("external", *philox.SAMPLERS)}}
 
 
 def reset_launches() -> None:
@@ -49,16 +60,18 @@ def reset_launches() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class CartPoleShaped4:
-    """The model the kernels are built for: ``make_cartpole_nonlinear(params,
-    dt)`` (exact tier) with ``costs.shaped4``."""
+    """``make_cartpole_nonlinear(params, dt, fast=fast)`` with
+    ``costs.shaped4``: the mppi4-non-liner and cartpole4 controller."""
 
     params: CartPoleParams
     dt: float
+    fast: bool = False
     n_state = 4
+    model_id = 0  # kCartPoleShaped4 in mppi_kernels.cu
 
     @functools.cached_property
     def step(self):
-        return dynamics.make_cartpole_nonlinear(self.params, self.dt)
+        return dynamics.make_cartpole_nonlinear(self.params, self.dt, fast=self.fast)
 
     cost = staticmethod(costs.shaped4)
 
@@ -80,6 +93,46 @@ class CartPoleShaped4:
             self.dt,
         ]
 
+    def cost_constants(self) -> list[float]:
+        return []
+
+
+@dataclasses.dataclass(frozen=True)
+class Flagship4Diag4:
+    """``make_flagship4(params, dt, fast=fast)`` with ``make_diag4(*c)``:
+    the flagship6 fleet's controller (``apps/fleet.py:121-122``)."""
+
+    params: CartPoleParams
+    dt: float
+    c: tuple[float, float, float, float] = (0.1, 0.1, 1.0, 0.5)
+    fast: bool = False
+    n_state = 4
+    model_id = 1  # kFlagship4Diag4 in mppi_kernels.cu
+
+    @functools.cached_property
+    def step(self):
+        return dynamics.make_flagship4(self.params, self.dt, fast=self.fast)
+
+    @functools.cached_property
+    def cost(self):
+        return costs.make_diag4(*self.c)
+
+    def constants(self) -> list[float]:
+        """``Flagship4Consts`` (``ops/csrc/mppi_common.cuh``), folded in
+        double as ``dynamics.py:122-173`` folds them."""
+        p = self.params
+        ml = p.m2 * p.l
+        mll_j2 = p.m2 * p.l * p.l + p.j2
+        return [
+            p.d1_two, ml, mll_j2 * ml, -(ml**2) * p.g, 2.0 * mll_j2, p.r_w, p.kt,
+            -(ml**2), p.m2 * p.g, p.l, p.mass_line_two, -2.0 * ml, (ml**2) * p.g,
+            (2.0 * mll_j2 / p.r_w) * p.kt, p.l * p.mass_line_two, (2.0 * ml / p.r_w) * p.kt,
+            self.dt,
+        ]
+
+    def cost_constants(self) -> list[float]:
+        return list(self.c)
+
 
 class ChainResult(NamedTuple):
     u0s: torch.Tensor  # (J,) first control of each solve (0 on failure)
@@ -92,51 +145,64 @@ class ChainResult(NamedTuple):
 # plain versions
 
 
-def mppi_partials_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
-                        u_n: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-    """Per-block log-sum-exp partials of one solve, what
-    ``mppi_partials_kernel`` writes: rows (m_b, s_b, uw_b[0..N-1]) for blocks
-    of ``BLOCK`` rollouts, in the dtype of ``u_n``. A block without a finite
-    rollout has m_b = NEG_BIG and zeros."""
-    k, n = noise.shape
-    v = torch.clamp(u_n + noise, cfg.limit[0], cfg.limit[1])
-    score = rollout_scores(model.step, model.cost, tuple(x.unbind()), v, u_n,
-                           cfg.std_dev, cfg.control_inv)
+def mppi_batch_partials_plain(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor,
+                              noise: torch.Tensor) -> torch.Tensor:
+    """Per-block log-sum-exp partials of B solves, what
+    ``mppi_partials_kernel`` writes: (B, nb, N+2) rows (m_b, s_b, uw_b) for
+    blocks of ``BLOCK`` rollouts, in the dtype of ``u_ns``. xs (B, S),
+    u_ns (B, N), noise (B, K, N) already scaled by σ. A block without a
+    finite rollout has m_b = NEG_BIG and zeros."""
+    b, k, n = noise.shape
+    v = torch.clamp(u_ns[:, None] + noise, cfg.limit[0], cfg.limit[1])
+    xs_k = tuple(xs[:, i:i + 1].expand(b, k) for i in range(xs.shape[1]))
+    c = torch.zeros((b, k), dtype=v.dtype, device=v.device)
+    for t in range(n):
+        xs_k = model.step(*xs_k, v[:, :, t])
+        c = c + model.cost(*xs_k)
+    inv = cfg.std_dev ** -2.0 if cfg.control_inv is None else cfg.control_inv
+    score = -c - torch.sum(u_ns[:, None] * inv * v, dim=-1)
     nb = -(-k // BLOCK)
     pad = nb * BLOCK - k  # rollouts past K count as non-finite
-    score = torch.nn.functional.pad(score, (0, pad), value=torch.nan).reshape(nb, BLOCK)
-    v = torch.nn.functional.pad(v, (0, 0, 0, pad)).reshape(nb, BLOCK, n)
+    score = torch.nn.functional.pad(score, (0, pad), value=torch.nan).reshape(b, nb, BLOCK)
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad)).reshape(b, nb, BLOCK, n)
     finite = torch.isfinite(score)
-    m_b = torch.where(finite, score, NEG_BIG).amax(dim=1)
-    e = torch.where(finite, torch.exp((score - m_b[:, None]) / cfg.lambda_), 0.0)
-    s_b = e.sum(dim=1)
-    uw_b = (e[:, :, None] * v).sum(dim=1)
-    return torch.cat([m_b[:, None], s_b[:, None], uw_b], dim=1)
+    m_b = torch.where(finite, score, NEG_BIG).amax(dim=-1)
+    e = torch.where(finite, torch.exp((score - m_b[..., None]) / cfg.lambda_), 0.0)
+    return torch.cat([m_b[..., None], e.sum(dim=-1)[..., None], (e[..., None] * v).sum(dim=-2)], dim=-1)
 
 
-def finalize_partials_plain(cfg: MppiConfig, partials: torch.Tensor
-                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Merge partials rows by log-sum-exp and apply the status ladder and
-    zero fallback of ``finalize_partials`` (mppi_pallas.py:1021-1036), what
-    ``mppi_finalize_kernel`` does. Returns (u_n', status int32)."""
-    m_b, s_b, uw_b = partials[:, 0], partials[:, 1], partials[:, 2:]
-    m = m_b.max()
+def mppi_partials_plain(cfg: MppiConfig, model, x: torch.Tensor, u_n: torch.Tensor,
+                        noise: torch.Tensor) -> torch.Tensor:
+    """``mppi_batch_partials_plain`` of one solve: (nb, N+2) rows, what
+    ``mppi_partials_kernel`` writes on a grid of one problem."""
+    return mppi_batch_partials_plain(cfg, model, x[None], u_n[None], noise[None])[0]
+
+
+def finalize_batch_plain(cfg: MppiConfig, partials: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge each problem's partials rows (..., nb, N+2) by log-sum-exp and
+    apply the status ladder and zero fallback of ``finalize_partials``
+    (mppi_pallas.py:1021-1036), what ``mppi_finalize_kernel`` and
+    ``fleet_finalize_kernel`` do. Returns (u_n' (..., N), status (...,)
+    int32)."""
+    m_b, s_b, uw_b = partials[..., 0], partials[..., 1], partials[..., 2:]
+    m = m_b.amax(dim=-1, keepdim=True)
     scale = torch.where(m_b > NO_FINITE_BELOW, torch.exp((m_b - m) / cfg.lambda_), 0.0)
-    s = (s_b * scale).sum()
-    uw = (uw_b * scale[:, None]).sum(dim=0)
-    no_finite = m <= NO_FINITE_BELOW
+    s = (s_b * scale).sum(dim=-1)
+    uw = (uw_b * scale[..., None]).sum(dim=-2)
+    no_finite = m[..., 0] <= NO_FINITE_BELOW
     sum_zero = s == 0.0
-    u_new = uw / torch.where(sum_zero, 1.0, s)
+    u_new = uw / torch.where(sum_zero, 1.0, s)[..., None]
     status = torch.where(
         no_finite,
         MppiStatus.NO_FINITE,
         torch.where(
             sum_zero,
             MppiStatus.SUM_ZERO,
-            torch.where(torch.isfinite(u_new[0]), MppiStatus.OK, MppiStatus.INVALID_U),
+            torch.where(torch.isfinite(u_new[..., 0]), MppiStatus.OK, MppiStatus.INVALID_U),
         ),
     ).to(torch.int32)
-    return torch.where(status == MppiStatus.OK, u_new, 0.0), status
+    return torch.where((status == MppiStatus.OK)[..., None], u_new, 0.0), status
 
 
 def mppi_solve_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
@@ -147,7 +213,7 @@ def mppi_solve_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
         noise = philox_normal(seed, solve, cfg.n_rollouts, cfg.n_horizon, cfg.std_dev,
                               device=u_n.device)
     eps = noise.to(u_n.dtype)
-    return finalize_partials_plain(cfg, mppi_partials_plain(cfg, model, x, u_n, eps))
+    return finalize_batch_plain(cfg, mppi_partials_plain(cfg, model, x, u_n, eps))
 
 
 def mppi_chain_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
@@ -200,13 +266,19 @@ def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def _kernel_args(cfg: MppiConfig, model: CartPoleShaped4, x, u_n, noise, noise_shape):
-    """Validate for the kernel; return (library, common leading C args)."""
+def _library() -> ctypes.CDLL:
     from mpc_rs_tpu_torch.ops import build
 
+    return build.load_library()
+
+
+def _kernel_args(cfg: MppiConfig, model: CartPoleShaped4, x, u_n, noise, noise_shape):
+    """Validate for the kernel; return (library, common leading C args)."""
     device = x.device
     if device.type != "cuda":
         raise ValueError(f"the fused kernels take CPU or CUDA tensors, got {device}")
+    if not isinstance(model, CartPoleShaped4) or model.fast:
+        raise ValueError("the K1/K2 kernels are built for the exact-tier CartPoleShaped4 only")
     n, k = cfg.n_horizon, cfg.n_rollouts
     if n != HORIZON:
         raise ValueError(f"no kernel for horizon N={n}; the kernels are built for N={HORIZON}")
@@ -216,7 +288,7 @@ def _kernel_args(cfg: MppiConfig, model: CartPoleShaped4, x, u_n, noise, noise_s
     _check("u_n", u_n, (n,), torch.float32, device)
     if noise is not None:
         _check("noise", noise, noise_shape, torch.float32, device)
-    lib = build.load_library()
+    lib = _library()
     consts = (ctypes.c_float * 9)(*model.constants())
     lo, hi = cfg.limit
     inv = cfg.std_dev ** -2.0 if cfg.control_inv is None else cfg.control_inv
@@ -294,3 +366,150 @@ def mppi_chain_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
     _raise_on(err, "mppi_chain_fused")
     launches["mppi_chain_fused"] += 1
     return ChainResult(u0s, statuses, u_buf, x_buf)
+
+
+# --------------------------------------------------------------------------
+# scenario batch (K5/K6): plain versions and kernel wrappers
+
+_SAMPLER_IDS = {"external": 0, "box-muller": 1, "clt4": 2, "clt4a": 3, "wallace": 4}
+MAX_SCENARIOS = 65535  # the grid's y dimension
+
+
+def batch_noise(cfg: MppiConfig, model, seeds: torch.Tensor, sampler: str) -> torch.Tensor:
+    """(B, K, N) float32 noise that the batched kernel samples in-kernel:
+    scenario b keyed ``seeds[b]`` with stream b (``ops/philox.py``), the
+    transcendentals of the model's tier."""
+    b = seeds.shape[0]
+    return philox.sample_noise(sampler, seeds, torch.arange(b, device=seeds.device),
+                               cfg.n_rollouts, cfg.n_horizon, cfg.std_dev, fast=model.fast)
+
+
+def _batch_kernel_args(cfg: MppiConfig, model, xs, u_ns):
+    device = xs.device
+    if device.type != "cuda":
+        raise ValueError(f"the fused kernels take CPU or CUDA tensors, got {device}")
+    n, k = cfg.n_horizon, cfg.n_rollouts
+    if n != HORIZON:
+        raise ValueError(f"no kernel for horizon N={n}; the kernels are built for N={HORIZON}")
+    if not 1 <= k < 2**31 - BLOCK:
+        raise ValueError(f"n_rollouts must be in [1, 2**31 - {BLOCK}), got {k}")
+    b = xs.shape[0]
+    if not 1 <= b <= MAX_SCENARIOS:
+        raise ValueError(f"the batched kernel takes 1 to {MAX_SCENARIOS} scenarios, got {b}")
+    _check("xs", xs, (b, model.n_state), torch.float32, device)
+    _check("u_ns", u_ns, (b, n), torch.float32, device)
+    return b, n, k
+
+
+def mppi_batch_partials_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, *,
+                              seeds: torch.Tensor | None = None, sampler: str | None = None,
+                              noise: torch.Tensor | None = None,
+                              noise_out: torch.Tensor | None = None) -> torch.Tensor:
+    """Partials of B MPPI solves, one per scenario (K5/K6): (B, nb, N+2)
+    rows, nb = ceil(K/256), for ``finalize_batch_fused``.
+
+    Scenario b solves from xs[b] (B, S) with nominal u_ns[b] (B, N). Pass
+    ``noise`` (B, K, N) already scaled by σ, or ``seeds`` (B,) int32 with a
+    ``sampler`` of ``ops/philox.py`` (the kernel samples in-kernel, scenario
+    b keyed seeds[b], stream b). ``noise_out`` (B, K, N) float32, optional,
+    receives the noise the kernel used (for the checks on the card). The
+    model's ``fast`` selects the tier. CUDA tensors must be float32.
+    """
+    if (noise is None) == (sampler is None):
+        raise ValueError("pass exactly one of noise (B, K, N) or seeds with a sampler")
+    if sampler is not None and (sampler not in philox.SAMPLERS or seeds is None):
+        raise ValueError(f"sampler must be one of {philox.SAMPLERS}, with seeds (B,) int32")
+    if xs.device.type == "cpu":
+        if noise is None:
+            noise = batch_noise(cfg, model, seeds, sampler)
+        if noise_out is not None:
+            noise_out.copy_(noise)
+        return mppi_batch_partials_plain(cfg, model, xs, u_ns, noise.to(u_ns.dtype))
+    b, n, k = _batch_kernel_args(cfg, model, xs, u_ns)
+    if noise is not None:
+        _check("noise", noise, (b, k, n), torch.float32, xs.device)
+    else:
+        _check("seeds", seeds, (b,), torch.int32, xs.device)
+    if noise_out is not None:
+        _check("noise_out", noise_out, (b, k, n), torch.float32, xs.device)
+    lib = _library()
+    name = "external" if noise is not None else sampler
+    consts = model.constants()
+    mc = (ctypes.c_float * len(consts))(*consts)
+    cc = (ctypes.c_float * 4)(*(model.cost_constants() or [0.0] * 4))
+    partials = torch.empty((b, -(-k // BLOCK), n + 2), dtype=torch.float32, device=xs.device)
+    sd = cfg.std_dev
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mpc_fleet_partials(
+            model.model_id, int(model.fast), _SAMPLER_IDS[name], mc, cc,
+            n, b, k, cfg.lambda_, sd ** -2.0 if cfg.control_inv is None else cfg.control_inv,
+            cfg.limit[0], cfg.limit[1], sd,
+            philox._CLT_A * sd, philox._CLT_B * sd, sd / math.sqrt(2.0),
+            _ptr(xs), _ptr(u_ns), _ptr(noise), _ptr(seeds), _ptr(partials), _ptr(noise_out),
+            ctypes.c_void_p(stream),
+        )
+    _raise_on(err, "mppi_batch_partials_fused")
+    launches["mppi_batch_partials_fused"] += 1
+    launches[f"sampler:{name}"] += 1
+    launches["fast_tier"] += int(model.fast)
+    return partials
+
+
+def finalize_batch_fused(cfg: MppiConfig, partials: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge each scenario's (nb, N+2) rows and apply the status ladder
+    (``fleet_finalize_kernel``): returns (u_n' (B, N), status (B,) int32)."""
+    if partials.device.type == "cpu":
+        return finalize_batch_plain(cfg, partials)
+    b, nb, width = partials.shape
+    n = cfg.n_horizon
+    if n != HORIZON or width != n + 2:
+        raise ValueError(f"partials rows must be N+2 = {HORIZON + 2} wide, got {width} for N={n}")
+    _check("partials", partials, (b, nb, width), torch.float32, partials.device)
+    u_out = torch.empty((b, n), dtype=torch.float32, device=partials.device)
+    status = torch.empty(b, dtype=torch.int32, device=partials.device)
+    with torch.cuda.device(partials.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().mpc_fleet_finalize(
+            n, b, nb, cfg.lambda_, _ptr(partials), _ptr(u_out), _ptr(status), ctypes.c_void_p(stream))
+    _raise_on(err, "finalize_batch_fused")
+    launches["finalize_batch_fused"] += 1
+    return u_out, status
+
+
+def mppi_solve_batch_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, **kw
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B MPPI solves (``mppi_solve_pallas_batch``): partials, then the
+    batched finalize. Returns (u_n' (B, N), status (B,) int32)."""
+    return finalize_batch_fused(cfg, mppi_batch_partials_fused(cfg, model, xs, u_ns, **kw))
+
+
+# --------------------------------------------------------------------------
+# the fast-math device functions, elementwise
+
+FASTMATH_FNS = ("fsin", "fcos", "flog", "frsqrt", "fsqrt", "freciprocal", "fdiv")
+
+
+def fastmath_eval(fn: str, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """fn(a) (or fdiv(a, b)) by the ``fastmath.cuh`` device function on a
+    CUDA tensor, by ``ops/fastmath.py`` on a CPU tensor (where
+    ``freciprocal`` and ``fdiv`` divide exactly)."""
+    if fn not in FASTMATH_FNS:
+        raise ValueError(f"unknown fast-math function {fn!r}; expected one of {FASTMATH_FNS}")
+    if (fn == "fdiv") != (b is not None):
+        raise ValueError("fdiv takes a and b; the other functions take a only")
+    if a.device.type == "cpu":
+        f = getattr(fastmath, fn)
+        return f(a) if b is None else f(a, b)
+    _check("a", a, a.shape, torch.float32, a.device)
+    if b is not None:
+        _check("b", b, a.shape, torch.float32, a.device)
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().mpc_fastmath_eval(
+            FASTMATH_FNS.index(fn), a.numel(), _ptr(a), _ptr(b), _ptr(out), ctypes.c_void_p(stream))
+    _raise_on(err, "fastmath_eval")
+    launches["fastmath_eval"] += 1
+    return out

@@ -1,0 +1,158 @@
+"""Scenario-batched closed loops on one GPU — the fleet's tick.
+
+Port of ``mpc_rs_tpu/parallel/scenario.py:38-45,47-337,360-386`` for one
+device and the batch-minor (SoA) estimator. Each tick advances B
+independent closed loops: one scenario-batched MPPI solve
+(``ops/mppi_cuda.py::mppi_solve_batch_fused``, the K5/K6 kernel on a CUDA
+device), then ``n_substeps`` of plant → sensor → UKF predict/update/guard.
+
+What is not ported: the ``shard_map`` over a (scenario × rollouts) mesh
+(on one device the rollout merge, ``scenario.py:150-158``, is the
+identity), the AoS estimator layout and the fused estimator-chain kernel
+(K7, opt-in in the JAX package).
+
+Randomness comes from an explicit ``torch.Generator`` on the carry's
+device: per tick one (B,) int32 draw of kernel seeds (scenario b keys its
+Philox stream with seeds[b]) and, per substep, (B, o) standard normals of
+sensor noise. ``step(..., mppi_noise=, sensor_noise=)`` replaces both, so a
+test can feed the JAX package and the port the same numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Mapping, NamedTuple
+
+import numpy as np
+import torch
+
+from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
+from mpc_rs_tpu_torch.estimators import ukf_soa
+from mpc_rs_tpu_torch.estimators.ukf import UkfParams, UkfState
+from mpc_rs_tpu_torch.ops.mppi_cuda import mppi_solve_batch_fused
+
+
+class ScenarioCarry(NamedTuple):
+    x: torch.Tensor  # (B, S) true plant states
+    u_n: torch.Tensor  # (B, N) nominal sequences
+    ukf: UkfState  # x (B, n); p (n², B) packed batch-minor; q (B, n, n); r (B, o, o); sigma_f None
+    status: torch.Tensor  # (B,) int32 last MPPI status
+    t: torch.Tensor  # (B,) sim time — drives disturbance windows
+
+
+def make_scenario_step(
+    cfg: MppiConfig,
+    model,  # kernel model of ops/mppi_cuda.py (CartPoleShaped4, Flagship4Diag4)
+    plant_fx: Callable,  # vector form (x (B, S), u (B,)[, f (B,)]) -> x — true plant
+    ukf_params: UkfParams,
+    ukf_fx: Callable,  # vector form (x (..., n), u) -> x
+    ukf_hx: Callable,  # vector form x (..., n) -> z (..., o); also the sensor's map
+    sensor_stddevs: torch.Tensor,  # (o,)
+    *,
+    state_slice=None,  # e.g. 6-state estimate -> 4-state controller input
+    feed_true_state: bool = False,
+    n_substeps: int = 1,
+    dt_tick: float = 0.0,
+    disturbance: Callable | None = None,
+    control_start: float = 0.0,
+    ukf_p_reset=None,  # enables per-instance NaN recovery (soa_guard)
+    sampler: str = "box-muller",
+):
+    """Returns ``step(carry, generator, *, mppi_noise=None, sensor_noise=None)
+    -> carry`` advancing every scenario one control tick: MPPI → plant →
+    sensor → UKF.
+
+    ``feed_true_state``: the controller sees the true plant state (the
+    reference's DEBUG_UKF switch, mppi4-non-liner-ukf.rs:31,55-61).
+    ``n_substeps``: plant and sensor→UKF run that many times per tick with
+    u0 held (``plant_fx``/``ukf_fx`` built at the substep dt).
+    ``disturbance``: f(t_sim) -> force; ``plant_fx`` is then called as
+    ``plant_fx(x, u, f)``. ``control_start``: the plant coasts (u = 0)
+    before this sim time. ``mppi_noise`` (B, K, N) replaces in-kernel
+    sampling, ``sensor_noise`` (n_substeps, B, o) the standard normals of
+    the sensor.
+    """
+    sig = torch.as_tensor(sensor_stddevs)
+    p_reset = None if ukf_p_reset is None else torch.as_tensor(ukf_p_reset)
+    dt_sub = dt_tick / n_substeps
+
+    def step(carry: ScenarioCarry, generator: torch.Generator, *,
+             mppi_noise: torch.Tensor | None = None,
+             sensor_noise: torch.Tensor | None = None) -> ScenarioCarry:
+        b = carry.x.shape[0]
+        dev, dtype = carry.x.device, carry.x.dtype
+        x_ctrl = carry.x if feed_true_state else carry.ukf.x
+        x_hats = x_ctrl if state_slice is None else x_ctrl[:, list(state_slice)]
+        if mppi_noise is None:
+            seeds = torch.randint(0, 2**31 - 1, (b,), generator=generator, device=dev,
+                                  dtype=torch.int32)
+            u_new, status = mppi_solve_batch_fused(cfg, model, x_hats.contiguous(), carry.u_n,
+                                                   seeds=seeds, sampler=sampler)
+        else:
+            u_new, status = mppi_solve_batch_fused(cfg, model, x_hats.contiguous(), carry.u_n,
+                                                   noise=mppi_noise)
+
+        u0 = u_new[:, 0]
+        if control_start > 0.0:
+            # estimator-settling window: the plant coasts while the
+            # sensor->UKF chain runs (mppi4-non-liner-ukf.rs:224-288)
+            u0 = torch.where(carry.t >= control_start, u0, 0.0)
+        ukf = carry.ukf
+        n = ukf.x.shape[-1]
+        q, r = ukf.q[0], ukf.r[0]
+        s_dev = sig.to(device=dev, dtype=dtype)
+        soa = ukf_soa.SoaUkfState(x=ukf.x.T, p=ukf.p.reshape(n, n, b), sigma_f=None)
+        x = carry.x
+        for i in range(n_substeps):
+            if disturbance is None:
+                x = plant_fx(x, u0)
+            else:
+                x = plant_fx(x, u0, disturbance(carry.t + torch.full_like(carry.t, i) * dt_sub))
+            eps = (sensor_noise[i] if sensor_noise is not None else
+                   torch.randn((b, s_dev.shape[0]), generator=generator, device=dev, dtype=dtype))
+            z = ukf_hx(x) + s_dev * eps
+            soa = ukf_soa.soa_predict(ukf_params, soa, u0, ukf_fx, q)
+            soa = ukf_soa.soa_update(ukf_params, soa, z.T, ukf_hx, r)
+            if p_reset is not None:
+                soa = ukf_soa.soa_guard(soa, p_reset)
+        ukf = ukf._replace(x=soa.x.T.contiguous(), p=soa.p.reshape(n * n, b))
+        return ScenarioCarry(x=x, u_n=u_new, ukf=ukf, status=status, t=carry.t + dt_tick)
+
+    return step
+
+
+def init_scenario_carry(batch: int, x0: torch.Tensor, u0: torch.Tensor,
+                        ukf_state: UkfState) -> ScenarioCarry:
+    """Broadcast one scenario's initial condition to a (B, ...) carry, with
+    the covariance packed batch-minor as one (n², B) tensor (the JAX
+    package's ``ukf_layout="soa"`` carry)."""
+    tile = lambda a: a.expand((batch,) + tuple(a.shape)).contiguous()  # noqa: E731
+    n = ukf_state.x.shape[-1]
+    ukf = UkfState(
+        x=tile(ukf_state.x),
+        p=ukf_state.p.reshape(n * n, 1).expand(n * n, batch).contiguous(),
+        q=tile(ukf_state.q), r=tile(ukf_state.r), sigma_f=None,
+    )
+    dev = x0.device
+    return ScenarioCarry(
+        x=tile(x0), u_n=tile(u0), ukf=ukf,
+        status=torch.zeros(batch, dtype=torch.int32, device=dev),
+        t=torch.zeros(batch, dtype=x0.dtype, device=dev),
+    )
+
+
+def carry_from_numpy(arrays: Mapping[str, Any], device=None) -> ScenarioCarry:
+    """The port's carry from numpy arrays of a JAX ``ScenarioCarry`` with
+    the SoA-packed ``ukf.p`` (n², B): keys ``x``, ``u_n``, ``ukf`` (a mapping
+    with ``x``, ``p``, ``q``, ``r``), ``status``, ``t``. The JAX per-scenario
+    PRNG keys (``key``) and ``ukf.sigma_f`` have no counterpart and are
+    ignored; any other key raises."""
+    unknown = set(arrays) - {"x", "u_n", "ukf", "status", "t", "key"}
+    if unknown:
+        raise ValueError(f"unknown ScenarioCarry fields: {sorted(unknown)}")
+    t = lambda a: torch.as_tensor(np.array(a), device=device)  # noqa: E731
+    u = arrays["ukf"]
+    return ScenarioCarry(
+        x=t(arrays["x"]), u_n=t(arrays["u_n"]),
+        ukf=UkfState(x=t(u["x"]), p=t(u["p"]), q=t(u["q"]), r=t(u["r"]), sigma_f=None),
+        status=t(arrays["status"]).to(torch.int32), t=t(arrays["t"]),
+    )

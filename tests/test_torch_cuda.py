@@ -1,5 +1,6 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card. Every test here is marked ``cuda`` and skips without a CUDA device.
+card: K2, K1, the scenario batch (K5/K6) with each sampler (K3), and the
+fast-math device functions (K4). Every test here is marked ``cuda`` and skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port is installed; ``tests/conftest.py`` sets JAX up, so on such a
@@ -15,7 +16,7 @@ import torch
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
 from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops import mppi_cuda
-from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, mppi_chain_fused, mppi_solve_fused
+from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Flagship4Diag4, mppi_chain_fused, mppi_solve_fused
 from mpc_rs_tpu_torch.ops.philox import philox_normal
 
 N = 8
@@ -140,3 +141,124 @@ def test_cuda_wrappers_check_inputs(card):
         mppi_solve_fused(cfg, MODEL, x, torch.zeros(2 * N, device=card)[::2])
     with pytest.raises(ValueError, match="horizon"):
         mppi_solve_fused(_cfg(256, n=3), MODEL, x, torch.zeros(3, device=card))
+
+
+# --------------------------------------------------------------------------
+# the scenario batch (K5/K6), its samplers (K3) and the fast math (K4)
+
+FLAG = Flagship4Diag4(CartPoleParams.two_wheel(), 0.15, fast=True)
+CART_FAST = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=True)
+
+
+def _fleet_inputs(card, b, which, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    xs = 0.2 * torch.randn((b, 4), generator=g, device=card)
+    if which == "cartpole":
+        xs = xs + torch.tensor(X0, device=card)
+    u_ns = 0.5 * torch.randn((b, N), generator=g, device=card)
+    return xs, u_ns
+
+
+# The fleets' σ and limits at λ=20 (cartpole) and λ=50 (flagship), where
+# the f32 solve is well conditioned. At the apps' λ (0.5, 1.4) the flagship's
+# f32 solve is ill-conditioned in itself: 1.2 s of an unstable pendulum
+# amplifies the last bit of a rollout about a thousandfold, and the plain
+# f32 version misses the float64 one by up to 7e-3 (PERF.md). The
+# kernel is held to the band where the problem allows it, and at the app's
+# λ to the plain f32 version's own distance from float64.
+def _fleet_cfg(k, which, lam=None):
+    sd = 10.0 if which == "cartpole" else 4.0
+    lam = lam or (20.0 if which == "cartpole" else 50.0)
+    return MppiConfig(n_horizon=N, n_rollouts=k, lambda_=lam, std_dev=sd, limit=(-10.0, 10.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which, b, k", [("cartpole", 64, 1024), ("flagship", 16, 8192), ("cartpole", 2, 65536)])
+def test_cuda_batch_external_noise_matches_plain(card, which, b, k):
+    model = CART_FAST if which == "cartpole" else FLAG
+    cfg = _fleet_cfg(k, which)
+    xs, u_ns = _fleet_inputs(card, b, which)
+    noise = cfg.std_dev * torch.randn((b, k, N), device=card)
+    got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, model, xs, u_ns, noise=noise)
+    want_u, want_st = mppi_cuda.mppi_solve_batch_fused(cfg, model, xs.cpu().double(), u_ns.cpu().double(),
+                                                       noise=noise.cpu().double())
+    torch.cuda.synchronize()
+    assert got_st.cpu().tolist() == want_st.tolist() == [0] * b
+    np.testing.assert_allclose(got_u.cpu().numpy(), want_u.numpy(), **F32_BAND)
+
+
+@pytest.mark.cuda
+def test_cuda_batch_app_lambda_as_close_as_f32_allows(card):
+    """flagship6's λ=1.4: the kernel's distance from the float64 plain
+    version is within twice the plain float32 version's own distance."""
+    cfg = _fleet_cfg(8192, "flagship", lam=1.4)
+    xs, u_ns = _fleet_inputs(card, 64, "flagship")
+    noise = cfg.std_dev * torch.randn((64, 8192, N), device=card)
+    got, _ = mppi_cuda.mppi_solve_batch_fused(cfg, FLAG, xs, u_ns, noise=noise)
+    f32, _ = mppi_cuda.mppi_solve_batch_fused(cfg, FLAG, xs.cpu(), u_ns.cpu(), noise=noise.cpu())
+    f64, _ = mppi_cuda.mppi_solve_batch_fused(cfg, FLAG, xs.cpu().double(), u_ns.cpu().double(),
+                                              noise=noise.cpu().double())
+    err = float((got.cpu().double() - f64).abs().max())
+    assert err <= 2.0 * float((f32.double() - f64).abs().max()) + 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["box-muller", "clt4", "clt4a", "wallace"])
+@pytest.mark.parametrize("fast", [False, True])
+def test_cuda_batch_sampler_matches_plain(card, sampler, fast):
+    """The kernel's in-kernel noise is the contract's (checked through
+    noise_out), and the solve equals the plain version fed that noise."""
+    b, k = 32, 1000  # a ragged K: a partial last block, an even pair count
+    model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=fast)
+    cfg = _fleet_cfg(k, "cartpole")
+    xs, u_ns = _fleet_inputs(card, b, "cartpole", seed=1)
+    seeds = torch.arange(b, dtype=torch.int32, device=card) * 977 - 5000
+    out = torch.empty((b, k, N), device=card)
+    parts = mppi_cuda.mppi_batch_partials_fused(cfg, model, xs, u_ns, seeds=seeds, sampler=sampler, noise_out=out)
+    got_u, got_st = mppi_cuda.finalize_batch_fused(cfg, parts)
+    want_noise = mppi_cuda.batch_noise(cfg, model, seeds, sampler)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), want_noise.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    want_u, want_st = mppi_cuda.finalize_batch_plain(cfg, mppi_cuda.mppi_batch_partials_plain(
+        cfg, model, xs.double(), u_ns.double(), out.double()))
+    assert got_st.cpu().tolist() == want_st.cpu().tolist() == [0] * b
+    np.testing.assert_allclose(got_u.cpu().numpy(), want_u.cpu().numpy(), **F32_BAND)
+    if sampler == "clt4a":
+        assert torch.equal(out[:, 0::2] + out[:, 1::2], torch.zeros_like(out[:, 0::2]))
+
+
+@pytest.mark.cuda
+def test_cuda_batch_failure_probes(card):
+    cfg = _fleet_cfg(1024, "cartpole")
+    xs = torch.tensor([X0] * 8, device=card)
+    xs[5, 0] = float("nan")
+    seeds = torch.arange(8, dtype=torch.int32, device=card)
+    u, st = mppi_cuda.mppi_solve_batch_fused(cfg, CART_FAST, xs, torch.zeros(8, N, device=card),
+                                             seeds=seeds, sampler="clt4")
+    assert st.cpu().tolist() == [0, 0, 0, 0, 0, MppiStatus.NO_FINITE, 0, 0]
+    assert torch.equal(u[5].cpu(), torch.zeros(N)) and bool(torch.isfinite(u).all())
+    lam0 = MppiConfig(n_horizon=N, n_rollouts=1024, lambda_=0.0, std_dev=10.0, limit=(-10.0, 10.0))
+    u, st = mppi_cuda.mppi_solve_batch_fused(lam0, CART_FAST, torch.tensor([X0] * 8, device=card),
+                                             torch.zeros(8, N, device=card), seeds=seeds, sampler="clt4")
+    assert (st == MppiStatus.INVALID_U).all() and torch.equal(u.cpu(), torch.zeros(8, N))
+    with pytest.raises(ValueError, match="exact-tier CartPoleShaped4"):
+        mppi_solve_fused(_cfg(256), FLAG, torch.tensor(X0, device=card), torch.zeros(N, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", mppi_cuda.FASTMATH_FNS)
+def test_cuda_fastmath_matches_plain(card, fn):
+    """The device functions against ops/fastmath.py on the same inputs; the
+    bounds of tests/test_fastmath.py (rcp: relative error < 3e-5)."""
+    rng = np.random.default_rng(42)
+    lo, hi = {"fsin": (-100, 100), "fcos": (-100, 100), "flog": (1e-7, 100)}.get(fn, (1e-3, 1e4))
+    a = torch.tensor(rng.uniform(lo, hi, 1 << 20), dtype=torch.float32, device=card)
+    b = torch.tensor(rng.uniform(0.5, 2.0, 1 << 20), dtype=torch.float32, device=card) if fn == "fdiv" else None
+    got = mppi_cuda.fastmath_eval(fn, a, b).double().cpu()
+    want = mppi_cuda.fastmath_eval(fn, a.cpu(), None if b is None else b.cpu()).double()
+    if fn in ("freciprocal", "fdiv"):
+        assert float(((got - want).abs() / want.abs()).max()) < 3e-5
+    elif fn in ("frsqrt", "fsqrt"):
+        assert float(((got - want).abs() / want.abs()).max()) < 1e-6
+    else:
+        assert float((got - want).abs().max()) < (2e-6 if fn == "flog" else 1e-6)

@@ -1,14 +1,19 @@
-"""The fused MPPI solve (K2) and chain (K1) of the port.
+"""The fused MPPI kernels of the port: one solve (K2), the chain (K1), the
+scenario batch (K5/K6), the samplers (K3) and the fast math (K4).
 
 On the CPU the wrappers run their plain versions, which are held here
 against the JAX package: K2 against ``mppi_solve_pallas`` in interpret mode
 on the same external noise, K1 against sequential ``mppi_solve(noise=)``
-calls with the JAX plant step between them. The Philox sampler is held to
-the Random123 known answers and to the moments of a normal. The kernels
+calls with the JAX plant step between them, the batch against
+``mppi_pallas_batch_partials`` in interpret mode at a one-block (K5) and a
+two-block (K6) shape, the fast math against ``mpc_rs_tpu.ops.fastmath``.
+The Philox samplers are held to the Random123 known answers, to the numpy
+mirror of the clt4 transform and to the moments of a normal. The kernels
 themselves are held against these plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,12 +23,23 @@ from mpc_rs_tpu.controllers import mppi as jmppi
 from mpc_rs_tpu.models import costs as jcosts
 from mpc_rs_tpu.models import dynamics as jdyn
 from mpc_rs_tpu.models.params import CartPoleParams as JParams
-from mpc_rs_tpu.ops.mppi_pallas import mppi_solve_pallas
+from mpc_rs_tpu.ops import fastmath as jfm
+from mpc_rs_tpu.ops.mppi_pallas import finalize_partials, mppi_pallas_batch_partials, mppi_solve_pallas
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
 from mpc_rs_tpu_torch.models.params import CartPoleParams
-from mpc_rs_tpu_torch.ops import build, mppi_cuda
-from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, mppi_chain_fused, mppi_solve_fused
-from mpc_rs_tpu_torch.ops.philox import philox4x32_10, philox_normal
+from mpc_rs_tpu_torch.ops import build, mppi_cuda, philox
+from mpc_rs_tpu_torch.ops import fastmath as tfm
+from mpc_rs_tpu_torch.ops.mppi_cuda import (
+    CartPoleShaped4,
+    Flagship4Diag4,
+    finalize_batch_fused,
+    mppi_batch_partials_fused,
+    mppi_chain_fused,
+    mppi_solve_batch_fused,
+    mppi_solve_fused,
+)
+from mpc_rs_tpu_torch.ops.philox import philox4x32_10, philox_normal, sample_noise
+from tests.test_fastmath import _clt4_transform
 
 N = 8
 BS, LANES = 8, 128  # Pallas block: 8 sublanes x 128 lanes = 1024 rollouts
@@ -112,10 +128,10 @@ def test_k2_plain_partials_mask_empty_blocks():
     parts = mppi_cuda.mppi_partials_plain(cfg, MODEL, x, torch.zeros(N), noise)
     assert parts.shape == (2, N + 2)
     dead = torch.tensor([[mppi_cuda.NEG_BIG, 0.0] + [0.0] * N])
-    u1, s1 = mppi_cuda.finalize_partials_plain(cfg, parts)
-    u2, s2 = mppi_cuda.finalize_partials_plain(cfg, torch.cat([parts, dead]))
+    u1, s1 = mppi_cuda.finalize_batch_plain(cfg, parts)
+    u2, s2 = mppi_cuda.finalize_batch_plain(cfg, torch.cat([parts, dead]))
     assert int(s1) == int(s2) == 0 and torch.equal(u1, u2)
-    u3, s3 = mppi_cuda.finalize_partials_plain(cfg, dead)
+    u3, s3 = mppi_cuda.finalize_batch_plain(cfg, dead)
     assert int(s3) == MppiStatus.NO_FINITE and torch.equal(u3, torch.zeros(N))
 
 
@@ -279,3 +295,258 @@ def test_model_constants_fold_in_double():
     p = CartPoleParams.single_wheel()
     c = MODEL.constants()
     assert len(c) == 9 and c[5] == p.mass_line * p.m2 * p.g * p.l and c[8] == 0.1
+
+
+# --------------------------------------------------------------------------
+# K4: fast math outside a kernel
+
+
+@pytest.fixture(scope="module")
+def fm_inputs():
+    rng = np.random.default_rng(42)  # the draws of tests/test_fastmath.py
+    return dict(
+        x=rng.uniform(-100.0, 100.0, 200_000).astype(np.float32),
+        u=rng.uniform(1e-7, 100.0, 200_000).astype(np.float32),
+        s=rng.uniform(1e-6, 1e4, 200_000).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("fn, arg", [("fsin", "x"), ("fcos", "x"), ("flog", "u")])
+def test_fastmath_bit_identical_to_jax(fm_inputs, fn, arg):
+    """The same polynomials in the same order on float32: equal bits."""
+    a = fm_inputs[arg]
+    want = np.asarray(getattr(jfm, fn)(jnp.asarray(a)))
+    got = getattr(tfm, fn)(torch.tensor(a)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fn", ["frsqrt", "fsqrt"])
+def test_fastmath_rsqrt_within_two_ulps_of_jax(fm_inputs, fn):
+    """rsqrt itself is the library's (XLA's and PyTorch's may differ by an
+    ulp); after the Newton step the two stay within 2 ulps."""
+    a = fm_inputs["s"]
+    want = np.asarray(getattr(jfm, fn)(jnp.asarray(a)))
+    got = getattr(tfm, fn)(torch.tensor(a)).numpy()
+    np.testing.assert_array_max_ulp(got, want, maxulp=2)
+
+
+def test_fastmath_error_bounds(fm_inputs):
+    """The JAX package's bounds (tests/test_fastmath.py:20-46)."""
+    x, u, s = (torch.tensor(fm_inputs[k]) for k in "xus")
+    assert float((tfm.fsin(x) - torch.sin(x)).abs().max()) < 1e-5
+    assert float((tfm.fcos(x) - torch.cos(x)).abs().max()) < 1e-5
+    sn, cs = tfm.fsincos(x)
+    assert torch.equal(sn, tfm.fsin(x)) and torch.equal(cs, tfm.fcos(x))
+    assert float((tfm.flog(u) - torch.log(u)).abs().max()) < 2e-6
+    assert float(((tfm.fsqrt(s) - torch.sqrt(s)).abs() / torch.sqrt(s)).max()) < 1e-6
+    huge = torch.tensor([1e6, -1e6, 3.4e37, -3.4e37])
+    assert torch.isfinite(tfm.fsin(huge)).all() and torch.isfinite(tfm.fcos(huge)).all()
+
+
+def test_fastmath_division_is_exact_outside_a_kernel(fm_inputs):
+    rng = np.random.default_rng(1)
+    num = torch.tensor(rng.uniform(0.01, 10.0, 4096), dtype=torch.float32)
+    den = torch.tensor(rng.uniform(0.5, 2.0, 4096), dtype=torch.float32)
+    assert torch.equal(tfm.fdiv(num, den), num / den)
+    assert torch.equal(tfm.freciprocal(den), 1.0 / den)
+    # the CPU dispatch of the kernel probe runs these same functions
+    assert torch.equal(mppi_cuda.fastmath_eval("fdiv", num, den), num / den)
+    assert torch.equal(mppi_cuda.fastmath_eval("fsin", num), tfm.fsin(num))
+    with pytest.raises(ValueError, match="fdiv takes"):
+        mppi_cuda.fastmath_eval("fdiv", num)
+
+
+# --------------------------------------------------------------------------
+# K5/K6: the scenario batch, plain version
+
+FLAG = Flagship4Diag4(CartPoleParams.two_wheel(), 0.15)
+JFLAG = jdyn.make_flagship4(JParams.two_wheel(), 0.15)
+JDIAG = jcosts.make_diag4(0.1, 0.1, 1.0, 0.5)
+
+
+def _batch_case(k, nb, seed, b=8):
+    rng = np.random.default_rng(seed)
+    eps = (3.0 * rng.standard_normal((b, nb, N, BS, LANES))).astype(np.float32)
+    flat = np.arange(nb * BS * LANES).reshape(nb, BS, LANES)
+    for t in range(N):  # poison the Pallas padding
+        eps[:, :, t][np.broadcast_to(flat >= k, (b, nb, BS, LANES))] = 55.5
+    xs = np.stack([np.linspace(-0.3, 0.3, b), np.zeros(b), np.linspace(0.2, -0.2, b), np.zeros(b)],
+                  axis=-1).astype(np.float32)
+    u_ns = (0.5 * rng.standard_normal((b, N))).astype(np.float32)
+    eps_bkn = eps.transpose(0, 1, 3, 4, 2).reshape(b, -1, N)[:, :k]  # _rollout_index order
+    return eps, xs, u_ns, eps_bkn
+
+
+# K5: one block per scenario (tests/test_pallas.py:302); K6: two K-blocks
+# (tests/test_pallas.py:242), each with a ragged K.
+@pytest.mark.parametrize("k, nb, which", [(BS * LANES - 300, 1, "cartpole"), (BS * LANES + 200, 2, "flagship")])
+def test_batch_plain_matches_pallas_interpret(k, nb, which):
+    model, jstep, jcost = (MODEL, JSTEP, jcosts.shaped4) if which == "cartpole" else (FLAG, JFLAG, JDIAG)
+    eps, xs, u_ns, eps_bkn = _batch_case(k, nb, k)
+    jc = jmppi.MppiConfig(n_horizon=N, n_rollouts=k, lambda_=2.5, std_dev=3.0, limit=(-20.0, 20.0))
+    parts = mppi_pallas_batch_partials(jc, jstep, jcost, 4, jnp.zeros(8, jnp.int32), jnp.asarray(xs),
+                                       jnp.asarray(u_ns), interpret=True, block_sublanes=BS,
+                                       noise=jnp.asarray(eps))
+    want_u, want_st = jax.vmap(lambda p, u: finalize_partials(jc, p, u))(parts, jnp.asarray(u_ns))
+    cfg = _cfg(k, 2.5)
+    got_p = mppi_batch_partials_fused(cfg, model, torch.tensor(xs), torch.tensor(u_ns),
+                                      noise=torch.tensor(eps_bkn))
+    assert got_p.shape == (8, -(-k // mppi_cuda.BLOCK), N + 2)
+    got_u, got_st = finalize_batch_fused(cfg, got_p)
+    assert got_st.tolist() == np.asarray(want_st).tolist() == [0] * 8
+    np.testing.assert_allclose(got_u.numpy(), np.asarray(want_u), **F32_BAND)
+
+
+@pytest.mark.parametrize("which", ["cartpole", "flagship"])
+def test_batch_plain_fast_tier_matches_jax_vmap_f64(which):
+    """The fast tier outside a kernel (exact division), in float64: each
+    scenario equals the JAX vmap solver with the fast model on its noise."""
+    k, b = 700, 4
+    model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=True) if which == "cartpole" else \
+        Flagship4Diag4(CartPoleParams.two_wheel(), 0.15, fast=True)
+    jstep, jcost = (jdyn.make_cartpole_nonlinear(JParams.single_wheel(), 0.1, fast=True), jcosts.shaped4) \
+        if which == "cartpole" else (jdyn.make_flagship4(JParams.two_wheel(), 0.15, fast=True), JDIAG)
+    rng = np.random.default_rng(3)
+    noise = 3.0 * rng.standard_normal((b, k, N))
+    xs = 0.2 * rng.standard_normal((b, 4))
+    u_ns = rng.standard_normal((b, N))
+    got_u, got_st = mppi_solve_batch_fused(_cfg(k), model, torch.tensor(xs), torch.tensor(u_ns),
+                                           noise=torch.tensor(noise))
+    for i in range(b):
+        want = jmppi.mppi_solve(_jcfg(k), jstep, jcost, None, tuple(jnp.asarray(xs[i])), jnp.asarray(u_ns[i]),
+                                noise=jnp.asarray(noise[i]))
+        assert int(got_st[i]) == int(want.status) == 0
+        np.testing.assert_allclose(got_u[i].numpy(), np.asarray(want.u_n), **F64_BAND)
+
+
+def test_batch_plain_status_per_scenario():
+    """NaN state in one scenario: status 1 and zeros there, the others OK;
+    λ = 0 gives INVALID_U everywhere."""
+    xs = torch.tensor([X0] * 4)
+    xs[2, 0] = float("nan")
+    seeds = torch.arange(4, dtype=torch.int32)
+    u, st = mppi_solve_batch_fused(_cfg(512), MODEL, xs, torch.zeros(4, N), seeds=seeds, sampler="clt4")
+    assert st.tolist() == [0, 0, MppiStatus.NO_FINITE, 0]
+    assert torch.equal(u[2], torch.zeros(N)) and torch.isfinite(u).all()
+    u, st = mppi_solve_batch_fused(_cfg(512, 0.0), MODEL, torch.tensor([X0] * 4), torch.zeros(4, N),
+                                   seeds=seeds, sampler="clt4")
+    assert (st == MppiStatus.INVALID_U).all() and torch.equal(u, torch.zeros(4, N))
+
+
+@pytest.mark.parametrize("sampler", philox.SAMPLERS)
+def test_batch_sampled_solve_uses_contract_noise(sampler):
+    """In-kernel sampling on the CPU is the plain tier fed the contract's
+    noise; scenario b's box-muller noise is a single solve's (seed b, solve b)."""
+    cfg, b = _cfg(600), 3
+    seeds = torch.tensor([5, -6, 7], dtype=torch.int32)
+    xs, u_ns = torch.tensor([X0] * b), torch.zeros(b, N)
+    noise = sample_noise(sampler, seeds, torch.arange(b), 600, N, 3.0)
+    out = torch.empty(b, 600, N)
+    got = mppi_batch_partials_fused(cfg, MODEL, xs, u_ns, seeds=seeds, sampler=sampler, noise_out=out)
+    assert torch.equal(got, mppi_batch_partials_fused(cfg, MODEL, xs, u_ns, noise=noise))
+    assert torch.equal(out, noise)
+    if sampler == "box-muller":
+        for i in range(b):
+            assert torch.equal(noise[i], philox_normal(int(seeds[i]), i, 600, N, 3.0, device="cpu"))
+
+
+def test_batch_wrapper_rejects_bad_arguments():
+    cfg, xs, u_ns = _cfg(256), torch.tensor([X0] * 2), torch.zeros(2, N)
+    with pytest.raises(ValueError, match="exactly one"):
+        mppi_batch_partials_fused(cfg, MODEL, xs, u_ns)
+    with pytest.raises(ValueError, match="sampler must be"):
+        mppi_batch_partials_fused(cfg, MODEL, xs, u_ns, seeds=torch.zeros(2, dtype=torch.int32), sampler="clt2q")
+    meta = torch.zeros(2, 4, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        mppi_batch_partials_fused(cfg, MODEL, meta, torch.zeros(2, N, device="meta"),
+                                  noise=torch.zeros(2, 256, N, device="meta"))
+
+
+def test_flagship_constants_fold_in_double():
+    p = CartPoleParams.two_wheel()
+    ml, mll_j2 = p.m2 * p.l, p.m2 * p.l * p.l + p.j2
+    c = FLAG.constants()
+    assert len(c) == 17 and c[2] == mll_j2 * ml and c[13] == (2.0 * mll_j2 / p.r_w) * p.kt and c[16] == 0.15
+    assert FLAG.cost_constants() == [0.1, 0.1, 1.0, 0.5]
+
+
+# --------------------------------------------------------------------------
+# K3: the clt4, clt4a and wallace samplers' plain versions
+
+
+def _ks_normal(z: np.ndarray) -> float:
+    from math import erf, sqrt
+
+    zs = np.sort(z)
+    grid = np.linspace(-3.5, 3.5, 141)
+    phi = np.array([0.5 * (1 + erf(g / sqrt(2))) for g in grid])
+    return float(np.abs(np.searchsorted(zs, grid) / len(zs) - phi).max())
+
+
+def test_clt4_bits_match_the_numpy_mirror():
+    """Each normal is the clt4 transform of its contract word, equal to
+    tests/test_fastmath.py's mirror in float32."""
+    k = 4096
+    w = philox._words(torch.tensor([21]), torch.tensor([3]), k, 2)
+    words = torch.stack(w, dim=-1).reshape(k, 8).numpy().astype(np.uint32)
+    z = sample_noise("clt4", 21, 3, k, N, 2.5)[0].numpy()
+    np.testing.assert_allclose(z, _clt4_transform(words, 2.5).astype(np.float32), rtol=1e-6, atol=1e-6)
+    # the mirror's integer part, then its float ops in float32 as the kernel
+    # rounds them (mppi_pallas.py:141-149): equal bits
+    x2 = (words & 0x00FF00FF) + ((words >> 8) & 0x00FF00FF)
+    s4 = ((x2 & 0xFFFF) + (x2 >> 16)).astype(np.float32)
+    z32 = (s4 - np.float32(510.0)) * np.float32(philox._CLT_INV_SIG)
+    e32 = z32 * (np.float32(philox._CLT_A * 2.5) + np.float32(philox._CLT_B * 2.5) * (z32 * z32))
+    np.testing.assert_array_equal(z, e32)
+
+
+def test_clt4_moments_and_ks():
+    """2**20 samples: the bounds of tests/test_fastmath.py:165-178."""
+    z = sample_noise("clt4", 9, 0, 1 << 17, N, 1.0)[0].double().numpy().ravel()
+    assert abs(z.mean()) < 5e-3 and abs(z.var() - 1.0) < 5e-3
+    assert abs(((z - z.mean()) ** 4).mean() / z.var() ** 2 - 3.0) < 0.02
+    assert _ks_normal(z) < 0.005
+    assert 0.8 * 0.0455 < (np.abs(z) > 2.0).mean() < 1.2 * 0.0455
+
+
+@pytest.mark.parametrize("k", [1024, 1001])
+def test_clt4a_pairs_have_exactly_zero_mean(k):
+    """Rollouts 2j and 2j+1 carry +eps and -eps; with an odd K the last
+    rollout is the +eps of its pair; the marginals are clt4's."""
+    z = sample_noise("clt4a", 4, 1, k, N, 3.0)[0]
+    full = z[: k - k % 2].reshape(-1, 2, N)
+    assert torch.equal(full[:, 0] + full[:, 1], torch.zeros_like(full[:, 0]))
+    eps = sample_noise("clt4", 4, 1, -(-k // 2), N, 3.0)[0]
+    assert torch.equal(z[0::2], eps) and torch.equal(z[1::2], -eps[: k // 2])
+
+
+def test_wallace_exact_marginals_and_uncorrelated_steps():
+    """Every step is N(0, σ²) by KS (exact marginals: tighter than clt4's
+    budget); steps of a window are uncorrelated; the pool steps are the
+    exact Box-Muller pair."""
+    k = 1 << 17
+    z = sample_noise("wallace", 13, 2, k, N, 1.0)[0].double().numpy()
+    for t in range(N):
+        assert _ks_normal(z[:, t]) < 0.006, t
+        assert abs(z[:, t].var() - 1.0) < 0.02
+    corr = np.corrcoef(z.T)
+    assert np.abs(corr - np.eye(N)).max() < 0.015
+    z3 = sample_noise("wallace", 13, 2, 512, N, 3.0)[0]
+    assert torch.allclose(z3, 3.0 * sample_noise("wallace", 13, 2, 512, N, 1.0)[0], rtol=1e-6, atol=1e-6)
+
+
+def test_wallace_rotation_stays_in_the_warp():
+    """Step ph of rollout k mixes the b of rollout (k & ~31) | ((k - s) & 31):
+    a prefix of K draws the same noise, and whole warps are independent."""
+    a = sample_noise("wallace", 3, 0, 300, N, 1.0)[0]
+    b = sample_noise("wallace", 3, 0, 64, N, 1.0)[0]
+    assert torch.equal(a[:64], b)
+    w = philox._words(torch.tensor([3]), torch.tensor([0]), 256, 1)
+    u1, u2 = philox._uniforms(w[0][0, :, 0], w[1][0, :, 0])
+    pb = torch.sqrt(-2.0 * torch.log(u1)) * torch.sin(philox._TWO_PI_F32 * u2)
+    ph, k = 2, 5
+    s = (29 * ph + 13) % 32
+    pa = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(philox._TWO_PI_F32 * u2)
+    sign = -1.0 if (int(w[2][0, k, 0]) << (ph - 2)) & 0x80000000 else 1.0
+    mix = torch.tensor(1.0 / np.sqrt(2.0), dtype=torch.float32)
+    assert float(a[k, ph]) == float(mix * (sign * pa[k] + pb[(k & ~31) | ((k - s) & 31)]))

@@ -1,5 +1,6 @@
 """The port's models against the JAX package: params, the nonlinear cart-pole
-and the shaped4 cost, on the same random states made with numpy."""
+(exact and fast tiers), the flagship models, the costs, the process noise
+and the observation models, on the same random states made with numpy."""
 
 import dataclasses
 
@@ -10,9 +11,13 @@ import torch
 
 from mpc_rs_tpu.models import costs as jcosts
 from mpc_rs_tpu.models import dynamics as jdyn
+from mpc_rs_tpu.models import noise as jnoise
+from mpc_rs_tpu.models import observation as jobs
 from mpc_rs_tpu.models.params import CartPoleParams as JParams
 from mpc_rs_tpu_torch.models import costs as tcosts
 from mpc_rs_tpu_torch.models import dynamics as tdyn
+from mpc_rs_tpu_torch.models import noise as tnoise
+from mpc_rs_tpu_torch.models import observation as tobs
 from mpc_rs_tpu_torch.models.params import CartPoleParams as TParams
 
 NAMED = ["single_wheel", "single_wheel_light", "single_wheel_heavy_j", "single_wheel_j01", "two_wheel"]
@@ -84,8 +89,20 @@ def test_cartpole_nonlinear_is_explicit():
 
 
 def test_cartpole_nonlinear_fast_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdyn.make_cartpole_nonlinear(TParams.single_wheel(), 0.1, fast=True)
+    """The fast tier was the part of the cart-pole left to port; it now
+    exists and is not the exact tier (polynomial sin/cos): the two agree
+    to the JAX package's fast-dynamics bound (tests/test_fastmath.py:62)
+    but not bit for bit."""
+    p = TParams.single_wheel()
+    rng = np.random.default_rng(7)  # the points of tests/test_fastmath.py:57-59
+    x = rng.uniform(-2.0, 2.0, (500, 4)).astype(np.float32)[:50]
+    xs = [torch.tensor(c) for c in x.T]
+    ut = torch.tensor(rng.uniform(-20.0, 20.0, 500).astype(np.float32)[:50])
+    exact = tdyn.make_cartpole_nonlinear(p, 0.1)(*xs, ut)
+    fast = tdyn.make_cartpole_nonlinear(p, 0.1, fast=True)(*xs, ut)
+    assert any(not torch.equal(a, b) for a, b in zip(exact, fast))
+    for a, b in zip(exact, fast):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=5e-5)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -101,3 +118,85 @@ def test_shaped4_propagates_nan():
     nan = torch.tensor(float("nan"))
     z = torch.tensor(0.0)
     assert torch.isnan(tcosts.shaped4(nan, z, z, z))
+
+
+# The fast tiers outside a kernel: the same polynomials (bit-identical to
+# the JAX package's on float32, see tests/test_torch_kernels.py) and exact
+# division; the band is the exact tier's.
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("which", ["cartpole", "flagship4"])
+def test_controller_models_match_jax(dtype, fast, which):
+    x, u = _states(4)
+    if which == "cartpole":
+        jstep = jdyn.make_cartpole_nonlinear(JParams.single_wheel(), 0.1, fast=fast)
+        tstep = tdyn.make_cartpole_nonlinear(TParams.single_wheel(), 0.1, fast=fast)
+    else:
+        jstep = jdyn.make_flagship4(JParams.two_wheel(), 0.15, fast=fast)
+        tstep = tdyn.make_flagship4(TParams.two_wheel(), 0.15, fast=fast)
+    want = jstep(*(jnp.asarray(c, dtype) for c in x), jnp.asarray(u, dtype))
+    got = tstep(*(torch.tensor(c.astype(dtype)) for c in x), torch.tensor(u.astype(dtype)))
+    for w, g in zip(want, got):
+        assert g.dtype == TDTYPE[dtype]
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **BANDS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("force", ["zero", "tensor"])
+def test_flagship6_matches_jax(dtype, force):
+    """The 6-state plant with the f ≡ 0 specialisation (the UKF's model) and
+    with a force tensor (the plant under the pulse)."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(6, 256)) * np.array([[1.0], [2.0], [5.0], [0.8], [3.0], [10.0]])
+    u = rng.normal(size=256) * 10.0
+    f = rng.normal(size=256) * 2.0
+    jf = 0.0 if force == "zero" else jnp.asarray(f, dtype)
+    tf = 0.0 if force == "zero" else torch.tensor(f.astype(dtype))
+    want = jdyn.make_flagship6(JParams.two_wheel())(
+        *(jnp.asarray(c, dtype) for c in x), jnp.asarray(u, dtype), 0.01, jf)
+    got = tdyn.make_flagship6(TParams.two_wheel())(
+        *(torch.tensor(c.astype(dtype)) for c in x), torch.tensor(u.astype(dtype)), 0.01, tf)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **BANDS[dtype])
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_ddot_force_terms_match_jax(fast):
+    """make_ddot with a nonzero force in both tiers (f64, the same order)."""
+    rng = np.random.default_rng(6)
+    dx, th, dth, u, f = (rng.normal(size=128) for _ in range(5))
+    want = jdyn.make_ddot(JParams.two_wheel(), fast=fast)(*(jnp.asarray(a) for a in (dx, th, dth, u, f)))
+    got = tdyn.make_ddot(TParams.two_wheel(), fast=fast)(*(torch.tensor(a) for a in (dx, th, dth, u, f)))
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **BANDS[np.float64])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_diag4_matches_jax(dtype):
+    x, _ = _states(7)
+    want = jcosts.make_diag4(0.1, 0.1, 1.0, 0.5)(*(jnp.asarray(c, dtype) for c in x))
+    got = tcosts.make_diag4(0.1, 0.1, 1.0, 0.5)(*(torch.tensor(c.astype(dtype)) for c in x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BANDS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("gen, dt", [("gen_q4", 0.01), ("gen_q6", 0.0215), ("gen_q6", 0.1)])
+def test_process_noise_matches_jax(dtype, gen, dt):
+    want = getattr(jnoise, gen)(jnp.asarray(dt, dtype))
+    got = getattr(tnoise, gen)(torch.tensor(dt, dtype=TDTYPE[dtype]))
+    assert got.dtype == TDTYPE[dtype] and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BANDS[dtype])
+    np.testing.assert_array_equal(got.numpy(), got.numpy().T)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("which", ["rpm_gyro4", "imu6"])
+def test_observation_models_match_jax(dtype, which):
+    """Vector form on a (m, B, n) stack, as the UKF applies it."""
+    n, jp, tp = (4, JParams.single_wheel(), TParams.single_wheel()) if which == "rpm_gyro4" else \
+        (6, JParams.two_wheel(), TParams.two_wheel())
+    x = np.random.default_rng(8).normal(size=(9, 16, n)).astype(dtype)
+    want = getattr(jobs, f"make_hx_{which}")(jp)(jnp.asarray(x))
+    got = getattr(tobs, f"make_hx_{which}")(tp)(torch.tensor(x))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BANDS[dtype])
