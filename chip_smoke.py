@@ -6,13 +6,26 @@
 Builds the CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, drives the main paths (the
 ``mppi4-non-liner`` closed loop through the CLI entry function and the
-device-resident chain of the same loop; then the scenario fleet through the
-CLI entry function, cartpole4 over 10 s and flagship6 over 3 s with the
-pulse, at B = 1024, plus short runs of the other samplers and the exact
-tier), and times kernels against plain versions with CUDA events. It prints
-one JSON line per phase, then the kernels line, the ``nvidia-smi`` name and
-power limit, and last the line ``{"ok": true, "device": {...}}``. Any
-failure raises and exits non-zero; so does a machine without CUDA, or a
+device-resident chain of the same loop; the scenario fleet through the CLI
+entry function, cartpole4 over 10 s and flagship6 over 3 s with the pulse,
+at B = 1024, plus short runs of the other samplers and the exact tier; and
+both fleets again on the fused estimator chain), and times kernels against
+plain versions with CUDA events. Each path is driven with the launch counts
+set to 0 just before it and read just after.
+
+Every kernel's entry of the kernels line carries its bound: the larger of
+the operations over the FP32 peak and the bytes over the HBM rate of an
+H100 SXM (NVIDIA's data sheet: 67 TFLOP/s outside the tensor cores,
+3.35 TB/s). The operations are counted on this run's inputs by running the
+plain version under a ``TorchFunctionMode`` that adds up the elements of
+every floating-point arithmetic result (each +, −, ×, ÷, select, clamp and
+transcendental counts one; comparisons and integer ops, such as Philox's,
+are not counted), so the bound is a lower one; the bytes are each input
+read once and each output written once.
+
+It prints one JSON line per phase, then the kernels line, the ``nvidia-smi``
+name and power limit, and last the line ``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero; so does a machine without CUDA, or a
 directory without the ``mpc_rs_tpu_torch`` package. Imports nothing of JAX.
 """
 
@@ -25,6 +38,7 @@ import sys
 import time
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 N = 8
 X0 = (0.5, 0.0, 0.1, 0.0)
@@ -32,8 +46,12 @@ F32_BAND = dict(rtol=1e-3, atol=2e-4)  # the JAX package's band (tests/test_pall
 SOURCE = "mpc_rs_tpu_torch/ops/csrc/mppi_kernels.cu"
 FASTMATH_SOURCE = "mpc_rs_tpu_torch/ops/csrc/fastmath.cuh"
 COMMON_SOURCE = "mpc_rs_tpu_torch/ops/csrc/mppi_common.cuh"  # the partials kernel, the samplers
+ESTIMATOR_SOURCE = "mpc_rs_tpu_torch/ops/csrc/estimator_chain.cuh"
 PALLAS = "mpc_rs_tpu/ops/mppi_pallas.py"
-SAMPLER_LINES = {"box-muller": 194, "clt4": 140, "clt4a": 150, "wallace": 238}  # _fill_vbuf branches
+SAMPLER_LINES = {"box-muller": 194, "clt4": 140, "clt2q": 179, "clt4a": 150, "box-muller-a": 208,
+                 "wallace": 238}  # _fill_vbuf branches
+PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet)
+PEAK_HBM = 3.35e12  # bytes/s, H100 SXM HBM3
 
 
 def emit(obj) -> None:
@@ -88,6 +106,48 @@ def device_ms(fn, reps: int = 20) -> float:
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA)
     return us / reps / 1e3
+
+
+class _FlopCount(TorchFunctionMode):
+    """Adds up the elements of every floating-point arithmetic result (and
+    the input elements of every reduction) computed under it."""
+
+    ELEMENTWISE = {"add", "sub", "mul", "div", "__radd__", "__rsub__", "__rmul__", "__rdiv__",
+                   "__rtruediv__", "neg", "pow", "square", "sqrt", "rsqrt", "reciprocal", "sin", "cos",
+                   "exp", "log", "abs", "sign", "clamp", "maximum", "minimum", "where"}
+    REDUCTIONS = {"sum", "amax", "amin", "mean"}
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = getattr(func, "__name__", "")
+        if isinstance(out, torch.Tensor) and out.is_floating_point():
+            if name in self.ELEMENTWISE:
+                self.flops += out.numel()
+            elif name in self.REDUCTIONS and isinstance(args[0], torch.Tensor):
+                self.flops += args[0].numel()
+        return out
+
+
+def flops_of(fn) -> int:
+    """The floating-point operations of one call of the plain version ``fn``."""
+    with _FlopCount() as count:
+        fn()
+    return count.flops
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, n_bytes: float) -> dict:
+    """The least time of the work on an H100 SXM, and what sets it."""
+    t_ops, t_bytes = flops / PEAK_FP32, n_bytes / PEAK_HBM
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": n_bytes}
 
 
 def nvidia_smi_line() -> str:
@@ -208,7 +268,7 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
             got_u, got_st = mppi_cuda.finalize_batch_fused(cfg, parts)
             words = mppi_cuda.batch_noise(cfg, m, seeds, sampler)
             noise_err = max_err(out, words)
-            if sampler in ("clt4", "clt4a"):
+            if sampler in ("clt4", "clt2q", "clt4a"):  # integer ops and a polynomial: the same bits
                 check(torch.equal(out, words), f"{sampler}: kernel noise differs from the plain words")
             else:
                 check(noise_err < 1e-4, f"{sampler} fast={fast}: kernel noise vs plain {noise_err}")
@@ -223,9 +283,9 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
                   f"{sampler} moments: mean {mean} var {var} kurtosis {kurt}")
             row = {"phase": "batch_sampler", "sampler": sampler, "fast": fast, "b": b, "k": k,
                    "noise_max_abs_err": noise_err, "max_abs_err": err, "mean": mean, "var": var, "kurtosis": kurt}
-            if sampler == "clt4a":
+            if sampler in ("clt4a", "box-muller-a"):
                 row["pair_sum_max_abs"] = float((out[:, 0::2] + out[:, 1::2]).abs().max())
-                check(row["pair_sum_max_abs"] == 0.0, "clt4a: a pair's noise does not sum to exactly 0")
+                check(row["pair_sum_max_abs"] == 0.0, f"{sampler}: a pair's noise does not sum to exactly 0")
             emit(row)
             del out, words
 
@@ -250,6 +310,8 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
         (["--model", "flagship6", "--t-end", "3"], 0.95),
         (["--model", "cartpole4", "--t-end", "2", "--no-fast-math"], 0.99),  # exact tier, wallace
         (["--model", "flagship6", "--t-end", "1.5", "--sampler", "box-muller"], 0.95),
+        (["--model", "cartpole4", "--t-end", "1", "--sampler", "clt2q"], 0.99),
+        (["--model", "flagship6", "--t-end", "1", "--sampler", "box-muller-a"], 0.95),
     )
     mppi_cuda.reset_launches()
     ticks = 0
@@ -294,11 +356,14 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
                                                                           sampler=sampler))
         solve_dev = device_ms(lambda: mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, seeds=seeds,
                                                                        sampler=sampler))
-        plain_t = median_ms(lambda: plain_solve(cfg, m, xs, u_ns, mppi_cuda.batch_noise(cfg, m, seeds, sampler),
-                                                torch.float32), reps=5, warmup=1)
+        plain = lambda: plain_solve(cfg, m, xs, u_ns, mppi_cuda.batch_noise(cfg, m, seeds, sampler),  # noqa: E731
+                                    torch.float32)
+        plain_t = median_ms(plain, reps=5, warmup=1)
         kern2 = median_ms(lambda: mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, seeds=seeds,
                                                                    sampler=sampler), reps=50)
-        timing[label] = (min(kern, kern2), plain_t)
+        # in: xs, u_ns, seeds; out: u_n' (B, N), status (B,)
+        timing[label] = (min(kern, kern2), plain_t,
+                         bound(flops_of(plain), nbytes(xs, u_ns, seeds, u_ns, seeds)))
         emit({"phase": "timing_batch", "shape": label, "b": b, "k": k, "fast": fast, "sampler": sampler,
               "kernel_us_per_solve": [1e3 * kern, 1e3 * kern2], "device_us_partials": 1e3 * parts_dev,
               "device_us_finalize": 1e3 * (solve_dev - parts_dev), "plain_us_per_solve": 1e3 * plain_t,
@@ -306,25 +371,136 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
     a = 200.0 * torch.rand(n_pts, generator=gen, device=dev) - 100.0
     fm_kern = median_ms(lambda: mppi_cuda.fastmath_eval("fsin", a), reps=50)
     fm_plain = median_ms(lambda: fastmath.fsin(a), reps=20)
+    fm_library = median_ms(lambda: torch.sin(a), reps=50)
+    fm_bound = bound(flops_of(lambda: fastmath.fsin(a)), 2 * nbytes(a))
     emit({"phase": "timing_fastmath", "fn": "fsin", "points": n_pts, "kernel_us": 1e3 * fm_kern,
-          "plain_us": 1e3 * fm_plain, **card})
+          "plain_us": 1e3 * fm_plain, "library_us_torch_sin": 1e3 * fm_library, **fm_bound, **card})
+
+    def timed(label):
+        kern, plain_t, bnd = timing[label]
+        return {"ms": kern, "plain_ms": plain_t, "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+                "library_ms": None}
 
     fleet_launches = counts["mppi_batch_partials_fused"]
     return [
         {"name": "mppi_partials_kernel+fleet_finalize_kernel (K5, mppi_solve_batch_fused)", "route": "cuda",
          "source": SOURCE, "replaces": f"{PALLAS}:692", "launches": fleet_launches,
-         "max_abs_err": batch_err, "ms": timing["flagship6"][0], "plain_ms": timing["flagship6"][1]},
+         "max_abs_err": batch_err, **timed("flagship6")},
         {"name": "mppi_partials_kernel+fleet_finalize_kernel, multi-block K (K6)", "route": "cuda",
          "source": SOURCE, "replaces": f"{PALLAS}:739", "launches": fleet_launches,
-         "max_abs_err": batch_err, "ms": timing["multi_block"][0], "plain_ms": timing["multi_block"][1]},
+         "max_abs_err": batch_err, **timed("multi_block")},
         *({"name": f"mppi_partials_kernel sampler={s_} (K3, _fill_vbuf)", "route": "cuda",
            "source": COMMON_SOURCE, "replaces": f"{PALLAS}:{SAMPLER_LINES[s_]}",
-           "launches": counts[f"sampler:{s_}"], "max_abs_err": sampler_err[s_],
-           "ms": timing["cartpole4:" + s_][0], "plain_ms": timing["cartpole4:" + s_][1]}
+           "launches": counts[f"sampler:{s_}"], "max_abs_err": sampler_err[s_], **timed("cartpole4:" + s_)}
           for s_ in philox.SAMPLERS),
         {"name": "fastmath.cuh fsin/fcos/flog/frsqrt/fsqrt/freciprocal/fdiv (K4, fast tier)", "route": "cuda",
          "source": FASTMATH_SOURCE, "replaces": "mpc_rs_tpu/ops/fastmath.py:64",
-         "launches": counts["fast_tier"], "max_abs_err": fm_err, "ms": fm_kern, "plain_ms": fm_plain},
+         "launches": counts["fast_tier"], "max_abs_err": fm_err, "ms": fm_kern, "plain_ms": fm_plain,
+         "bound_ms": fm_bound["bound_ms"], "bound_by": fm_bound["bound_by"], "library_ms": fm_library},
+    ]
+
+
+def estimator_phases(dev: torch.device, card: dict) -> list[dict]:
+    """The fused estimator chain (K7): each fleet model's kernel against its
+    plain version at B = 1024 and at B = 1000 (a masked tail) with a NaN
+    estimate in scenario 5, the timings, then both fleets on the chain as a
+    main path. Returns the kernels line's entries."""
+    from mpc_rs_tpu_torch.apps.fleet import build_fleet, run_fleet
+    from mpc_rs_tpu_torch.ops import estimator_cuda, mppi_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def inputs(fl, b):
+        """A perturbed carry, u0 as the column of the nominals the tick
+        passes, the flagship's clock inside the pulse, the sensor normals."""
+        c, chain = fl.carry, fl.tick.chain
+        n = c.ukf.x.shape[1]
+        x = c.x + 0.05 * torch.randn(c.x.shape, generator=gen, device=dev)
+        ex = c.ukf.x + 0.05 * torch.randn(c.ukf.x.shape, generator=gen, device=dev)
+        ex[5, 0] = float("nan")
+        a = torch.randn((b, n, n), generator=gen, device=dev)
+        p = (1e-3 * a @ a.transpose(1, 2) + 0.05 * torch.eye(n, device=dev)).permute(1, 2, 0)
+        u = torch.randn((b, N), generator=gen, device=dev)
+        t = torch.full((b,), 1.2, device=dev)
+        noise = torch.randn((chain.n_substeps * chain.sig.shape[0], b), generator=gen, device=dev)
+        return x, ex, p.reshape(n * n, b).contiguous(), u[:, 0], t, noise
+
+    # E1. the kernel against the plain version in float32 (the band) and in
+    # float64 (within twice the plain float32 version's own distance)
+    err, timing = {}, {}
+    for model in ("cartpole4", "flagship6"):
+        for b in (1024, 1000):
+            fl = build_fleet(model, None, dev, scenarios=b, estimator_chain=True)
+            chain = fl.tick.chain
+            args = inputs(fl, b)
+            got = estimator_cuda.estimator_chain_fused(chain, *args)
+            want = estimator_cuda.estimator_chain_plain(chain, *args)
+            f64 = estimator_cuda.estimator_chain_plain(chain, *(a_.double() for a_ in args))
+            row = {"phase": "estimator_chain", "model": model, "b": b, "n_substeps": chain.n_substeps}
+            for name, g, w32, w64 in zip(("x", "ukf_x", "p"), got, want, f64):
+                row[f"{name}_max_abs_err"] = check_band(g, w32, f"K7 {model} B={b} {name} vs plain")
+                row[f"{name}_f64_err"], row[f"{name}_plain_f64_err"] = max_err(g, w64), max_err(w32, w64)
+                check(row[f"{name}_f64_err"] <= 2.0 * row[f"{name}_plain_f64_err"] + 2e-4,
+                      f"K7 {model} B={b} {name}: {row}")
+                err[model] = max(err.get(model, 0.0), row[f"{name}_max_abs_err"])
+            check(bool(torch.isfinite(got[1]).all()) and bool(torch.isfinite(got[2]).all()),
+                  f"K7 {model} B={b}: the NaN estimate did not come back finite")
+            if chain.n_substeps == 1:  # the guard fired in the last substep
+                check(torch.equal(got[2][:, 5], chain.p_reset.flatten()), f"K7 {model}: P is not p_reset")
+            row["nan_scenario_p_diag"] = got[2][:, 5].reshape(chain.params.n, -1).diagonal().tolist()
+            emit(row)
+            if b == 1024:
+                kern = median_ms(lambda: estimator_cuda.estimator_chain_fused(chain, *args), reps=50)
+                plain_t = median_ms(lambda: estimator_cuda.estimator_chain_plain(chain, *args), reps=3, warmup=1)
+                kern2 = median_ms(lambda: estimator_cuda.estimator_chain_fused(chain, *args), reps=50)
+                dev_ms = device_ms(lambda: estimator_cuda.estimator_chain_fused(chain, *args))
+                bnd = bound(flops_of(lambda: estimator_cuda.estimator_chain_plain(chain, *args)),
+                            nbytes(*args) + nbytes(*got))
+                timing[model] = (min(kern, kern2), plain_t, bnd)
+                emit({"phase": "timing_estimator_chain", "model": model, "b": b, "kernel_us": [1e3 * kern, 1e3 * kern2],
+                      "device_us": 1e3 * dev_ms, "plain_us": 1e3 * plain_t, **bnd, **card})
+
+    # E2. the main path: both fleets on the chain, B = 1024
+    launches = {}
+    for model, t_end, min_survival in (("cartpole4", 10.0, 0.99), ("flagship6", 3.0, 0.95)):
+        fl = build_fleet(model, None, dev, scenarios=1024, estimator_chain=True)
+        torch.cuda.synchronize()
+        mppi_cuda.reset_launches()
+        estimator_cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = run_fleet(fl, t_end=t_end, report_every=1.0)
+        run_s = time.perf_counter() - t0
+        counts = {**mppi_cuda.launches, **estimator_cuda.launches}
+        launches[model] = counts["estimator_chain_fused"]
+        check(res.survival >= min_survival, f"chain fleet {model}: survival {res.survival} < {min_survival}")
+        check(res.statuses_ok, f"chain fleet {model}: a status was not 0")
+        check(bool(torch.isfinite(res.carry.x).all()) and bool(torch.isfinite(res.carry.ukf.x).all()),
+              f"chain fleet {model}: non-finite states")
+        check(counts["estimator_chain_fused"] >= res.ticks and counts["mppi_batch_partials_fused"] >= res.ticks,
+              f"chain fleet {model}: launches {counts} < ticks {res.ticks}")
+        # the device launches of one tick, from the profiler
+        carry = res.carry
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            carry = fl.tick(carry, fl.generator)
+            torch.cuda.synchronize()
+        per_tick = [e.name.split("<")[0].split("(")[0][:60] for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+        tick_ms = [1e3 * t_ for t_ in res.tick_seconds]
+        emit({"phase": "chain_fleet_main_path", "model": model, "scenarios": res.scenarios,
+              "survived": res.scenarios - res.tipped, "ticks": res.ticks, "survival": res.survival,
+              "statuses_ok": res.statuses_ok, "median_max_theta": res.median_max_theta,
+              "tick_ms_median": statistics.median(tick_ms), "tick_ms_p99": sorted(tick_ms)[int(0.99 * len(tick_ms))],
+              "scenario_ticks_per_s": res.scenario_ticks_per_s, "run_s": run_s, "launches": counts,
+              "device_launches_per_tick": len(per_tick), "device_kernels_of_a_tick": per_tick, **card})
+
+    return [
+        {"name": f"estimator_chain_kernel {model} (K7, estimator_chain_fused)", "route": "cuda",
+         "source": ESTIMATOR_SOURCE, "replaces": "mpc_rs_tpu/ops/estimator_pallas.py:211",
+         "launches": launches[model], "max_abs_err": err[model], "ms": timing[model][0],
+         "plain_ms": timing[model][1], "bound_ms": timing[model][2]["bound_ms"],
+         "bound_by": timing[model][2]["bound_by"], "library_ms": None}
+        for model in ("cartpole4", "flagship6")
     ]
 
 
@@ -499,10 +675,12 @@ def main() -> None:
     # timings: kernel and plain, kernel-then-plain in one process on one card
     timing = {}
     xt, u0 = x0(), torch.zeros(N, device=dev)
+    solve_bytes = 2 * nbytes(xt, u0) - nbytes(xt) + 4  # in: x, u_n; out: u_n', the status
     for k in (10_240, 800_000, 819_200):
         kern = median_ms(lambda: mppi_solve_fused(cfg(k), model, xt, u0, seed=3), reps=50)
         plain_t = median_ms(lambda: mppi_cuda.mppi_solve_plain(cfg(k), model, xt, u0, seed=3), reps=10)
-        timing[k] = (kern, plain_t)
+        timing[k] = (kern, plain_t,
+                     bound(flops_of(lambda: mppi_cuda.mppi_solve_plain(cfg(k), model, xt, u0, seed=3)), solve_bytes))
         emit({"phase": "timing_k2", "k": k, "n": N, "kernel_us_per_solve": 1e3 * kern,
               "plain_us_per_solve": 1e3 * plain_t, **card})
     chain_timing = {}
@@ -516,18 +694,63 @@ def main() -> None:
         emit({"phase": "timing_k1", "k": k, "n": N, "j": jj, "kernel_us_per_solve": 1e3 * kern,
               "plain_us_per_solve": 1e3 * plain_t, **card})
 
+    # 7. K2 and K1 in bench.py's two configurations (bench.py:97-101): clt4a
+    # in the fast tier and wallace in the exact tier, the state held. The
+    # kernel's noise comes from the same partials kernel on a grid of one
+    # problem (solve word 0) through the batched entry, which can write it.
+    zeros = torch.zeros(N, device=dev)
+    for sampler, fast in (("clt4a", True), ("wallace", False)):
+        m = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=fast)
+        for k in (10_240, 819_200):
+            out = torch.empty((1, k, N), device=dev)
+            mppi_cuda.mppi_batch_partials_fused(cfg(k), m, x0()[None], zeros[None], sampler=sampler, noise_out=out,
+                                                seeds=torch.tensor([11], dtype=torch.int32, device=dev))
+            words = mppi_cuda.solve_noise(cfg(k), m, 11, 0, sampler, device=dev)
+            noise_err = max_err(out[0], words)
+            check(torch.equal(out[0], words) if sampler == "clt4a" else noise_err < 1e-4,
+                  f"K2 {sampler} fast={fast} K={k}: kernel noise vs plain words {noise_err}")
+            got_u, got_st = mppi_solve_fused(cfg(k), m, x0(), zeros, seed=11, sampler=sampler)
+            want_u, want_st = mppi_cuda.mppi_solve_plain(cfg(k), m, x0().double(), zeros.double(),
+                                                         noise=words.double())
+            check(int(got_st) == int(want_st) == MppiStatus.OK, f"K2 {sampler} K={k} statuses")
+            err = check_band(got_u, want_u, f"K2 {sampler} fast={fast} K={k} vs plain")
+            seeds = torch.arange(8, dtype=torch.int32, device=dev) * 13 + 1
+            chain = mppi_chain_fused(cfg(k), m, x0(), zeros, seeds=seeds, sampler=sampler)
+            u, u0s = zeros, []
+            for j in range(8):
+                u, _ = mppi_solve_fused(cfg(k), m, x0(), u, seed=int(seeds[j]), sampler=sampler)
+                u0s.append(u[0])
+            check(chain.statuses.tolist() == [0] * 8 and torch.equal(chain.u0s, torch.stack(u0s)),
+                  f"K1 {sampler} K={k}: the seeded chain differs from sequential K2 solves")
+            jj = 64
+            kern = median_ms(lambda: mppi_chain_fused(cfg(k), m, xt, u0, n_solves=jj, base_seed=1, sampler=sampler),
+                             reps=5, warmup=1) / jj
+            k2_kern = median_ms(lambda: mppi_solve_fused(cfg(k), m, xt, u0, seed=3, sampler=sampler), reps=20)
+            plain = lambda: mppi_cuda.mppi_solve_plain(cfg(k), m, xt, u0, seed=3, sampler=sampler)  # noqa: E731
+            plain_t = median_ms(plain, reps=5, warmup=1)
+            k2_err = max(k2_err, err)
+            emit({"phase": "k2_k1_bench_config", "sampler": sampler, "fast": fast, "k": k,
+                  "noise_max_abs_err": noise_err, "max_abs_err": err, "chain_equals_sequential_k2": True,
+                  "k1_kernel_us_per_solve": 1e3 * kern, "k2_kernel_us_per_call": 1e3 * k2_kern,
+                  "plain_us_per_solve": 1e3 * plain_t, **bound(flops_of(plain), solve_bytes), **card})
+
     fleet = fleet_phases(dev, card)
+    estimator = estimator_phases(dev, card)
 
     emit({"kernels": [
         {"name": "mppi_partials_kernel+mppi_finalize_kernel (K2, mppi_solve_fused)", "route": "cuda",
          "source": SOURCE, "replaces": f"{PALLAS}:438",
          "launches": counts["mppi_solve_fused"], "max_abs_err": k2_err,
-         "ms": timing[k_app][0], "plain_ms": timing[k_app][1]},
+         "ms": timing[k_app][0], "plain_ms": timing[k_app][1], "bound_ms": timing[k_app][2]["bound_ms"],
+         "bound_by": timing[k_app][2]["bound_by"], "library_ms": None},
         {"name": "mpc_mppi_chain (K1, mppi_chain_fused)", "route": "cuda",
          "source": SOURCE, "replaces": f"{PALLAS}:1004",
          "launches": counts["mppi_chain_fused"], "max_abs_err": k1_err,
-         "ms": chain_timing[k_app][0], "plain_ms": chain_timing[k_app][1]},
+         "ms": chain_timing[k_app][0], "plain_ms": chain_timing[k_app][1],
+         "bound_ms": timing[k_app][2]["bound_ms"], "bound_by": timing[k_app][2]["bound_by"],
+         "library_ms": None},
         *fleet,
+        *estimator,
     ]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

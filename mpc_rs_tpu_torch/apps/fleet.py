@@ -14,12 +14,15 @@ Port of ``mpc_rs_tpu/apps/fleet.py:58-248,367-421`` (``build_fleet`` and
 
 Both run the fast tier by default (polynomial sin/cos, one approximate
 reciprocal in the kernel) with the clt4 sampler below K=2048 and clt4a from
-K=2048; ``--no-fast-math`` runs the exact tier with wallace. The UKF uses
-α=1, the f32 fleets' spread (``fleet.py:84-98``), and the Jacobi sigma
-root of the SoA estimator.
+K=2048; ``--no-fast-math`` runs the exact tier with wallace, and
+``--sampler`` takes any of the six. The UKF uses α=1, the f32 fleets'
+spread (``fleet.py:84-98``), and the Jacobi sigma root of the SoA
+estimator. ``build_fleet(..., estimator_chain=True)`` runs plant, sensor and
+UKF as the fused estimator chain (K7); it is off by default and has no CLI
+flag, as in the JAX package.
 
-Not ported: the QP fleet, ``--resume`` and checkpoints, the AoS estimator
-layout and the estimator-chain kernel; the CLI has no flags for them.
+Not ported: the QP fleet, ``--resume`` and checkpoints, and the AoS
+estimator layout; the CLI has no flags for them.
 """
 
 from __future__ import annotations
@@ -35,23 +38,14 @@ import torch
 from mpc_rs_tpu_torch.apps.common import Elapsed, resolve_device
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
 from mpc_rs_tpu_torch.estimators.ukf import ukf_init
-from mpc_rs_tpu_torch.models import dynamics, noise, observation
+from mpc_rs_tpu_torch.models import noise
 from mpc_rs_tpu_torch.models.params import CartPoleParams
+from mpc_rs_tpu_torch.ops.estimator_cuda import CartPole4Rpm, Flagship6Imu
 from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Flagship4Diag4
 from mpc_rs_tpu_torch.parallel.scenario import init_scenario_carry, make_scenario_step
 from mpc_rs_tpu_torch.runtime.loop import pulse_disturbance
 
 MODELS = ("cartpole4", "flagship6")
-
-
-def _vector_fn(step, n: int):
-    """Component-wise ``step(*xs, u, *extra)`` as f(x (..., n), u, *extra)."""
-
-    def f(x, u, *extra):
-        out = step(*(x[..., i] for i in range(n)), u, *extra)
-        return torch.stack(torch.broadcast_tensors(*out), dim=-1)
-
-    return f
 
 
 class Fleet(NamedTuple):
@@ -67,9 +61,11 @@ class Fleet(NamedTuple):
 
 def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: int = 1024,
                 feed_true_state: bool = False, fast_math: bool | None = None,
-                sampler: str | None = None, ukf_alpha: float | None = None) -> Fleet:
+                sampler: str | None = None, ukf_alpha: float | None = None,
+                estimator_chain: bool = False) -> Fleet:
     """The tick, the initial float32 carry and a seeded generator of a fleet
-    model on ``device``."""
+    model on ``device``. ``estimator_chain``: the tick runs the fused
+    estimator chain (K7) in place of the torch-op estimator."""
     device = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     fast = True if fast_math is None else fast_math
@@ -78,18 +74,14 @@ def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: 
         dt = 0.01  # 100 Hz control+sensor
         k = k or 8192
         p = CartPoleParams.two_wheel()
-        plant6 = dynamics.make_flagship6(p)
-        plant_fx = _vector_fn(lambda x0, x1, x2, x3, x4, x5, u, f:
-                              plant6(x0, x1, x2, x3, x4, x5, u, dt, f), 6)
-        ukf_fx = _vector_fn(lambda x0, x1, x2, x3, x4, x5, u:
-                            plant6(x0, x1, x2, x3, x4, x5, u, dt, 0.0), 6)
+        est = Flagship6Imu(p, dt)  # plant, UKF process model and sensor
         ctrl = Flagship4Diag4(p, 1.2 / 8, (0.1, 0.1, 1.0, 0.5), fast=fast)
-        hx = observation.make_hx_imu6(p)
         sens = torch.tensor([200.0, 200.0, 10.0, 0.05, 0.05], **f32)
         p0 = 0.1 * torch.eye(6, **f32)
         # ~2.15·dt in gen_q6's dt powers: absorbs the unmodeled 2 N push
         q = noise.gen_q6(torch.tensor(2.15 * dt, **f32))
-        params, ukf0 = ukf_init(torch.zeros(6, **f32), p0, q, torch.diag(sens), alpha=alpha)
+        r = torch.diag(sens)
+        params, ukf0 = ukf_init(torch.zeros(6, **f32), p0, q, r, alpha=alpha)
         cfg = MppiConfig(n_horizon=8, n_rollouts=k, lambda_=1.4, std_dev=4.0, limit=(-10.0, 10.0))
         kw = dict(state_slice=(0, 1, 3, 4), n_substeps=1, disturbance=pulse_disturbance(1.0, 1.5, 2.0))
         x0 = torch.zeros(6, **f32)
@@ -100,21 +92,24 @@ def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: 
         k = k or 1024
         p = CartPoleParams.single_wheel()
         ctrl = CartPoleShaped4(p, 0.1, fast=fast)
-        plant_fx = ukf_fx = _vector_fn(dynamics.make_cartpole_nonlinear(p, dt / n_sub), 4)
-        hx = observation.make_hx_rpm_gyro4(p)
+        est = CartPole4Rpm(p, dt / n_sub)
         sens = torch.tensor([50.0, 50.0, 0.5], **f32)
         x0 = torch.tensor([0.5, 0.0, 0.1, 0.0], **f32)
         p0 = 0.1 * torch.eye(4, **f32)
         q = noise.gen_q4(dt / n_sub, dtype=torch.float32).to(device)
-        params, ukf0 = ukf_init(x0, p0, q, torch.diag(sens * sens), alpha=alpha)
+        r = torch.diag(sens * sens)
+        params, ukf0 = ukf_init(x0, p0, q, r, alpha=alpha)
         cfg = MppiConfig(n_horizon=8, n_rollouts=k, lambda_=0.5, std_dev=10.0, limit=(-10.0, 10.0))
-        kw = dict(n_substeps=n_sub)
+        kw = dict(n_substeps=n_sub, disturbance=None)
         theta_idx, guard = 2, math.radians(60.0)
     else:
         raise ValueError(f"unknown fleet model {model!r}; choose from {MODELS}")
     sampler = sampler or (("clt4a" if k >= 2048 else "clt4") if fast else "wallace")
-    tick = make_scenario_step(cfg, ctrl, plant_fx, params, ukf_fx, hx, sens, dt_tick=dt,
-                              ukf_p_reset=p0, feed_true_state=feed_true_state, sampler=sampler, **kw)
+    plant_fx = est.plant_fx if kw["disturbance"] is not None else est.fx
+    tick = make_scenario_step(cfg, ctrl, plant_fx, params, est.fx, est.hx, sens, dt_tick=dt,
+                              ukf_p_reset=p0, feed_true_state=feed_true_state, sampler=sampler,
+                              estimator_chain=estimator_chain, chain_model=est, ukf_q_const=q,
+                              ukf_r_const=r, **kw)
     carry = init_scenario_carry(scenarios, x0, torch.zeros(8, **f32), ukf0)
     gen = torch.Generator(device=device).manual_seed(seed)
     return Fleet(tick, carry, gen, dt, theta_idx, guard, cfg, sampler)

@@ -18,7 +18,9 @@ one tensor. The algorithm and its f32 safeguards are the JAX package's:
 
 The k-sums over sigma points are sequential accumulations in the JAX
 package's order; the sums over observation components run in the order of
-its Python ``sum``. The TPU layout forms (``mode="entry"``, the (B/128, 128)
+its Python ``sum``. The mean's pair sum is ``torch.sum`` by default and
+sequential with ``unroll_sum=True``, the form the fused estimator chain
+(``ops/estimator_cuda.py``) computes. The TPU layout forms (``mode="entry"``, the (B/128, 128)
 tiles of ``rest_soa``) are not ported: on the GPU the batch is simply the
 minor axis.
 
@@ -54,16 +56,28 @@ def _sigma_points(c: float, x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.cat([x0, x0 + deltas, x0 - deltas]).transpose(0, 1)
 
 
-def _ut(params: UkfParams, fm: torch.Tensor, cov: torch.Tensor):
+def _ut(params: UkfParams, fm: torch.Tensor, cov: torch.Tensor, unroll_sum: bool = False):
     """Unscented transform of component-stacked sigma values fm (dim, m, B)
     plus the additive (dim, dim) ``cov``. Returns (mean (dim, B), the shift
-    pieces (d (2n, dim, B), e (dim, B), s_d (dim, B)), P (dim, dim, B))."""
+    pieces (d (2n, dim, B), e (dim, B), s_d (dim, B)), P (dim, dim, B)).
+
+    ``unroll_sum``: the mean's pair sums are added one after another, in
+    pair order, as the fused estimator chain adds them (``ukf_soa.py:141-155``);
+    otherwise ``torch.sum``, as the JAX package's default tier. The order
+    alone can move a marginal low-B fleet seed (``ukf_soa.py:145-148``)."""
     n = params.n
     wm1, wc1 = params.wm[1], params.wc[1]
     sum_wc = 1.0 + (params.wc[0] - params.wm[0])  # = 2+β−α², cancellation-free
     s0 = fm[:, 0]
     deltas = fm[:, 1:] - fm[:, :1]
-    mean = s0 + wm1 * torch.sum(deltas[:, :n] + deltas[:, n:], dim=1)
+    pairs = deltas[:, :n] + deltas[:, n:]
+    if unroll_sum:
+        acc = pairs[:, 0]
+        for i in range(1, n):
+            acc = acc + pairs[:, i]
+    else:
+        acc = torch.sum(pairs, dim=1)
+    mean = s0 + wm1 * acc
     d = deltas.transpose(0, 1)
     e = mean - s0
     sd = d[0]
@@ -117,24 +131,25 @@ def _chol_solve_equilibrated(pz: torch.Tensor, rhs: torch.Tensor) -> torch.Tenso
 
 
 def soa_predict(params: UkfParams, state: SoaUkfState, u: torch.Tensor, fx: Callable,
-                q: torch.Tensor) -> SoaUkfState:
+                q: torch.Tensor, unroll_sum: bool = False) -> SoaUkfState:
     """Time update (src/ukf.rs:44-52): sigma points through ``fx`` with the
-    (B,) control ``u``, then the UT with the additive (n, n) ``q``."""
+    (B,) control ``u``, then the UT with the additive (n, n) ``q``.
+    ``unroll_sum``: see ``_ut``."""
     pts = _sigma_points(params.c, state.x, state.p)
     fm = fx(pts.permute(1, 2, 0), u).permute(2, 0, 1)
-    mean, _, pmat = _ut(params, fm, q)
+    mean, _, pmat = _ut(params, fm, q, unroll_sum)
     return SoaUkfState(x=mean, p=pmat, sigma_f=fm)
 
 
 def soa_update(params: UkfParams, state: SoaUkfState, z: torch.Tensor, hx: Callable,
-               r: torch.Tensor) -> SoaUkfState:
+               r: torch.Tensor, unroll_sum: bool = False) -> SoaUkfState:
     """Measurement update (src/ukf.rs:54-74) for z (o, B): UT of
     hx(sigma_f), shifted cross-covariance, equilibrated-Cholesky gain,
-    symmetrized covariance."""
+    symmetrized covariance. ``unroll_sum``: see ``_ut``."""
     n = params.n
     sf = state.sigma_f
     hm = hx(sf.permute(1, 2, 0)).permute(2, 0, 1)
-    zp, (dh, eh, sdh), pz = _ut(params, hm, r)
+    zp, (dh, eh, sdh), pz = _ut(params, hm, r, unroll_sum)
     wc1 = params.wc[1]
     sum_wc = 1.0 + (params.wc[0] - params.wm[0])
     df = (sf[:, 1:] - sf[:, :1]).transpose(0, 1)  # (2n, n, B)

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``ops/csrc/mppi_kernels.cu``).
+"""Build and load the port's CUDA kernels (``ops/csrc/mppi_kernels.cu`` and
+the headers it includes).
 
 The source is compiled with one ``nvcc`` into a shared library with a plain
 C interface, loaded through ``ctypes``. The build runs at first use and is
@@ -23,8 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCE = "mppi_kernels.cu"  # K1/K2, the fleet's K5/K6 and the fast-math probe
-HEADERS = ("mppi_common.cuh", "fastmath.cuh")
+SOURCE = "mppi_kernels.cu"  # K1/K2, the fleet's K5/K6 and K7, the fast-math probe
+HEADERS = ("mppi_common.cuh", "fastmath.cuh", "estimator_chain.cuh")
 
 # No --use_fast_math (sinf/cosf/logf/expf and '/' stay the accurate forms;
 # the fast tier writes its polynomials and rcp.approx out in fastmath.cuh),
@@ -93,24 +94,31 @@ def load_library() -> ctypes.CDLL:
     so, _ = build()
     lib = ctypes.CDLL(str(so))
     lib.mpc_mppi_solve.argtypes = [
-        _P, _I, _I, _F, _F, _F, _F, _F,  # consts, n, k, lambda, inv, lo, hi, std_dev
+        _P, _I, _I, _P,  # model consts, fast, sampler, sampler consts
+        _I, _I, _F, _F, _F, _F, _F,  # n, k, lambda, inv, lo, hi, std_dev
         _P, _P, _P, _P, _I, _U, _U,  # x, u_n, noise, seeds, seed_index, base_seed, solve_word
         _P, _P, _P, _P,  # partials, u_out, status, stream
     ]
     lib.mpc_mppi_solve.restype = _I
     lib.mpc_mppi_chain.argtypes = [
-        _P, _I, _I, _F, _F, _F, _F, _F,  # consts, n, k, lambda, inv, lo, hi, std_dev
+        _P, _I, _I, _P,  # model consts, fast, sampler, sampler consts
+        _I, _I, _F, _F, _F, _F, _F,  # n, k, lambda, inv, lo, hi, std_dev
         _P, _P, _P, _P, _U, _I, _I,  # x, u_n, noise, seeds, base_seed, n_solves, plant
         _P, _P, _P, _P,  # partials, u0s, statuses, stream
     ]
     lib.mpc_mppi_chain.restype = _I
     lib.mpc_fleet_partials.argtypes = [
-        _I, _I, _I, _P, _P,  # model, fast, sampler, model_consts, cost_consts
+        _I, _I, _I, _P, _P, _P,  # model, fast, sampler, model, cost and sampler consts
         _I, _I, _I, _F, _F, _F, _F, _F,  # n, b, k, lambda, inv, lo, hi, std_dev
-        _F, _F, _F,  # clt_a, clt_b, mix
         _P, _P, _P, _P, _P, _P, _P,  # x, u_n, noise, seeds, partials, noise_out, stream
     ]
     lib.mpc_fleet_partials.restype = _I
+    lib.mpc_estimator_chain.argtypes = [
+        _I, _I, _P, _P, _P, _I,  # model, n_sub, plant, obs and chain consts, b
+        _P, _P, _P, _P, _I, _P, _P,  # x, ex, p, u0, u_stride, t, noise
+        _P, _P, _P, _P,  # x_out, ex_out, p_out, stream
+    ]
+    lib.mpc_estimator_chain.restype = _I
     lib.mpc_fleet_finalize.argtypes = [_I, _I, _I, _F, _P, _P, _P, _P]
     lib.mpc_fleet_finalize.restype = _I
     lib.mpc_fastmath_eval.argtypes = [_I, _I, _P, _P, _P, _P]

@@ -101,18 +101,49 @@ struct Flagship4Consts {
   float dt;
 };
 
+// make_ddot's exact tier (dynamics.py:126-157): (ddot_x, ddot_theta) from
+// (theta, dtheta, u). WithForce adds the terms of a disturbance force f
+// (the flagship6 plant, with mll_j2 = m2·l² + j2); without it f ≡ 0 is
+// specialised away, as the JAX trace does for a literal 0.0 (the controller
+// rollout and the UKF process model).
+template <bool WithForce>
+__device__ __forceinline__ void flagship_ddot_exact(const Flagship4Consts& k, float mll_j2,
+                                                    float theta, float dtheta, float u, float f,
+                                                    float& ddx, float& ddth) {
+  float s, c;
+  sincos_tier<false>(theta, s, c);
+  const float mc = k.ml * c;
+  const float d = k.d1 - mc * mc;
+  const float term1 = k.k1 / d * dtheta * dtheta * s;
+  const float term2 = k.k2 / d * s * c;
+  const float term3 = k.k3 / (d * k.r_w) * k.kt * u;
+  ddx = term1 + term2 + term3;
+  float cdt = 0.0f;
+  if constexpr (WithForce) {
+    cdt = cosf(dtheta);
+    ddx = ddx + mll_j2 / d * f * cdt;
+  }
+  const float t1 = k.k4 / d * dtheta * dtheta * s * c;
+  float fs = k.k5 * s;
+  if constexpr (WithForce) fs = fs - 2.0f * f;
+  const float t2 = fs * k.l * k.mlt / d;
+  const float t3 = k.k6 / (d * k.r_w) * k.kt * u * c;
+  ddth = t1 + t2 + t3;
+  if constexpr (WithForce) ddth = ddth - k.ml * f * (cdt * cdt) / d;
+}
+
 template <bool Fast>
 struct Flagship4 {
   Flagship4Consts k;
 
   __device__ __forceinline__ void step(float& x0, float& x1, float& x2, float& x3,
                                        float u) const {
-    float s, c;
-    sincos_tier<Fast>(x2, s, c);
-    const float mc = k.ml * c;
-    const float d = k.d1 - mc * mc;
     float ddx, ddth;
     if constexpr (Fast) {
+      float s, c;
+      sincos_tier<Fast>(x2, s, c);
+      const float mc = k.ml * c;
+      const float d = k.d1 - mc * mc;
       const float inv_d = fm::freciprocal(d);
       const float num_x = k.k1 * x3 * x3 * s - k.k7 * s * c + k.k8 * u;
       const float fs = k.k5 * s;
@@ -120,15 +151,7 @@ struct Flagship4 {
       ddx = inv_d * num_x;
       ddth = inv_d * num_th;
     } else {
-      const float term1 = k.k1 / d * x3 * x3 * s;
-      const float term2 = k.k2 / d * s * c;
-      const float term3 = k.k3 / (d * k.r_w) * k.kt * u;
-      ddx = term1 + term2 + term3;
-      const float t1 = k.k4 / d * x3 * x3 * s * c;
-      const float fs = k.k5 * s;
-      const float t2 = fs * k.l * k.mlt / d;
-      const float t3 = k.k6 / (d * k.r_w) * k.kt * u * c;
-      ddth = t1 + t2 + t3;
+      flagship_ddot_exact<false>(k, 0.0f, x2, x3, u, 0.0f, ddx, ddth);
     }
     const float n3 = x3 + ddth * k.dt;
     const float n2 = x2 + n3 * k.dt;
@@ -280,9 +303,13 @@ __device__ __forceinline__ int status_ladder(float m_all, const float* tot, floa
   return st;
 }
 
-enum Sampler : int { kExternal = 0, kBoxMuller = 1, kClt4 = 2, kClt4a = 3, kWallace = 4 };
+// Appended in order: a sampler keeps its ID (ops/mppi_cuda.py _SAMPLER_IDS).
+enum Sampler : int {
+  kExternal = 0, kBoxMuller = 1, kClt4 = 2, kClt4a = 3, kWallace = 4, kClt2q = 5, kBoxMullerA = 6
+};
 
 constexpr float kCltInvSig = 0x1.bb688cp-8f;  // f32(1/sqrt(4 (256² − 1)/12))
+constexpr float kTriInvSig = 0x1.39897ep-7f;  // f32(1/sqrt(2 (256² − 1)/12))
 constexpr int kWallacePeriod = 8;
 
 struct PartialsArgs {
@@ -294,6 +321,9 @@ struct PartialsArgs {
   float clt_a;    // f32(_CLT_A * sigma), clt4/clt4a
   float clt_b;    // f32(_CLT_B * sigma), clt4/clt4a
   float mix;      // f32(sigma / sqrt 2), wallace
+  float tri_a;    // f32(_TRI_A * sigma), clt2q
+  float tri_b;    // f32(_TRI_B * sigma), clt2q
+  float tri_c;    // f32(_TRI_C * sigma), clt2q
 };
 
 // clt4: the sum of four 8-bit uniforms of one word, then the cubic
@@ -305,9 +335,17 @@ __device__ __forceinline__ float clt4(uint32_t w, float ca, float cb) {
   return z * (ca + cb * (z * z));
 }
 
+// clt2q: the sum of two 8-bit uniforms (a 16-bit half h of x2), then the
+// quintic (mppi_pallas.py:179-193).
+__device__ __forceinline__ float clt2q(uint32_t h, const PartialsArgs& a) {
+  const float z = ((float)(int)h - 255.0f) * kTriInvSig;
+  const float s = z * z;
+  return z * (a.tri_a + s * (a.tri_b + a.tri_c * s));
+}
+
 // The noise e[0..N-1] of rollout k (before u_n and the clamp): Philox key
 // `key`, counter (rollout or pair, call, word, 0), the branches of _fill_vbuf
-// (mppi_pallas.py:125-284) that the port has.
+// (mppi_pallas.py:125-284).
 template <int N, bool Fast, int S>
 __device__ __forceinline__ void sample(float (&e)[N], uint32_t k, uint32_t key, uint32_t word,
                                        const PartialsArgs& a) {
@@ -327,6 +365,51 @@ __device__ __forceinline__ void sample(float (&e)[N], uint32_t k, uint32_t key, 
           if (t + 1 < N) e[t + 1] = z1;
         }
       }
+    }
+  } else if constexpr (S == kClt2q) {
+    // two normals per word, steps 8c + 2i and 8c + 2i + 1 from word i
+#pragma unroll
+    for (int c = 0; c < (N + 7) / 8; ++c) {
+      uint32_t w[4] = {k, (uint32_t)c, word, 0u};
+      philox4x32_10(w, key, 0u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = 8 * c + 2 * i;
+        const uint32_t x2 = (w[i] & 0x00FF00FFu) + ((w[i] >> 8) & 0x00FF00FFu);
+        if (t < N) e[t] = clt2q(x2 & 0xFFFFu, a);
+        if (t + 1 < N) e[t + 1] = clt2q(x2 >> 16, a);
+      }
+    }
+  } else if constexpr (S == kBoxMullerA) {
+    // rollouts 2j (+eps) and 2j+1 (-eps) share pair j's box-muller normals;
+    // as in clt4a, each lane of the pair makes the calls of its own parity
+    // (one log, sqrt and sincos per two steps) and they swap halves
+    const uint32_t parity = k & 1u;
+    float own[N];
+#pragma unroll
+    for (int t = 0; t < N; ++t) own[t] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kCalls; ++c) {
+      if ((uint32_t)(c & 1) == parity) {
+        uint32_t w[4] = {k >> 1, (uint32_t)c, word, 0u};
+        philox4x32_10(w, key, 0u);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int t = 4 * c + 2 * p;
+          if (t < N) {
+            float z0, z1;
+            box_muller<Fast>(w[2 * p], w[2 * p + 1], a.std_dev, z0, z1);
+            own[t] = z0;
+            if (t + 1 < N) own[t + 1] = z1;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      const float other = __shfl_xor_sync(kFullMask, own[t], 1);
+      const float eps = (uint32_t)((t / 4) & 1) == parity ? own[t] : other;
+      e[t] = parity ? -eps : eps;
     }
   } else if constexpr (S == kClt4) {
 #pragma unroll

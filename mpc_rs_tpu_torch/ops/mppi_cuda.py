@@ -20,9 +20,10 @@ wrapper also counts its launches per sampler and in the fast tier.
 
 The kernels are specialised for the models of the apps instead of tracing
 arbitrary callables (``mppi_pallas.py:287-297``): the nonlinear cart-pole
-with ``shaped4`` (``CartPoleShaped4``; K1/K2 take its exact tier only) and
-the flagship controller model with ``diag4`` (``Flagship4Diag4``). Sampling
-is Philox4x32-10 by the contract of ``ops/philox.py``.
+with ``shaped4`` (``CartPoleShaped4``, the one model of K1/K2) and the
+flagship controller model with ``diag4`` (``Flagship4Diag4``), each in the
+exact or the fast tier (``fast``). Sampling is Philox4x32-10 by the contract
+of ``ops/philox.py``, with any of its ``SAMPLERS``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
 from mpc_rs_tpu_torch.models import costs, dynamics
 from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops import fastmath, philox
-from mpc_rs_tpu_torch.ops.philox import philox_normal
 
 BLOCK = 256  # rollouts per block: the kernel's threads per block
 HORIZON = 8  # the one horizon N the kernels are built for (kN in the source)
@@ -205,13 +205,22 @@ def finalize_batch_plain(cfg: MppiConfig, partials: torch.Tensor
     return torch.where((status == MppiStatus.OK)[..., None], u_new, 0.0), status
 
 
+def solve_noise(cfg: MppiConfig, model: CartPoleShaped4, seed: int, solve: int,
+                sampler: str = "box-muller", device=None) -> torch.Tensor:
+    """(K, N) float32 noise that K1/K2 sample in-kernel for one solve: key
+    ``seed``, stream ``solve`` (``ops/philox.py``), the transcendentals of
+    the model's tier."""
+    return philox.sample_noise(sampler, seed, solve, cfg.n_rollouts, cfg.n_horizon, cfg.std_dev,
+                               fast=model.fast, device=device)[0]
+
+
 def mppi_solve_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                      u_n: torch.Tensor, *, seed: int = 0, solve: int = 0,
-                     noise: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                     noise: torch.Tensor | None = None, sampler: str = "box-muller"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``mppi_solve_fused``, in the dtype of ``u_n``."""
     if noise is None:
-        noise = philox_normal(seed, solve, cfg.n_rollouts, cfg.n_horizon, cfg.std_dev,
-                              device=u_n.device)
+        noise = solve_noise(cfg, model, seed, solve, sampler, device=u_n.device)
     eps = noise.to(u_n.dtype)
     return finalize_batch_plain(cfg, mppi_partials_plain(cfg, model, x, u_n, eps))
 
@@ -219,7 +228,8 @@ def mppi_solve_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
 def mppi_chain_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                      u_n: torch.Tensor, *, seeds: torch.Tensor | None = None,
                      n_solves: int | None = None, base_seed: int = 0,
-                     noise: torch.Tensor | None = None, plant: bool = False) -> ChainResult:
+                     noise: torch.Tensor | None = None, plant: bool = False,
+                     sampler: str = "box-muller") -> ChainResult:
     """Plain version of ``mppi_chain_fused``: J sequential plain solves, the
     warm start carried verbatim, the plant stepped in the dtype of ``x``."""
     j_total = _chain_length(seeds, n_solves, noise)
@@ -228,7 +238,7 @@ def mppi_chain_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
     for j in range(j_total):
         seed, solve = (int(seeds[j]), 0) if seeds is not None else (base_seed, j)
         u_n, st = mppi_solve_plain(cfg, model, x, u_n, seed=seed, solve=solve,
-                                   noise=None if noise is None else noise[j])
+                                   noise=None if noise is None else noise[j], sampler=sampler)
         u0s.append(u_n[0])
         statuses.append(st)
         if plant:
@@ -272,13 +282,23 @@ def _library() -> ctypes.CDLL:
     return build.load_library()
 
 
-def _kernel_args(cfg: MppiConfig, model: CartPoleShaped4, x, u_n, noise, noise_shape):
+def _sampler_consts(std_dev: float):
+    """The samplers' σ-scaled constants (``sampler_consts`` of the C entries),
+    each folded in double and rounded to float32 once by ctypes."""
+    sd = std_dev
+    return (ctypes.c_float * 6)(philox._CLT_A * sd, philox._CLT_B * sd, sd / math.sqrt(2.0),
+                                philox._TRI_A * sd, philox._TRI_B * sd, philox._TRI_C * sd)
+
+
+def _kernel_args(cfg: MppiConfig, model: CartPoleShaped4, x, u_n, noise, noise_shape, sampler):
     """Validate for the kernel; return (library, common leading C args)."""
     device = x.device
     if device.type != "cuda":
         raise ValueError(f"the fused kernels take CPU or CUDA tensors, got {device}")
-    if not isinstance(model, CartPoleShaped4) or model.fast:
-        raise ValueError("the K1/K2 kernels are built for the exact-tier CartPoleShaped4 only")
+    if not isinstance(model, CartPoleShaped4):
+        raise ValueError("the K1/K2 kernels are built for CartPoleShaped4 only (either tier)")
+    if sampler not in philox.SAMPLERS:
+        raise ValueError(f"sampler must be one of {philox.SAMPLERS}, got {sampler!r}")
     n, k = cfg.n_horizon, cfg.n_rollouts
     if n != HORIZON:
         raise ValueError(f"no kernel for horizon N={n}; the kernels are built for N={HORIZON}")
@@ -292,7 +312,8 @@ def _kernel_args(cfg: MppiConfig, model: CartPoleShaped4, x, u_n, noise, noise_s
     consts = (ctypes.c_float * 9)(*model.constants())
     lo, hi = cfg.limit
     inv = cfg.std_dev ** -2.0 if cfg.control_inv is None else cfg.control_inv
-    head = (consts, n, k, cfg.lambda_, inv, lo, hi, cfg.std_dev)
+    head = (consts, int(model.fast), _SAMPLER_IDS[sampler], _sampler_consts(cfg.std_dev),
+            n, k, cfg.lambda_, inv, lo, hi, cfg.std_dev)
     return lib, head
 
 
@@ -303,17 +324,20 @@ def _raise_on(err: int, what: str) -> None:
 
 def mppi_solve_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                      u_n: torch.Tensor, *, seed: int = 0, solve: int = 0,
-                     noise: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                     noise: torch.Tensor | None = None, sampler: str = "box-muller"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """One MPPI solve (K2): returns (u_n' (N,), status int32 0-d), with the
     semantics of ``controllers.mppi.mppi_solve`` (zero fallback on failure).
 
     ``noise``: optional (K, N) perturbations, already scaled by σ; without
-    it the kernel samples Philox noise keyed by ``seed`` with ``solve`` in
-    the counter (``ops/philox.py``). CUDA tensors must be float32.
+    it the kernel samples ``sampler``'s Philox noise keyed by ``seed`` with
+    ``solve`` in the counter (``ops/philox.py``). The model's ``fast`` picks
+    the tier of the rollout and the sampling. CUDA tensors must be float32.
     """
     if x.device.type == "cpu":
-        return mppi_solve_plain(cfg, model, x, u_n, seed=seed, solve=solve, noise=noise)
-    lib, head = _kernel_args(cfg, model, x, u_n, noise, (cfg.n_rollouts, cfg.n_horizon))
+        return mppi_solve_plain(cfg, model, x, u_n, seed=seed, solve=solve, noise=noise,
+                                sampler=sampler)
+    lib, head = _kernel_args(cfg, model, x, u_n, noise, (cfg.n_rollouts, cfg.n_horizon), sampler)
     nb = -(-cfg.n_rollouts // BLOCK)
     partials = torch.empty((nb, cfg.n_horizon + 2), dtype=torch.float32, device=x.device)
     u_out = torch.empty_like(u_n)
@@ -333,10 +357,12 @@ def mppi_solve_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
 def mppi_chain_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                      u_n: torch.Tensor, *, seeds: torch.Tensor | None = None,
                      n_solves: int | None = None, base_seed: int = 0,
-                     noise: torch.Tensor | None = None, plant: bool = False) -> ChainResult:
+                     noise: torch.Tensor | None = None, plant: bool = False,
+                     sampler: str = "box-muller") -> ChainResult:
     """J receding-horizon solves (K1), each warm-started verbatim from the
-    last; with ``plant`` the state takes one model step with each solve's
-    u0 (a device-resident closed loop), otherwise x is held.
+    last; with ``plant`` the state takes one step of the model (of its
+    tier) with each solve's u0 (a device-resident closed loop), otherwise x
+    is held. ``sampler`` and the tier as for ``mppi_solve_fused``.
 
     Seeding: ``seeds`` (J,) int32 — solve j keys Philox with seeds[j], and
     draws what ``mppi_solve_fused(seed=seeds[j])`` draws; or ``n_solves``
@@ -347,8 +373,9 @@ def mppi_chain_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
     j = _chain_length(seeds, n_solves, noise)
     if x.device.type == "cpu":
         return mppi_chain_plain(cfg, model, x, u_n, seeds=seeds, n_solves=n_solves,
-                                base_seed=base_seed, noise=noise, plant=plant)
-    lib, head = _kernel_args(cfg, model, x, u_n, noise, (j, cfg.n_rollouts, cfg.n_horizon))
+                                base_seed=base_seed, noise=noise, plant=plant, sampler=sampler)
+    lib, head = _kernel_args(cfg, model, x, u_n, noise, (j, cfg.n_rollouts, cfg.n_horizon),
+                             sampler)
     if seeds is not None:
         _check("seeds", seeds, (j,), torch.int32, x.device)
     nb = -(-cfg.n_rollouts // BLOCK)
@@ -371,7 +398,8 @@ def mppi_chain_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
 # --------------------------------------------------------------------------
 # scenario batch (K5/K6): plain versions and kernel wrappers
 
-_SAMPLER_IDS = {"external": 0, "box-muller": 1, "clt4": 2, "clt4a": 3, "wallace": 4}
+_SAMPLER_IDS = {"external": 0, "box-muller": 1, "clt4": 2, "clt4a": 3, "wallace": 4,
+                "clt2q": 5, "box-muller-a": 6}  # enum Sampler in mppi_common.cuh
 MAX_SCENARIOS = 65535  # the grid's y dimension
 
 
@@ -442,10 +470,9 @@ def mppi_batch_partials_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: to
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mpc_fleet_partials(
-            model.model_id, int(model.fast), _SAMPLER_IDS[name], mc, cc,
+            model.model_id, int(model.fast), _SAMPLER_IDS[name], mc, cc, _sampler_consts(sd),
             n, b, k, cfg.lambda_, sd ** -2.0 if cfg.control_inv is None else cfg.control_inv,
             cfg.limit[0], cfg.limit[1], sd,
-            philox._CLT_A * sd, philox._CLT_B * sd, sd / math.sqrt(2.0),
             _ptr(xs), _ptr(u_ns), _ptr(noise), _ptr(seeds), _ptr(partials), _ptr(noise_out),
             ctypes.c_void_p(stream),
         )

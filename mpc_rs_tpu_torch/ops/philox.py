@@ -2,9 +2,9 @@
 PyTorch.
 
 This is the plain version of the in-kernel samplers of ``ops/csrc/``, which
-replace the TPU hardware PRNG and the ``box-muller``, ``clt4``, ``clt4a`` and
-``wallace`` branches of ``_fill_vbuf`` (``mpc_rs_tpu/ops/mppi_pallas.py:
-98-122,140-178,194-207,238-282``). Kernel and these functions produce the
+replace the TPU hardware PRNG and the six branches of ``_fill_vbuf``
+(``mpc_rs_tpu/ops/mppi_pallas.py:98-122,140-282``): ``box-muller``,
+``clt4``, ``clt2q``, ``clt4a``, ``box-muller-a`` and ``wallace``. Kernel and these functions produce the
 same bits (the float transforms up to the last bit of the library
 transcendentals), so a sampled solve on the card can be checked against the
 plain tier fed this noise, not only by its moments.
@@ -45,8 +45,8 @@ Layout contract (replaces ``_rollout_index``, ``mppi_pallas.py:42-49``, and
   window are pairwise uncorrelated. The pool of a partial last warp is
   drawn for all its 32 rollouts, so the rotation is defined for every k.
 
-``fast=True`` computes the Box-Muller and wallace transcendentals with
-``ops/fastmath.py``, as ``_sampling_math(fast)`` does.
+``fast=True`` computes the transcendentals of box-muller, box-muller-a and
+wallace with ``ops/fastmath.py``, as ``_sampling_math(fast)`` does.
 
 Seeds and streams are taken modulo 2³², so a negative int32 seed keys the
 same stream as its uint32 bit pattern.
@@ -100,7 +100,7 @@ def _bits_to_f32(w: torch.Tensor) -> torch.Tensor:
     return ((w >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32)
 
 
-SAMPLERS = ("box-muller", "clt4", "clt4a", "wallace")
+SAMPLERS = ("box-muller", "clt4", "clt2q", "clt4a", "box-muller-a", "wallace")  # mppi_pallas.py:116
 WALLACE_PERIOD = 8  # mppi_pallas.py:122
 WARP = 32  # the wallace rotation width L
 
@@ -108,6 +108,12 @@ WARP = 32  # the wallace rotation width L
 _CLT_INV_SIG = 1.0 / math.sqrt(4 * (256**2 - 1) / 12.0)
 _CLT_A = 0.949188
 _CLT_B = 0.018629
+
+# CLT2Q constants (mppi_pallas.py:106-114)
+_TRI_INV_SIG = 1.0 / math.sqrt(2 * (256**2 - 1) / 12.0)
+_TRI_A = 1.019453
+_TRI_B = -0.103499
+_TRI_C = 0.029151
 
 
 def _words(keys: torch.Tensor, streams: torch.Tensor, rows: int, calls: int):
@@ -159,6 +165,26 @@ def _clt4(w, k: int, n: int, std_dev: float) -> torch.Tensor:
     return torch.stack(out, dim=-1).flatten(2)[:, :k, :n]
 
 
+def _clt2q(w, k: int, n: int, std_dev: float) -> torch.Tensor:
+    f32 = dict(dtype=torch.float32, device=w[0].device)
+    inv_t = torch.tensor(_TRI_INV_SIG, **f32)
+    qa, qb, qc = (torch.tensor(c * std_dev, **f32) for c in (_TRI_A, _TRI_B, _TRI_C))
+    out = []
+    for wi in w:
+        x2 = (wi & 0x00FF00FF) + ((wi >> 8) & 0x00FF00FF)
+        for half in (x2 & 0xFFFF, x2 >> 16):
+            z = (half.to(torch.float32) - 255.0) * inv_t
+            s = z * z
+            out.append(z * (qa + s * (qb + qc * s)))
+    # (B, K, C, 8) → (B, K, 8C): step 8c + 2i + h is half h of word i of call c
+    return torch.stack(out, dim=-1).flatten(2)[:, :k, :n]
+
+
+def _antithetic(eps: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, ceil(K/2), N) pair noise → (B, K, N): rollout 2j +ε, 2j+1 −ε."""
+    return torch.stack([eps, -eps], dim=2).flatten(1, 2)[:, :k]
+
+
 def _wallace(w, n: int, std_dev: float, fast: bool) -> torch.Tensor:
     log, sqrt, sin, cos = _math(fast)
     f32 = dict(dtype=torch.float32, device=w[0].device)
@@ -194,9 +220,14 @@ def sample_noise(sampler: str, seeds, streams, k: int, n: int, std_dev: float, *
         return _box_muller(_words(keys, streams, k, -(-n // 4)), k, n, std_dev, fast)
     if sampler == "clt4":
         return _clt4(_words(keys, streams, k, -(-n // 4)), k, n, std_dev)
+    if sampler == "clt2q":
+        return _clt2q(_words(keys, streams, k, -(-n // 8)), k, n, std_dev)
     if sampler == "clt4a":
-        eps = _clt4(_words(keys, streams, -(-k // 2), -(-n // 4)), -(-k // 2), n, std_dev)
-        return torch.stack([eps, -eps], dim=2).flatten(1, 2)[:, :k]
+        pairs = -(-k // 2)
+        return _antithetic(_clt4(_words(keys, streams, pairs, -(-n // 4)), pairs, n, std_dev), k)
+    if sampler == "box-muller-a":
+        pairs = -(-k // 2)
+        return _antithetic(_box_muller(_words(keys, streams, pairs, -(-n // 4)), pairs, n, std_dev, fast), k)
     if sampler == "wallace":
         k_pad = -(-k // WARP) * WARP  # whole warps: the rotation stays inside one
         w = _words(keys, streams, k_pad, -(-n // WALLACE_PERIOD))

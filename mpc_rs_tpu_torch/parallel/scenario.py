@@ -4,18 +4,22 @@ Port of ``mpc_rs_tpu/parallel/scenario.py:38-45,47-337,360-386`` for one
 device and the batch-minor (SoA) estimator. Each tick advances B
 independent closed loops: one scenario-batched MPPI solve
 (``ops/mppi_cuda.py::mppi_solve_batch_fused``, the K5/K6 kernel on a CUDA
-device), then ``n_substeps`` of plant → sensor → UKF predict/update/guard.
+device), then ``n_substeps`` of plant → sensor → UKF predict/update/guard:
+in torch ops (the JAX package's ``rest_soa``), or, with
+``estimator_chain=True`` (opt-in, as there), as one call of
+``ops/estimator_cuda.py::estimator_chain_fused`` (its ``rest_chain``: the
+K7 kernel on a CUDA device).
 
 What is not ported: the ``shard_map`` over a (scenario × rollouts) mesh
 (on one device the rollout merge, ``scenario.py:150-158``, is the
-identity), the AoS estimator layout and the fused estimator-chain kernel
-(K7, opt-in in the JAX package).
+identity) and the AoS estimator layout.
 
 Randomness comes from an explicit ``torch.Generator`` on the carry's
 device: per tick one (B,) int32 draw of kernel seeds (scenario b keys its
-Philox stream with seeds[b]) and, per substep, (B, o) standard normals of
-sensor noise. ``step(..., mppi_noise=, sensor_noise=)`` replaces both, so a
-test can feed the JAX package and the port the same numbers.
+Philox stream with seeds[b]) and the standard normals of sensor noise:
+per substep one (B, o) draw, or with the chain one (n_substeps, B, o)
+draw. ``step(..., mppi_noise=, sensor_noise=)`` replaces both, so a test can
+feed the JAX package and the port the same numbers.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
 from mpc_rs_tpu_torch.estimators import ukf_soa
 from mpc_rs_tpu_torch.estimators.ukf import UkfParams, UkfState
+from mpc_rs_tpu_torch.ops.estimator_cuda import EstimatorChain, estimator_chain_fused
 from mpc_rs_tpu_torch.ops.mppi_cuda import mppi_solve_batch_fused
 
 
@@ -56,10 +61,15 @@ def make_scenario_step(
     control_start: float = 0.0,
     ukf_p_reset=None,  # enables per-instance NaN recovery (soa_guard)
     sampler: str = "box-muller",
+    estimator_chain: bool = False,  # opt-in: the fused estimator chain (K7)
+    chain_model=None,  # the chain's models (ops/estimator_cuda.py) — required for it
+    ukf_q_const=None,  # (n, n) static process noise — required for the chain
+    ukf_r_const=None,  # (o, o) static measurement noise — required for the chain
 ):
     """Returns ``step(carry, generator, *, mppi_noise=None, sensor_noise=None)
     -> carry`` advancing every scenario one control tick: MPPI → plant →
-    sensor → UKF.
+    sensor → UKF. ``step.chain`` is the tick's ``EstimatorChain`` (None
+    without ``estimator_chain``).
 
     ``feed_true_state``: the controller sees the true plant state (the
     reference's DEBUG_UKF switch, mppi4-non-liner-ukf.rs:31,55-61).
@@ -70,10 +80,24 @@ def make_scenario_step(
     before this sim time. ``mppi_noise`` (B, K, N) replaces in-kernel
     sampling, ``sensor_noise`` (n_substeps, B, o) the standard normals of
     the sensor.
+
+    ``estimator_chain``: plant, sensor and UKF run as one fused chain
+    (``estimator_chain_fused``) on ``chain_model``'s plant, process and
+    sensor models with the constant ``ukf_q_const``/``ukf_r_const``, as the
+    JAX package's ``make_estimator_chain``; the mean's pair sums then add up
+    in sequence (``unroll_sum=True``), so a tick agrees with the torch-op
+    path to rounding, not bit for bit.
     """
     sig = torch.as_tensor(sensor_stddevs)
     p_reset = None if ukf_p_reset is None else torch.as_tensor(ukf_p_reset)
     dt_sub = dt_tick / n_substeps
+    chain = None
+    if estimator_chain:
+        if chain_model is None or ukf_q_const is None or ukf_r_const is None:
+            raise ValueError("estimator_chain=True needs chain_model, ukf_q_const and ukf_r_const")
+        chain = EstimatorChain(chain_model, ukf_params, torch.as_tensor(ukf_q_const),
+                               torch.as_tensor(ukf_r_const), sig, p_reset, n_substeps, dt_sub,
+                               disturbance, control_start)
 
     def step(carry: ScenarioCarry, generator: torch.Generator, *,
              mppi_noise: torch.Tensor | None = None,
@@ -91,6 +115,15 @@ def make_scenario_step(
             u_new, status = mppi_solve_batch_fused(cfg, model, x_hats.contiguous(), carry.u_n,
                                                    noise=mppi_noise)
 
+        if chain is not None:
+            o = sig.shape[0]
+            eps = (sensor_noise if sensor_noise is not None else
+                   torch.randn((n_substeps, b, o), generator=generator, device=dev, dtype=dtype))
+            rows = eps.permute(0, 2, 1).reshape(n_substeps * o, b).contiguous()  # (n_sub·o, B)
+            x, ukf_x, ukf_p = estimator_chain_fused(chain, carry.x, carry.ukf.x, carry.ukf.p,
+                                                    u_new[:, 0], carry.t, rows)
+            return ScenarioCarry(x=x, u_n=u_new, ukf=carry.ukf._replace(x=ukf_x, p=ukf_p),
+                                 status=status, t=carry.t + dt_tick)
         u0 = u_new[:, 0]
         if control_start > 0.0:
             # estimator-settling window: the plant coasts while the
@@ -117,6 +150,7 @@ def make_scenario_step(
         ukf = ukf._replace(x=soa.x.T.contiguous(), p=soa.p.reshape(n * n, b))
         return ScenarioCarry(x=x, u_n=u_new, ukf=ukf, status=status, t=carry.t + dt_tick)
 
+    step.chain = chain  # the EstimatorChain the tick runs, or None
     return step
 
 

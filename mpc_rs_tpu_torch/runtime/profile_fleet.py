@@ -1,15 +1,17 @@
 """Where the time of one fleet tick goes, on a CUDA card.
 
-    python -m mpc_rs_tpu_torch.runtime.profile_fleet [--scenarios B] [--out FILE]
+    python -m mpc_rs_tpu_torch.runtime.profile_fleet [--scenarios B] [--estimator-chain] [--out FILE]
 
 For each fleet model (cartpole4, flagship6) at its default K and sampler it
-builds the fleet (``apps/fleet.build_fleet``), warms up, and measures:
+builds the fleet (``apps/fleet.build_fleet``; with ``--estimator-chain`` the
+tick runs the fused estimator chain, K7), warms up, and measures:
 
 - the tick on the host clock, each tick ended by a device synchronise,
   median, p99 and max over ``TICKS`` ticks, and scenario-ticks/s;
 - under ``torch.profiler``, over ``PROF_TICKS`` more ticks: the device µs
-  per tick by kernel (the batched MPPI kernels by name, the rest summed as
-  ``torch ops``), the device launches per tick, and the device's busy share
+  per tick by kernel (the batched MPPI kernels and the estimator chain by
+  name, the rest summed as ``torch ops``), the device launches per tick, and
+  the device's busy share
   of the profiled ticks' wall time (the union of device intervals over the
   ``record_function`` range).
 
@@ -35,15 +37,15 @@ from mpc_rs_tpu_torch.runtime.profile_tick import _union_us, nvidia_smi_line
 
 TICKS, PROF_TICKS, WARMUP = 100, 20, 10
 RANGE = "profiled_fleet_ticks"
-KERNELS = ("mppi_partials_kernel", "fleet_finalize_kernel")
+KERNELS = ("mppi_partials_kernel", "fleet_finalize_kernel", "estimator_chain_kernel")
 
 
 def _label(name: str) -> str:
     return next((k for k in KERNELS if k in name), "torch ops")
 
 
-def profile_model(model: str, scenarios: int) -> dict:
-    fl = build_fleet(model, None, "cuda", scenarios=scenarios)
+def profile_model(model: str, scenarios: int, estimator_chain: bool = False) -> dict:
+    fl = build_fleet(model, None, "cuda", scenarios=scenarios, estimator_chain=estimator_chain)
     carry = fl.carry
     for _ in range(WARMUP):
         carry = fl.tick(carry, fl.generator)
@@ -73,6 +75,7 @@ def profile_model(model: str, scenarios: int) -> dict:
     med = statistics.median(tick_us)
     return {
         "model": model, "scenarios": scenarios, "k": fl.cfg.n_rollouts, "sampler": fl.sampler,
+        "estimator_chain": estimator_chain,
         "ticks": len(tick_us), "tick_us_median": med, "tick_us_p99": float(np.percentile(tick_us, 99)),
         "tick_us_max": max(tick_us), "scenario_ticks_per_s": scenarios * 1e6 / med,
         "profiled_ticks": PROF_TICKS, "profiled_wall_us_per_tick": span.elapsed_us() / PROF_TICKS,
@@ -86,6 +89,8 @@ def profile_model(model: str, scenarios: int) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scenarios", type=int, default=1024)
+    ap.add_argument("--estimator-chain", action="store_true",
+                    help="run the tick's plant, sensor and UKF as the fused estimator chain (K7)")
     ap.add_argument("--out", default="logs/profile_fleet/profile_fleet.jsonl")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -93,7 +98,7 @@ def main(argv=None) -> None:
     smi = nvidia_smi_line()
     lines = []
     for model in ("cartpole4", "flagship6"):
-        row = {**profile_model(model, args.scenarios), "nvidia_smi": smi}
+        row = {**profile_model(model, args.scenarios, args.estimator_chain), "nvidia_smi": smi}
         print(json.dumps(row), flush=True)
         lines.append(json.dumps(row))
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

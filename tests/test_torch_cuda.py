@@ -1,6 +1,8 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card: K2, K1, the scenario batch (K5/K6) with each sampler (K3), and the
-fast-math device functions (K4). Every test here is marked ``cuda`` and skips without a CUDA device.
+card: K2 and K1 (each sampler, both tiers), the scenario batch (K5/K6)
+with each sampler (K3), the fast-math device functions (K4) and the fused
+estimator chain (K7). Every test here is marked ``cuda`` and skips without a
+CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port is installed; ``tests/conftest.py`` sets JAX up, so on such a
@@ -15,7 +17,8 @@ import torch
 
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
 from mpc_rs_tpu_torch.models.params import CartPoleParams
-from mpc_rs_tpu_torch.ops import mppi_cuda
+from mpc_rs_tpu_torch.apps.fleet import build_fleet
+from mpc_rs_tpu_torch.ops import estimator_cuda, mppi_cuda, philox
 from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Flagship4Diag4, mppi_chain_fused, mppi_solve_fused
 from mpc_rs_tpu_torch.ops.philox import philox_normal
 
@@ -203,7 +206,7 @@ def test_cuda_batch_app_lambda_as_close_as_f32_allows(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sampler", ["box-muller", "clt4", "clt4a", "wallace"])
+@pytest.mark.parametrize("sampler", philox.SAMPLERS)
 @pytest.mark.parametrize("fast", [False, True])
 def test_cuda_batch_sampler_matches_plain(card, sampler, fast):
     """The kernel's in-kernel noise is the contract's (checked through
@@ -223,8 +226,10 @@ def test_cuda_batch_sampler_matches_plain(card, sampler, fast):
         cfg, model, xs.double(), u_ns.double(), out.double()))
     assert got_st.cpu().tolist() == want_st.cpu().tolist() == [0] * b
     np.testing.assert_allclose(got_u.cpu().numpy(), want_u.cpu().numpy(), **F32_BAND)
-    if sampler == "clt4a":
+    if sampler in ("clt4a", "box-muller-a"):
         assert torch.equal(out[:, 0::2] + out[:, 1::2], torch.zeros_like(out[:, 0::2]))
+    if sampler in ("clt4", "clt2q", "clt4a"):  # integer ops and a polynomial: the same bits
+        assert torch.equal(out, want_noise)
 
 
 @pytest.mark.cuda
@@ -241,7 +246,7 @@ def test_cuda_batch_failure_probes(card):
     u, st = mppi_cuda.mppi_solve_batch_fused(lam0, CART_FAST, torch.tensor([X0] * 8, device=card),
                                              torch.zeros(8, N, device=card), seeds=seeds, sampler="clt4")
     assert (st == MppiStatus.INVALID_U).all() and torch.equal(u.cpu(), torch.zeros(8, N))
-    with pytest.raises(ValueError, match="exact-tier CartPoleShaped4"):
+    with pytest.raises(ValueError, match="CartPoleShaped4 only"):
         mppi_solve_fused(_cfg(256), FLAG, torch.tensor(X0, device=card), torch.zeros(N, device=card))
 
 
@@ -262,3 +267,69 @@ def test_cuda_fastmath_matches_plain(card, fn):
         assert float(((got - want).abs() / want.abs()).max()) < 1e-6
     else:
         assert float((got - want).abs().max()) < (2e-6 if fn == "flog" else 1e-6)
+
+
+# --------------------------------------------------------------------------
+# K1/K2 in bench.py's configurations, and the estimator chain (K7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler, fast", [("clt4a", True), ("wallace", False)])
+def test_cuda_k2_k1_bench_configs_match_plain(card, sampler, fast):
+    """clt4a in the fast tier and wallace in the exact tier (bench.py:97-101):
+    a K2 solve against the plain version in float64 fed the contract's
+    words, and the seeded chain equal to sequential K2 solves."""
+    model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=fast)
+    cfg, x, u_n = _cfg(10240), torch.tensor(X0, device=card), torch.zeros(N, device=card)
+    got_u, got_st = mppi_solve_fused(cfg, model, x, u_n, seed=17, solve=3, sampler=sampler)
+    words = mppi_cuda.solve_noise(cfg, model, 17, 3, sampler, device=card)
+    want_u, want_st = mppi_cuda.mppi_solve_plain(cfg, model, x.double(), u_n.double(), noise=words.double())
+    assert int(got_st) == int(want_st) == 0
+    np.testing.assert_allclose(got_u.cpu().numpy(), want_u.cpu().numpy(), **F32_BAND)
+    seeds = torch.arange(6, dtype=torch.int32, device=card) * 11 - 7
+    chain = mppi_chain_fused(cfg, model, x, u_n, seeds=seeds, sampler=sampler)
+    u, u0s = u_n, []
+    for j in range(6):
+        u, _ = mppi_solve_fused(cfg, model, x, u, seed=int(seeds[j]), sampler=sampler)
+        u0s.append(float(u[0]))
+    assert chain.statuses.tolist() == [0] * 6
+    assert chain.u0s.cpu().tolist() == u0s  # the same launches, the same bits
+
+
+def _chain_inputs(fl, b, device, seed=0):
+    """A perturbed carry of fleet ``fl`` and a tick's sensor normals; the
+    flagship's clock inside the pulse, scenario 5's estimate NaN."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = fl.carry
+    n = c.ukf.x.shape[1]
+    x = c.x[:b] + 0.05 * torch.randn(c.x[:b].shape, generator=g, device=device)
+    ex = c.ukf.x[:b] + 0.05 * torch.randn(c.ukf.x[:b].shape, generator=g, device=device)
+    ex[5, 0] = float("nan")
+    a = torch.randn((b, n, n), generator=g, device=device)
+    p = (1e-3 * a @ a.transpose(1, 2) + 0.05 * torch.eye(n, device=device)).permute(1, 2, 0)
+    u = torch.randn((b, N), generator=g, device=device)
+    t = torch.full((b,), 1.2, device=device)
+    return x, ex, p.reshape(n * n, b).contiguous(), u, t, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model, b", [("cartpole4", 256), ("flagship6", 256), ("flagship6", 100)])
+def test_cuda_estimator_chain_matches_plain(card, model, b):
+    """K7 against its plain version on the same inputs, in float32 (the
+    band) and against float64 (within twice the plain float32 distance);
+    a NaN estimate comes back finite."""
+    fl = build_fleet(model, None, card, scenarios=b, estimator_chain=True)
+    chain = fl.tick.chain
+    x, ex, p, u, t, g = _chain_inputs(fl, b, card)
+    noise = torch.randn((chain.n_substeps * chain.sig.shape[0], b), generator=g, device=card)
+    got = estimator_cuda.estimator_chain_fused(chain, x, ex, p, u[:, 0], t, noise)
+    want = estimator_cuda.estimator_chain_plain(chain, x, ex, p, u[:, 0].contiguous(), t, noise)
+    f64 = estimator_cuda.estimator_chain_plain(chain, *(a.double() for a in (x, ex, p, u[:, 0], t, noise)))
+    torch.cuda.synchronize()
+    for g32, w32, w64 in zip(got, want, f64):
+        np.testing.assert_allclose(g32.cpu().numpy(), w32.cpu().numpy(), **F32_BAND)
+        err, ref = float((g32.double() - w64).abs().max()), float((w32.double() - w64).abs().max())
+        assert err <= 2.0 * ref + 2e-4
+    assert torch.isfinite(got[1]).all() and torch.isfinite(got[2]).all()
+    if chain.n_substeps == 1:  # the guard fired in the last substep: P is p_reset
+        assert torch.equal(got[2][:, 5].cpu(), chain.p_reset.flatten().cpu())

@@ -270,10 +270,11 @@ def _jax_fleet_pieces(model):
                 cfg=cfg, sl=sl, disturbance=disturbance, p0=p0, params=params, ukf0=ukf0, x0=x0)
 
 
-def _jax_tick(j, carry, mppi_noise, sensor_noise, k):
+def _jax_tick(j, carry, mppi_noise, sensor_noise, k, unroll_sum=False):
     """One tick composed from the JAX package's public functions, with
     injected noise: the vmap MPPI solver (the fast tier outside a kernel),
-    the plant, the sensor and the SoA UKF."""
+    the plant, the sensor and the SoA UKF (``unroll_sum=True``: the mean's
+    pair sums in sequence, as the fused estimator chain traces them)."""
     cfg = dataclasses.replace(j["cfg"], n_rollouts=k)
     x_hats = carry["ukf"]["x"] if j["sl"] is None else carry["ukf"]["x"][:, list(j["sl"])]
     res = jax.vmap(lambda xh, u, e: jmppi.mppi_solve(cfg, j["ctrl"], j["cost"], None, tuple(xh), u, noise=e))(
@@ -292,22 +293,19 @@ def _jax_tick(j, carry, mppi_noise, sensor_noise, k):
     for i in range(j["n_sub"]):
         x = j["plant_fx"](x, u0) if j["disturbance"] is None else j["plant_fx"](x, u0, j["disturbance"](t))
         z = j["hx"](x) + j["sens"] * jnp.asarray(sensor_noise[i])
-        soa = jsoa.soa_predict(j["params"], soa, u0, j["fx_c"], q)
-        soa = jsoa.soa_update(j["params"], soa, tuple(z[:, jj] for jj in range(r.shape[-1])), hx_c, r)
+        soa = jsoa.soa_predict(j["params"], soa, u0, j["fx_c"], q, unroll_sum=unroll_sum)
+        soa = jsoa.soa_update(j["params"], soa, tuple(z[:, jj] for jj in range(r.shape[-1])), hx_c, r,
+                              unroll_sum=unroll_sum)
         soa = jsoa.soa_guard(soa, j["p0"])
     p_packed = np.stack([np.asarray(soa.p[i][jj]).reshape(b) for i in range(n) for jj in range(n)])
     return dict(x=np.asarray(x), u_n=np.asarray(res.u_n), status=np.asarray(res.status),
                 ukf_x=np.stack([np.asarray(v) for v in soa.x], -1), ukf_p=p_packed)
 
 
-@pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("model", ["cartpole4", "flagship6"])
-def test_fleet_tick_matches_jax(model, dtype):
-    """One tick of build_fleet's step on a perturbed B=8 carry taken from
-    the JAX package's init_scenario_carry, against the same tick composed
-    from the JAX package's functions, both fed the same MPPI and sensor
-    noise; the flagship's clock sits inside the 2 N pulse."""
-    b, k = 8, 256
+def _tick_case(model, dtype, b=8, k=256):
+    """The JAX pieces of a fleet model, a perturbed B-scenario carry (numpy,
+    from the JAX package's init_scenario_carry; the flagship's clock inside
+    the 2 N pulse) and the MPPI and sensor noise of one tick, in ``dtype``."""
     j = _jax_fleet_pieces(model)
     jc = jinit_carry(b, j["x0"], jnp.zeros(8, jnp.float32), j["ukf0"], jax.random.key(0), ukf_layout="soa")
     rng = np.random.default_rng(11)
@@ -326,7 +324,18 @@ def test_fleet_tick_matches_jax(model, dtype):
     sigma = float(j["cfg"].std_dev)
     mppi_noise = (sigma * rng.standard_normal((b, k, 8))).astype(dtype)
     sensor_noise = rng.standard_normal((j["n_sub"], b, len(j["sens"]))).astype(dtype)
+    return j, arrays, mppi_noise, sensor_noise
 
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("model", ["cartpole4", "flagship6"])
+def test_fleet_tick_matches_jax(model, dtype):
+    """One tick of build_fleet's step on a perturbed B=8 carry taken from
+    the JAX package's init_scenario_carry, against the same tick composed
+    from the JAX package's functions, both fed the same MPPI and sensor
+    noise; the flagship's clock sits inside the 2 N pulse."""
+    b, k = 8, 256
+    j, arrays, mppi_noise, sensor_noise = _tick_case(model, dtype, b, k)
     want = _jax_tick(j, arrays, mppi_noise, sensor_noise, k)
     fl = build_fleet(model, k, "cpu", scenarios=b)
     got = fl.tick(carry_from_numpy(arrays), fl.generator, mppi_noise=torch.tensor(mppi_noise),
@@ -368,6 +377,15 @@ def test_fleet_cli_runs_on_cpu():
     assert out.returncode == 0, out.stderr
     assert "survival= 1.000" in out.stdout and "survived 16/16" in out.stdout
     assert "sampler=clt4 " in out.stdout and "all statuses 0: True" in out.stdout
+
+
+@pytest.mark.parametrize("sampler", ["clt2q", "box-muller-a"])
+def test_fleet_cli_takes_every_sampler(sampler):
+    """``fleet --sampler`` takes the JAX CLI's six samplers; the last two on
+    the plain path, 1 s of cartpole4 at B=16, K=512."""
+    res = cli.main(["fleet", "--model", "cartpole4", "--device", "cpu", "--scenarios", "16", "--k", "512",
+                    "--t-end", "1", "--sampler", sampler])
+    assert res.survival == 1.0 and res.statuses_ok and res.ticks == 20
 
 
 def test_flagship_fleet_runs_on_cpu_through_the_pulse():

@@ -24,6 +24,7 @@ from mpc_rs_tpu.models import costs as jcosts
 from mpc_rs_tpu.models import dynamics as jdyn
 from mpc_rs_tpu.models.params import CartPoleParams as JParams
 from mpc_rs_tpu.ops import fastmath as jfm
+from mpc_rs_tpu.ops import mppi_pallas as jpallas
 from mpc_rs_tpu.ops.mppi_pallas import finalize_partials, mppi_pallas_batch_partials, mppi_solve_pallas
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
 from mpc_rs_tpu_torch.models.params import CartPoleParams
@@ -39,7 +40,7 @@ from mpc_rs_tpu_torch.ops.mppi_cuda import (
     mppi_solve_fused,
 )
 from mpc_rs_tpu_torch.ops.philox import philox4x32_10, philox_normal, sample_noise
-from tests.test_fastmath import _clt4_transform
+from tests.test_fastmath import _clt2q_transform, _clt4_transform
 
 N = 8
 BS, LANES = 8, 128  # Pallas block: 8 sublanes x 128 lanes = 1024 rollouts
@@ -455,7 +456,7 @@ def test_batch_wrapper_rejects_bad_arguments():
     with pytest.raises(ValueError, match="exactly one"):
         mppi_batch_partials_fused(cfg, MODEL, xs, u_ns)
     with pytest.raises(ValueError, match="sampler must be"):
-        mppi_batch_partials_fused(cfg, MODEL, xs, u_ns, seeds=torch.zeros(2, dtype=torch.int32), sampler="clt2q")
+        mppi_batch_partials_fused(cfg, MODEL, xs, u_ns, seeds=torch.zeros(2, dtype=torch.int32), sampler="clt8")
     meta = torch.zeros(2, 4, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         mppi_batch_partials_fused(cfg, MODEL, meta, torch.zeros(2, N, device="meta"),
@@ -550,3 +551,108 @@ def test_wallace_rotation_stays_in_the_warp():
     sign = -1.0 if (int(w[2][0, k, 0]) << (ph - 2)) & 0x80000000 else 1.0
     mix = torch.tensor(1.0 / np.sqrt(2.0), dtype=torch.float32)
     assert float(a[k, ph]) == float(mix * (sign * pa[k] + pb[(k & ~31) | ((k - s) & 31)]))
+
+
+# --------------------------------------------------------------------------
+# K3: clt2q and box-muller-a, the last two samplers
+
+
+def test_samplers_are_the_jax_packages():
+    assert philox.SAMPLERS == jpallas.SAMPLERS
+
+
+def test_clt2q_bits_match_the_contract():
+    """Steps 8c+2i and 8c+2i+1 of rollout k are the low and high halves of
+    word i of call (k, c): the numpy mirror of tests/test_fastmath.py in
+    float64, and in float32 as the kernel rounds (mppi_pallas.py:180-193)."""
+    k, n = 2048, 12  # two calls per rollout, the second one cut at step 12
+    w = philox._words(torch.tensor([21]), torch.tensor([3]), k, 2)
+    words = torch.stack(w, dim=-1)[0].numpy().astype(np.uint32)  # (K, C, 4)
+    z = sample_noise("clt2q", 21, 3, k, n, 2.5)[0].numpy()
+    x2 = (words & 0x00FF00FF) + ((words >> 8) & 0x00FF00FF)
+    halves = np.stack([x2 & 0xFFFF, x2 >> 16], axis=-1).reshape(k, -1)[:, :n]  # step 8c + 2i + h
+    zz = (halves.astype(np.float32) - np.float32(255.0)) * np.float32(philox._TRI_INV_SIG)
+    s2 = zz * zz
+    qa, qb, qc = (np.float32(c * 2.5) for c in (philox._TRI_A, philox._TRI_B, philox._TRI_C))
+    np.testing.assert_array_equal(z, zz * (qa + s2 * (qb + qc * s2)))
+    mirror = _clt2q_transform(words[:, 0, 0], 2.5)  # word 0: steps 0 (low) and 1 (high)
+    np.testing.assert_allclose(z[:, :2], mirror.reshape(2, k).T, rtol=1e-5, atol=1e-5)
+
+
+def test_clt2q_moments_and_ks():
+    """2**20 samples: the moments and the KS budget (0.012) of
+    tests/test_fastmath.py:154-178."""
+    z = sample_noise("clt2q", 9, 0, 1 << 17, N, 1.0)[0].double().numpy().ravel()
+    assert abs(z.mean()) < 5e-3 and abs(z.var() - 1.0) < 5e-3
+    assert abs(((z - z.mean()) ** 4).mean() / z.var() ** 2 - 3.0) < 0.02
+    assert _ks_normal(z) < 0.012
+    assert 0.8 * 0.0455 < (np.abs(z) > 2.0).mean() < 1.2 * 0.0455
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("k", [1024, 1001])
+def test_box_muller_a_pairs_are_box_muller_with_exact_zero_sums(k, fast):
+    """Rollouts 2j and 2j+1 carry +eps and -eps of pair j's box-muller draw
+    (calls keyed by the pair index); a full pair sums to exactly 0."""
+    z = sample_noise("box-muller-a", 4, 1, k, N, 3.0, fast=fast)[0]
+    full = z[: k - k % 2].reshape(-1, 2, N)
+    assert torch.equal(full[:, 0] + full[:, 1], torch.zeros_like(full[:, 0]))
+    eps = sample_noise("box-muller", 4, 1, -(-k // 2), N, 3.0, fast=fast)[0]
+    assert torch.equal(z[0::2], eps) and torch.equal(z[1::2], -eps[: k // 2])
+
+
+def test_box_muller_a_exact_marginals():
+    """Every step's marginal is N(0, σ²) by KS at the wallace budget."""
+    z = sample_noise("box-muller-a", 13, 2, 1 << 17, N, 1.0)[0].double().numpy()
+    for t in range(N):
+        assert _ks_normal(z[:, t]) < 0.006, t
+        assert abs(z[:, t].var() - 1.0) < 0.02
+
+
+# --------------------------------------------------------------------------
+# K1/K2: every sampler, both tiers
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("sampler", philox.SAMPLERS)
+def test_k2_plain_sampler_and_tier_match_jax(sampler, fast):
+    """A sampled K2 solve in float64 is the JAX solver with the model of the
+    tier fed the contract's words for (seed, solve); the seeded solve uses
+    exactly those words."""
+    k, seed, solve = 700, 9, 4
+    model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=fast)
+    jstep = jdyn.make_cartpole_nonlinear(JParams.single_wheel(), 0.1, fast=fast)
+    cfg, x, u_n = _cfg(k), torch.tensor(X0, dtype=torch.float64), 0.3 * torch.ones(N, dtype=torch.float64)
+    words = mppi_cuda.solve_noise(cfg, model, seed, solve, sampler)
+    assert torch.equal(words, sample_noise(sampler, seed, solve, k, N, 3.0, fast=fast)[0])
+    got_u, got_st = mppi_solve_fused(cfg, model, x, u_n, seed=seed, solve=solve, sampler=sampler)
+    want = jmppi.mppi_solve(_jcfg(k), jstep, jcosts.shaped4, None, tuple(jnp.float64(c) for c in X0),
+                            jnp.asarray(u_n.numpy()), noise=jnp.asarray(words.double().numpy()))
+    assert int(got_st) == int(want.status) == MppiStatus.OK
+    np.testing.assert_allclose(got_u.numpy(), np.asarray(want.u_n), **F64_BAND)
+
+
+@pytest.mark.parametrize("sampler, fast", [("clt4a", True), ("wallace", False)])
+def test_k1_plain_bench_configs_match_sequential_jax(sampler, fast):
+    """bench.py:97-101's two chain configurations (clt4a in the fast tier,
+    wallace in the exact tier), plant on, at λ=20 in float32: J solves each
+    equal to the JAX solver fed the contract's words of (base_seed, j),
+    with the JAX model step of the tier between them."""
+    j, k, base_seed = 6, 1024, 31
+    model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=fast)
+    jstep = jdyn.make_cartpole_nonlinear(JParams.single_wheel(), 0.1, fast=fast)
+    got = mppi_chain_fused(_cfg(k, 20.0), model, torch.tensor(X0), torch.zeros(N), n_solves=j,
+                           base_seed=base_seed, plant=True, sampler=sampler)
+    x = tuple(jnp.float32(c) for c in X0)
+    u_n = jnp.zeros(N, jnp.float32)
+    u0s = []
+    for i in range(j):
+        words = mppi_cuda.solve_noise(_cfg(k, 20.0), model, base_seed, i, sampler).numpy()
+        r = jmppi.mppi_solve(_jcfg(k, 20.0), jstep, jcosts.shaped4, None, x, u_n, noise=jnp.asarray(words))
+        assert int(r.status) == 0
+        u_n = r.u_n
+        u0s.append(float(u_n[0]))
+        x = jstep(*x, u_n[0])
+    assert got.statuses.tolist() == [0] * j
+    np.testing.assert_allclose(got.u0s.numpy(), u0s, **F32_BAND)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(x), **F32_BAND)
