@@ -9,14 +9,21 @@ against its plain PyTorch version on the card, drives the main paths (the
 device-resident chain of the same loop; the scenario fleet through the CLI
 entry function, cartpole4 over 10 s and flagship6 over 3 s with the pulse,
 at B = 1024, plus short runs of the other samplers and the exact tier; and
-both fleets again on the fused estimator chain), and times kernels against
-plain versions with CUDA events. Each path is driven with the launch counts
-set to 0 just before it and read just after.
+both fleets again on the fused estimator chain; the two diagnostic entry
+points, the kernel op-mix probe D1 in all eleven modes at K = 819 200 and
+the mul-add probe D2 in its three configurations), and times kernels
+against plain versions with CUDA events. Each path is driven with the launch
+counts set to 0 just before it and read just after.
 
 Every kernel's entry of the kernels line carries its bound: the larger of
 the operations over the FP32 peak and the bytes over the HBM rate of an
 H100 SXM (NVIDIA's data sheet: 67 TFLOP/s outside the tensor cores,
-3.35 TB/s). The operations are counted on this run's inputs by running the
+3.35 TB/s; bf16 operations, D2's elementwise ones, at twice the float32
+rate outside the tensor cores, 134 TFLOP/s, by the CUDA C++ Programming
+Guide's throughput table for compute capability 9.0: 256 16-bit results a
+clock an SM against 128 float32; the data sheet's 989 TFLOP/s bf16 is the
+tensor cores', which an elementwise chain cannot use). The
+operations are counted on this run's inputs by running the
 plain version under a ``TorchFunctionMode`` that adds up the elements of
 every floating-point arithmetic result (each +, −, ×, ÷, select, clamp and
 transcendental counts one; comparisons and integer ops, such as Philox's,
@@ -32,10 +39,13 @@ directory without the ``mpc_rs_tpu_torch`` package. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
+from pathlib import Path
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -47,11 +57,14 @@ SOURCE = "mpc_rs_tpu_torch/ops/csrc/mppi_kernels.cu"
 FASTMATH_SOURCE = "mpc_rs_tpu_torch/ops/csrc/fastmath.cuh"
 COMMON_SOURCE = "mpc_rs_tpu_torch/ops/csrc/mppi_common.cuh"  # the partials kernel, the samplers
 ESTIMATOR_SOURCE = "mpc_rs_tpu_torch/ops/csrc/estimator_chain.cuh"
+DIAG_SOURCE = "mpc_rs_tpu_torch/ops/csrc/diag_kernels.cuh"  # D1, D2
 PALLAS = "mpc_rs_tpu/ops/mppi_pallas.py"
 SAMPLER_LINES = {"box-muller": 194, "clt4": 140, "clt2q": 179, "clt4a": 150, "box-muller-a": 208,
                  "wallace": 238}  # _fill_vbuf branches
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet)
 PEAK_HBM = 3.35e12  # bytes/s, H100 SXM HBM3
+PEAK_BF16 = 2 * PEAK_FP32  # FLOP/s, H100 SXM bf16 outside the tensor cores (Programming Guide, cc 9.0)
+CLT_FAMILY_SPREAD = 0.02  # cltone/cltbig/cltreg launch clt's kernel: their D1 times agree this closely
 
 
 def emit(obj) -> None:
@@ -93,19 +106,30 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_events(fn, reps: int = 1) -> list[tuple[str, float]]:
+    """(name, µs) of every device event of ``reps`` calls under
+    torch.profiler. A profile that caught no device event (the profiler
+    drops one now and then) is taken again, up to three times."""
+    events = []
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    return events
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Device milliseconds of one call: the sum of its kernels' durations
     under torch.profiler over ``reps`` calls, divided by ``reps`` (the
     wrapper's host cost is not in it)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3
+    return sum(us for _, us in device_events(fn, reps)) / reps / 1e3
 
 
 class _FlopCount(TorchFunctionMode):
@@ -143,9 +167,10 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops: float, n_bytes: float) -> dict:
-    """The least time of the work on an H100 SXM, and what sets it."""
-    t_ops, t_bytes = flops / PEAK_FP32, n_bytes / PEAK_HBM
+def bound(flops: float, n_bytes: float, peak: float = PEAK_FP32) -> dict:
+    """The least time of the work on an H100 SXM, and what sets it; ``peak``
+    is the FLOP/s of the operations' type."""
+    t_ops, t_bytes = flops / peak, n_bytes / PEAK_HBM
     return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": n_bytes}
 
@@ -504,6 +529,179 @@ def estimator_phases(dev: torch.device, card: dict) -> list[dict]:
     ]
 
 
+def diag_phases(dev: torch.device, card: dict) -> list[dict]:
+    """The two diagnostic probes: D1's kernel against its plain version in
+    float64 in each mode (J = 8, at K = 16 384 and at the main path's
+    K = 819 200), D2's kernel against its plain version bit for bit in its
+    three configurations, both entry points' ``main`` at the scripts' full
+    sizes as a main path, and the timings. Returns the kernels line's
+    entries."""
+    from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+    from mpc_rs_tpu_torch.ops import build, diag_cuda, mppi_cuda
+    from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4
+    from mpc_rs_tpu_torch.scripts import diag_bf16_fma, diag_kernel_mix
+
+    model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=True)
+    x, u = torch.tensor(X0, device=dev), torch.zeros(N, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def cfg(k):
+        return MppiConfig(n_horizon=N, n_rollouts=k, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+
+    def chain(k, mode, j, plain=None, seed=21):
+        if plain is None:
+            return diag_cuda.kernel_mix_chain_fused(cfg(k), model, x, u, mode=mode, n_solves=j, base_seed=seed)
+        return diag_cuda.kernel_mix_chain_plain(cfg(k), model, x.to(plain), u.to(plain), mode=mode,
+                                                n_solves=j, base_seed=seed)
+
+    # D1-1. each mode's chain against the plain version fed the same Philox
+    # words, in float64 (the f32 band) and in float32 (its distance shown)
+    d1_err = 0.0
+    for mode in diag_cuda.MODES:
+        for k in (16_384, 819_200):
+            got_u0s, got_un = chain(k, mode, 8)
+            want_u0s, want_un = chain(k, mode, 8, torch.float64)
+            f32_u0s, _ = chain(k, mode, 8, torch.float32)
+            check(bool(torch.isfinite(got_u0s).all()) and bool(torch.isfinite(got_un).all()),
+                  f"D1 {mode} K={k}: non-finite u")
+            err = max(check_band(got_u0s, want_u0s, f"D1 {mode} K={k} u0s vs plain float64"),
+                      check_band(got_un, want_un, f"D1 {mode} K={k} final u_n vs plain float64"))
+            d1_err = max(d1_err, err)
+            emit({"phase": "d1_kernel_mix", "mode": mode, "k": k, "j": 8, "max_abs_err": err,
+                  "plain_f32_max_abs_err": max_err(f32_u0s, want_u0s), "u0s": got_u0s.tolist()})
+
+    # D2-1. each configuration bit for bit against the plain version, on
+    # the script's tile of 1.5s and on a tile of ±[1, 2)
+    d2_err = {}
+    for dtype, rows in diag_bf16_fma.CONFIGS:
+        mag = 1.0 + torch.rand((rows, 128), generator=gen, device=dev)
+        sign = torch.where(torch.rand((rows, 128), generator=gen, device=dev) < 0.5, -1.0, 1.0)
+        for label, tile in (("1.5", torch.full((rows, 128), 1.5, device=dev)), ("pm_1_2", sign * mag)):
+            xt = tile.to(dtype)
+            got = diag_cuda.fma_chain_fused(xt, 256, 264)
+            want = diag_cuda.fma_chain_plain(xt, 256)
+            err = max_err(got, want)
+            check(torch.equal(got, want), f"D2 {dtype} rows={rows} tile {label}: max |Δ| {err}")
+            d2_err[dtype] = max(d2_err.get(dtype, 0.0), err)
+            emit({"phase": "d2_fma", "dtype": str(dtype), "rows": rows, "tile": label, "inner": 256,
+                  "steps": 264, "bit_for_bit": True, "max_abs_err": err,
+                  "max_abs": float(got.float().abs().max())})
+
+    # D2-2. what the compiler made of the chains through -fmad=false
+    # (cuobjdump -sass of the library): float32 fused mul-adds and no
+    # separate add; bf16 packed bf16 ops, with at most the conversion of a
+    # in the prologue
+    so, _ = build.build()
+    sass = subprocess.run([str(Path(build.find_nvcc()).parent / "cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    seen = 0
+    for func in sass.split("Function : ")[1:]:
+        name = func.split()[0]
+        if "fma_chain_kernel" not in name:
+            continue
+        seen += 1
+        ops = Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", func))
+        per_thread = 32 if "Li32E" in name else 16
+        if "bfloat162" in name:
+            packed = sum(c for op, c in ops.items() if op.startswith(("HMUL2.BF16", "HADD2.BF16", "HFMA2")))
+            converts = sum(c for op, c in ops.items() if op.startswith(("F2F", "F2FP", "I2F")))
+            scalar = sum(ops[op] for op in ("FFMA", "FADD", "FMUL"))
+            check(packed >= 2 * per_thread and converts <= 2 and scalar == 0, f"D2 SASS {name}: {dict(ops)}")
+        else:
+            check(ops["FFMA"] >= per_thread and ops["FADD"] == 0, f"D2 SASS {name}: {dict(ops)}")
+        emit({"phase": "d2_sass", "kernel": name, "ops": dict(ops.most_common())})
+    check(seen == 4, f"D2 SASS: {seen} fma_chain_kernel functions in the library, expected 4")
+
+    # D1-2 and D2-3. the main path: both entry points at the scripts' full sizes
+    torch.cuda.synchronize()
+    diag_cuda.reset_launches()
+    t0 = time.perf_counter()
+    mix = diag_kernel_mix.main(list(diag_cuda.MODES))
+    fma = diag_bf16_fma.main([])
+    run_s = time.perf_counter() - t0
+    counts = dict(diag_cuda.launches)
+    for mode in diag_cuda.MODES:
+        check(counts[f"mode:{mode}"] >= 1, f"D1 mode {mode} was not launched on the main path")
+        check(mix["modes"][mode]["us_per_solve"] > 0, f"D1 {mode}: {mix['modes'][mode]}")
+    check(counts["fma:float32"] >= 1 and counts["fma:bfloat16"] >= 1, f"D2 launches {counts}")
+    check(all(c["us_per_step"] > 0 for c in fma["configs"]), f"D2: {fma['configs']}")
+    clt_family = [mix["modes"][m]["us_per_solve"] for m in ("clt", "cltone", "cltbig", "cltreg")]
+    spread = (max(clt_family) - min(clt_family)) / min(clt_family)
+    emit({"phase": "diag_main_path", "run_s": run_s, "launches": counts, "d1": mix, "d2": fma,
+          "clt_family_spread": spread, **card})
+    # the four modes run one instantiation, so the timing harness must time
+    # them alike (PERF.md: 0.1-0.6 % in four runs; cltf, its own kernel, 3-4 % off)
+    check(spread < CLT_FAMILY_SPREAD, f"D1 clt/cltone/cltbig/cltreg times spread {spread:.4f}: {clt_family}")
+
+    # timings by CUDA events: D1 per solve (a chain of 64) in each mode at
+    # K = 819 200, against the plain float32 version (one solve); D2 per step
+    # at 16 000 steps, against the plain version of the one tile
+    jj, k = 64, 819_200
+    d1_timing = {}
+    for mode in diag_cuda.MODES:
+        kern = median_ms(lambda: chain(k, mode, jj), reps=5, warmup=1) / jj
+        dev_ms = device_ms(lambda: chain(k, mode, 8), reps=3) / 8
+        plain_t = median_ms(lambda: chain(k, mode, 1, torch.float32), reps=3, warmup=1)
+        kern2 = median_ms(lambda: chain(k, mode, jj), reps=5, warmup=1) / jj
+        # in: x, u_n; out: u0, u_n' (per solve)
+        bnd = bound(flops_of(lambda: chain(k, mode, 1, torch.float32)), nbytes(x, u, u[:1], u))
+        d1_timing[mode] = (min(kern, kern2), plain_t, bnd)
+        emit({"phase": "timing_d1", "mode": mode, "k": k, "j": jj, "kernel_us_per_solve": [1e3 * kern, 1e3 * kern2],
+              "device_us_per_solve": 1e3 * dev_ms, "plain_us_per_solve": 1e3 * plain_t, **bnd, **card})
+    # D1 beside K1 on the same solve (fast tier, K = 819 200, chains of 64):
+    # clt against K1's clt4 and full against K1's box-muller, in turns, and
+    # the device µs per solve of each kernel by torch.profiler
+    def k1(sampler):
+        return lambda: mppi_cuda.mppi_chain_fused(cfg(k), model, x, u, n_solves=jj, base_seed=1, sampler=sampler)
+
+    pairs = {"k1_clt4": k1("clt4"), "d1_clt": lambda: chain(k, "clt", jj, seed=1),
+             "k1_box_muller": k1("box-muller"), "d1_full": lambda: chain(k, "full", jj, seed=1)}
+    turns = {name: [] for name in pairs}
+    for rnd in range(6):
+        for name in list(pairs) if rnd % 2 == 0 else list(reversed(pairs)):
+            turns[name].append(1e3 * median_ms(pairs[name], reps=1, warmup=int(rnd == 0)) / jj)
+    by_kernel = {}
+    for name, fn in pairs.items():
+        per = by_kernel.setdefault(name, {})
+        for event, us in device_events(fn):
+            event = event.replace("(anonymous namespace)::", "")
+            label = event.split("<")[0].split("(")[0].split("::")[-1].strip().removeprefix("void ")
+            per[label] = per.get(label, 0.0) + us / jj
+    emit({"phase": "timing_d1_vs_k1", "k": k, "j": jj,
+          "us_per_solve_median": {n: statistics.median(t) for n, t in turns.items()}, "us_per_solve": turns,
+          "device_us_per_solve": by_kernel, **card})
+
+    d2_timing = {}
+    steps = 16_000
+    for dtype, rows in diag_bf16_fma.CONFIGS:
+        xt = torch.full((rows, 128), 1.5, dtype=dtype, device=dev)
+        kern = median_ms(lambda: diag_cuda.fma_chain_fused(xt, 256, steps), reps=10) / steps
+        plain_t = median_ms(lambda: diag_cuda.fma_chain_plain(xt, 256), reps=3, warmup=1)
+        bnd = bound(flops_of(lambda: diag_cuda.fma_chain_plain(xt, 256)), 2 * nbytes(xt),
+                    PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+        d2_timing[(dtype, rows)] = (kern, plain_t, bnd)
+        emit({"phase": "timing_d2", "dtype": str(dtype), "rows": rows, "inner": 256, "steps": steps,
+              "kernel_us_per_step": 1e3 * kern, "g_fma_per_s": rows * 128 * 256 / kern / 1e6,
+              "plain_us_per_tile": 1e3 * plain_t, **bnd, **card})
+
+    def timed(t):
+        return {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2]["bound_ms"], "bound_by": t[2]["bound_by"],
+                "library_ms": None}
+
+    return [
+        {"name": "kernel_mix_partials_kernel+kernel_mix_finalize_kernel mode=full (D1, kernel_mix_chain_fused, "
+                 "per solve)", "route": "cuda", "source": DIAG_SOURCE, "replaces": "scripts/diag_kernel_mix.py:283",
+         "launches": counts["kernel_mix_chain_fused"], "max_abs_err": d1_err, **timed(d1_timing["full"])},
+        {"name": "fma_chain_kernel<float> rows=64 (D2, fma_chain_fused, per step)", "route": "cuda",
+         "source": DIAG_SOURCE, "replaces": "scripts/diag_bf16_vpu.py:38", "launches": counts["fma:float32"],
+         "max_abs_err": d2_err[torch.float32], **timed(d2_timing[(torch.float32, 64)])},
+        {"name": "fma_chain_kernel<__nv_bfloat162> rows=128 (D2, fma_chain_fused, per step)", "route": "cuda",
+         "source": DIAG_SOURCE, "replaces": "scripts/diag_bf16_vpu.py:38", "launches": counts["fma:bfloat16"],
+         "max_abs_err": d2_err[torch.bfloat16], **timed(d2_timing[(torch.bfloat16, 128)])},
+    ]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU")
@@ -736,6 +934,7 @@ def main() -> None:
 
     fleet = fleet_phases(dev, card)
     estimator = estimator_phases(dev, card)
+    diag = diag_phases(dev, card)
 
     emit({"kernels": [
         {"name": "mppi_partials_kernel+mppi_finalize_kernel (K2, mppi_solve_fused)", "route": "cuda",
@@ -751,6 +950,7 @@ def main() -> None:
          "library_ms": None},
         *fleet,
         *estimator,
+        *diag,
     ]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

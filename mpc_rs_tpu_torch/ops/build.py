@@ -24,8 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCE = "mppi_kernels.cu"  # K1/K2, the fleet's K5/K6 and K7, the fast-math probe
-HEADERS = ("mppi_common.cuh", "fastmath.cuh", "estimator_chain.cuh")
+SOURCE = "mppi_kernels.cu"  # K1/K2, the fleet's K5/K6 and K7, the fast-math probe, D1/D2
+HEADERS = ("mppi_common.cuh", "fastmath.cuh", "estimator_chain.cuh", "diag_kernels.cuh")
 
 # No --use_fast_math (sinf/cosf/logf/expf and '/' stay the accurate forms;
 # the fast tier writes its polynomials and rcp.approx out in fastmath.cuh),
@@ -123,4 +123,12 @@ def load_library() -> ctypes.CDLL:
     lib.mpc_fleet_finalize.restype = _I
     lib.mpc_fastmath_eval.argtypes = [_I, _I, _P, _P, _P, _P]
     lib.mpc_fastmath_eval.restype = _I
+    lib.mpc_kernel_mix_chain.argtypes = [
+        _I, _P, _P, _I, _I,  # mode, model consts, sampler consts, n, k
+        _F, _F, _F, _F, _F, _F, _F, _I,  # 1/lambda, inv, lo, hi, std_dev, cltf mu and 1/sigma, ramp block
+        _P, _P, _U, _I, _P, _P, _P,  # x, u_n, seed, n_solves, partials, u0s, stream
+    ]
+    lib.mpc_kernel_mix_chain.restype = _I
+    lib.mpc_fma_chain.argtypes = [_I, _I, _I, _I, _F, _P, _P, _P]
+    lib.mpc_fma_chain.restype = _I
     return lib

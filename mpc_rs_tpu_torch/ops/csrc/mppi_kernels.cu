@@ -1,7 +1,9 @@
 // Fused kernels for Hopper (sm_90a): one MPPI solve (K2), the
 // receding-horizon chain of solves (K1), the scenario batch of the fleet
-// (K5 + K6), the fleet's fused estimator chain (K7, estimator_chain.cuh), and
-// an elementwise probe of the fast-math device functions (K4).
+// (K5 + K6), the fleet's fused estimator chain (K7, estimator_chain.cuh), an
+// elementwise probe of the fast-math device functions (K4), and the two
+// diagnostic probes, the kernel op-mix chain (D1) and the mul-add chain (D2)
+// (diag_kernels.cuh, whose notes say what they replace and what bounds them).
 //
 // Replaces the Pallas TPU kernels of mpc_rs_tpu/ops/mppi_pallas.py. Every
 // solve runs one partials kernel, mppi_partials_kernel (mppi_common.cuh),
@@ -59,13 +61,15 @@
 // for the two models (cart-pole + shaped4, flagship4 + diag4), the two
 // tiers and the seven noise sources (external noise and the six samplers):
 // 28 instantiations, K1/K2 using the cart-pole's 14. The estimator chain is
-// instantiated once per fleet model.
+// instantiated once per fleet model; D1's partials kernel once per MixMode
+// (8), D2's chain for float and bf16 pairs at 16 and 32 values a thread.
 //
 // C interface (loaded with ctypes): every function returns the
 // cudaGetLastError() value after its last launch (0 on success), -1 for a
 // horizon other than kN, -2 for an unknown sampler, -3 for an unknown model
 // or function, -4 for a batch the grid cannot hold.
 
+#include "diag_kernels.cuh"
 #include "estimator_chain.cuh"
 #include "mppi_common.cuh"
 
@@ -415,6 +419,48 @@ int mpc_fastmath_eval(int fn, int count, const float* a, const float* b, float* 
   fastmath_eval_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(fn, count, a, b, out);
   return (int)cudaGetLastError();
+}
+
+// D1: n_solves warm-started solves of the fast-tier cart-pole with shaped4,
+// x (4) held, u_n (N) updated in place, u0s (n_solves) written; mode is a
+// MixMode, model_consts the 9 CartPoleNonlinearT floats, sampler_consts as
+// above; key seed, solve j in the counter. partials: (ceil(K/256), N+2).
+int mpc_kernel_mix_chain(int mode, const float* model_consts, const float* sampler_consts, int n,
+                         int k, float inv_lambda, float inv, float lo, float hi, float std_dev,
+                         float cltf_mu, float cltf_inv_sig, int ramp_block, const float* x,
+                         float* u_n, unsigned int seed, int n_solves, float* partials, float* u0s,
+                         void* stream) {
+  if (n != kN) return -1;
+  if (ramp_block < 1 || k < 1 || n_solves < 1) return -3;
+  const MixArgs a{partials_args(k, 0.0f, inv, lo, hi, std_dev, sampler_consts), inv_lambda,
+                  cltf_mu, cltf_inv_sig, ramp_block};
+  const CartPoleNonlinearT<true> model = make_model<true>(model_consts);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MPC_MIX_LAUNCH(M) \
+  return launch_kernel_mix<M>(model, a, x, u_n, seed, n_solves, partials, u0s, s)
+  switch (mode) {
+    case kMixFull: MPC_MIX_LAUNCH(kMixFull);
+    case kMixNosample: MPC_MIX_LAUNCH(kMixNosample);
+    case kMixNoroll: MPC_MIX_LAUNCH(kMixNoroll);
+    case kMixBitsonly: MPC_MIX_LAUNCH(kMixBitsonly);
+    case kMixClt: MPC_MIX_LAUNCH(kMixClt);
+    case kMixCltf: MPC_MIX_LAUNCH(kMixCltf);
+    case kMixCvtonly: MPC_MIX_LAUNCH(kMixCvtonly);
+    case kMixClt2q: MPC_MIX_LAUNCH(kMixClt2q);
+    default: return -3;
+  }
+#undef MPC_MIX_LAUNCH
+}
+
+// D2: `steps` CTAs, each `inner` dependent updates x = x*a + x0/2 of the
+// tile x into o. dtype 0: float, count floats; 1: bf16, count bf16 pairs.
+int mpc_fma_chain(int dtype, int count, int inner, int steps, float a, const void* x, void* o,
+                  void* stream) {
+  if (steps < 1 || inner < 0) return -3;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_fma_chain<float>(count, inner, steps, a, x, o, s);
+  if (dtype == 1) return launch_fma_chain<__nv_bfloat162>(count, inner, steps, a, x, o, s);
+  return -3;
 }
 
 }  // extern "C"

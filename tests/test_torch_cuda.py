@@ -1,8 +1,8 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
 card: K2 and K1 (each sampler, both tiers), the scenario batch (K5/K6)
-with each sampler (K3), the fast-math device functions (K4) and the fused
-estimator chain (K7). Every test here is marked ``cuda`` and skips without a
-CUDA device.
+with each sampler (K3), the fast-math device functions (K4), the fused
+estimator chain (K7) and the two diagnostic probes (D1, D2). Every test
+here is marked ``cuda`` and skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port is installed; ``tests/conftest.py`` sets JAX up, so on such a
@@ -18,7 +18,7 @@ import torch
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
 from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.apps.fleet import build_fleet
-from mpc_rs_tpu_torch.ops import estimator_cuda, mppi_cuda, philox
+from mpc_rs_tpu_torch.ops import diag_cuda, estimator_cuda, mppi_cuda, philox
 from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Flagship4Diag4, mppi_chain_fused, mppi_solve_fused
 from mpc_rs_tpu_torch.ops.philox import philox_normal
 
@@ -333,3 +333,36 @@ def test_cuda_estimator_chain_matches_plain(card, model, b):
     assert torch.isfinite(got[1]).all() and torch.isfinite(got[2]).all()
     if chain.n_substeps == 1:  # the guard fired in the last substep: P is p_reset
         assert torch.equal(got[2][:, 5].cpu(), chain.p_reset.flatten().cpu())
+
+
+# --------------------------------------------------------------------------
+# the diagnostic probes: the op-mix chain (D1) and the mul-add chain (D2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16384, 819200])
+@pytest.mark.parametrize("mode", diag_cuda.MODES)
+def test_cuda_d1_kernel_mix_matches_plain(card, mode, k):
+    """Eight held-state solves against the plain version in float64 on the
+    same Philox words, at the probe's λ=0.5, at K=16 384 and at the probe's
+    K=819 200 (where nosample's ramp runs over all 100 of its blocks)."""
+    cfg = _cfg(k)
+    x, u_n = torch.tensor(X0, device=card), torch.zeros(N, device=card)
+    got = diag_cuda.kernel_mix_chain_fused(cfg, CART_FAST, x, u_n, mode=mode, n_solves=8, base_seed=9)
+    want = diag_cuda.kernel_mix_chain_plain(cfg, CART_FAST, x.double(), u_n.double(), mode=mode, n_solves=8,
+                                            base_seed=9)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **F32_BAND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, rows", [(torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 128)])
+def test_cuda_d2_fma_chain_bit_for_bit(card, dtype, rows):
+    rng = np.random.default_rng(rows)
+    x = torch.tensor(rng.choice([-1.0, 1.0], (rows, 128)) * rng.uniform(1.0, 2.0, (rows, 128)),
+                     dtype=torch.float32, device=card).to(dtype)
+    got = diag_cuda.fma_chain_fused(x, 256, 300)
+    assert torch.equal(got, diag_cuda.fma_chain_plain(x, 256))
+    with pytest.raises(ValueError, match="tiles"):
+        diag_cuda.fma_chain_fused(torch.zeros((16, 128), dtype=dtype, device=card), 256, 1)
