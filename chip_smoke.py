@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, drives the main paths (the
+Builds the CUDA kernels from the sources in this checkout (printing ptxas's
+registers and spills and the static SASS counts of the production partials
+instantiations beside the build seconds), holds each against its plain
+PyTorch version on the card, counts by torch.profiler the kernels a solve,
+a chain and a fleet tick launch, drives the main paths (the
 ``mppi4-non-liner`` closed loop through the CLI entry function and the
 device-resident chain of the same loop; the scenario fleet through the CLI
 entry function, cartpole4 over 10 s and flagship6 over 3 s with the pulse,
@@ -12,8 +15,9 @@ at B = 1024, plus short runs of the other samplers and the exact tier; and
 both fleets again on the fused estimator chain; the two diagnostic entry
 points, the kernel op-mix probe D1 in all eleven modes at K = 819 200 and
 the mul-add probe D2 in its three configurations), and times kernels
-against plain versions with CUDA events. Each path is driven with the launch
-counts set to 0 just before it and read just after.
+against plain versions with CUDA events, and the partials kernel at R = 1
+against the wrapper's R (rollouts a thread) in turns. Each path is driven
+with the launch counts set to 0 just before it and read just after.
 
 Every kernel's entry of the kernels line carries its bound: the larger of
 the operations over the FP32 peak and the bytes over the HBM rate of an
@@ -106,30 +110,61 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+PROFILED = "chip_smoke_profiled_calls"
+
+
 def device_events(fn, reps: int = 1) -> list[tuple[str, float]]:
     """(name, µs) of every device event of ``reps`` calls under
-    torch.profiler. A profile that caught no device event (the profiler
-    drops one now and then) is taken again, up to three times."""
+    torch.profiler. The profiler drops some device events, most at the start
+    of a session, so one call runs first and only the events that start
+    inside the measured range count. A profile that caught no device event
+    is taken again, up to five times."""
     events = []
-    for _ in range(3):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+    for _ in range(5):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
             torch.cuda.synchronize()
+            with torch.profiler.record_function(PROFILED):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        span = next(e.time_range for e in prof.events() if e.name == PROFILED)
         events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.name != PROFILED
+                  and span.start <= e.time_range.start <= span.end]
         if events:
             break
     return events
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device milliseconds of one call: the sum of its kernels' durations
-    under torch.profiler over ``reps`` calls, divided by ``reps`` (the
-    wrapper's host cost is not in it)."""
+def check_kernels_per_call(fn, want: int, what: str) -> int:
+    """Fail unless a call of ``fn`` launches ``want`` kernels, each the
+    partials kernel. A profile that caught fewer (the profiler drops events)
+    is taken again, up to five times; one kernel too many, or another
+    kernel, fails at once."""
+    names = []
+    for _ in range(5):
+        names = [n for n, _ in device_events(fn) if not n.startswith(("Memcpy", "Memset"))]
+        check(len(names) <= want and all("mppi_partials_kernel" in n for n in names),
+              f"{what}: kernels launched {names}, want {want} partials launches")
+        if len(names) == want:
+            return want
+    check(False, f"{what}: the profiler caught {len(names)} of the {want} kernels in five profiles")
+    return 0
+
+
+def device_ms(fn, reps: int = 20, kernels: int = 1) -> float:
+    """Device milliseconds of one call of ``kernels`` kernels: the mean
+    duration of the kernels torch.profiler caught over ``reps`` calls, times
+    ``kernels`` (the wrapper's host cost is not in it). The profiler drops
+    some device events, so the mean over the caught kernels is taken, not
+    the sum over ``reps``."""
     fn()
     torch.cuda.synchronize()
-    return sum(us for _, us in device_events(fn, reps)) / reps / 1e3
+    us = [t for name, t in device_events(fn, reps) if not name.startswith(("Memcpy", "Memset"))]
+    check(bool(us), "torch.profiler caught no kernel of the call")
+    return kernels * sum(us) / len(us) / 1e3
 
 
 class _FlopCount(TorchFunctionMode):
@@ -169,10 +204,24 @@ def nbytes(*tensors) -> int:
 
 def bound(flops: float, n_bytes: float, peak: float = PEAK_FP32) -> dict:
     """The least time of the work on an H100 SXM, and what sets it; ``peak``
-    is the FLOP/s of the operations' type."""
+    is the FLOP/s of the operations' type. ``no_fma_ms``: the operations at
+    half the peak, one instruction each, the ceiling of a build with
+    ``-fmad=false`` (``ops/build.py``)."""
     t_ops, t_bytes = flops / peak, n_bytes / PEAK_HBM
     return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": n_bytes}
+            "no_fma_ms": 2e3 * t_ops, "flops": flops, "bytes": n_bytes}
+
+
+def r_turns(call, per: int) -> dict:
+    """The wrapper's R against R = 1, in turns (wrapper, 1, 1, wrapper): the
+    device µs by torch.profiler and the CUDA-event µs of a call, each over
+    ``per`` solves."""
+    out = {"wrapper": {"device_us": [], "event_us": []}, "1": {"device_us": [], "event_us": []}}
+    for label in ("wrapper", "1", "1", "wrapper"):
+        kw = {} if label == "wrapper" else {"rollouts_per_thread": 1}
+        out[label]["device_us"].append(1e3 * device_ms(lambda: call(**kw), reps=5, kernels=per) / per)
+        out[label]["event_us"].append(1e3 * median_ms(lambda: call(**kw), reps=10, warmup=1) / per)
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -287,10 +336,17 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
             m, cfg = model("cartpole4", fast), fcfg("cartpole4", k, 20.0)
             xs, u_ns = inputs(b, "cartpole4")
             seeds = torch.randint(-2**31, 2**31 - 1, (b,), generator=gen, device=dev, dtype=torch.int32)
-            out = torch.empty((b, k, N), device=dev)
+            out, out_r1 = torch.empty((b, k, N), device=dev), torch.empty((b, k, N), device=dev)
+            got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, seeds=seeds, sampler=sampler,
+                                                             noise_out=out)
             parts = mppi_cuda.mppi_batch_partials_fused(cfg, m, xs, u_ns, seeds=seeds, sampler=sampler,
-                                                        noise_out=out)
-            got_u, got_st = mppi_cuda.finalize_batch_fused(cfg, parts)
+                                                        noise_out=out_r1, rollouts_per_thread=1)
+            # R = 4 draws every rollout's noise as R = 1 does, and the rows-only
+            # launch merged by finalize_batch_fused gives the same solve at R = 1
+            check(torch.equal(out, out_r1), f"{sampler} fast={fast}: noise at R=4 differs from R=1")
+            fin_u, fin_st = mppi_cuda.finalize_batch_fused(cfg, parts)
+            check(bool((fin_st == got_st).all()), f"{sampler} fast={fast}: R=1 rows + finalize statuses")
+            check_band(fin_u, got_u, f"{sampler} fast={fast}: R=1 rows + finalize vs the merged R=4 solve")
             words = mppi_cuda.batch_noise(cfg, m, seeds, sampler)
             noise_err = max_err(out, words)
             if sampler in ("clt4", "clt2q", "clt4a"):  # integer ops and a polynomial: the same bits
@@ -307,12 +363,14 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
             check(abs(mean) < 5e-3 and abs(var - 1.0) < 5e-3 and abs(kurt - 3.0) < 0.02,
                   f"{sampler} moments: mean {mean} var {var} kurtosis {kurt}")
             row = {"phase": "batch_sampler", "sampler": sampler, "fast": fast, "b": b, "k": k,
+                   "rollouts_per_thread": mppi_cuda.rollouts_per_thread(k, b), "noise_r4_equals_r1": True,
                    "noise_max_abs_err": noise_err, "max_abs_err": err, "mean": mean, "var": var, "kurtosis": kurt}
             if sampler in ("clt4a", "box-muller-a"):
                 row["pair_sum_max_abs"] = float((out[:, 0::2] + out[:, 1::2]).abs().max())
                 check(row["pair_sum_max_abs"] == 0.0, f"{sampler}: a pair's noise does not sum to exactly 0")
             emit(row)
-            del out, words
+            del out, out_r1, words
+    check(bool((mppi_cuda.merge_tickets(dev, b) == 0).all()), "fleet tickets not zero after the sampler phase")
 
     # F4. failure probes, per scenario
     seeds = torch.arange(8, dtype=torch.int32, device=dev)
@@ -357,11 +415,33 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
               "tick_ms_median": statistics.median(tick_ms), "tick_ms_p99": sorted(tick_ms)[int(0.99 * len(tick_ms))],
               "scenario_ticks_per_s": res.scenario_ticks_per_s, "run_s": run_s, **card})
     counts = dict(mppi_cuda.launches)
-    check(counts["mppi_batch_partials_fused"] >= ticks and counts["finalize_batch_fused"] >= ticks,
-          f"batched launches {counts} < ticks {ticks}")
+    check(counts["mppi_solve_batch_fused"] >= ticks and counts["finalize_batch_fused"] == 0,
+          f"merged batched launches {counts}: want >= ticks {ticks}, and no finalize launch")
     for key in ("fast_tier", *(f"sampler:{s_}" for s_ in philox.SAMPLERS)):
         check(counts[key] >= 1, f"{key} was not launched on the fleet's main path")
     emit({"phase": "fleet_main_path_launches", "ticks": ticks, "launches": counts})
+    # a tick's MPPI is one launch (torch.profiler): the tick's MPPI call at
+    # its fleet's shape launches one partials kernel, and three ticks of the
+    # estimator chain's fleet (the same MPPI call, 7-9 device events a tick)
+    # launch no finalize kernel and at most three partials kernels (the
+    # profiler drops some device events, so it may catch fewer). The torch-op
+    # tick (~8 000 device events) is not profiled: after a profile that
+    # large the profiler caught no event of the next calls.
+    from mpc_rs_tpu_torch.apps.fleet import build_fleet
+    for which in ("cartpole4", "flagship6"):
+        fl = build_fleet(which, None, dev, scenarios=1024, estimator_chain=True)
+        xs, u_ns = inputs(1024, which)
+        seeds = torch.arange(1024, dtype=torch.int32, device=dev)
+        call = lambda: mppi_cuda.mppi_solve_batch_fused(fl.cfg, model(which, True), xs, u_ns,  # noqa: E731
+                                                        seeds=seeds, sampler=fl.sampler)
+        per_call = check_kernels_per_call(call, 1, f"{which}: the tick's MPPI call")
+        carry = fl.tick(fl.carry, fl.generator)
+        names = [n for n, _ in device_events(lambda: fl.tick(carry, fl.generator), reps=3)]
+        mppi = [n for n in names if "mppi_partials_kernel" in n or "finalize" in n]
+        check(not any("finalize" in n for n in mppi) and 1 <= len(mppi) <= 3,
+              f"{which}: three chain ticks' MPPI kernels {mppi} among {len(names)} events")
+        emit({"phase": "fleet_tick_mppi_launches", "model": which, "mppi_call_kernels": per_call,
+              "chain_ticks_profiled": 3, "mppi_kernels_caught": len(mppi), "device_events_caught": len(names)})
 
     # F6. timings by CUDA events, kernel and plain in turns, on one card
     timing = {}
@@ -377,6 +457,7 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
         seeds = torch.randint(0, 2**31 - 1, (b,), generator=gen, device=dev, dtype=torch.int32)
         kern = median_ms(lambda: mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, seeds=seeds,
                                                                   sampler=sampler), reps=50)
+        # the merge's cost inside the launch: the merged call less the rows-only call
         parts_dev = device_ms(lambda: mppi_cuda.mppi_batch_partials_fused(cfg, m, xs, u_ns, seeds=seeds,
                                                                           sampler=sampler))
         solve_dev = device_ms(lambda: mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, seeds=seeds,
@@ -389,39 +470,51 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
         # in: xs, u_ns, seeds; out: u_n' (B, N), status (B,)
         timing[label] = (min(kern, kern2), plain_t,
                          bound(flops_of(plain), nbytes(xs, u_ns, seeds, u_ns, seeds)))
-        emit({"phase": "timing_batch", "shape": label, "b": b, "k": k, "fast": fast, "sampler": sampler,
-              "kernel_us_per_solve": [1e3 * kern, 1e3 * kern2], "device_us_partials": 1e3 * parts_dev,
-              "device_us_finalize": 1e3 * (solve_dev - parts_dev), "plain_us_per_solve": 1e3 * plain_t,
-              **card})
+        row = {"phase": "timing_batch", "shape": label, "b": b, "k": k, "fast": fast, "sampler": sampler,
+               "rollouts_per_thread": mppi_cuda.rollouts_per_thread(k, b),
+               "kernel_us_per_solve": [1e3 * kern, 1e3 * kern2], "device_us_solve": 1e3 * solve_dev,
+               "device_us_rows_only": 1e3 * parts_dev, "device_us_merge": 1e3 * (solve_dev - parts_dev),
+               "plain_us_per_solve": 1e3 * plain_t, **timing[label][2], **card}
+        if label in ("cartpole4", "flagship6", "flagship6_exact", "multi_block"):
+            row["r_turns"] = r_turns(lambda **kw: mppi_cuda.mppi_solve_batch_fused(
+                cfg, m, xs, u_ns, seeds=seeds, sampler=sampler, **kw), 1)
+        emit(row)
     a = 200.0 * torch.rand(n_pts, generator=gen, device=dev) - 100.0
     fm_kern = median_ms(lambda: mppi_cuda.fastmath_eval("fsin", a), reps=50)
     fm_plain = median_ms(lambda: fastmath.fsin(a), reps=20)
     fm_library = median_ms(lambda: torch.sin(a), reps=50)
+    # the event window above holds each wrapper's host time too (ctypes and
+    # torch.empty, or PyTorch's dispatch); the kernels' own device time:
+    fm_dev = device_ms(lambda: mppi_cuda.fastmath_eval("fsin", a))
+    fm_library_dev = device_ms(lambda: torch.sin(a))
     fm_bound = bound(flops_of(lambda: fastmath.fsin(a)), 2 * nbytes(a))
     emit({"phase": "timing_fastmath", "fn": "fsin", "points": n_pts, "kernel_us": 1e3 * fm_kern,
-          "plain_us": 1e3 * fm_plain, "library_us_torch_sin": 1e3 * fm_library, **fm_bound, **card})
+          "kernel_device_us": 1e3 * fm_dev, "plain_us": 1e3 * fm_plain, "library_us_torch_sin": 1e3 * fm_library,
+          "library_device_us_torch_sin": 1e3 * fm_library_dev,
+          "probe_launches_on_the_fleet_main_path": counts["fastmath_eval"], **fm_bound, **card})
 
     def timed(label):
         kern, plain_t, bnd = timing[label]
         return {"ms": kern, "plain_ms": plain_t, "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
                 "library_ms": None}
 
-    fleet_launches = counts["mppi_batch_partials_fused"]
+    fleet_launches = counts["mppi_solve_batch_fused"]
     return [
-        {"name": "mppi_partials_kernel+fleet_finalize_kernel (K5, mppi_solve_batch_fused)", "route": "cuda",
-         "source": SOURCE, "replaces": f"{PALLAS}:692", "launches": fleet_launches,
+        {"name": "mppi_partials_kernel, merged in the launch (K5, mppi_solve_batch_fused)", "route": "cuda",
+         "source": COMMON_SOURCE, "replaces": f"{PALLAS}:692", "launches": fleet_launches,
          "max_abs_err": batch_err, **timed("flagship6")},
-        {"name": "mppi_partials_kernel+fleet_finalize_kernel, multi-block K (K6)", "route": "cuda",
-         "source": SOURCE, "replaces": f"{PALLAS}:739", "launches": fleet_launches,
+        {"name": "mppi_partials_kernel, merged in the launch, multi-block K (K6)", "route": "cuda",
+         "source": COMMON_SOURCE, "replaces": f"{PALLAS}:739", "launches": fleet_launches,
          "max_abs_err": batch_err, **timed("multi_block")},
         *({"name": f"mppi_partials_kernel sampler={s_} (K3, _fill_vbuf)", "route": "cuda",
            "source": COMMON_SOURCE, "replaces": f"{PALLAS}:{SAMPLER_LINES[s_]}",
            "launches": counts[f"sampler:{s_}"], "max_abs_err": sampler_err[s_], **timed("cartpole4:" + s_)}
           for s_ in philox.SAMPLERS),
-        {"name": "fastmath.cuh fsin/fcos/flog/frsqrt/fsqrt/freciprocal/fdiv (K4, fast tier)", "route": "cuda",
+        {"name": "fastmath.cuh fsin/fcos/flog/frsqrt/fsqrt/freciprocal/fdiv (K4: inlined in the fast-tier partials "
+                 "launches counted here; probe fsin over 2**20 points, device time)", "route": "cuda",
          "source": FASTMATH_SOURCE, "replaces": "mpc_rs_tpu/ops/fastmath.py:64",
-         "launches": counts["fast_tier"], "max_abs_err": fm_err, "ms": fm_kern, "plain_ms": fm_plain,
-         "bound_ms": fm_bound["bound_ms"], "bound_by": fm_bound["bound_by"], "library_ms": fm_library},
+         "launches": counts["fast_tier"], "max_abs_err": fm_err, "ms": fm_dev, "plain_ms": fm_plain,
+         "bound_ms": fm_bound["bound_ms"], "bound_by": fm_bound["bound_by"], "library_ms": fm_library_dev},
     ]
 
 
@@ -501,8 +594,9 @@ def estimator_phases(dev: torch.device, card: dict) -> list[dict]:
         check(res.statuses_ok, f"chain fleet {model}: a status was not 0")
         check(bool(torch.isfinite(res.carry.x).all()) and bool(torch.isfinite(res.carry.ukf.x).all()),
               f"chain fleet {model}: non-finite states")
-        check(counts["estimator_chain_fused"] >= res.ticks and counts["mppi_batch_partials_fused"] >= res.ticks,
-              f"chain fleet {model}: launches {counts} < ticks {res.ticks}")
+        check(counts["estimator_chain_fused"] >= res.ticks and counts["mppi_solve_batch_fused"] >= res.ticks
+              and counts["finalize_batch_fused"] == 0,
+              f"chain fleet {model}: launches {counts}: want >= ticks {res.ticks}, and no finalize launch")
         # the device launches of one tick, from the profiler
         carry = res.carry
         torch.cuda.synchronize()
@@ -641,7 +735,7 @@ def diag_phases(dev: torch.device, card: dict) -> list[dict]:
     d1_timing = {}
     for mode in diag_cuda.MODES:
         kern = median_ms(lambda: chain(k, mode, jj), reps=5, warmup=1) / jj
-        dev_ms = device_ms(lambda: chain(k, mode, 8), reps=3) / 8
+        dev_ms = device_ms(lambda: chain(k, mode, 8), reps=3, kernels=16) / 8  # a partials and a finalize a solve
         plain_t = median_ms(lambda: chain(k, mode, 1, torch.float32), reps=3, warmup=1)
         kern2 = median_ms(lambda: chain(k, mode, jj), reps=5, warmup=1) / jj
         # in: x, u_n; out: u0, u_n' (per solve)
@@ -712,6 +806,7 @@ def main() -> None:
     from mpc_rs_tpu_torch.ops import build, mppi_cuda
     from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, mppi_chain_fused, mppi_solve_fused
     from mpc_rs_tpu_torch.ops.philox import philox_normal
+    from mpc_rs_tpu_torch.runtime.profile_partials import ptxas_partials, sass_counts
 
     dev = torch.device("cuda", 0)
     model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
@@ -741,6 +836,16 @@ def main() -> None:
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "library": so.name, "build_s": build_s, "build_wall_s": build_wall,
           "horizon": mppi_cuda.HORIZON, "ptxas": ptxas})
+    # the production partials instantiations' static SASS and ptxas report
+    sass = sass_counts(so, Path(build.find_nvcc()).parent / "cuobjdump")
+    partials_ptxas = ptxas_partials(log)
+    spills = [ln for ln in partials_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
+    emit({"phase": "sass", "build_s": build_s, "kernels": sass, "ptxas_partials": partials_ptxas})
+    check(not spills, f"ptxas spills in partials instantiations: {spills}")
+    check(not any("mppi_finalize_kernel" in r["kernel"] for r in sass), "mppi_finalize_kernel is still built")
+    production = [r for r in sass if "finalize_kernel" not in r["kernel"]]
+    check(len(production) == 6 and all(r["ATOM"] >= 1 for r in production),
+          f"the production partials instantiations (3 solves x R = 1, 4) and their tickets: {sass}")
 
     # 3. K2 with external noise against the plain version in float64
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -785,6 +890,21 @@ def main() -> None:
         else:
             check(bool(torch.isfinite(u).all()), f"probe {label}: finite u")
         emit({"phase": "failure_probe", "probe": label, "status": int(st)})
+
+    # 4b. what a solve and a chain launch, by torch.profiler: a K2 solve is
+    # one kernel, a K1 chain of J solves J; the tickets are zero after them
+    zeros = torch.zeros(N, device=dev)
+    xt = x0()
+    per_call = {}
+    for label, fn, want in (
+        ("k2_solve", lambda: mppi_solve_fused(cfg(819_200), model, xt, zeros, seed=1), 1),
+        ("k2_solve_k10240", lambda: mppi_solve_fused(cfg(10_240), model, xt, zeros, seed=1), 1),
+        ("k1_chain_j8", lambda: mppi_chain_fused(cfg(819_200), model, xt, zeros, n_solves=8, base_seed=1), 8),
+        ("k1_chain_j8_plant", lambda: mppi_chain_fused(cfg(10_240), model, xt, zeros, n_solves=8, plant=True), 8),
+    ):
+        per_call[label] = check_kernels_per_call(fn, want, label)
+    check(bool((mppi_cuda.merge_tickets(dev, 1) == 0).all()), "K1/K2 tickets not zero")
+    emit({"phase": "kernels_per_call", **per_call})
 
     # 5. K1 with the plant on, against its plain version in float64 and
     # against sequential K2 solves with the plant stepped between them. At the
@@ -880,7 +1000,7 @@ def main() -> None:
         timing[k] = (kern, plain_t,
                      bound(flops_of(lambda: mppi_cuda.mppi_solve_plain(cfg(k), model, xt, u0, seed=3)), solve_bytes))
         emit({"phase": "timing_k2", "k": k, "n": N, "kernel_us_per_solve": 1e3 * kern,
-              "plain_us_per_solve": 1e3 * plain_t, **card})
+              "plain_us_per_solve": 1e3 * plain_t, **timing[k][2], **card})
     chain_timing = {}
     for k in (10_240, 800_000, 819_200):
         jj = 64
@@ -890,7 +1010,22 @@ def main() -> None:
                             reps=2, warmup=1) / jj
         chain_timing[k] = (kern, plain_t)
         emit({"phase": "timing_k1", "k": k, "n": N, "j": jj, "kernel_us_per_solve": 1e3 * kern,
-              "plain_us_per_solve": 1e3 * plain_t, **card})
+              "plain_us_per_solve": 1e3 * plain_t, "rollouts_per_thread": mppi_cuda.rollouts_per_thread(k),
+              **card})
+    # the wrapper's R against R = 1 at the K1/K2 shapes, in turns; at K = 10 240
+    # the wrapper takes R = 1, so R = 4 is set against it
+    for k, forced in ((10_240, 4), (800_000, 1), (819_200, 1)):
+        chain = lambda **kw: mppi_chain_fused(cfg(k), model, xt, u0, n_solves=64, base_seed=1, **kw)  # noqa: E731
+        solve = lambda **kw: mppi_solve_fused(cfg(k), model, xt, u0, seed=3, **kw)  # noqa: E731
+        turns = {}
+        for path, fn, per in (("k1_per_solve", chain, 64), ("k2_per_call", solve, 1)):
+            turns[path] = {"wrapper": [], str(forced): []}
+            for label in ("wrapper", str(forced), str(forced), "wrapper"):
+                kw = {} if label == "wrapper" else {"rollouts_per_thread": forced}
+                turns[path][label].append({"device_us": 1e3 * device_ms(lambda: fn(**kw), reps=3, kernels=per) / per,
+                                           "event_us": 1e3 * median_ms(lambda: fn(**kw), reps=5, warmup=1) / per})
+        emit({"phase": "timing_r_turns", "k": k, "wrapper_r": mppi_cuda.rollouts_per_thread(k), "turns": turns,
+              **card})
 
     # 7. K2 and K1 in bench.py's two configurations (bench.py:97-101): clt4a
     # in the fast tier and wallace in the exact tier, the state held. The
@@ -937,12 +1072,13 @@ def main() -> None:
     diag = diag_phases(dev, card)
 
     emit({"kernels": [
-        {"name": "mppi_partials_kernel+mppi_finalize_kernel (K2, mppi_solve_fused)", "route": "cuda",
-         "source": SOURCE, "replaces": f"{PALLAS}:438",
+        {"name": "mppi_partials_kernel, merged in the launch (K2, mppi_solve_fused)", "route": "cuda",
+         "source": COMMON_SOURCE, "replaces": f"{PALLAS}:438",
          "launches": counts["mppi_solve_fused"], "max_abs_err": k2_err,
          "ms": timing[k_app][0], "plain_ms": timing[k_app][1], "bound_ms": timing[k_app][2]["bound_ms"],
          "bound_by": timing[k_app][2]["bound_by"], "library_ms": None},
-        {"name": "mpc_mppi_chain (K1, mppi_chain_fused)", "route": "cuda",
+        {"name": "mpc_mppi_chain: one merged mppi_partials_kernel launch a solve (K1, mppi_chain_fused, per solve)",
+         "route": "cuda",
          "source": SOURCE, "replaces": f"{PALLAS}:1004",
          "launches": counts["mppi_chain_fused"], "max_abs_err": k1_err,
          "ms": chain_timing[k_app][0], "plain_ms": chain_timing[k_app][1],
@@ -953,7 +1089,8 @@ def main() -> None:
         *diag,
     ]})
     print(nvidia_smi_line(), flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":

@@ -95,22 +95,23 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     lib.mpc_mppi_solve.argtypes = [
         _P, _I, _I, _P,  # model consts, fast, sampler, sampler consts
-        _I, _I, _F, _F, _F, _F, _F,  # n, k, lambda, inv, lo, hi, std_dev
+        _I, _I, _F, _F, _F, _F, _F, _I,  # n, k, 1/lambda, inv, lo, hi, std_dev, rollouts a thread
         _P, _P, _P, _P, _I, _U, _U,  # x, u_n, noise, seeds, seed_index, base_seed, solve_word
-        _P, _P, _P, _P,  # partials, u_out, status, stream
+        _P, _P, _P, _P, _P,  # partials, tickets, u_out, status, stream
     ]
     lib.mpc_mppi_solve.restype = _I
     lib.mpc_mppi_chain.argtypes = [
         _P, _I, _I, _P,  # model consts, fast, sampler, sampler consts
-        _I, _I, _F, _F, _F, _F, _F,  # n, k, lambda, inv, lo, hi, std_dev
+        _I, _I, _F, _F, _F, _F, _F, _I,  # n, k, 1/lambda, inv, lo, hi, std_dev, rollouts a thread
         _P, _P, _P, _P, _U, _I, _I,  # x, u_n, noise, seeds, base_seed, n_solves, plant
-        _P, _P, _P, _P,  # partials, u0s, statuses, stream
+        _P, _P, _P, _P, _P,  # partials, tickets, u0s, statuses, stream
     ]
     lib.mpc_mppi_chain.restype = _I
     lib.mpc_fleet_partials.argtypes = [
         _I, _I, _I, _P, _P, _P,  # model, fast, sampler, model, cost and sampler consts
-        _I, _I, _I, _F, _F, _F, _F, _F,  # n, b, k, lambda, inv, lo, hi, std_dev
-        _P, _P, _P, _P, _P, _P, _P,  # x, u_n, noise, seeds, partials, noise_out, stream
+        _I, _I, _I, _F, _F, _F, _F, _F, _I,  # n, b, k, 1/lambda, inv, lo, hi, std_dev, rollouts a thread
+        _P, _P, _P, _P, _P, _P,  # x, u_n, noise, seeds, partials, noise_out
+        _P, _P, _P, _P,  # tickets, u_out, status, stream
     ]
     lib.mpc_fleet_partials.restype = _I
     lib.mpc_estimator_chain.argtypes = [

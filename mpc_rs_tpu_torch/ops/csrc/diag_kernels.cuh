@@ -49,7 +49,7 @@ enum MixMode : int {
 };
 
 struct MixArgs {
-  PartialsArgs p;      // K, inv, lo, hi, sigma and the sampler constants (p.lambda unused)
+  PartialsArgs p;      // K, inv, lo, hi, sigma and the sampler constants (p.inv_lambda unused)
   float inv_lambda;    // f32(1/lambda)
   float cltf_mu;       // f32(4 + 510/256), the mean of four [1, 2) floats
   float cltf_inv_sig;  // f32(256/sqrt(4 (256^2 - 1)/12))

@@ -1,7 +1,8 @@
 // Device code of the MPPI kernels (mppi_kernels.cu): constants, the
 // NaN-propagating clamp, Philox4x32-10, the samplers, warp and block
-// reductions, the model and cost functors, and the one partials kernel
-// that every MPPI solve runs (mppi_partials_kernel, at the end).
+// reductions, the model and cost functors, the log-sum-exp merge of
+// partials rows, and the one kernel that every MPPI solve runs
+// (mppi_partials_kernel, at the end).
 //
 // The functors carry the models of mpc_rs_tpu/models/{dynamics,costs}.py.
 // Products of parameters are folded in double on the host and rounded to
@@ -11,8 +12,11 @@
 
 #pragma once
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "fastmath.cuh"
 
@@ -313,9 +317,10 @@ constexpr float kTriInvSig = 0x1.39897ep-7f;  // f32(1/sqrt(2 (256² − 1)/12))
 constexpr int kWallacePeriod = 8;
 
 struct PartialsArgs {
-  int k;          // rollouts K per problem
-  float lambda;   // softmax temperature (0 gives INVALID_U, as mppi_solve)
-  float inv;      // control-term coefficient (sigma^-2 or control_inv)
+  int k;             // rollouts K per problem
+  float inv_lambda;  // f32(1/lambda), folded in double (mppi_pallas.py:348); +inf for
+                     // lambda = 0, whose best rollout then weighs 0*inf = NaN: INVALID_U
+  float inv;         // control-term coefficient (sigma^-2 or control_inv)
   float lo, hi;   // control box
   float std_dev;  // sampling sigma
   float clt_a;    // f32(_CLT_A * sigma), clt4/clt4a
@@ -477,81 +482,306 @@ __device__ __forceinline__ void sample(float (&e)[N], uint32_t k, uint32_t key, 
   }
 }
 
+// Fold one entry of max m_e and weights vals into a running log-sum-exp
+// (m, acc), with one exp: the first entry (m = neg_big, acc = 0) is taken
+// as it is; a new maximum rescales acc by exp((m - m_e) f32(1/lambda)) and
+// adds vals; otherwise vals is added with weight exp((m_e - m) f32(1/lambda)).
+// The roundings are those of a rescale followed by a weighted add.
+template <int L>
+__device__ __forceinline__ void lse_fold(float& m, float (&acc)[L], float m_e,
+                                         const float (&vals)[L], float inv_lambda) {
+  if (m == kNegBig) {
+#pragma unroll
+    for (int i = 0; i < L; ++i) acc[i] += vals[i];
+    m = m_e;
+    return;
+  }
+  const float d = m_e - m;
+  const bool new_max = d > 0.0f;
+  const float e = expf(-fabsf(d) * inv_lambda);
+  const float keep = new_max ? e : 1.0f, w = new_max ? 1.0f : e;  // a product by 1 is exact
+#pragma unroll
+  for (int i = 0; i < L; ++i) acc[i] = acc[i] * keep + vals[i] * w;
+  if (new_max) m = m_e;
+}
+
+// The thread's share of a merge: rows first, first + stride, ... < nb of
+// (m_b, s_b, uw_b[0..N-1]), each read once, folded into (returned m, tot).
+// The rows were written by other blocks of the launch (or an earlier
+// launch): read them from L2 (__ldcg), past this SM's L1. An all-masked row
+// (m_b = neg_big, s_b = 0) contributes exactly 0.
+template <int N>
+__device__ __forceinline__ float fold_rows(const float* rows, int nb, int first, int stride,
+                                           float inv_lambda, float (&tot)[N + 1]) {
+  float m = kNegBig;
+#pragma unroll
+  for (int i = 0; i <= N; ++i) tot[i] = 0.0f;
+  for (int r = first; r < nb; r += stride) {
+    const float* row = rows + (size_t)r * (N + 2);
+    const float m_r = __ldcg(row);
+    float vals[N + 1];
+#pragma unroll
+    for (int i = 0; i <= N; ++i) vals[i] = __ldcg(row + 1 + i);
+    if (m_r > kNoFiniteBelow) lse_fold(m, tot, m_r, vals, inv_lambda);
+  }
+  return m;
+}
+
+// Merge the nb rows of one problem by log-sum-exp in one warp (the rows of
+// a few blocks; fleet_finalize_kernel's merge): every lane gets m_all and
+// tot[0..N] = (s, uw[0..N-1]). Up to 32 rows a lane holds one, and the
+// result is the bits of the two-pass merge (each row scaled by
+// exp((m_b - m_all) f32(1/lambda)), then summed).
+template <int N>
+__device__ __forceinline__ float merge_rows_warp(const float* rows, int nb, float inv_lambda,
+                                                 float (&tot)[N + 1]) {
+  const float m = fold_rows<N>(rows, nb, threadIdx.x & 31, 32, inv_lambda, tot);
+  const float m_all = warp_max(m);
+  const float scale = m > kNoFiniteBelow ? expf((m - m_all) * inv_lambda) : 0.0f;
+#pragma unroll
+  for (int i = 0; i <= N; ++i) tot[i] = warp_sum(tot[i] * scale);
+  return m_all;
+}
+
+// The same merge by the whole block, for the rows of many blocks (K1/K2 at
+// large K): every thread gets m_all; tot[0..N] (shared) is filled after the
+// final barrier.
+template <int N>
+__device__ __forceinline__ float merge_rows_block(const float* rows, int nb, float inv_lambda,
+                                                  float* red_max, float (*red_sum)[N + 1],
+                                                  float* tot) {
+  float acc[N + 1];
+  const float m = fold_rows<N>(rows, nb, threadIdx.x, kThreads, inv_lambda, acc);
+  const float m_all = block_max(m, red_max);
+  const float scale = m > kNoFiniteBelow ? expf((m - m_all) * inv_lambda) : 0.0f;
+#pragma unroll
+  for (int i = 0; i <= N; ++i) acc[i] *= scale;
+  const float s = block_sums<N + 1>(acc, red_sum);
+  if (threadIdx.x < N + 1) tot[threadIdx.x] = s;
+  __syncthreads();
+  return m_all;
+}
+
+// Roll one control sequence v out N steps from xb and score it: the
+// negated sum of the stage costs and of the control term u_n·inv·v.
+template <int N, class Model, class Cost>
+__device__ __forceinline__ float rollout_score(const Model& model, const Cost& cost,
+                                               const PartialsArgs& a, const float (&xb)[4],
+                                               const float (&un)[N], const float (&v)[N]) {
+  float x0 = xb[0], x1 = xb[1], x2 = xb[2], x3 = xb[3];
+  float c_acc = 0.0f, ct = 0.0f;
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    model.step(x0, x1, x2, x3, v[t]);
+    c_acc = c_acc + cost(x0, x1, x2, x3);
+    ct = ct + un[t] * a.inv * v[t];
+  }
+  return -c_acc - ct;
+}
+
+// What a partials launch reads and writes besides the model and the cost.
+// Problem b starts from x[b] with nominal u_n[b], reads noise[b] or samples
+// with key seeds[b] (base_seed when seeds is null) and counter word
+// word0 + b, and writes its rows to partials[b]. With u_out, the launch also
+// merges each problem's rows (the last of its blocks to finish does) and
+// writes u_out[b], status[b] and, for K1, u0 and the stepped plant x_plant.
+// u_out may alias u_n, and x_plant is x (K1 updates both in place): every
+// block reads them before it draws its ticket, and the merge writes them
+// after the last ticket.
+struct PartialsIO {
+  const float* x;        // (P, 4) start states
+  const float* u_n;      // (P, N) nominals
+  const float* noise;    // (P, K, N) external noise (already scaled by sigma), or null
+  const int* seeds;      // (P) Philox keys, or null
+  uint32_t base_seed;    // the key when seeds is null
+  uint32_t word0;        // the counter word of problem 0
+  float* partials;       // (P, nb, N+2) rows
+  float* noise_out;      // (P, K, N), or null: receives the noise used
+  float* u_out;          // (P, N) u_n', or null: write the rows only
+  int* status;           // (P) MppiStatus
+  int* tickets;          // (P) zeros; the merging block resets its problem's to 0
+  float* u0;             // (1) or null: u_out[0][0], K1's u0 of the solve
+  float* x_plant;        // (4) or null: x itself (P = 1), K1's plant, stepped with u0
+};
+
+// The end of problem b's solve, by one thread, on the merged totals: the
+// status ladder and zero fallback (mppi_pallas.py:1021-1036) into u_out[b]
+// and status[b]; for K1, u0 and one plant step with it from the solve's
+// start state xb (x_plant is x: the step needs no second read of it).
+template <int N, class Model>
+__device__ __forceinline__ void finish_solve(const Model& model, float m_all, const float* tot,
+                                             const float (&xb)[4], const PartialsIO& io, int b) {
+  float* u = io.u_out + (size_t)b * N;
+  io.status[b] = status_ladder<N>(m_all, tot, u);
+  if (io.u0 != nullptr) *io.u0 = u[0];
+  if (io.x_plant != nullptr) {
+    float x0 = xb[0], x1 = xb[1], x2 = xb[2], x3 = xb[3];
+    model.step(x0, x1, x2, x3, u[0]);
+    io.x_plant[0] = x0;
+    io.x_plant[1] = x1;
+    io.x_plant[2] = x2;
+    io.x_plant[3] = x3;
+  }
+}
+
+// Problems of at most this many blocks are merged by one warp of their last
+// block (the other warps leave after the reductions); more, by the block.
+constexpr int kWarpMergeRows = 128;
+
 // One block of one problem's rollouts: sample (or read) and clamp, roll out
 // N steps, score, and reduce to the row (m_b, s_b, uw_b[0..N-1]) of that
-// problem's partials. Grid (ceil(K/256), P): problem b = blockIdx.y starts
-// from x[b] (S = 4) with nominal u_n[b], reads noise (P, K, N) or samples
-// with key seeds[b] (base_seed when seeds is null) and counter word
-// word0 + b, and writes row (b, blockIdx.x) of partials (P, nb, N+2). The
-// fleet runs P = B scenarios with word0 = 0; a K2 solve is P = 1 with its
-// solve index in word0. Every thread samples (the warp shuffles of clt4a
-// and wallace need whole warps); rollouts k >= K count as non-finite
-// afterwards (exact-K masking, mppi_pallas.py:349-353). noise_out (P, K, N),
-// when not null, receives the noise used.
-template <int N, class Model, class Cost, bool Fast, int S>
-__global__ void __launch_bounds__(kThreads)
-mppi_partials_kernel(Model model, Cost cost, PartialsArgs a, const float* __restrict__ x,
-                     const float* __restrict__ u_n, const float* __restrict__ noise,
-                     const int* __restrict__ seeds, uint32_t base_seed, uint32_t word0,
-                     float* __restrict__ partials, float* __restrict__ noise_out) {
+// problem's partials; then, with io.u_out, the merge. Grid (ceil(K/(256 R)),
+// P): thread i of block g runs rollouts k = (g R + r) 256 + i, r < R, one
+// after another, so each group of 256 rollouts is one warp-aligned range as
+// at R = 1, and the Philox counters, the lane pairs of clt4a and
+// box-muller-a and wallace's warp rotation draw every rollout's noise as at
+// R = 1. Each thread keeps a running log-sum-exp of its rollouts
+// (lse_fold), so the block pays one block_max and one block_sums<N+1> per
+// 256 R rollouts, with the registers and the code of one rollout. The fleet
+// runs P = B scenarios with word0 = 0; a K2 solve is P = 1 with its solve
+// index in word0. Every thread samples (the warp shuffles of clt4a and
+// wallace need whole warps); rollouts k >= K count as non-finite and carry
+// v = 0 (exact-K masking, mppi_pallas.py:349-353).
+//
+// The merge: a problem of one block finishes from its own sums. Otherwise
+// lane 0 writes the block's row and draws the problem's ticket (an
+// acquire-release atomic add); the block that draws nb - 1 has every row of
+// the problem in L2. It merges them (one warp for up to kWarpMergeRows
+// rows, else the block), finishes the solve (finish_solve) and resets the
+// ticket for the next launch.
+template <int N, class Model, class Cost, bool Fast, int S, int R>
+__device__ __forceinline__ void partials_body(const Model& model, const Cost& cost,
+                                              const PartialsArgs& a, const PartialsIO& io) {
   __shared__ float red_max[kWarps];
   __shared__ float red_sum[kWarps][N + 1];
 
   const int b = blockIdx.y;
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  const bool in_range = k < a.k;
+  const uint32_t key = io.seeds != nullptr ? (uint32_t)io.seeds[b] : io.base_seed;
+  float un[N], xb[4];
+#pragma unroll
+  for (int t = 0; t < N; ++t) un[t] = io.u_n[(size_t)b * N + t];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) xb[i] = io.x[(size_t)b * 4 + i];
 
-  float un[N], e[N], v[N];
+  // the thread's rollouts one after another, in a loop that is not unrolled
+  // (the code of one rollout, not R), each folded into the thread's running
+  // log-sum-exp (m_t, acc)
+  float m_t = kNegBig;
+  float acc[N + 1];
 #pragma unroll
-  for (int t = 0; t < N; ++t) {
-    un[t] = u_n[(size_t)b * N + t];
-    e[t] = 0.0f;
-  }
-  if constexpr (S == kExternal) {
-    if (in_range) {
+  for (int i = 0; i <= N; ++i) acc[i] = 0.0f;
+#pragma unroll 1
+  for (int r = 0; r < R; ++r) {
+    const uint32_t k = ((uint32_t)blockIdx.x * R + r) * kThreads + threadIdx.x;
+    const bool in_range = k < (uint32_t)a.k;  // rollouts past K weigh 0
+    float e[N], v[N];
 #pragma unroll
-      for (int t = 0; t < N; ++t) e[t] = noise[((size_t)b * a.k + k) * N + t];
+    for (int t = 0; t < N; ++t) e[t] = 0.0f;
+    if constexpr (S == kExternal) {
+      if (in_range) {
+#pragma unroll
+        for (int t = 0; t < N; ++t) e[t] = io.noise[((size_t)b * a.k + k) * N + t];
+      }
+    } else {
+      sample<N, Fast, S>(e, k, key, io.word0 + (uint32_t)b, a);
     }
-  } else {
-    const uint32_t key = seeds != nullptr ? (uint32_t)seeds[b] : base_seed;
-    sample<N, Fast, S>(e, (uint32_t)k, key, word0 + (uint32_t)b, a);
-  }
-  if (noise_out != nullptr && in_range) {
+    if (!in_range) continue;
+    if (io.noise_out != nullptr) {
 #pragma unroll
-    for (int t = 0; t < N; ++t) noise_out[((size_t)b * a.k + k) * N + t] = e[t];
-  }
-
-  float score = 0.0f;
-  bool finite = false;
-#pragma unroll
-  for (int t = 0; t < N; ++t) v[t] = 0.0f;  // rollouts past K weigh 0 and carry 0
-  if (in_range) {
+      for (int t = 0; t < N; ++t) io.noise_out[((size_t)b * a.k + k) * N + t] = e[t];
+    }
 #pragma unroll
     for (int t = 0; t < N; ++t) v[t] = clampf(un[t] + e[t], a.lo, a.hi);
-    const float* xb = x + (size_t)b * 4;
-    float x0 = xb[0], x1 = xb[1], x2 = xb[2], x3 = xb[3];
-    float c_acc = 0.0f, ct = 0.0f;
+    const float score = rollout_score<N>(model, cost, a, xb, un, v);
+    if (!isfinite(score)) continue;
+    float vals[N + 1];
+    vals[0] = 1.0f;
 #pragma unroll
-    for (int t = 0; t < N; ++t) {
-      model.step(x0, x1, x2, x3, v[t]);
-      c_acc = c_acc + cost(x0, x1, x2, x3);
-      ct = ct + un[t] * a.inv * v[t];
-    }
-    score = -c_acc - ct;
-    finite = isfinite(score);
+    for (int t = 0; t < N; ++t) vals[t + 1] = v[t];
+    lse_fold(m_t, acc, score, vals, a.inv_lambda);
   }
 
-  const float m_b = block_max(finite ? score : kNegBig, red_max);
-  const float ew = finite ? expf((score - m_b) / a.lambda) : 0.0f;
-  float acc[N + 1];
-  acc[0] = ew;
+  // one block_max and one block_sums per 256 R rollouts; at R = 1 these are
+  // the bits of exp((score - m_b) f32(1/lambda)) (1, v)
+  const float m_b = block_max(m_t, red_max);
+  const float scale = m_t > kNoFiniteBelow ? expf((m_t - m_b) * a.inv_lambda) : 0.0f;
 #pragma unroll
-  for (int t = 0; t < N; ++t) acc[t + 1] = ew * v[t];
-  const float s = block_sums<N + 1>(acc, red_sum);
+  for (int i = 0; i <= N; ++i) acc[i] *= scale;
+  const float s = block_sums<N + 1>(acc, red_sum);  // sum i in thread i <= N (warp 0)
 
-  float* row = partials + ((size_t)b * gridDim.x + blockIdx.x) * (N + 2);
-  if (threadIdx.x == 0) row[0] = m_b;
-  if (threadIdx.x < N + 1) row[1 + threadIdx.x] = s;
+  const int nb = gridDim.x;
+  __shared__ float tot[N + 1];
+  if (io.u_out != nullptr && nb == 1) {  // the problem's only block: no row, no ticket
+    if (threadIdx.x <= N) tot[threadIdx.x] = s;
+    __syncwarp();
+    if (threadIdx.x == 0) finish_solve<N>(model, m_b, tot, xb, io, b);
+    return;
+  }
+  const bool block_merge = io.u_out != nullptr && nb > kWarpMergeRows;
+  if (threadIdx.x >= 32 && !block_merge) return;
+  float* rows = io.partials + (size_t)b * nb * (N + 2);
+  float* row = rows + (size_t)blockIdx.x * (N + 2);
+  if (io.u_out == nullptr) {
+    if (threadIdx.x == 0) row[0] = m_b;
+    if (threadIdx.x <= N) row[1 + threadIdx.x] = s;
+    return;
+  }
+
+  // lane 0 writes the row and announces it: the release of its ticket makes
+  // the row visible device-wide first, and the acquire of the block that
+  // draws nb - 1 sees every row of the problem
+  __shared__ int ticket;
+  if (threadIdx.x < 32) {
+    float sums[N + 1];
+#pragma unroll
+    for (int i = 0; i <= N; ++i) sums[i] = __shfl_sync(kFullMask, s, i);
+    if (threadIdx.x == 0) {
+      row[0] = m_b;
+#pragma unroll
+      for (int i = 0; i <= N; ++i) row[1 + i] = sums[i];
+      ticket = cuda::atomic_ref<int, cuda::thread_scope_device>(io.tickets[b])
+                   .fetch_add(1, cuda::memory_order_acq_rel);
+    }
+  }
+  if (block_merge) {
+    __syncthreads();
+    if (ticket != nb - 1) return;
+    const float m_all = merge_rows_block<N>(rows, nb, a.inv_lambda, red_max, red_sum, tot);
+    if (threadIdx.x == 0) {
+      finish_solve<N>(model, m_all, tot, xb, io, b);
+      io.tickets[b] = 0;
+    }
+    return;
+  }
+  __syncwarp();
+  if (ticket != nb - 1) return;
+  float wtot[N + 1];
+  const float m_all = merge_rows_warp<N>(rows, nb, a.inv_lambda, wtot);
+  if (threadIdx.x == 0) {
+    finish_solve<N>(model, m_all, wtot, xb, io, b);
+    io.tickets[b] = 0;
+  }
+}
+
+// The kernel, partials_body at R rollouts a thread. Its two definitions
+// differ only in their launch bounds. At R = 1 (small grids, where the
+// wrapper's rule takes it) they ask for 5 blocks an SM, at most 48
+// registers a thread: left to itself ptxas holds the exact tier to 40 (6
+// blocks) and spills around sinf's slow path. At R = 4 ptxas takes what it
+// needs (64-80 registers, 3-4 blocks an SM), as a minimum of one block an
+// SM would let it take far more.
+template <int N, class Model, class Cost, bool Fast, int S, int R,
+          std::enable_if_t<R == 1, int> = 0>
+__global__ void __launch_bounds__(kThreads, 5)
+mppi_partials_kernel(Model model, Cost cost, PartialsArgs a, PartialsIO io) {
+  partials_body<N, Model, Cost, Fast, S, R>(model, cost, a, io);
+}
+
+template <int N, class Model, class Cost, bool Fast, int S, int R,
+          std::enable_if_t<(R > 1), int> = 0>
+__global__ void __launch_bounds__(kThreads)
+mppi_partials_kernel(Model model, Cost cost, PartialsArgs a, PartialsIO io) {
+  partials_body<N, Model, Cost, Fast, S, R>(model, cost, a, io);
 }
 
 }  // namespace mpc

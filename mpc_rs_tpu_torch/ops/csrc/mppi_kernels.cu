@@ -6,39 +6,72 @@
 // (diag_kernels.cuh, whose notes say what they replace and what bounds them).
 //
 // Replaces the Pallas TPU kernels of mpc_rs_tpu/ops/mppi_pallas.py. Every
-// solve runs one partials kernel, mppi_partials_kernel (mppi_common.cuh),
-// on a grid (ceil(K/256), P) of P problems, then a finalize:
+// solve is one launch of one kernel, mppi_partials_kernel (mppi_common.cuh),
+// on a grid (ceil(K/(256 R)), P) of P problems, R rollouts a thread; the
+// last block of each problem to finish merges the problem's rows and
+// finishes the solve inside the launch:
 //   - K2 (mppi_pallas_partials / _make_kernel + finalize_partials): P = 1,
 //     the solve index in the Philox counter word, either tier, any sampler
-//     or external noise; mppi_finalize_kernel merges the rows in one block;
-//   - K1 (mppi_pallas_chain / _make_chain_kernel): J such solves issued
-//     from a C loop on one stream, the finalize optionally stepping the
-//     plant on the device;
+//     or external noise: one launch a solve;
+//   - K1 (mppi_pallas_chain / _make_chain_kernel): J such launches issued
+//     from a C loop on one stream, the merging block also writing u0 and,
+//     optionally, stepping the plant on the device;
 //   - K5 and K6 (mppi_pallas_batch_partials: _make_fleet_kernel, one
 //     (bs, 128) block per scenario with 8 scenarios unrolled per grid step,
 //     and _make_batched_kernel, a scenario's K-blocks streamed through
 //     carried accumulators): P = B scenarios, with the six branches of
-//     _fill_vbuf (K3) and the fast tier of ops/fastmath.py (K4) inlined. The TPU needed two kernels only for its
-//     layout; here one grid covers both shapes: at K = 1 024 each scenario
-//     has 4 blocks, at K = 8 192 it has 32, at K = 65 536 it has 256. Blocks
-//     run in no order, so instead of K6's carried accumulators each block
-//     writes one row of a (B, nb, N+2) streaming log-sum-exp, and
-//     fleet_finalize_kernel (one warp per scenario) merges a scenario's rows
-//     and writes u_n' (B, N) and the status (B,) on the device.
+//     _fill_vbuf (K3) and the fast tier of ops/fastmath.py (K4) inlined,
+//     one launch a fleet tick. The TPU needed two kernels only for its
+//     layout; here one grid covers both shapes. Blocks run in no order, so
+//     instead of K6's carried accumulators each block writes one row of a
+//     (B, nb, N+2) streaming log-sum-exp, which its scenario's last block
+//     merges (at K = 1 024 and R = 4 a scenario is one block, which
+//     finishes from its own sums). fleet_finalize_kernel (one warp a
+//     scenario, the same merge) is kept for rows merged outside the launch:
+//     the rows-only entry (mppi_batch_partials_fused) and, later, the
+//     multi-GPU merge.
 //
 // What bounds it on the card: the FP32 issue rate and the transcendentals,
-// not bytes. One thread is one rollout: its N samples and the state stay in
-// registers (N is a template parameter, so every loop unrolls; ptxas's
-// register and stack report is in the build log), and device memory sees
-// the states, the nominals and the partials rows (plus the (P, K, N) noise
-// in external-noise mode). Per rollout and step the exact tier pays an
-// accurate sinf/cosf and IEEE divisions; the fast tier pays the polynomials
+// not bytes (48 bytes of state and nominals a problem; the rows stay in
+// L2). A thread runs its R rollouts one after another in a loop that is not
+// unrolled, folding each into a running log-sum-exp (lse_fold): the
+// registers and the code of one rollout, whose N samples, controls and
+// state stay in registers (N is a template parameter, so the steps unroll;
+// ptxas's register and spill report is in the build log). Unrolling the R
+// rollouts, interleaved step by step or one after another, with the R
+// scores and R·N controls held for one block reduction, took 64-110
+// registers, spilled in some instantiations and ran the exact tier slower
+// than R = 1 (PERF.md §6). Device memory sees the states, the nominals
+// and the partials rows (plus the (P, K, N) noise in external-noise mode).
+// Per rollout and step the exact tier pays an accurate sinf/cosf and IEEE
+// divisions; the fast tier pays the polynomials
 // of fastmath.cuh and one rcp.approx. Box-muller pays a log, a sqrt and a
 // sincos per pair (box-muller-a half of that, the two lanes of a rollout
 // pair splitting the calls); clt4/clt4a integer ops and a cubic, a quarter
 // of a Philox call per sample (clt4a half of that); clt2q a quintic and an
-// eighth of a call; wallace one exact Box-Muller pair per window of 8 steps. At B = 1 024 the fleet's launch is 4 096 blocks of 256 threads
-// at K = 1 024 and 32 768 at K = 8 192, 31 and 248 waves of the 132 SMs.
+// eighth of a call; wallace one exact Box-Muller pair per window of 8
+// steps. Tensor cores and TMA have nothing to do here: a rollout is a scalar
+// 8-step recurrence, with no matrix product and no tile to stream.
+//
+// Per block the kernel pays one block_max (5 shuffles a warp, two barriers)
+// and one block_sums<N+1> (45 shuffles, one barrier): at R = 4 that is once
+// per 1 024 rollouts, not per 256. The wrapper picks R with
+// rollouts_per_thread (ops/mppi_cuda.py): 4 where the grid keeps at least 4
+// blocks an SM (528), else 1 (K1 at K = 10 240: 40 blocks at R = 1, where
+// R = 4 would leave most SMs idle). What bounds it now is the rollout: on
+// an H100 (PERF.md §6) the flagship6 launch takes 356 µs against
+// 192 µs for its counted operations at one instruction each (the build
+// fuses no mul-add), and the exact tier's accurate sinf/cosf and divisions
+// are tens of instructions for one counted operation; the merge inside the
+// launch costs 0.7-3.4 µs (the merged call less the rows-only call).
+//
+// Why a ticket and not a thread-block cluster: a cluster merging through
+// distributed shared memory covers at most 8 blocks (16 non-portable), and
+// K1/K2 at K = 819 200 have 800 blocks a problem, so it would need a second
+// mechanism there; the ticket (a row write, then one acquire-release atomic
+// add a block) covers every grid. The tickets are an int32 (P,) buffer the
+// wrapper keeps per (device, stream, P), zeroed once; the merging block
+// resets its problem's ticket, so every launch leaves them at zero.
 //
 // The build has no --use_fast_math: sinf/cosf/logf/expf and '/' are the
 // accurate forms, as jnp.sin/cos/log/exp and true division are in the JAX
@@ -51,23 +84,24 @@
 // scenario b's box-muller noise is that of a single solve with seed
 // seeds[b], solve b. External noise is read in natural (P, K, N) order.
 //
-// The chain updates the caller's u_n and x buffers in place: the finalize
-// kernel of solve j writes u_n (the verbatim warm start of solve j+1) and,
+// The chain updates the caller's u_n and x buffers in place: the merging
+// block of solve j writes u_n (the verbatim warm start of solve j+1) and,
 // in plant mode, steps x. All launches go to the caller's stream, with no
 // host synchronisation between them.
 //
 // Instantiated for one horizon, N = kN = 8, the main paths'
 // (mpc_rs_tpu/apps/mppi_examples.py:49, apps/fleet.py); the partials kernel
 // for the two models (cart-pole + shaped4, flagship4 + diag4), the two
-// tiers and the seven noise sources (external noise and the six samplers):
-// 28 instantiations, K1/K2 using the cart-pole's 14. The estimator chain is
-// instantiated once per fleet model; D1's partials kernel once per MixMode
-// (8), D2's chain for float and bf16 pairs at 16 and 32 values a thread.
+// tiers, the seven noise sources (external noise and the six samplers) and
+// R = 1 and 4: 56 instantiations, K1/K2 using the cart-pole's 28. The
+// estimator chain is instantiated once per fleet model; D1's partials kernel
+// once per MixMode (8), D2's chain for float and bf16 pairs at 16 and 32
+// values a thread.
 //
 // C interface (loaded with ctypes): every function returns the
 // cudaGetLastError() value after its last launch (0 on success), -1 for a
 // horizon other than kN, -2 for an unknown sampler, -3 for an unknown model
-// or function, -4 for a batch the grid cannot hold.
+// or function or an R other than 1 or 4, -4 for a batch the grid cannot hold.
 
 #include "diag_kernels.cuh"
 #include "estimator_chain.cuh"
@@ -77,71 +111,20 @@ namespace {
 
 using namespace mpc;
 
-// One block: merge the nb partials rows by log-sum-exp, apply the status
-// ladder and zero fallback of finalize_partials (mppi_pallas.py:1021-1036),
-// write u_out (may alias the u_n the partials read: the launches are
-// stream-ordered), the status and u0, and in plant mode step x with u0.
-template <int N, class Model>
-__global__ void __launch_bounds__(kThreads)
-mppi_finalize_kernel(Model model, float lambda, int nb, const float* __restrict__ partials,
-                     float* u_out, int* __restrict__ status, float* __restrict__ u0,
-                     float* __restrict__ x) {
-  __shared__ float red_max[kWarps];
-  __shared__ float red_sum[kWarps][N + 1];
-
-  float m = kNegBig;
-  for (int b = threadIdx.x; b < nb; b += kThreads) m = fmaxf(m, partials[(size_t)b * (N + 2)]);
-  const float m_all = block_max(m, red_max);
-
-  float acc[N + 1];
-#pragma unroll
-  for (int i = 0; i <= N; ++i) acc[i] = 0.0f;
-  for (int b = threadIdx.x; b < nb; b += kThreads) {
-    const float* row = partials + (size_t)b * (N + 2);
-    // an all-masked row (m_b = neg_big, s_b = 0) contributes exactly 0
-    const float scale = row[0] > kNoFiniteBelow ? expf((row[0] - m_all) / lambda) : 0.0f;
-#pragma unroll
-    for (int i = 0; i <= N; ++i) acc[i] += row[1 + i] * scale;
-  }
-  const float tot = block_sums<N + 1>(acc, red_sum);
-
-  __shared__ float tot_s[N + 1];
-  if (threadIdx.x < N + 1) tot_s[threadIdx.x] = tot;
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-
-  const int st = status_ladder<N>(m_all, tot_s, u_out);
-  const float u_first = u_out[0];
-  *status = st;
-  if (u0 != nullptr) *u0 = u_first;
-  if (x != nullptr) {
-    float x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3];
-    model.step(x0, x1, x2, x3, u_first);
-    x[0] = x0;
-    x[1] = x1;
-    x[2] = x2;
-    x[3] = x3;
-  }
-}
-
 template <bool Fast>
 CartPoleNonlinearT<Fast> make_model(const float* c) {
   return CartPoleNonlinearT<Fast>{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8]};
 }
 
-// The partials kernel on a grid of P problems, sampler by ID (or external
-// noise when noise is not null); returns the launch's cudaGetLastError(), or
-// -2 for an unknown sampler or for external noise without a noise pointer.
-template <bool Fast, class Model, class Cost>
-int launch_partials_grid(int sampler, const Model& model, const Cost& cost, const PartialsArgs& a,
-                         dim3 grid, const float* x, const float* u_n, const float* noise,
-                         const int* seeds, uint32_t base_seed, uint32_t word0, float* partials,
-                         float* noise_out, cudaStream_t stream) {
-  if (noise == nullptr && sampler == kExternal) return -2;
-#define MPC_PARTIALS_LAUNCH(S)                                                          \
-  mppi_partials_kernel<kN, Model, Cost, Fast, S><<<grid, kThreads, 0, stream>>>(       \
-      model, cost, a, x, u_n, noise, seeds, base_seed, word0, partials, noise_out)
-  switch (noise != nullptr ? (int)kExternal : sampler) {
+// The partials kernel at R rollouts a thread, by noise source (external
+// noise or a sampler ID); returns the launch's cudaGetLastError(), or -2 for
+// an unknown source.
+template <bool Fast, int R, class Model, class Cost>
+int launch_partials_r(int source, const Model& model, const Cost& cost, const PartialsArgs& a,
+                      dim3 grid, const PartialsIO& io, cudaStream_t stream) {
+#define MPC_PARTIALS_LAUNCH(S)                                                                \
+  mppi_partials_kernel<kN, Model, Cost, Fast, S, R><<<grid, kThreads, 0, stream>>>(model, cost, a, io)
+  switch (source) {
     case kExternal: MPC_PARTIALS_LAUNCH(kExternal); break;
     case kBoxMuller: MPC_PARTIALS_LAUNCH(kBoxMuller); break;
     case kClt4: MPC_PARTIALS_LAUNCH(kClt4); break;
@@ -155,34 +138,39 @@ int launch_partials_grid(int sampler, const Model& model, const Cost& cost, cons
   return (int)cudaGetLastError();
 }
 
-template <int N, bool Fast>
-int launch_solve(const CartPoleNonlinearT<Fast>& model, int sampler, const PartialsArgs& a,
-                 const float* x, const float* u_n, const float* noise, const int* seeds,
-                 int seed_index, uint32_t base_seed, uint32_t solve_word, float* partials,
-                 float* u_out, int* status, float* u0, float* x_plant, cudaStream_t stream) {
-  const int nb = (a.k + kThreads - 1) / kThreads;
-  const int* key = seeds != nullptr ? seeds + seed_index : nullptr;
-  const int err = launch_partials_grid<Fast>(sampler, model, Shaped4{}, a, dim3(nb, 1), x, u_n,
-                                             noise, key, base_seed, solve_word, partials, nullptr,
-                                             stream);
-  if (err != 0) return err;
-  mppi_finalize_kernel<N, CartPoleNonlinearT<Fast>><<<1, kThreads, 0, stream>>>(
-      model, a.lambda, nb, partials, u_out, status, u0, x_plant);
-  return (int)cudaGetLastError();
+// The partials kernel on a grid of n_problems problems of ceil(K/(256 R))
+// blocks each, sampler by ID (or external noise when io.noise is not null);
+// -2 for an unknown sampler or for external noise without a noise pointer,
+// -3 for an R other than 1 or 4.
+template <bool Fast, class Model, class Cost>
+int launch_partials_grid(int sampler, int rpt, const Model& model, const Cost& cost,
+                         const PartialsArgs& a, int n_problems, const PartialsIO& io,
+                         cudaStream_t stream) {
+  if (io.noise == nullptr && sampler == kExternal) return -2;
+  const int source = io.noise != nullptr ? (int)kExternal : sampler;
+  const int per_block = kThreads * rpt;
+  const dim3 grid((a.k + per_block - 1) / per_block, n_problems);
+  if (rpt == 1) return launch_partials_r<Fast, 1>(source, model, cost, a, grid, io, stream);
+  if (rpt == 4) return launch_partials_r<Fast, 4>(source, model, cost, a, grid, io, stream);
+  return -3;
 }
 
-template <int N, bool Fast>
-int launch_chain(const CartPoleNonlinearT<Fast>& model, int sampler, const PartialsArgs& a,
-                 float* x, float* u_n, const float* noise, const int* seeds, uint32_t base_seed,
-                 int n_solves, int plant, float* partials, float* u0s, int* statuses,
-                 cudaStream_t stream) {
+// J warm-started solves (K1), one launch each on one stream: solve j's
+// merge writes u_n in place (the verbatim warm start of solve j+1), u0s[j]
+// and statuses[j], and in plant mode steps x.
+template <bool Fast>
+int launch_chain(const CartPoleNonlinearT<Fast>& model, int sampler, int rpt,
+                 const PartialsArgs& a, float* x, float* u_n, const float* noise, const int* seeds,
+                 uint32_t base_seed, int n_solves, int plant, float* partials, int* tickets,
+                 float* u0s, int* statuses, cudaStream_t stream) {
   for (int j = 0; j < n_solves; ++j) {
-    const float* noise_j = noise != nullptr ? noise + (size_t)j * a.k * N : nullptr;
     // per-solve seeds: key seeds[j], solve word 0 (a single solve with
     // seed seeds[j] draws the same noise); scalar seed: key base_seed, word j
-    const int err = launch_solve<N, Fast>(model, sampler, a, x, u_n, noise_j, seeds, j, base_seed,
-                                          seeds != nullptr ? 0u : (uint32_t)j, partials, u_n,
-                                          statuses + j, u0s + j, plant ? x : nullptr, stream);
+    const PartialsIO io{x, u_n, noise != nullptr ? noise + (size_t)j * a.k * kN : nullptr,
+                        seeds != nullptr ? seeds + j : nullptr, base_seed,
+                        seeds != nullptr ? 0u : (uint32_t)j, partials, nullptr,
+                        u_n, statuses + j, tickets, u0s + j, plant ? x : nullptr};
+    const int err = launch_partials_grid<Fast>(sampler, rpt, model, Shaped4{}, a, 1, io, stream);
     if (err != 0) return err;
   }
   return 0;
@@ -190,55 +178,37 @@ int launch_chain(const CartPoleNonlinearT<Fast>& model, int sampler, const Parti
 
 enum ModelId : int { kCartPoleShaped4 = 0, kFlagship4Diag4 = 1 };
 
-// One warp per scenario: merge its nb rows by log-sum-exp, then the status
-// ladder and zero fallback (mppi_pallas.py:1021-1036).
+// Rows merged outside the partials launch (off the main paths: the tests,
+// and later the multi-GPU merge): one warp per scenario merges its nb rows
+// by log-sum-exp (merge_rows_warp, as the partials launch's last block does
+// for a few rows), then the status ladder and zero fallback
+// (mppi_pallas.py:1021-1036).
 template <int N>
 __global__ void __launch_bounds__(kThreads)
-fleet_finalize_kernel(float lambda, int n_scen, int nb, const float* __restrict__ partials,
+fleet_finalize_kernel(float inv_lambda, int n_scen, int nb, const float* __restrict__ partials,
                       float* __restrict__ u_out, int* __restrict__ status) {
-  const int lane = threadIdx.x & 31;
   const int sc = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (sc >= n_scen) return;  // the whole warp leaves together
-  const float* rows = partials + (size_t)sc * nb * (N + 2);
-
-  float m = kNegBig;
-  for (int r = lane; r < nb; r += 32) m = fmaxf(m, rows[(size_t)r * (N + 2)]);
-  const float m_all = warp_max(m);
-
-  float acc[N + 1];
-#pragma unroll
-  for (int i = 0; i <= N; ++i) acc[i] = 0.0f;
-  for (int r = lane; r < nb; r += 32) {
-    const float* row = rows + (size_t)r * (N + 2);
-    // an all-masked row (m_b = neg_big, s_b = 0) contributes exactly 0
-    const float scale = row[0] > kNoFiniteBelow ? expf((row[0] - m_all) / lambda) : 0.0f;
-#pragma unroll
-    for (int i = 0; i <= N; ++i) acc[i] += row[1 + i] * scale;
-  }
-#pragma unroll
-  for (int i = 0; i <= N; ++i) acc[i] = warp_sum(acc[i]);
-  if (lane != 0) return;
-  status[sc] = status_ladder<N>(m_all, acc, u_out + (size_t)sc * N);
+  float tot[N + 1];
+  const float m_all = merge_rows_warp<N>(partials + (size_t)sc * nb * (N + 2), nb, inv_lambda, tot);
+  if ((threadIdx.x & 31) == 0) status[sc] = status_ladder<N>(m_all, tot, u_out + (size_t)sc * N);
 }
 
-// The partials of n_scen scenario solves of one model: a grid (K-blocks,
-// scenarios), scenario b keyed seeds[b] with counter word b.
+// The n_scen scenario solves of one model: scenario b keyed seeds[b] with
+// counter word b.
 template <bool Fast>
-int launch_model(int model_id, const float* mc, const float* cc, int sampler,
-                 const PartialsArgs& a, int n_scen, const float* x, const float* u_n,
-                 const float* noise, const int* seeds, float* partials, float* noise_out,
-                 cudaStream_t stream) {
-  const dim3 grid((a.k + kThreads - 1) / kThreads, n_scen);
+int launch_model(int model_id, const float* mc, const float* cc, int sampler, int rpt,
+                 const PartialsArgs& a, int n_scen, const PartialsIO& io, cudaStream_t stream) {
   if (model_id == kCartPoleShaped4) {
-    return launch_partials_grid<Fast>(sampler, make_model<Fast>(mc), Shaped4{}, a, grid, x, u_n,
-                                      noise, seeds, 0u, 0u, partials, noise_out, stream);
+    return launch_partials_grid<Fast>(sampler, rpt, make_model<Fast>(mc), Shaped4{}, a, n_scen, io,
+                                      stream);
   }
   if (model_id == kFlagship4Diag4) {
     const Flagship4<Fast> m{Flagship4Consts{mc[0], mc[1], mc[2], mc[3], mc[4], mc[5], mc[6],
                                             mc[7], mc[8], mc[9], mc[10], mc[11], mc[12],
                                             mc[13], mc[14], mc[15], mc[16]}};
-    return launch_partials_grid<Fast>(sampler, m, Diag4{cc[0], cc[1], cc[2], cc[3]}, a, grid, x,
-                                      u_n, noise, seeds, 0u, 0u, partials, noise_out, stream);
+    return launch_partials_grid<Fast>(sampler, rpt, m, Diag4{cc[0], cc[1], cc[2], cc[3]}, a,
+                                      n_scen, io, stream);
   }
   return -3;
 }
@@ -261,9 +231,9 @@ __global__ void fastmath_eval_kernel(int fn, int count, const float* __restrict_
   out[i] = r;
 }
 
-PartialsArgs partials_args(int k, float lambda, float inv, float lo, float hi, float std_dev,
+PartialsArgs partials_args(int k, float inv_lambda, float inv, float lo, float hi, float std_dev,
                            const float* sc) {
-  return PartialsArgs{k, lambda, inv, lo, hi, std_dev, sc[0], sc[1], sc[2], sc[3], sc[4], sc[5]};
+  return PartialsArgs{k, inv_lambda, inv, lo, hi, std_dev, sc[0], sc[1], sc[2], sc[3], sc[4], sc[5]};
 }
 
 // The estimator chain of one fleet model: n_sub must be the model's.
@@ -304,63 +274,74 @@ extern "C" {
 // f32(_TRI_C σ). sampler: 0 external noise, 1 box-muller, 2 clt4, 3 clt4a,
 // 4 wallace, 5 clt2q, 6 box-muller-a.
 
-// One solve (K2). model_consts: 9 host floats (CartPoleNonlinearT order);
-// fast selects the tier. Device pointers: x (4), u_n (N), noise (K, N) or
-// null (then the sampler draws), seeds (>= seed_index+1) or null,
-// partials (ceil(K/256), N+2) scratch, u_out (N), status (1).
+// inv_lambda: f32(1/lambda), folded in double on the host (+inf for
+// lambda = 0). rpt: rollouts a thread R, 1 or 4. tickets: int32 device
+// zeros, one a problem, which every launch leaves at zero; a stream's
+// launches may share them, concurrent streams may not.
+
+// One solve (K2), one launch. model_consts: 9 host floats
+// (CartPoleNonlinearT order); fast selects the tier. Device pointers: x (4),
+// u_n (N), noise (K, N) or null (then the sampler draws), seeds
+// (>= seed_index+1) or null, partials (ceil(K/(256 R)), N+2) scratch,
+// tickets (1), u_out (N), status (1).
 int mpc_mppi_solve(const float* model_consts, int fast, int sampler, const float* sampler_consts,
-                   int n, int k, float lambda, float inv, float lo, float hi, float std_dev,
-                   const float* x, const float* u_n, const float* noise, const int* seeds,
+                   int n, int k, float inv_lambda, float inv, float lo, float hi, float std_dev,
+                   int rpt, const float* x, const float* u_n, const float* noise, const int* seeds,
                    int seed_index, unsigned int base_seed, unsigned int solve_word,
-                   float* partials, float* u_out, int* status, void* stream) {
+                   float* partials, int* tickets, float* u_out, int* status, void* stream) {
   if (n != kN) return -1;
-  const PartialsArgs a = partials_args(k, lambda, inv, lo, hi, std_dev, sampler_consts);
+  const PartialsArgs a = partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts);
+  const PartialsIO io{x, u_n, noise, seeds != nullptr ? seeds + seed_index : nullptr, base_seed,
+                      solve_word, partials, nullptr, u_out, status, tickets, nullptr, nullptr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? launch_solve<kN, true>(make_model<true>(model_consts), sampler, a, x, u_n, noise,
-                                       seeds, seed_index, base_seed, solve_word, partials, u_out,
-                                       status, nullptr, nullptr, s)
-              : launch_solve<kN, false>(make_model<false>(model_consts), sampler, a, x, u_n, noise,
-                                        seeds, seed_index, base_seed, solve_word, partials, u_out,
-                                        status, nullptr, nullptr, s);
+  return fast ? launch_partials_grid<true>(sampler, rpt, make_model<true>(model_consts), Shaped4{},
+                                           a, 1, io, s)
+              : launch_partials_grid<false>(sampler, rpt, make_model<false>(model_consts),
+                                            Shaped4{}, a, 1, io, s);
 }
 
-// J warm-started solves (K1). x (4) and u_n (N) are updated in place, the
-// plant stepped by the model of the tier; noise (J, K, N) or null; seeds
-// (J) or null (then base_seed with j in the counter); u0s (J), statuses (J).
+// J warm-started solves (K1), J launches. x (4) and u_n (N) are updated in
+// place, the plant stepped by the model of the tier; noise (J, K, N) or
+// null; seeds (J) or null (then base_seed with j in the counter); tickets
+// (1); u0s (J), statuses (J).
 int mpc_mppi_chain(const float* model_consts, int fast, int sampler, const float* sampler_consts,
-                   int n, int k, float lambda, float inv, float lo, float hi, float std_dev,
-                   float* x, float* u_n, const float* noise, const int* seeds,
-                   unsigned int base_seed, int n_solves, int plant, float* partials, float* u0s,
-                   int* statuses, void* stream) {
+                   int n, int k, float inv_lambda, float inv, float lo, float hi, float std_dev,
+                   int rpt, float* x, float* u_n, const float* noise, const int* seeds,
+                   unsigned int base_seed, int n_solves, int plant, float* partials, int* tickets,
+                   float* u0s, int* statuses, void* stream) {
   if (n != kN) return -1;
-  const PartialsArgs a = partials_args(k, lambda, inv, lo, hi, std_dev, sampler_consts);
+  const PartialsArgs a = partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? launch_chain<kN, true>(make_model<true>(model_consts), sampler, a, x, u_n, noise,
-                                       seeds, base_seed, n_solves, plant, partials, u0s, statuses, s)
-              : launch_chain<kN, false>(make_model<false>(model_consts), sampler, a, x, u_n, noise,
-                                        seeds, base_seed, n_solves, plant, partials, u0s, statuses,
-                                        s);
+  return fast ? launch_chain<true>(make_model<true>(model_consts), sampler, rpt, a, x, u_n, noise,
+                                   seeds, base_seed, n_solves, plant, partials, tickets, u0s,
+                                   statuses, s)
+              : launch_chain<false>(make_model<false>(model_consts), sampler, rpt, a, x, u_n,
+                                    noise, seeds, base_seed, n_solves, plant, partials, tickets,
+                                    u0s, statuses, s);
 }
 
-// Partials of B scenario solves. model: 0 cart-pole + shaped4 (9 model
+// B scenario solves, one launch. model: 0 cart-pole + shaped4 (9 model
 // constants, CartPoleNonlinearT order), 1 flagship4 + diag4 (17 constants,
 // Flagship4Consts order, and 4 cost coefficients). Device pointers:
 // x (B, 4), u_n (B, N), noise (B, K, N) or null, seeds (B) or null, partials
-// (B, ceil(K/256), N+2), noise_out (B, K, N) or null (then the sampled noise
-// is not written).
+// (B, ceil(K/(256 R)), N+2), noise_out (B, K, N) or null (then the sampled
+// noise is not written); u_out (B, N), or null to write the partials rows
+// only (then tickets and status are not used), status (B), tickets (B).
 int mpc_fleet_partials(int model, int fast, int sampler, const float* model_consts,
                        const float* cost_consts, const float* sampler_consts, int n, int n_scen,
-                       int k, float lambda, float inv, float lo, float hi, float std_dev,
-                       const float* x, const float* u_n, const float* noise, const int* seeds,
-                       float* partials, float* noise_out, void* stream) {
+                       int k, float inv_lambda, float inv, float lo, float hi, float std_dev,
+                       int rpt, const float* x, const float* u_n, const float* noise,
+                       const int* seeds, float* partials, float* noise_out, int* tickets,
+                       float* u_out, int* status, void* stream) {
   if (n != kN) return -1;
   if (n_scen < 1 || n_scen > 65535) return -4;
-  const PartialsArgs a = partials_args(k, lambda, inv, lo, hi, std_dev, sampler_consts);
+  const PartialsArgs a = partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts);
+  const PartialsIO io{x, u_n, noise, seeds, 0u, 0u, partials, noise_out, u_out, status, tickets,
+                      nullptr, nullptr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? launch_model<true>(model, model_consts, cost_consts, sampler, a, n_scen, x, u_n,
-                                   noise, seeds, partials, noise_out, s)
-              : launch_model<false>(model, model_consts, cost_consts, sampler, a, n_scen, x,
-                                    u_n, noise, seeds, partials, noise_out, s);
+  return fast ? launch_model<true>(model, model_consts, cost_consts, sampler, rpt, a, n_scen, io, s)
+              : launch_model<false>(model, model_consts, cost_consts, sampler, rpt, a, n_scen, io,
+                                    s);
 }
 
 // The fused estimator chain (K7) of B scenarios, one tick. model: 0
@@ -401,12 +382,13 @@ int mpc_estimator_chain(int model, int n_sub, const float* plant_consts, const f
 }
 
 // Merge (B, nb, N+2) partials per scenario; writes u_out (B, N), status (B).
-int mpc_fleet_finalize(int n, int n_scen, int nb, float lambda, const float* partials,
+int mpc_fleet_finalize(int n, int n_scen, int nb, float inv_lambda, const float* partials,
                        float* u_out, int* status, void* stream) {
   if (n != kN) return -1;
+  if (n_scen < 1 || nb < 1) return -4;
   const int blocks = (n_scen + kWarps - 1) / kWarps;
   fleet_finalize_kernel<kN><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      lambda, n_scen, nb, partials, u_out, status);
+      inv_lambda, n_scen, nb, partials, u_out, status);
   return (int)cudaGetLastError();
 }
 

@@ -6,17 +6,22 @@ Replaces ``mpc_rs_tpu/ops/mppi_pallas.py``: ``mppi_solve_fused`` stands for
 ``mppi_chain_fused`` for ``mppi_pallas_chain``, and
 ``mppi_batch_partials_fused`` + ``finalize_batch_fused`` for
 ``mppi_pallas_batch_partials`` (both of its kernels) + the vmapped
-``finalize_partials``. All of them run one partials kernel
-(``mppi_partials_kernel`` in ``ops/csrc/mppi_common.cuh``); the finalize
-kernels and the launchers are in ``ops/csrc/mppi_kernels.cu``, whose design
-notes say what bounds them.
+``finalize_partials``, and ``mppi_solve_batch_fused`` for both with the
+vmapped ``finalize_partials``. All of them run one kernel,
+``mppi_partials_kernel`` (``ops/csrc/mppi_common.cuh``), at R rollouts a
+thread (``rollouts_per_thread``): a solve is one launch, whose last block to
+finish merges the partials rows and finishes the solve; a chain of J solves
+is J launches, a fleet tick's B solves one. ``mppi_batch_partials_fused``
+returns the rows instead, for ``finalize_batch_fused`` (one block a
+scenario). The launchers are in ``ops/csrc/mppi_kernels.cu``, whose design
+notes say what bounds the kernel.
 
 Each wrapper takes tensors on one device. On CPU tensors it runs the plain
 version beside it (the CPU tests use it); on CUDA tensors it launches the
 kernel or raises — it never falls back. ``launches`` counts, per wrapper,
-the calls that launched the kernels (a solve is two launches, a chain of J
-solves 2J), so a run can show that it went through the kernels; the batched
-wrapper also counts its launches per sampler and in the fast tier.
+the calls that launched their kernel (a K1 call launches J times, once a
+solve), so a run can show that it went through the kernels; the batched
+wrappers also count their launches per sampler and in the fast tier.
 
 The kernels are specialised for the models of the apps instead of tracing
 arbitrary callables (``mppi_pallas.py:287-297``): the nonlinear cart-pole
@@ -41,21 +46,48 @@ from mpc_rs_tpu_torch.models import costs, dynamics
 from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops import fastmath, philox
 
-BLOCK = 256  # rollouts per block: the kernel's threads per block
+BLOCK = 256  # threads per block: each group of 256 rollouts of a block
 HORIZON = 8  # the one horizon N the kernels are built for (kN in the source)
 NEG_BIG = -3.4e38  # score of a block with no finite rollout (mppi_pallas.py:302)
 NO_FINITE_BELOW = -3.3e38  # mppi_pallas.py:898,1022
+ROLLOUTS_PER_THREAD = (1, 4)  # the R the kernel is built for
+MIN_BLOCKS = 4 * 132  # four blocks on each of an H100's 132 SMs
 
 # Wrapper calls that launched their kernels since the last reset; CPU calls
 # do not count.
-launches = {"mppi_solve_fused": 0, "mppi_chain_fused": 0, "mppi_batch_partials_fused": 0,
-            "finalize_batch_fused": 0, "fastmath_eval": 0, "fast_tier": 0,
-            **{f"sampler:{name}": 0 for name in ("external", *philox.SAMPLERS)}}
+launches = {"mppi_solve_fused": 0, "mppi_chain_fused": 0, "mppi_solve_batch_fused": 0,
+            "mppi_batch_partials_fused": 0, "finalize_batch_fused": 0, "fastmath_eval": 0,
+            "fast_tier": 0, **{f"sampler:{name}": 0 for name in ("external", *philox.SAMPLERS)}}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def rollouts_per_thread(k: int, b: int = 1) -> int:
+    """R for B problems of K rollouts: the largest of ``ROLLOUTS_PER_THREAD``
+    whose grid, ceil(K/(256 R)) blocks a problem, keeps at least
+    ``MIN_BLOCKS`` blocks (the reductions then run once per 256 R rollouts);
+    1 when none does, where R = 4 would leave SMs idle (K1 at K = 10 240)."""
+    fits = [r for r in ROLLOUTS_PER_THREAD if -(-k // (BLOCK * r)) * b >= MIN_BLOCKS]
+    return max(fits, default=1)
+
+
+def _rpt(k: int, b: int, forced: int | None) -> int:
+    if forced is None:
+        return rollouts_per_thread(k, b)
+    if forced not in ROLLOUTS_PER_THREAD:
+        raise ValueError(f"rollouts_per_thread must be one of {ROLLOUTS_PER_THREAD}, got {forced}")
+    return forced
+
+
+def inv_lambda(lambda_: float) -> float:
+    """1/λ in double, which ctypes rounds to float32 once (the Pallas kernel's
+    f32(1/λ), mppi_pallas.py:348); +inf for λ = 0, whose best rollout then
+    weighs 0·inf = NaN, so the solve's status is INVALID_U as with a
+    division by 0."""
+    return math.inf if lambda_ == 0.0 else 1.0 / lambda_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +106,12 @@ class CartPoleShaped4:
         return dynamics.make_cartpole_nonlinear(self.params, self.dt, fast=self.fast)
 
     cost = staticmethod(costs.shaped4)
+
+    @functools.cached_property
+    def c_constants(self):
+        """``constants()`` and ``cost_constants()`` as the C entries take
+        them, built once per model."""
+        return _c_floats(self.constants()), _c_floats(self.cost_constants() or [0.0] * 4)
 
     def constants(self) -> list[float]:
         """The functor's constants, each folded in double as the JAX trace
@@ -117,6 +155,8 @@ class Flagship4Diag4:
     def cost(self):
         return costs.make_diag4(*self.c)
 
+    c_constants = CartPoleShaped4.c_constants
+
     def constants(self) -> list[float]:
         """``Flagship4Consts`` (``ops/csrc/mppi_common.cuh``), folded in
         double as ``dynamics.py:122-173`` folds them."""
@@ -146,13 +186,16 @@ class ChainResult(NamedTuple):
 
 
 def mppi_batch_partials_plain(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor,
-                              noise: torch.Tensor) -> torch.Tensor:
+                              noise: torch.Tensor, *, rollouts_per_thread: int | None = None
+                              ) -> torch.Tensor:
     """Per-block log-sum-exp partials of B solves, what
     ``mppi_partials_kernel`` writes: (B, nb, N+2) rows (m_b, s_b, uw_b) for
-    blocks of ``BLOCK`` rollouts, in the dtype of ``u_ns``. xs (B, S),
-    u_ns (B, N), noise (B, K, N) already scaled by σ. A block without a
-    finite rollout has m_b = NEG_BIG and zeros."""
+    blocks of ``BLOCK``·R rollouts (R from ``rollouts_per_thread(K, B)``
+    unless given), in the dtype of ``u_ns``. xs (B, S), u_ns (B, N), noise
+    (B, K, N) already scaled by σ. A block without a finite rollout has
+    m_b = NEG_BIG and zeros."""
     b, k, n = noise.shape
+    rows = BLOCK * _rpt(k, b, rollouts_per_thread)
     v = torch.clamp(u_ns[:, None] + noise, cfg.limit[0], cfg.limit[1])
     xs_k = tuple(xs[:, i:i + 1].expand(b, k) for i in range(xs.shape[1]))
     c = torch.zeros((b, k), dtype=v.dtype, device=v.device)
@@ -161,33 +204,34 @@ def mppi_batch_partials_plain(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: to
         c = c + model.cost(*xs_k)
     inv = cfg.std_dev ** -2.0 if cfg.control_inv is None else cfg.control_inv
     score = -c - torch.sum(u_ns[:, None] * inv * v, dim=-1)
-    nb = -(-k // BLOCK)
-    pad = nb * BLOCK - k  # rollouts past K count as non-finite
-    score = torch.nn.functional.pad(score, (0, pad), value=torch.nan).reshape(b, nb, BLOCK)
-    v = torch.nn.functional.pad(v, (0, 0, 0, pad)).reshape(b, nb, BLOCK, n)
+    nb = -(-k // rows)
+    pad = nb * rows - k  # rollouts past K count as non-finite
+    score = torch.nn.functional.pad(score, (0, pad), value=torch.nan).reshape(b, nb, rows)
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad)).reshape(b, nb, rows, n)
     finite = torch.isfinite(score)
     m_b = torch.where(finite, score, NEG_BIG).amax(dim=-1)
-    e = torch.where(finite, torch.exp((score - m_b[..., None]) / cfg.lambda_), 0.0)
+    e = torch.where(finite, torch.exp((score - m_b[..., None]) * inv_lambda(cfg.lambda_)), 0.0)
     return torch.cat([m_b[..., None], e.sum(dim=-1)[..., None], (e[..., None] * v).sum(dim=-2)], dim=-1)
 
 
 def mppi_partials_plain(cfg: MppiConfig, model, x: torch.Tensor, u_n: torch.Tensor,
-                        noise: torch.Tensor) -> torch.Tensor:
+                        noise: torch.Tensor, *, rollouts_per_thread: int | None = None) -> torch.Tensor:
     """``mppi_batch_partials_plain`` of one solve: (nb, N+2) rows, what
     ``mppi_partials_kernel`` writes on a grid of one problem."""
-    return mppi_batch_partials_plain(cfg, model, x[None], u_n[None], noise[None])[0]
+    return mppi_batch_partials_plain(cfg, model, x[None], u_n[None], noise[None],
+                                     rollouts_per_thread=rollouts_per_thread)[0]
 
 
 def finalize_batch_plain(cfg: MppiConfig, partials: torch.Tensor
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Merge each problem's partials rows (..., nb, N+2) by log-sum-exp and
     apply the status ladder and zero fallback of ``finalize_partials``
-    (mppi_pallas.py:1021-1036), what ``mppi_finalize_kernel`` and
-    ``fleet_finalize_kernel`` do. Returns (u_n' (..., N), status (...,)
-    int32)."""
+    (mppi_pallas.py:1021-1036), what the merging block of
+    ``mppi_partials_kernel`` and ``fleet_finalize_kernel`` do. Returns
+    (u_n' (..., N), status (...,) int32)."""
     m_b, s_b, uw_b = partials[..., 0], partials[..., 1], partials[..., 2:]
     m = m_b.amax(dim=-1, keepdim=True)
-    scale = torch.where(m_b > NO_FINITE_BELOW, torch.exp((m_b - m) / cfg.lambda_), 0.0)
+    scale = torch.where(m_b > NO_FINITE_BELOW, torch.exp((m_b - m) * inv_lambda(cfg.lambda_)), 0.0)
     s = (s_b * scale).sum(dim=-1)
     uw = (uw_b * scale[..., None]).sum(dim=-2)
     no_finite = m[..., 0] <= NO_FINITE_BELOW
@@ -216,20 +260,21 @@ def solve_noise(cfg: MppiConfig, model: CartPoleShaped4, seed: int, solve: int,
 
 def mppi_solve_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                      u_n: torch.Tensor, *, seed: int = 0, solve: int = 0,
-                     noise: torch.Tensor | None = None, sampler: str = "box-muller"
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+                     noise: torch.Tensor | None = None, sampler: str = "box-muller",
+                     rollouts_per_thread: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``mppi_solve_fused``, in the dtype of ``u_n``."""
     if noise is None:
         noise = solve_noise(cfg, model, seed, solve, sampler, device=u_n.device)
     eps = noise.to(u_n.dtype)
-    return finalize_batch_plain(cfg, mppi_partials_plain(cfg, model, x, u_n, eps))
+    return finalize_batch_plain(cfg, mppi_partials_plain(cfg, model, x, u_n, eps,
+                                                         rollouts_per_thread=rollouts_per_thread))
 
 
 def mppi_chain_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                      u_n: torch.Tensor, *, seeds: torch.Tensor | None = None,
                      n_solves: int | None = None, base_seed: int = 0,
                      noise: torch.Tensor | None = None, plant: bool = False,
-                     sampler: str = "box-muller") -> ChainResult:
+                     sampler: str = "box-muller", rollouts_per_thread: int | None = None) -> ChainResult:
     """Plain version of ``mppi_chain_fused``: J sequential plain solves, the
     warm start carried verbatim, the plant stepped in the dtype of ``x``."""
     j_total = _chain_length(seeds, n_solves, noise)
@@ -238,7 +283,8 @@ def mppi_chain_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
     for j in range(j_total):
         seed, solve = (int(seeds[j]), 0) if seeds is not None else (base_seed, j)
         u_n, st = mppi_solve_plain(cfg, model, x, u_n, seed=seed, solve=solve,
-                                   noise=None if noise is None else noise[j], sampler=sampler)
+                                   noise=None if noise is None else noise[j], sampler=sampler,
+                                   rollouts_per_thread=rollouts_per_thread)
         u0s.append(u_n[0])
         statuses.append(st)
         if plant:
@@ -282,15 +328,51 @@ def _library() -> ctypes.CDLL:
     return build.load_library()
 
 
-def _sampler_consts(std_dev: float):
+def _c_floats(values) -> ctypes.Array:
+    """A float32 array for the C entries: each value, folded in double,
+    rounded once."""
+    return (ctypes.c_float * len(values))(*values)
+
+
+@functools.cache
+def _sampler_consts(std_dev: float) -> ctypes.Array:
     """The samplers' σ-scaled constants (``sampler_consts`` of the C entries),
-    each folded in double and rounded to float32 once by ctypes."""
+    each folded in double and rounded to float32 once, built once per σ."""
     sd = std_dev
-    return (ctypes.c_float * 6)(philox._CLT_A * sd, philox._CLT_B * sd, sd / math.sqrt(2.0),
-                                philox._TRI_A * sd, philox._TRI_B * sd, philox._TRI_C * sd)
+    return _c_floats((philox._CLT_A * sd, philox._CLT_B * sd, sd / math.sqrt(2.0),
+                      philox._TRI_A * sd, philox._TRI_B * sd, philox._TRI_C * sd))
 
 
-def _kernel_args(cfg: MppiConfig, model: CartPoleShaped4, x, u_n, noise, noise_shape, sampler):
+_TICKETS: dict[tuple[int, int, int], torch.Tensor] = {}
+
+
+def merge_tickets(device: torch.device, p: int) -> torch.Tensor:
+    """The merge's int32 (P,) tickets for ``device``'s current stream: zeroed
+    once and kept per (device, stream, P). Every launch leaves them at zero
+    (the merging block resets its problem's), so the launches of one stream
+    share them; two streams never do."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (torch.device(device).index, stream, p)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(p, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaGetLastError() = {err}")
+
+
+def _launch(fn, args, what: str, tickets: torch.Tensor | None = None) -> None:
+    """Call C entry ``fn`` on the current stream; on an error, zero the
+    tickets (a launch cut short can leave one set) and raise."""
+    err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0 and tickets is not None:
+        tickets.zero_()
+    _raise_on(err, what)
+
+
+def _kernel_args(cfg: MppiConfig, model: CartPoleShaped4, x, u_n, noise, noise_shape, sampler, rpt):
     """Validate for the kernel; return (library, common leading C args)."""
     device = x.device
     if device.type != "cuda":
@@ -302,54 +384,50 @@ def _kernel_args(cfg: MppiConfig, model: CartPoleShaped4, x, u_n, noise, noise_s
     n, k = cfg.n_horizon, cfg.n_rollouts
     if n != HORIZON:
         raise ValueError(f"no kernel for horizon N={n}; the kernels are built for N={HORIZON}")
-    if not 1 <= k < 2**31 - BLOCK:
-        raise ValueError(f"n_rollouts must be in [1, 2**31 - {BLOCK}), got {k}")
+    if not 1 <= k < 2**31 - 4 * BLOCK:
+        raise ValueError(f"n_rollouts must be in [1, 2**31 - {4 * BLOCK}), got {k}")
     _check("x", x, (model.n_state,), torch.float32, device)
     _check("u_n", u_n, (n,), torch.float32, device)
     if noise is not None:
         _check("noise", noise, noise_shape, torch.float32, device)
     lib = _library()
-    consts = (ctypes.c_float * 9)(*model.constants())
     lo, hi = cfg.limit
     inv = cfg.std_dev ** -2.0 if cfg.control_inv is None else cfg.control_inv
-    head = (consts, int(model.fast), _SAMPLER_IDS[sampler], _sampler_consts(cfg.std_dev),
-            n, k, cfg.lambda_, inv, lo, hi, cfg.std_dev)
+    head = (model.c_constants[0], int(model.fast), _SAMPLER_IDS[sampler], _sampler_consts(cfg.std_dev),
+            n, k, inv_lambda(cfg.lambda_), inv, lo, hi, cfg.std_dev, rpt)
     return lib, head
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaGetLastError() = {err}")
 
 
 def mppi_solve_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                      u_n: torch.Tensor, *, seed: int = 0, solve: int = 0,
-                     noise: torch.Tensor | None = None, sampler: str = "box-muller"
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One MPPI solve (K2): returns (u_n' (N,), status int32 0-d), with the
-    semantics of ``controllers.mppi.mppi_solve`` (zero fallback on failure).
+                     noise: torch.Tensor | None = None, sampler: str = "box-muller",
+                     rollouts_per_thread: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One MPPI solve (K2), one launch: returns (u_n' (N,), status int32
+    0-d), with the semantics of ``controllers.mppi.mppi_solve`` (zero
+    fallback on failure).
 
     ``noise``: optional (K, N) perturbations, already scaled by σ; without
     it the kernel samples ``sampler``'s Philox noise keyed by ``seed`` with
     ``solve`` in the counter (``ops/philox.py``). The model's ``fast`` picks
-    the tier of the rollout and the sampling. CUDA tensors must be float32.
+    the tier of the rollout and the sampling. ``rollouts_per_thread`` forces
+    R (default ``rollouts_per_thread(K)``). CUDA tensors must be float32.
     """
+    k = cfg.n_rollouts
+    rpt = _rpt(k, 1, rollouts_per_thread)
     if x.device.type == "cpu":
         return mppi_solve_plain(cfg, model, x, u_n, seed=seed, solve=solve, noise=noise,
-                                sampler=sampler)
-    lib, head = _kernel_args(cfg, model, x, u_n, noise, (cfg.n_rollouts, cfg.n_horizon), sampler)
-    nb = -(-cfg.n_rollouts // BLOCK)
-    partials = torch.empty((nb, cfg.n_horizon + 2), dtype=torch.float32, device=x.device)
+                                sampler=sampler, rollouts_per_thread=rpt)
+    lib, head = _kernel_args(cfg, model, x, u_n, noise, (k, cfg.n_horizon), sampler, rpt)
+    partials = torch.empty((-(-k // (BLOCK * rpt)), cfg.n_horizon + 2), dtype=torch.float32,
+                           device=x.device)
     u_out = torch.empty_like(u_n)
     status = torch.empty((), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mpc_mppi_solve(
-            *head, _ptr(x), _ptr(u_n), _ptr(noise), _ptr(None), 0,
-            seed & 0xFFFFFFFF, solve & 0xFFFFFFFF,
-            _ptr(partials), _ptr(u_out), _ptr(status), ctypes.c_void_p(stream),
-        )
-    _raise_on(err, "mppi_solve_fused")
+        tickets = merge_tickets(x.device, 1)
+        _launch(lib.mpc_mppi_solve, (*head, _ptr(x), _ptr(u_n), _ptr(noise), _ptr(None), 0,
+                                     seed & 0xFFFFFFFF, solve & 0xFFFFFFFF, _ptr(partials),
+                                     _ptr(tickets), _ptr(u_out), _ptr(status)),
+                "mppi_solve_fused", tickets)
     launches["mppi_solve_fused"] += 1
     return u_out, status
 
@@ -358,11 +436,13 @@ def mppi_chain_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                      u_n: torch.Tensor, *, seeds: torch.Tensor | None = None,
                      n_solves: int | None = None, base_seed: int = 0,
                      noise: torch.Tensor | None = None, plant: bool = False,
-                     sampler: str = "box-muller") -> ChainResult:
-    """J receding-horizon solves (K1), each warm-started verbatim from the
-    last; with ``plant`` the state takes one step of the model (of its
-    tier) with each solve's u0 (a device-resident closed loop), otherwise x
-    is held. ``sampler`` and the tier as for ``mppi_solve_fused``.
+                     sampler: str = "box-muller", rollouts_per_thread: int | None = None
+                     ) -> ChainResult:
+    """J receding-horizon solves (K1), one launch each, each warm-started
+    verbatim from the last; with ``plant`` the state takes one step of the
+    model (of its tier) with each solve's u0 (a device-resident closed
+    loop), otherwise x is held. ``sampler``, the tier and
+    ``rollouts_per_thread`` as for ``mppi_solve_fused``.
 
     Seeding: ``seeds`` (J,) int32 — solve j keys Philox with seeds[j], and
     draws what ``mppi_solve_fused(seed=seeds[j])`` draws; or ``n_solves``
@@ -371,26 +451,26 @@ def mppi_chain_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
     copies of ``x`` and ``u_n``, updated in place and returned.
     """
     j = _chain_length(seeds, n_solves, noise)
+    k = cfg.n_rollouts
+    rpt = _rpt(k, 1, rollouts_per_thread)
     if x.device.type == "cpu":
         return mppi_chain_plain(cfg, model, x, u_n, seeds=seeds, n_solves=n_solves,
-                                base_seed=base_seed, noise=noise, plant=plant, sampler=sampler)
-    lib, head = _kernel_args(cfg, model, x, u_n, noise, (j, cfg.n_rollouts, cfg.n_horizon),
-                             sampler)
+                                base_seed=base_seed, noise=noise, plant=plant, sampler=sampler,
+                                rollouts_per_thread=rpt)
+    lib, head = _kernel_args(cfg, model, x, u_n, noise, (j, k, cfg.n_horizon), sampler, rpt)
     if seeds is not None:
         _check("seeds", seeds, (j,), torch.int32, x.device)
-    nb = -(-cfg.n_rollouts // BLOCK)
-    partials = torch.empty((nb, cfg.n_horizon + 2), dtype=torch.float32, device=x.device)
+    partials = torch.empty((-(-k // (BLOCK * rpt)), cfg.n_horizon + 2), dtype=torch.float32,
+                           device=x.device)
     x_buf, u_buf = x.clone(), u_n.clone()
     u0s = torch.empty(j, dtype=torch.float32, device=x.device)
     statuses = torch.empty(j, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mpc_mppi_chain(
-            *head, _ptr(x_buf), _ptr(u_buf), _ptr(noise), _ptr(seeds),
-            base_seed & 0xFFFFFFFF, j, int(plant),
-            _ptr(partials), _ptr(u0s), _ptr(statuses), ctypes.c_void_p(stream),
-        )
-    _raise_on(err, "mppi_chain_fused")
+        tickets = merge_tickets(x.device, 1)
+        _launch(lib.mpc_mppi_chain, (*head, _ptr(x_buf), _ptr(u_buf), _ptr(noise), _ptr(seeds),
+                                     base_seed & 0xFFFFFFFF, j, int(plant), _ptr(partials),
+                                     _ptr(tickets), _ptr(u0s), _ptr(statuses)),
+                "mppi_chain_fused", tickets)
     launches["mppi_chain_fused"] += 1
     return ChainResult(u0s, statuses, u_buf, x_buf)
 
@@ -419,8 +499,8 @@ def _batch_kernel_args(cfg: MppiConfig, model, xs, u_ns):
     n, k = cfg.n_horizon, cfg.n_rollouts
     if n != HORIZON:
         raise ValueError(f"no kernel for horizon N={n}; the kernels are built for N={HORIZON}")
-    if not 1 <= k < 2**31 - BLOCK:
-        raise ValueError(f"n_rollouts must be in [1, 2**31 - {BLOCK}), got {k}")
+    if not 1 <= k < 2**31 - 4 * BLOCK:
+        raise ValueError(f"n_rollouts must be in [1, 2**31 - {4 * BLOCK}), got {k}")
     b = xs.shape[0]
     if not 1 <= b <= MAX_SCENARIOS:
         raise ValueError(f"the batched kernel takes 1 to {MAX_SCENARIOS} scenarios, got {b}")
@@ -429,30 +509,23 @@ def _batch_kernel_args(cfg: MppiConfig, model, xs, u_ns):
     return b, n, k
 
 
-def mppi_batch_partials_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, *,
-                              seeds: torch.Tensor | None = None, sampler: str | None = None,
-                              noise: torch.Tensor | None = None,
-                              noise_out: torch.Tensor | None = None) -> torch.Tensor:
-    """Partials of B MPPI solves, one per scenario (K5/K6): (B, nb, N+2)
-    rows, nb = ceil(K/256), for ``finalize_batch_fused``.
-
-    Scenario b solves from xs[b] (B, S) with nominal u_ns[b] (B, N). Pass
-    ``noise`` (B, K, N) already scaled by σ, or ``seeds`` (B,) int32 with a
-    ``sampler`` of ``ops/philox.py`` (the kernel samples in-kernel, scenario
-    b keyed seeds[b], stream b). ``noise_out`` (B, K, N) float32, optional,
-    receives the noise the kernel used (for the checks on the card). The
-    model's ``fast`` selects the tier. CUDA tensors must be float32.
-    """
+def _batch(cfg: MppiConfig, model, xs, u_ns, seeds, sampler, noise, noise_out, rollouts_per_thread,
+           merge: bool, what: str):
+    """The batched kernel: the (B, nb, N+2) rows, and with ``merge`` the
+    solves (u_n' (B, N), status (B,)) from the same launch."""
     if (noise is None) == (sampler is None):
         raise ValueError("pass exactly one of noise (B, K, N) or seeds with a sampler")
     if sampler is not None and (sampler not in philox.SAMPLERS or seeds is None):
         raise ValueError(f"sampler must be one of {philox.SAMPLERS}, with seeds (B,) int32")
+    rpt = _rpt(cfg.n_rollouts, xs.shape[0], rollouts_per_thread)
     if xs.device.type == "cpu":
         if noise is None:
             noise = batch_noise(cfg, model, seeds, sampler)
         if noise_out is not None:
             noise_out.copy_(noise)
-        return mppi_batch_partials_plain(cfg, model, xs, u_ns, noise.to(u_ns.dtype))
+        parts = mppi_batch_partials_plain(cfg, model, xs, u_ns, noise.to(u_ns.dtype),
+                                          rollouts_per_thread=rpt)
+        return (parts, *finalize_batch_plain(cfg, parts)) if merge else (parts,)
     b, n, k = _batch_kernel_args(cfg, model, xs, u_ns)
     if noise is not None:
         _check("noise", noise, (b, k, n), torch.float32, xs.device)
@@ -462,31 +535,53 @@ def mppi_batch_partials_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: to
         _check("noise_out", noise_out, (b, k, n), torch.float32, xs.device)
     lib = _library()
     name = "external" if noise is not None else sampler
-    consts = model.constants()
-    mc = (ctypes.c_float * len(consts))(*consts)
-    cc = (ctypes.c_float * 4)(*(model.cost_constants() or [0.0] * 4))
-    partials = torch.empty((b, -(-k // BLOCK), n + 2), dtype=torch.float32, device=xs.device)
+    mc, cc = model.c_constants
+    partials = torch.empty((b, -(-k // (BLOCK * rpt)), n + 2), dtype=torch.float32, device=xs.device)
+    u_out = torch.empty((b, n), dtype=torch.float32, device=xs.device) if merge else None
+    status = torch.empty(b, dtype=torch.int32, device=xs.device) if merge else None
     sd = cfg.std_dev
     with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mpc_fleet_partials(
-            model.model_id, int(model.fast), _SAMPLER_IDS[name], mc, cc, _sampler_consts(sd),
-            n, b, k, cfg.lambda_, sd ** -2.0 if cfg.control_inv is None else cfg.control_inv,
-            cfg.limit[0], cfg.limit[1], sd,
-            _ptr(xs), _ptr(u_ns), _ptr(noise), _ptr(seeds), _ptr(partials), _ptr(noise_out),
-            ctypes.c_void_p(stream),
-        )
-    _raise_on(err, "mppi_batch_partials_fused")
-    launches["mppi_batch_partials_fused"] += 1
+        tickets = merge_tickets(xs.device, b)
+        _launch(lib.mpc_fleet_partials,
+                (model.model_id, int(model.fast), _SAMPLER_IDS[name], mc, cc, _sampler_consts(sd),
+                 n, b, k, inv_lambda(cfg.lambda_), sd ** -2.0 if cfg.control_inv is None else cfg.control_inv,
+                 cfg.limit[0], cfg.limit[1], sd, rpt,
+                 _ptr(xs), _ptr(u_ns), _ptr(noise), _ptr(seeds), _ptr(partials), _ptr(noise_out),
+                 _ptr(tickets), _ptr(u_out), _ptr(status)),
+                what, tickets)
+    launches[what] += 1
     launches[f"sampler:{name}"] += 1
     launches["fast_tier"] += int(model.fast)
-    return partials
+    return (partials, u_out, status) if merge else (partials,)
+
+
+def mppi_batch_partials_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, *,
+                              seeds: torch.Tensor | None = None, sampler: str | None = None,
+                              noise: torch.Tensor | None = None,
+                              noise_out: torch.Tensor | None = None,
+                              rollouts_per_thread: int | None = None) -> torch.Tensor:
+    """Partials of B MPPI solves, one per scenario (K5/K6): (B, nb, N+2)
+    rows, nb = ceil(K/(256 R)), for ``finalize_batch_fused`` (the launch
+    does not merge them).
+
+    Scenario b solves from xs[b] (B, S) with nominal u_ns[b] (B, N). Pass
+    ``noise`` (B, K, N) already scaled by σ, or ``seeds`` (B,) int32 with a
+    ``sampler`` of ``ops/philox.py`` (the kernel samples in-kernel, scenario
+    b keyed seeds[b], stream b). ``noise_out`` (B, K, N) float32, optional,
+    receives the noise the kernel used (for the checks on the card). The
+    model's ``fast`` selects the tier; ``rollouts_per_thread`` forces R
+    (default ``rollouts_per_thread(K, B)``). CUDA tensors must be float32.
+    """
+    return _batch(cfg, model, xs, u_ns, seeds, sampler, noise, noise_out, rollouts_per_thread,
+                  False, "mppi_batch_partials_fused")[0]
 
 
 def finalize_batch_fused(cfg: MppiConfig, partials: torch.Tensor
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Merge each scenario's (nb, N+2) rows and apply the status ladder
-    (``fleet_finalize_kernel``): returns (u_n' (B, N), status (B,) int32)."""
+    (``fleet_finalize_kernel``, one warp a scenario): returns
+    (u_n' (B, N), status (B,) int32). For rows merged outside the partials
+    launch; ``mppi_solve_batch_fused`` merges inside it."""
     if partials.device.type == "cpu":
         return finalize_batch_plain(cfg, partials)
     b, nb, width = partials.shape
@@ -497,19 +592,24 @@ def finalize_batch_fused(cfg: MppiConfig, partials: torch.Tensor
     u_out = torch.empty((b, n), dtype=torch.float32, device=partials.device)
     status = torch.empty(b, dtype=torch.int32, device=partials.device)
     with torch.cuda.device(partials.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().mpc_fleet_finalize(
-            n, b, nb, cfg.lambda_, _ptr(partials), _ptr(u_out), _ptr(status), ctypes.c_void_p(stream))
-    _raise_on(err, "finalize_batch_fused")
+        _launch(_library().mpc_fleet_finalize,
+                (n, b, nb, inv_lambda(cfg.lambda_), _ptr(partials), _ptr(u_out), _ptr(status)),
+                "finalize_batch_fused")
     launches["finalize_batch_fused"] += 1
     return u_out, status
 
 
-def mppi_solve_batch_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, **kw
+def mppi_solve_batch_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, *,
+                           seeds: torch.Tensor | None = None, sampler: str | None = None,
+                           noise: torch.Tensor | None = None, noise_out: torch.Tensor | None = None,
+                           rollouts_per_thread: int | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """B MPPI solves (``mppi_solve_pallas_batch``): partials, then the
-    batched finalize. Returns (u_n' (B, N), status (B,) int32)."""
-    return finalize_batch_fused(cfg, mppi_batch_partials_fused(cfg, model, xs, u_ns, **kw))
+    """B MPPI solves (``mppi_solve_pallas_batch``) in one launch, the
+    arguments as for ``mppi_batch_partials_fused``: each scenario's last
+    block merges its rows. Returns (u_n' (B, N), status (B,) int32)."""
+    _, u_out, status = _batch(cfg, model, xs, u_ns, seeds, sampler, noise, noise_out,
+                              rollouts_per_thread, True, "mppi_solve_batch_fused")
+    return u_out, status
 
 
 # --------------------------------------------------------------------------
@@ -534,9 +634,7 @@ def fastmath_eval(fn: str, a: torch.Tensor, b: torch.Tensor | None = None) -> to
         _check("b", b, a.shape, torch.float32, a.device)
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().mpc_fastmath_eval(
-            FASTMATH_FNS.index(fn), a.numel(), _ptr(a), _ptr(b), _ptr(out), ctypes.c_void_p(stream))
-    _raise_on(err, "fastmath_eval")
+        _launch(_library().mpc_fastmath_eval, (FASTMATH_FNS.index(fn), a.numel(), _ptr(a), _ptr(b), _ptr(out)),
+                "fastmath_eval")
     launches["fastmath_eval"] += 1
     return out

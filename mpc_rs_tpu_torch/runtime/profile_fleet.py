@@ -9,7 +9,7 @@ tick runs the fused estimator chain, K7), warms up, and measures:
 - the tick on the host clock, each tick ended by a device synchronise,
   median, p99 and max over ``TICKS`` ticks, and scenario-ticks/s;
 - under ``torch.profiler``, over ``PROF_TICKS`` more ticks: the device µs
-  per tick by kernel (the batched MPPI kernels and the estimator chain by
+  per tick by kernel (the batched MPPI kernel and the estimator chain by
   name, the rest summed as ``torch ops``), the device launches per tick, and
   the device's busy share
   of the profiled ticks' wall time (the union of device intervals over the
@@ -37,7 +37,7 @@ from mpc_rs_tpu_torch.runtime.profile_tick import _union_us, nvidia_smi_line
 
 TICKS, PROF_TICKS, WARMUP = 100, 20, 10
 RANGE = "profiled_fleet_ticks"
-KERNELS = ("mppi_partials_kernel", "fleet_finalize_kernel", "estimator_chain_kernel")
+KERNELS = ("mppi_partials_kernel", "estimator_chain_kernel")
 
 
 def _label(name: str) -> str:

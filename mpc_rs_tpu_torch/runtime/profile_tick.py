@@ -73,10 +73,7 @@ def _union_us(intervals) -> float:
 
 
 def _label(name: str) -> str:
-    for kernel in ("mppi_partials_kernel", "mppi_finalize_kernel"):
-        if kernel in name:
-            return kernel
-    return name[:60]
+    return "mppi_partials_kernel" if "mppi_partials_kernel" in name else name[:60]
 
 
 def profile_k(k: int) -> dict:

@@ -1,8 +1,9 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
 card: K2 and K1 (each sampler, both tiers), the scenario batch (K5/K6)
-with each sampler (K3), the fast-math device functions (K4), the fused
-estimator chain (K7) and the two diagnostic probes (D1, D2). Every test
-here is marked ``cuda`` and skips without a CUDA device.
+with each sampler (K3), the solve merged inside the partials launch at
+R = 1 and 4 rollouts a thread, the fast-math device functions (K4), the
+fused estimator chain (K7) and the two diagnostic probes (D1, D2). Every
+test here is marked ``cuda`` and skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port is installed; ``tests/conftest.py`` sets JAX up, so on such a
@@ -267,6 +268,138 @@ def test_cuda_fastmath_matches_plain(card, fn):
         assert float(((got - want).abs() / want.abs()).max()) < 1e-6
     else:
         assert float((got - want).abs().max()) < (2e-6 if fn == "flog" else 1e-6)
+
+
+# --------------------------------------------------------------------------
+# the merged solve: R rollouts a thread, the merge inside the launch
+
+SOURCES = ("external", *philox.SAMPLERS)
+RAGGED_K = (1000, 4 * 256 * 3 + 17)  # a ragged last block at R = 1 and at R = 4
+
+
+def _tickets_zero(card, p):
+    torch.cuda.synchronize()
+    return bool((mppi_cuda.merge_tickets(card, p) == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpt", [1, 4])
+@pytest.mark.parametrize("source", SOURCES)
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("which", ["cartpole", "flagship"])
+def test_cuda_merged_solve_matches_plain(card, which, fast, source, rpt):
+    """The batched solve in one launch, each scenario's last block merging
+    its rows, against the plain version in float64 on the noise the kernel
+    used (rows of 256·R rollouts), at the f32 band; equal to the rows-only
+    launch merged by ``finalize_batch_fused``; its noise bit for bit the
+    same at the other R; the tickets zero after it."""
+    b, k = 16, RAGGED_K[1]
+    model = (CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=fast) if which == "cartpole"
+             else Flagship4Diag4(CartPoleParams.two_wheel(), 0.15, fast=fast))
+    cfg = _fleet_cfg(k, which)
+    xs, u_ns = _fleet_inputs(card, b, which, seed=rpt)
+    if source == "external":
+        kw = dict(noise=cfg.std_dev * torch.randn((b, k, N), generator=torch.Generator(device=card).manual_seed(2),
+                                                  device=card))
+    else:
+        kw = dict(seeds=torch.arange(b, dtype=torch.int32, device=card) * 613 - 999, sampler=source)
+    out = torch.empty((b, k, N), device=card)
+    got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, model, xs, u_ns, noise_out=out, rollouts_per_thread=rpt, **kw)
+    assert _tickets_zero(card, b)
+    want_u, want_st = mppi_cuda.finalize_batch_plain(cfg, mppi_cuda.mppi_batch_partials_plain(
+        cfg, model, xs.double(), u_ns.double(), out.double(), rollouts_per_thread=rpt))
+    assert got_st.cpu().tolist() == want_st.cpu().tolist() == [0] * b
+    np.testing.assert_allclose(got_u.cpu().numpy(), want_u.cpu().numpy(), **F32_BAND)
+    other = torch.empty_like(out)
+    rows = mppi_cuda.mppi_batch_partials_fused(cfg, model, xs, u_ns, noise_out=other, rollouts_per_thread=rpt, **kw)
+    assert rows.shape == (b, -(-k // (256 * rpt)), N + 2)
+    fin_u, fin_st = mppi_cuda.finalize_batch_fused(cfg, rows)
+    assert torch.equal(fin_u, got_u) and torch.equal(fin_st, got_st)
+    mppi_cuda.mppi_batch_partials_fused(cfg, model, xs, u_ns, noise_out=other, rollouts_per_thread=5 - rpt, **kw)
+    assert torch.equal(other, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpt", [1, 4])
+@pytest.mark.parametrize("k", [*RAGGED_K, 819_200])
+def test_cuda_k2_merged_at_r_matches_plain(card, k, rpt):
+    """A K2 solve in one launch at R forced, with external noise and with
+    in-kernel box-muller, against the plain version in float64 with the
+    same rows; the ticket zero after each."""
+    g = torch.Generator(device=card).manual_seed(k)
+    noise = 3.0 * torch.randn((k, N), generator=g, device=card)
+    u_n = 0.5 * torch.randn(N, generator=g, device=card)
+    x = torch.tensor(X0, device=card)
+    got_u, got_st = mppi_solve_fused(_cfg(k), MODEL, x, u_n, noise=noise, rollouts_per_thread=rpt)
+    want_u, want_st = mppi_cuda.mppi_solve_plain(_cfg(k), MODEL, x.double(), u_n.double(), noise=noise.double(),
+                                                 rollouts_per_thread=rpt)
+    assert int(got_st) == int(want_st) == 0 and _tickets_zero(card, 1)
+    np.testing.assert_allclose(got_u.cpu().numpy(), want_u.cpu().numpy(), **F32_BAND)
+    got_u, got_st = mppi_solve_fused(_cfg(k), MODEL, x, u_n, seed=17, solve=3, rollouts_per_thread=rpt)
+    eps = philox_normal(17, 3, k, N, 3.0, device=card)
+    want_u, want_st = mppi_cuda.mppi_solve_plain(_cfg(k), MODEL, x.double(), u_n.double(), noise=eps.double(),
+                                                 rollouts_per_thread=rpt)
+    assert int(got_st) == int(want_st) == 0 and _tickets_zero(card, 1)
+    np.testing.assert_allclose(got_u.cpu().numpy(), want_u.cpu().numpy(), **F32_BAND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpt", [1, 4])
+def test_cuda_k1_plant_at_r_matches_plain_chain(card, rpt):
+    """K1 with the plant on, J launches whose last blocks step the plant,
+    against the plain chain in float64 with the same rows, at R forced."""
+    cfg, x, u_n = _cfg(RAGGED_K[1], CHAIN_LAMBDA), torch.tensor(X0, device=card), torch.zeros(N, device=card)
+    got = mppi_chain_fused(cfg, MODEL, x, u_n, n_solves=12, base_seed=77, plant=True, rollouts_per_thread=rpt)
+    want = mppi_cuda.mppi_chain_plain(cfg, MODEL, x.double(), u_n.double(), n_solves=12, base_seed=77, plant=True,
+                                      rollouts_per_thread=rpt)
+    assert got.statuses.tolist() == want.statuses.tolist() == [0] * 12 and _tickets_zero(card, 1)
+    for a, b in [(got.u0s, want.u0s), (got.u_n, want.u_n), (got.x, want.x)]:
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **F32_BAND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpt", [1, 4])
+def test_cuda_merged_failure_probes(card, rpt):
+    """λ = 0 and a NaN state through the last block, with several blocks a
+    problem: the statuses and zero fallbacks of the two-launch solve."""
+    k = RAGGED_K[1]
+    for kw, status in ((dict(x=(float("nan"), 0.0, 0.1, 0.0)), MppiStatus.NO_FINITE), (dict(lam=0.0), MppiStatus.INVALID_U)):
+        x = torch.tensor(kw.get("x", X0), device=card)
+        u, st = mppi_solve_fused(_cfg(k, kw.get("lam", 0.5)), MODEL, x, torch.ones(N, device=card), seed=5,
+                                 rollouts_per_thread=rpt)
+        assert int(st) == status and torch.equal(u.cpu(), torch.zeros(N))
+        chain = mppi_chain_fused(_cfg(k, kw.get("lam", 0.5)), MODEL, x, torch.ones(N, device=card), n_solves=3,
+                                 rollouts_per_thread=rpt)
+        assert chain.statuses.tolist() == [status] * 3 and torch.equal(chain.u_n.cpu(), torch.zeros(N))
+    xs = torch.tensor([X0] * 8, device=card)
+    xs[5] = float("nan")
+    seeds = torch.arange(8, dtype=torch.int32, device=card)
+    u, st = mppi_cuda.mppi_solve_batch_fused(_fleet_cfg(k, "cartpole"), CART_FAST, xs, torch.zeros(8, N, device=card),
+                                             seeds=seeds, sampler="clt4a", rollouts_per_thread=rpt)
+    assert st.cpu().tolist() == [0, 0, 0, 0, 0, MppiStatus.NO_FINITE, 0, 0]
+    assert torch.equal(u[5].cpu(), torch.zeros(N)) and bool(torch.isfinite(u).all()) and _tickets_zero(card, 8)
+
+
+@pytest.mark.cuda
+def test_cuda_tickets_are_zero_after_calls_and_kept_per_stream(card):
+    """Every wrapper leaves its tickets at zero, after one call and after
+    two in a row; another stream gets a buffer of its own."""
+    cfg, x, u_n = _cfg(RAGGED_K[1]), torch.tensor(X0, device=card), torch.zeros(N, device=card)
+    xs, u_ns = _fleet_inputs(card, 64, "cartpole")
+    seeds = torch.arange(64, dtype=torch.int32, device=card)
+    for _ in range(2):
+        mppi_solve_fused(cfg, MODEL, x, u_n, seed=1)
+        mppi_solve_fused(cfg, MODEL, x, u_n, seed=2)
+        mppi_chain_fused(cfg, MODEL, x, u_n, n_solves=4, plant=True)
+        mppi_cuda.mppi_solve_batch_fused(_fleet_cfg(1024, "cartpole"), CART_FAST, xs, u_ns, seeds=seeds, sampler="clt4")
+        assert _tickets_zero(card, 1) and _tickets_zero(card, 64)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        u, st = mppi_solve_fused(cfg, MODEL, x, u_n, seed=1)
+        side_tickets = mppi_cuda.merge_tickets(card, 1)
+    torch.cuda.synchronize()
+    assert side_tickets.data_ptr() != mppi_cuda.merge_tickets(card, 1).data_ptr()
+    assert int(st) == 0 and bool((side_tickets == 0).all())
 
 
 # --------------------------------------------------------------------------

@@ -100,6 +100,68 @@ def test_k2_plain_f64_matches_mppi_solve(k):
     np.testing.assert_allclose(got_u.numpy(), np.asarray(want.u_n), **F64_BAND)
 
 
+@pytest.mark.parametrize("lam", [0.5, 20.0])
+@pytest.mark.parametrize("k", [1000, 4 * 256 * 3 + 17])
+def test_k2_plain_rows_of_four_match_mppi_solve(k, lam):
+    """With rows of 4·256 rollouts, and f32(1/λ)'s multiply in place of the
+    JAX solver's division by λ, the plain solve stays within 1e-9 of
+    ``mppi_solve`` in float64."""
+    rng = np.random.default_rng(k)
+    eps = 3.0 * rng.standard_normal((k, N))
+    u_n = rng.standard_normal(N)
+    want = jmppi.mppi_solve(_jcfg(k, lam), JSTEP, jcosts.shaped4, None, tuple(jnp.float64(c) for c in X0),
+                            jnp.asarray(u_n), noise=jnp.asarray(eps))
+    got_u, got_st = mppi_solve_fused(_cfg(k, lam), MODEL, torch.tensor(X0, dtype=torch.float64),
+                                     torch.tensor(u_n), noise=torch.tensor(eps), rollouts_per_thread=4)
+    assert int(got_st) == int(want.status) == MppiStatus.OK
+    np.testing.assert_allclose(got_u.numpy(), np.asarray(want.u_n), **F64_BAND)
+
+
+@pytest.mark.parametrize("k, b, want", [
+    (1024, 1024, 4),  # cartpole4: 1 024 blocks
+    (8192, 1024, 4),  # flagship6: 8 192 blocks
+    (819_200, 1, 4),  # K1/K2 at the headline K: 800 blocks
+    (800_000, 1, 4),  # mppi4-non-liner: 782 blocks
+    (10_240, 1, 1),  # K1 at K=10 240: R=4 would be 10 blocks
+    (65_536, 8, 1),  # K6's multi-block shape: 512 blocks at R=4
+    (1224, 8, 1),  # the CPU tests' sizes keep today's rows
+])
+def test_rollouts_per_thread_at_the_paths_shapes(k, b, want):
+    assert mppi_cuda.rollouts_per_thread(k, b) == want
+    nb = -(-k // (mppi_cuda.BLOCK * want))
+    assert nb * b >= mppi_cuda.MIN_BLOCKS or want == 1
+
+
+@pytest.mark.parametrize("k", [1000, 4 * 256 * 3 + 17])
+def test_plain_rows_of_four_blocks_merge_to_the_one_block_rows(k):
+    """Rows of 4·256 rollouts hold the same sums as rows of 256, merged
+    in another order: the two solves agree within 1e-12 in float64, and
+    so does a fleet of two scenarios (a ragged last row in each)."""
+    rng = np.random.default_rng(k)
+    cfg = _cfg(k, 2.0)
+    xs = torch.tensor(np.stack([X0, (0.3, 0.1, -0.1, 0.0)]))
+    u_ns = torch.tensor(0.5 * rng.standard_normal((2, N)))
+    noise = torch.tensor(3.0 * rng.standard_normal((2, k, N)))
+    p1 = mppi_cuda.mppi_batch_partials_plain(cfg, MODEL, xs, u_ns, noise, rollouts_per_thread=1)
+    p4 = mppi_cuda.mppi_batch_partials_plain(cfg, MODEL, xs, u_ns, noise, rollouts_per_thread=4)
+    assert p1.shape == (2, -(-k // 256), N + 2) and p4.shape == (2, -(-k // 1024), N + 2)
+    (u1, s1), (u4, s4) = mppi_cuda.finalize_batch_plain(cfg, p1), mppi_cuda.finalize_batch_plain(cfg, p4)
+    assert s1.tolist() == s4.tolist() == [0, 0]
+    np.testing.assert_allclose(u4.numpy(), u1.numpy(), rtol=1e-12, atol=1e-12)
+    got = mppi_solve_batch_fused(cfg, MODEL, xs, u_ns, noise=noise, rollouts_per_thread=4)
+    assert torch.equal(got[0], u4) and torch.equal(got[1], s4)
+    with pytest.raises(ValueError, match="rollouts_per_thread"):
+        mppi_cuda.mppi_batch_partials_plain(cfg, MODEL, xs, u_ns, noise, rollouts_per_thread=2)
+
+
+def test_inv_lambda_folds_in_double_and_keeps_lambda_0_invalid():
+    assert mppi_cuda.inv_lambda(0.5) == 2.0 and mppi_cuda.inv_lambda(1.4) == 1.0 / 1.4
+    assert mppi_cuda.inv_lambda(0.0) == float("inf")
+    u, st = mppi_solve_fused(_cfg(2048, 0.0), MODEL, torch.tensor(X0), torch.zeros(N), seed=5,
+                             rollouts_per_thread=4)
+    assert int(st) == MppiStatus.INVALID_U and torch.equal(u, torch.zeros(N))
+
+
 def _probe(x=X0, lam=0.5, k=512, device="cpu"):
     x = torch.tensor(x, dtype=torch.float32, device=device)
     return mppi_solve_fused(_cfg(k, lam), MODEL, x, torch.zeros(N, device=device), seed=5)
