@@ -5,8 +5,11 @@
 
 Builds the CUDA kernels from the sources in this checkout (printing ptxas's
 registers and spills and the static SASS counts of the production partials
-instantiations beside the build seconds), holds each against its plain
-PyTorch version on the card, counts by torch.profiler the kernels a solve,
+instantiations beside the build seconds, and failing on a spill in a
+partials or estimator chain instantiation), holds each against its plain
+PyTorch version on the card (the fast-math probe also on a misaligned view
+and a ragged count, bit for bit against its vector path), counts by
+torch.profiler the kernels a solve,
 a chain and a fleet tick launch, drives the main paths (the
 ``mppi4-non-liner`` closed loop through the CLI entry function and the
 device-resident chain of the same loop; the scenario fleet through the CLI
@@ -69,6 +72,10 @@ PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data shee
 PEAK_HBM = 3.35e12  # bytes/s, H100 SXM HBM3
 PEAK_BF16 = 2 * PEAK_FP32  # FLOP/s, H100 SXM bf16 outside the tensor cores (Programming Guide, cc 9.0)
 CLT_FAMILY_SPREAD = 0.02  # cltone/cltbig/cltreg launch clt's kernel: their D1 times agree this closely
+# flagship6's float32 filter is ill-conditioned in a few x̂ entries at B >= 1 000:
+# two float32 evaluations in one order of operations differ past the band
+# there (PERF.md §6); at most this many K7 entries may leave it
+K7_ILL_MAX = 4
 
 
 def emit(obj) -> None:
@@ -111,24 +118,31 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
 
 
 PROFILED = "chip_smoke_profiled_calls"
+GAP_S = 2e-3  # host idle time around the profiled calls
 
 
 def device_events(fn, reps: int = 1) -> list[tuple[str, float]]:
     """(name, µs) of every device event of ``reps`` calls under
     torch.profiler. The profiler drops some device events, most at the start
     of a session, so one call runs first and only the events that start
-    inside the measured range count. A profile that caught no device event
-    is taken again, up to five times."""
+    inside the measured range count. The host idles ``GAP_S`` after that
+    call, at the start of the range and at its end, so an event whose device
+    time the profiler places up to ``GAP_S`` off the host clock still falls
+    on the right side of the range's ends. A profile that caught no device
+    event is taken again, up to five times."""
     events = []
     for _ in range(5):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+            time.sleep(GAP_S)
             with torch.profiler.record_function(PROFILED):
+                time.sleep(GAP_S)
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(GAP_S)
         span = next(e.time_range for e in prof.events() if e.name == PROFILED)
         events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name != PROFILED
@@ -275,11 +289,22 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
     exact = {"fsin": torch.sin, "fcos": torch.cos, "flog": torch.log, "frsqrt": torch.rsqrt,
              "fsqrt": torch.sqrt, "freciprocal": torch.reciprocal}
     fm_err = 0.0
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
     for fn in mppi_cuda.FASTMATH_FNS:
         lo, hi = ranges.get(fn, (1e-3, 1e4))
         a = lo + (hi - lo) * torch.rand(n_pts, generator=gen, device=dev)
         b = 0.5 + 1.5 * torch.rand(n_pts, generator=gen, device=dev) if fn == "fdiv" else None
-        got = mppi_cuda.fastmath_eval(fn, a, b).double()
+        raw = mppi_cuda.fastmath_eval(fn, a, b)  # 16-byte aligned, 2**20 points: the vector instantiation
+        # a view 4 bytes off (the scalar instantiation over every point) and an
+        # aligned copy of 2**20 − 1 points (vectors, then a scalar tail of 3)
+        # give the same bits on the same points
+        b_tail = None if b is None else b[1:]
+        check(a[1:].data_ptr() % 16 != 0, "the misaligned view is 16-byte aligned")
+        off = mppi_cuda.fastmath_eval(fn, a[1:], b_tail)
+        tail = mppi_cuda.fastmath_eval(fn, a[1:].clone(), None if b is None else b_tail.clone())
+        check(torch.equal(bits(off), bits(raw[1:])) and torch.equal(bits(tail), bits(raw[1:])),
+              f"{fn}: the scalar instantiation or the tail differs from the vector path")
+        got = raw.double()
         plain = (getattr(fastmath, fn)(a) if b is None else fastmath.fdiv(a, b)).double()
         ref = (exact[fn](a.double()) if b is None else a.double() / b.double())
         abs_err, rel_err = float((got - plain).abs().max()), float(((got - ref) / ref).abs().max())
@@ -294,7 +319,7 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
         if fn in ("fsin", "fcos", "flog"):
             fm_err = max(fm_err, abs_err)
         emit({"phase": "fastmath", "fn": fn, "points": n_pts, "max_abs_err_vs_plain": abs_err,
-              "max_rel_err_vs_exact": rel_err})
+              "max_rel_err_vs_exact": rel_err, "misaligned_and_tail_same_bits": True})
 
     # F2. the batched kernel with external noise against the plain version in
     # float64, at the fleets' shapes and a multi-block one. The band holds at
@@ -387,6 +412,31 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
     check(bool((st == MppiStatus.INVALID_U).all()) and bool((u == 0).all()), f"λ=0 probe: {st.tolist()}")
     emit({"phase": "batch_failure_probe", "probe": "lambda_0", "statuses": sorted(set(st.tolist()))})
 
+    # a tick's MPPI is one launch (torch.profiler): the tick's MPPI call at
+    # its fleet's shape launches one partials kernel, and three ticks of the
+    # estimator chain's fleet (the same MPPI call, 7-9 device events a tick)
+    # launch no finalize kernel and at most three partials kernels (the
+    # profiler drops some device events, so it may catch fewer). This runs
+    # before F5: after the torch-op fleet runs (some 10^6 small launches) a
+    # profile of one call has caught no event at all. The torch-op tick
+    # (~8 000 device events) is not profiled: after a profile that large the
+    # profiler caught no event of the next calls.
+    from mpc_rs_tpu_torch.apps.fleet import build_fleet
+    for which in ("cartpole4", "flagship6"):
+        fl = build_fleet(which, None, dev, scenarios=1024, estimator_chain=True)
+        xs, u_ns = inputs(1024, which)
+        seeds = torch.arange(1024, dtype=torch.int32, device=dev)
+        call = lambda: mppi_cuda.mppi_solve_batch_fused(fl.cfg, model(which, True), xs, u_ns,  # noqa: E731
+                                                        seeds=seeds, sampler=fl.sampler)
+        per_call = check_kernels_per_call(call, 1, f"{which}: the tick's MPPI call")
+        carry = fl.tick(fl.carry, fl.generator)
+        names = [n for n, _ in device_events(lambda: fl.tick(carry, fl.generator), reps=3)]
+        mppi = [n for n in names if "mppi_partials_kernel" in n or "finalize" in n]
+        check(not any("finalize" in n for n in mppi) and 1 <= len(mppi) <= 3,
+              f"{which}: three chain ticks' MPPI kernels {mppi} among {len(names)} events")
+        emit({"phase": "fleet_tick_mppi_launches", "model": which, "mppi_call_kernels": per_call,
+              "chain_ticks_profiled": 3, "mppi_kernels_caught": len(mppi), "device_events_caught": len(names)})
+
     # F5. the main path: the fleet through the CLI entry function
     runs = (
         (["--model", "cartpole4", "--t-end", "10"], 0.99),
@@ -420,28 +470,6 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
     for key in ("fast_tier", *(f"sampler:{s_}" for s_ in philox.SAMPLERS)):
         check(counts[key] >= 1, f"{key} was not launched on the fleet's main path")
     emit({"phase": "fleet_main_path_launches", "ticks": ticks, "launches": counts})
-    # a tick's MPPI is one launch (torch.profiler): the tick's MPPI call at
-    # its fleet's shape launches one partials kernel, and three ticks of the
-    # estimator chain's fleet (the same MPPI call, 7-9 device events a tick)
-    # launch no finalize kernel and at most three partials kernels (the
-    # profiler drops some device events, so it may catch fewer). The torch-op
-    # tick (~8 000 device events) is not profiled: after a profile that
-    # large the profiler caught no event of the next calls.
-    from mpc_rs_tpu_torch.apps.fleet import build_fleet
-    for which in ("cartpole4", "flagship6"):
-        fl = build_fleet(which, None, dev, scenarios=1024, estimator_chain=True)
-        xs, u_ns = inputs(1024, which)
-        seeds = torch.arange(1024, dtype=torch.int32, device=dev)
-        call = lambda: mppi_cuda.mppi_solve_batch_fused(fl.cfg, model(which, True), xs, u_ns,  # noqa: E731
-                                                        seeds=seeds, sampler=fl.sampler)
-        per_call = check_kernels_per_call(call, 1, f"{which}: the tick's MPPI call")
-        carry = fl.tick(fl.carry, fl.generator)
-        names = [n for n, _ in device_events(lambda: fl.tick(carry, fl.generator), reps=3)]
-        mppi = [n for n in names if "mppi_partials_kernel" in n or "finalize" in n]
-        check(not any("finalize" in n for n in mppi) and 1 <= len(mppi) <= 3,
-              f"{which}: three chain ticks' MPPI kernels {mppi} among {len(names)} events")
-        emit({"phase": "fleet_tick_mppi_launches", "model": which, "mppi_call_kernels": per_call,
-              "chain_ticks_profiled": 3, "mppi_kernels_caught": len(mppi), "device_events_caught": len(names)})
 
     # F6. timings by CUDA events, kernel and plain in turns, on one card
     timing = {}
@@ -520,52 +548,58 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
 
 def estimator_phases(dev: torch.device, card: dict) -> list[dict]:
     """The fused estimator chain (K7): each fleet model's kernel against its
-    plain version at B = 1024 and at B = 1000 (a masked tail) with a NaN
-    estimate in scenario 5, the timings, then both fleets on the chain as a
-    main path. Returns the kernels line's entries."""
+    plain version at B = 1024, 1000, 100, 3 and 1 (at 3 and 1 a group of a
+    half-filled warp has no scenario) with a NaN estimate in scenario
+    min(5, B − 1), the timings, then both fleets on the chain as a main
+    path. Returns the kernels line's entries."""
     from mpc_rs_tpu_torch.apps.fleet import build_fleet, run_fleet
     from mpc_rs_tpu_torch.ops import estimator_cuda, mppi_cuda
 
-    gen = torch.Generator(device=dev).manual_seed(7)
-
-    def inputs(fl, b):
-        """A perturbed carry, u0 as the column of the nominals the tick
-        passes, the flagship's clock inside the pulse, the sensor normals."""
-        c, chain = fl.carry, fl.tick.chain
-        n = c.ukf.x.shape[1]
-        x = c.x + 0.05 * torch.randn(c.x.shape, generator=gen, device=dev)
-        ex = c.ukf.x + 0.05 * torch.randn(c.ukf.x.shape, generator=gen, device=dev)
-        ex[5, 0] = float("nan")
-        a = torch.randn((b, n, n), generator=gen, device=dev)
-        p = (1e-3 * a @ a.transpose(1, 2) + 0.05 * torch.eye(n, device=dev)).permute(1, 2, 0)
-        u = torch.randn((b, N), generator=gen, device=dev)
-        t = torch.full((b,), 1.2, device=dev)
-        noise = torch.randn((chain.n_substeps * chain.sig.shape[0], b), generator=gen, device=dev)
-        return x, ex, p.reshape(n * n, b).contiguous(), u[:, 0], t, noise
-
-    # E1. the kernel against the plain version in float32 (the band) and in
-    # float64 (within twice the plain float32 version's own distance)
+    # E1. the kernel against the plain version: in float32 within the band
+    # (flagship6 at B >= 1 000: all but at most K7_ILL_MAX entries, listed
+    # with the plain version's float32 value on the CPU and the float64
+    # value), and in float64 within twice the plain float32 version's own
+    # distance + 2e-4
     err, timing = {}, {}
     for model in ("cartpole4", "flagship6"):
-        for b in (1024, 1000):
+        for b in (1024, 1000, 100, 3, 1):
+            nan_b = min(5, b - 1)
             fl = build_fleet(model, None, dev, scenarios=b, estimator_chain=True)
             chain = fl.tick.chain
-            args = inputs(fl, b)
+            args = estimator_cuda.chain_inputs(chain, fl.carry.x, fl.carry.ukf.x)
             got = estimator_cuda.estimator_chain_fused(chain, *args)
             want = estimator_cuda.estimator_chain_plain(chain, *args)
             f64 = estimator_cuda.estimator_chain_plain(chain, *(a_.double() for a_ in args))
-            row = {"phase": "estimator_chain", "model": model, "b": b, "n_substeps": chain.n_substeps}
-            for name, g, w32, w64 in zip(("x", "ukf_x", "p"), got, want, f64):
-                row[f"{name}_max_abs_err"] = check_band(g, w32, f"K7 {model} B={b} {name} vs plain")
+            ill = model == "flagship6" and b >= 1000
+            if ill:  # the plain version in float32 on the CPU, the filter's constants there too
+                cpu_chain = build_fleet(model, None, "cpu", scenarios=b, estimator_chain=True).tick.chain
+                cpu32 = estimator_cuda.estimator_chain_plain(cpu_chain, *(a_.cpu() for a_ in args))
+            else:
+                cpu32 = want
+            row = {"phase": "estimator_chain", "model": model, "b": b, "n_substeps": chain.n_substeps,
+                   "outside_band": []}
+            for name, *vals in zip(("x", "ukf_x", "p"), got, want, f64, cpu32):
+                g, w32, w64, c32 = (v.double().cpu() for v in vals)
+                out = (g - w32).abs() > F32_BAND["atol"] + F32_BAND["rtol"] * w32.abs()
+                if ill:
+                    row["outside_band"] += [
+                        {"output": name, "index": idx, "kernel": g[idx].item(), "plain_f32": w32[idx].item(),
+                         "plain_f32_cpu": c32[idx].item(), "plain_f64": w64[idx].item()}
+                        for idx in map(tuple, torch.nonzero(out).tolist())]
+                keep = ~out if ill else torch.ones_like(out)
+                check_band(g[keep], w32[keep], f"K7 {model} B={b} {name} vs plain")
+                row[f"{name}_max_abs_err"] = max_err(g, w32)  # over every entry
                 row[f"{name}_f64_err"], row[f"{name}_plain_f64_err"] = max_err(g, w64), max_err(w32, w64)
                 check(row[f"{name}_f64_err"] <= 2.0 * row[f"{name}_plain_f64_err"] + 2e-4,
                       f"K7 {model} B={b} {name}: {row}")
                 err[model] = max(err.get(model, 0.0), row[f"{name}_max_abs_err"])
+            check(len(row["outside_band"]) <= K7_ILL_MAX, f"K7 {model} B={b}: outside the band {row['outside_band']}")
             check(bool(torch.isfinite(got[1]).all()) and bool(torch.isfinite(got[2]).all()),
                   f"K7 {model} B={b}: the NaN estimate did not come back finite")
             if chain.n_substeps == 1:  # the guard fired in the last substep
-                check(torch.equal(got[2][:, 5], chain.p_reset.flatten()), f"K7 {model}: P is not p_reset")
-            row["nan_scenario_p_diag"] = got[2][:, 5].reshape(chain.params.n, -1).diagonal().tolist()
+                check(torch.equal(got[2][:, nan_b], chain.p_reset.flatten()), f"K7 {model} B={b}: P is not p_reset")
+            row["nan_scenario"] = nan_b
+            row["nan_scenario_p_diag"] = got[2][:, nan_b].reshape(chain.params.n, -1).diagonal().tolist()
             emit(row)
             if b == 1024:
                 kern = median_ms(lambda: estimator_cuda.estimator_chain_fused(chain, *args), reps=50)
@@ -806,6 +840,7 @@ def main() -> None:
     from mpc_rs_tpu_torch.ops import build, mppi_cuda
     from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, mppi_chain_fused, mppi_solve_fused
     from mpc_rs_tpu_torch.ops.philox import philox_normal
+    from mpc_rs_tpu_torch.runtime.profile_fleet import ptxas_kernel
     from mpc_rs_tpu_torch.runtime.profile_partials import ptxas_partials, sass_counts
 
     dev = torch.device("cuda", 0)
@@ -846,6 +881,12 @@ def main() -> None:
     production = [r for r in sass if "finalize_kernel" not in r["kernel"]]
     check(len(production) == 6 and all(r["ATOM"] >= 1 for r in production),
           f"the production partials instantiations (3 solves x R = 1, 4) and their tickets: {sass}")
+    # the estimator chain's two instantiations (K7): registers, no spill
+    k7_ptxas = ptxas_kernel(log, "estimator_chain_kernel")
+    k7_spills = [ln for ln in k7_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
+    emit({"phase": "ptxas_estimator_chain", "ptxas": k7_ptxas})
+    check(sum("registers" in ln for ln in k7_ptxas) == 2, f"K7 instantiations in the ptxas report: {k7_ptxas}")
+    check(not k7_spills, f"ptxas spills in the estimator chain: {k7_spills}")
 
     # 3. K2 with external noise against the plain version in float64
     gen = torch.Generator(device=dev).manual_seed(1234)

@@ -115,11 +115,18 @@ def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: 
     return Fleet(tick, carry, gen, dt, theta_idx, guard, cfg, sampler)
 
 
+def tipped(th_max: np.ndarray, guard: float) -> np.ndarray:
+    """The scenarios whose max |θ| passed the guard, by the reference's rule
+    ``th_max > guard`` (``mpc_rs_tpu/apps/fleet.py:412``): a NaN θ compares
+    false, so it counts as survived."""
+    return th_max > guard
+
+
 class FleetResult(NamedTuple):
     carry: object  # the final ScenarioCarry
     scenarios: int
     ticks: int
-    tipped: int  # scenarios whose |θ| ever passed the guard
+    tipped: int  # scenarios whose |θ| ever passed the guard (a NaN θ did not)
     survival: float
     statuses_ok: bool  # every MPPI status of every tick was 0
     median_max_theta: float  # median over scenarios of max |θ| in the last report chunk
@@ -129,7 +136,10 @@ class FleetResult(NamedTuple):
 
 def run_fleet(fl: Fleet, *, t_end: float, report_every: float) -> FleetResult:
     """Run whole report chunks until ``t_end`` and print one line per chunk
-    (survival, median max |θ|, scenario-ticks/s), as ``fleet.py:391-418``."""
+    (survival, median max |θ|, scenario-ticks/s), as ``fleet.py:391-418``.
+    A scenario is tipped once its max |θ| over a chunk passes the guard, by
+    the reference's ``th_max > guard`` (``mpc_rs_tpu/apps/fleet.py:412``;
+    ``tipped``): a NaN θ counts as survived, as it does there."""
     carry, b = fl.carry, fl.carry.x.shape[0]
     dev = carry.x.device
     chunk = max(1, min(int(round(report_every / fl.dt)), int(t_end / fl.dt)))
@@ -153,13 +163,13 @@ def run_fleet(fl: Fleet, *, t_end: float, report_every: float) -> FleetResult:
         wall = time.perf_counter() - t0
         wall_total += wall
         done += chunk
-        ever_tipped |= ~(th <= fl.guard)  # a NaN state counts as tipped
+        ever_tipped |= tipped(th, fl.guard)
         surv = 1.0 - ever_tipped.mean()
         med = float(np.median(th))
         print(f"t={done * fl.dt:6.1f}s  survival={surv:6.3f}  median max|θ|={med:.4f}  "
               f"{b * chunk / wall:,.0f} scenario-ticks/s", flush=True)
-    tipped = int(ever_tipped.sum())
-    return FleetResult(carry, b, done, tipped, 1.0 - tipped / b, not bool(bad_status.any()),
+    n_tipped = int(ever_tipped.sum())
+    return FleetResult(carry, b, done, n_tipped, 1.0 - n_tipped / b, not bool(bad_status.any()),
                        med, ticks, b * done / wall_total)
 
 

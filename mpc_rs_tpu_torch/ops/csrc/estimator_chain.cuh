@@ -1,6 +1,6 @@
 // The fused plant -> sensor -> UKF estimator chain of the scenario fleets
-// (K7), one thread per scenario. Included by mppi_kernels.cu, so the build
-// stays one nvcc over one translation unit.
+// (K7), a group of 16 lanes per scenario. Included by mppi_kernels.cu, so
+// the build stays one nvcc over one translation unit.
 //
 // Replaces mpc_rs_tpu/ops/estimator_pallas.py::make_estimator_chain (the
 // pallas_call at :211), which traces estimators/ukf_soa.py's soa_predict,
@@ -25,13 +25,44 @@
 // ±1 there), rows, then columns, then V.
 //
 // What bounds it on the card: neither bytes (a scenario reads about 0.25 KB
-// and writes 0.2 KB) nor the FP32 rate. Each thread runs one dependent
-// chain of some 10^4 scalar operations per substep with its state, P, the
-// sigma points and the gain held in registers (ptxas spills the rest to
-// local memory, which stays in L1); at B = 1 024 and 64 threads a block the
-// launch fills 16 of the 132 SMs, two warps each, so the time is the chain's
-// latency. The design trades speed for a simple, exact port: one launch per
-// tick in place of thousands of torch launches.
+// and writes 0.2 KB) nor the FP32 rate (14-22 M counted operations a launch
+// at B = 1 024), but the latency of each scenario's dependent chain. One
+// thread a scenario ran some 10^4 dependent scalar operations a substep on
+// 16 of the 132 SMs. Most of that chain is independent work, so a scenario
+// now has a group of G = 16 lanes of one warp (two scenarios a warp), with
+// its working set in shared memory (P, the Jacobi a and V, the 2N+1 sigma
+// rows [fx | hx], the column means, the joint covariance [P⁻ Pxz; · Pz],
+// the gain and K·Pz: 1.9 KB at flagship6), and the lanes split it by index:
+//   - lane m < 2N+1 builds sigma point m, runs fx and then hx on it;
+//   - lane c < N+O takes the mean and the shift pieces of sigma column c;
+//     every lane takes entries (c1 <= c2) of the joint k-sums (each one
+//     lane's sequential sum; (c2, c1) is the same product sum), then entries
+//     of the joint covariance; a block-shared table lists the triangle;
+//   - every lane factors Pz (O <= 5) in its own registers; lane r < N solves
+//     gain row r and its rows of x̂ and K·Pz; the lanes share out the P
+//     update's entries i <= j;
+//   - the Jacobi rotations stay in their cyclic order (a parallel order would
+//     change the numbers): every lane computes (c, s) from the same three
+//     entries, lane j < N updates rows p and q at column j while lane N + i
+//     updates V's row i, then lane i < N columns p and q at row i, a
+//     __syncwarp after each step;
+//   - the guard is a ballot over the warp, each group reading its own half.
+// The plant step and the sensor run on every lane of the group alike (the
+// same bits, so no broadcast). Every sum keeps its order, so the results
+// are those of the one-thread kernel bit for bit. G = 16 holds the 13
+// sigma points of flagship6 (9 of cartpole4); blocks of 64 threads (4
+// scenarios) give 256 blocks at B = 1 024, on every SM; launch bounds of one
+// block an SM let ptxas take the 80-91 registers it needs without a spill.
+// The floor is now the Jacobi's serial chain of rotations, each three IEEE
+// divisions and two square roots before the updates: 60 a substep at
+// flagship6 (one substep a tick), 24 at cartpole4 (five a tick), about two
+// thirds of the launch on an H100 (PERF.md §6). Doing the row and column
+// steps in one (each lane its four entries from the old ones, a
+// double-buffered copy of the pivots) measured slower, with its stores
+// branch-free or not. A group's shared stride is 16 words past a multiple
+// of 32, so the two groups of a warp read other banks. A tail group
+// (b >= B) computes the last scenario again, takes part in every warp
+// barrier and ballot, and stores nothing.
 //
 // Built without fast math and with -fmad=false (ops/build.py): sinf/cosf,
 // sqrtf and '/' are the accurate forms, and isfinite keeps its meaning.
@@ -42,7 +73,9 @@
 
 namespace mpc {
 
-constexpr int kChainThreads = 64;
+constexpr int kChainLanes = 16;                               // G: lanes a scenario
+constexpr int kChainThreads = 64;                             // two warps a block
+constexpr int kChainScenarios = kChainThreads / kChainLanes;  // four scenarios a block
 constexpr float kEps = 1e-30f;  // the equilibrated solve's clamps (ukf_soa.py:212)
 
 // max(x, lo) that propagates NaN, as torch.maximum / jnp.maximum
@@ -143,22 +176,71 @@ struct HxImu6 {
   }
 };
 
-// Cyclic Jacobi on the symmetric a (smallalg.jacobi_entries): on return the
-// diagonal of a holds the eigenvalues and the columns of v the eigenvectors.
-template <int N>
-__device__ __forceinline__ void jacobi(float (&a)[N][N], float (&v)[N][N]) {
+// One scenario's shared working set, in floats from the group's base.
+template <int N, int O>
+struct ChainLayout {
+  static constexpr int M = 2 * N + 1;           // sigma points
+  static constexpr int W = N + O;               // a sigma row: fx(σ) then hx(fx(σ))
+  static constexpr int kP = 0;                  // P (N, N)
+  static constexpr int kA = kP + N * N;         // the Jacobi's a, then its eigenvalues
+  static constexpr int kV = kA + N * N;         // the Jacobi's V
+  static constexpr int kSig = kV + N * N;       // the sigma rows (M, W)
+  static constexpr int kMean = kSig + M * W;    // column means: x̂⁻ (N), ẑ (O)
+  static constexpr int kE = kMean + W;          // mean − row 0
+  static constexpr int kSd = kE + W;            // wc1 · Σ_k (row k+1 − row 0)
+  static constexpr int kJ = kSd + W;            // the joint covariance (W, W): P⁻, Pxz, Pz
+  static constexpr int kGain = kJ + W * W;      // K (N, O)
+  static constexpr int kKpz = kGain + N * O;    // K·Pz (N, O)
+  static constexpr int kEx = kKpz + N * O;      // the estimate (N)
+  static constexpr int kUsed = kEx + N;
+  static constexpr int kFloats = (kUsed + 15) / 32 * 32 + 16;  // ≡ 16 mod 32: the warp's other group on other banks
+};
+
+// The upper triangle (c1 <= c2) of a D × D matrix, row by row, as
+// (c1, c2) byte pairs: lanes share out its entries by index.
+template <int D>
+__device__ __forceinline__ void fill_triangle(unsigned char* pairs) {
+  int idx = 0;
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
+  for (int c1 = 0; c1 < D; ++c1) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) v[i][j] = i == j ? 1.0f : 0.0f;
+    for (int c2 = c1; c2 < D; ++c2, ++idx) {
+      pairs[2 * idx] = (unsigned char)c1;
+      pairs[2 * idx + 1] = (unsigned char)c2;
+    }
   }
+}
+
+// (x, y) <- (c x − s y, s x + c y): a row pair, a column pair or a V pair
+// of one Jacobi rotation.
+__device__ __forceinline__ void rotate_pair(float* x, float* y, float c, float s) {
+  const float xv = *x, yv = *y;
+  *x = c * xv - s * yv;
+  *y = s * xv + c * yv;
+}
+
+// Cyclic Jacobi on the symmetric a (smallalg.jacobi_entries) by the group's
+// lanes: on return the diagonal of a holds the eigenvalues and the columns
+// of v the eigenvectors. Each rotation: every lane computes (c, s) from the
+// same a_pp, a_qq, a_pq; then lane j < N rotates rows p and q at column j
+// while lane N + i rotates V's row i; then lane i < N rotates columns p and
+// q at row i. Enter and leave after a __syncwarp.
+template <int N>
+__device__ __forceinline__ void jacobi_group(float* a, float* v, int lane) {
+  constexpr int kRounds = (N * N + kChainLanes - 1) / kChainLanes;
 #pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int idx = r * kChainLanes + lane;
+    if (idx < N * N) v[idx] = idx / N == idx % N ? 1.0f : 0.0f;
+  }
+  __syncwarp();
+#pragma unroll 1
   for (int sweep = 0; sweep < 4; ++sweep) {
 #pragma unroll
     for (int p = 0; p < N - 1; ++p) {
 #pragma unroll
       for (int q = p + 1; q < N; ++q) {
-        const float app = a[p][p], aqq = a[q][q], apq = a[p][q];
+        const float app = a[p * N + p], aqq = a[q * N + q], apq = a[p * N + q];
         const bool small = fabsf(apq) < 1e-30f;
         const float theta = (aqq - app) / (small ? 1.0f : 2.0f * apq);
         const float sgn = theta > 0.0f ? 1.0f : (theta < 0.0f ? -1.0f : 0.0f);
@@ -166,58 +248,16 @@ __device__ __forceinline__ void jacobi(float (&a)[N][N], float (&v)[N][N]) {
         t = small ? 0.0f : t;
         const float c = 1.0f / sqrtf(t * t + 1.0f);
         const float s = t * c;
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-          const float rp = a[p][j], rq = a[q][j];
-          a[p][j] = c * rp - s * rq;
-          a[q][j] = s * rp + c * rq;
+        __syncwarp();  // every lane has read a_pp, a_qq, a_pq before rows p and q change
+        const bool row = lane < N;
+        const int vi = lane - N;
+        if (lane < 2 * N) {
+          rotate_pair(row ? a + p * N + lane : v + vi * N + p, row ? a + q * N + lane : v + vi * N + q, c, s);
         }
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          const float cp = a[i][p], cq = a[i][q];
-          a[i][p] = c * cp - s * cq;
-          a[i][q] = s * cp + c * cq;
-        }
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          const float vp = v[i][p], vq = v[i][q];
-          v[i][p] = c * vp - s * vq;
-          v[i][q] = s * vp + c * vq;
-        }
+        __syncwarp();
+        if (row) rotate_pair(a + lane * N + p, a + lane * N + q, c, s);
+        __syncwarp();
       }
-    }
-  }
-}
-
-// The unscented transform (ukf_soa.py::_ut) of the 2N+1 sigma values fm
-// (D components each) plus the additive cov: the mean, the shift pieces
-// e = mean − fm[0] and sd = wc1 Σ_k d_k (d_k = fm[k+1] − fm[0]), and P.
-template <int N, int D, int O>
-__device__ __forceinline__ void unscented(const ChainConsts<N, O>& k,
-                                          const float (&fm)[2 * N + 1][D],
-                                          const float (&cov)[D][D], float (&mean)[D],
-                                          float (&e)[D], float (&sd)[D], float (&pm)[D][D]) {
-#pragma unroll
-  for (int j = 0; j < D; ++j) {
-    float acc = (fm[1][j] - fm[0][j]) + (fm[1 + N][j] - fm[0][j]);
-#pragma unroll
-    for (int i = 1; i < N; ++i) acc = acc + ((fm[1 + i][j] - fm[0][j]) + (fm[1 + N + i][j] - fm[0][j]));
-    mean[j] = fm[0][j] + k.wm1 * acc;
-    e[j] = mean[j] - fm[0][j];
-    float s = fm[1][j] - fm[0][j];
-#pragma unroll
-    for (int kk = 1; kk < 2 * N; ++kk) s = s + (fm[kk + 1][j] - fm[0][j]);
-    sd[j] = k.wc1 * s;
-  }
-#pragma unroll
-  for (int a = 0; a < D; ++a) {
-#pragma unroll
-    for (int b = 0; b < D; ++b) {
-      float core = (fm[1][a] - fm[0][a]) * (fm[1][b] - fm[0][b]);
-#pragma unroll
-      for (int kk = 1; kk < 2 * N; ++kk) core = core + (fm[kk + 1][a] - fm[0][a]) * (fm[kk + 1][b] - fm[0][b]);
-      core = k.wc1 * core;
-      pm[a][b] = core - sd[a] * e[b] - e[a] * sd[b] + k.sum_wc * (e[a] * e[b]) + cov[a][b];
     }
   }
 }
@@ -243,170 +283,261 @@ __device__ __forceinline__ void tri_solve(const float (&l)[O][O], const float (&
   }
 }
 
-// One UKF predict and update of one scenario (soa_predict, soa_update).
+// One UKF predict and update of the group's scenario (soa_predict,
+// soa_update) on its shared working set g; z and u are the same on every
+// lane, cov holds q and r on the diagonal blocks of the joint covariance;
+// joint and upd: the (c1, c2) byte pairs of the upper triangles of the
+// joint covariance (W × W) and of P (N × N). Enter and leave after a
+// __syncwarp.
 template <int N, int O, class Plant, class Hx>
-__device__ __forceinline__ void ukf_predict_update(const Plant& plant, const Hx& hx,
-                                                   const ChainConsts<N, O>& k, float u,
-                                                   const float (&z)[O], float (&ex)[N],
-                                                   float (&p)[N][N]) {
-  constexpr int M = 2 * N + 1;
-  // sigma points x, x ± L_i, L_i = eigenvector_i · sqrt(max(λ_i, 0)), through fx
-  float fm[M][N];
-  {
-    float a[N][N], v[N][N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) a[i][j] = k.hc * (p[i][j] + p[j][i]);
-    }
-    jacobi<N>(a, v);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float sq = sqrtf(a[i][i] < 0.0f ? 0.0f : a[i][i]);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float delta = v[j][i] * sq;
-        fm[1 + i][j] = ex[j] + delta;
-        fm[1 + N + i][j] = ex[j] - delta;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < N; ++j) fm[0][j] = ex[j];
-#pragma unroll
-    for (int m = 0; m < M; ++m) plant.fx(fm[m], u);
-  }
-  float e[N], sd[N];
-  unscented<N, N, O>(k, fm, k.q, ex, e, sd, p);  // ex, p: the prediction
+__device__ __forceinline__ void ukf_group(const Plant& plant, const Hx& hx, const ChainConsts<N, O>& k,
+                                          const float* cov, const unsigned char* joint,
+                                          const unsigned char* upd, float u, const float (&z)[O],
+                                          float* g, int lane) {
+  using L = ChainLayout<N, O>;
+  constexpr int M = L::M, W = L::W;
+  constexpr int kPairs = W * (W + 1) / 2;
+  constexpr int R = (kPairs + kChainLanes - 1) / kChainLanes;
+  float* const pp = g + L::kP;
+  float* const a = g + L::kA;
+  float* const v = g + L::kV;
+  float* const sig = g + L::kSig;
+  float* const mean = g + L::kMean;
+  float* const e = g + L::kE;
+  float* const sd = g + L::kSd;
+  float* const jc = g + L::kJ;
+  float* const gain = g + L::kGain;
+  float* const kpz = g + L::kKpz;
+  float* const ex = g + L::kEx;
 
-  // update: the UT of hx(sigma_f), the cross-covariance in the shifted form
-  float hm[M][O];
+  // the sigma root: a = c/2 (P + Pᵀ), its Jacobi eigenpairs
+  constexpr int kNNRounds = (N * N + kChainLanes - 1) / kChainLanes;
 #pragma unroll
-  for (int m = 0; m < M; ++m) hx(fm[m], hm[m]);
-  float zp[O], eh[O], sdh[O], pz[O][O];
-  unscented<N, O, O>(k, hm, k.r, zp, eh, sdh, pz);
-  float gain[N][O];
-  {
-    float pxz[N][O];
-    float sdf[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float s = fm[1][i] - fm[0][i];
-#pragma unroll
-      for (int kk = 1; kk < 2 * N; ++kk) s = s + (fm[kk + 1][i] - fm[0][i]);
-      sdf[i] = k.wc1 * s;
-    }
-#pragma unroll
-    for (int a = 0; a < N; ++a) {
-      const float ef = ex[a] - fm[0][a];
-#pragma unroll
-      for (int b = 0; b < O; ++b) {
-        float acc = (fm[1][a] - fm[0][a]) * (hm[1][b] - hm[0][b]);
-#pragma unroll
-        for (int kk = 1; kk < 2 * N; ++kk) acc = acc + (fm[kk + 1][a] - fm[0][a]) * (hm[kk + 1][b] - hm[0][b]);
-        pxz[a][b] = k.wc1 * acc - sdf[a] * eh[b] - ef * sdh[b] + k.sum_wc * (ef * eh[b]);
-      }
-    }
-    // K = Pxz Pz⁻¹: Pz Kᵀ = Pxzᵀ by the equilibrated Cholesky solve
-    // (ukf_soa.py:204-255), D = diag(Pz)^½, one refinement step
-    float dinv[O], aeq[O][O], l[O][O];
-#pragma unroll
-    for (int i = 0; i < O; ++i) dinv[i] = 1.0f / sqrtf(max_nan(pz[i][i], kEps));
-#pragma unroll
-    for (int i = 0; i < O; ++i) {
-#pragma unroll
-      for (int j = 0; j < O; ++j) aeq[i][j] = pz[i][j] * dinv[i] * dinv[j];
-    }
-#pragma unroll
-    for (int i = 0; i < O; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        float acc = aeq[i][j];
-#pragma unroll
-        for (int kk = 0; kk < j; ++kk) acc = acc - l[i][kk] * l[j][kk];
-        l[i][j] = i == j ? sqrtf(max_nan(acc, kEps)) : acc / l[j][j];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      float b[O], zz[O], resid[O], dz[O];
-#pragma unroll
-      for (int i = 0; i < O; ++i) b[i] = pxz[r][i] * dinv[i];
-      tri_solve<O>(l, b, zz);
-#pragma unroll
-      for (int i = 0; i < O; ++i) {
-        float acc = aeq[i][0] * zz[0];
-#pragma unroll
-        for (int kk = 1; kk < O; ++kk) acc = acc + aeq[i][kk] * zz[kk];
-        resid[i] = b[i] - acc;
-      }
-      tri_solve<O>(l, resid, dz);
-#pragma unroll
-      for (int i = 0; i < O; ++i) gain[r][i] = (zz[i] + dz[i]) * dinv[i];
+  for (int r = 0; r < kNNRounds; ++r) {
+    const int idx = r * kChainLanes + lane;
+    if (idx < N * N) {
+      const int i = idx / N, j = idx % N;
+      a[idx] = k.hc * (pp[i * N + j] + pp[j * N + i]);
     }
   }
-  // x += K (z − ẑ); P ← sym(P) − K Pz Kᵀ, written for i <= j and mirrored
-  float innov[O];
+  __syncwarp();
+  jacobi_group<N>(a, v, lane);
+
+  // sigma point m = lane: x̂, x̂ + L_i, x̂ − L_i (L_i = eigenvector_i ·
+  // sqrt(max(λ_i, 0))), through fx, then hx: one sigma row
+  if (lane < M) {
+    const int col = lane == 0 ? 0 : (lane - 1) % N;
+    const float aii = a[col * N + col];
+    const float sq = sqrtf(aii < 0.0f ? 0.0f : aii);
+    float row[N];
 #pragma unroll
-  for (int j = 0; j < O; ++j) innov[j] = z[j] - zp[j];
-  float kpz[N][O];
+    for (int j = 0; j < N; ++j) {
+      const float x0 = ex[j];
+      const float delta = v[j * N + col] * sq;
+      row[j] = lane == 0 ? x0 : (lane <= N ? x0 + delta : x0 - delta);
+    }
+    plant.fx(row, u);
+    float zr[O];
+    hx(row, zr);
+    float* const out = sig + lane * W;
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float dx = gain[i][0] * innov[0];
+    for (int j = 0; j < N; ++j) out[j] = row[j];
 #pragma unroll
-    for (int kk = 1; kk < O; ++kk) dx = dx + gain[i][kk] * innov[kk];
-    ex[i] = ex[i] + dx;
+    for (int j = 0; j < O; ++j) out[N + j] = zr[j];
+  }
+  __syncwarp();
+
+  // the unscented transform (ukf_soa.py::_ut) of every sigma column c: its
+  // mean, e = mean − row 0 and sd = wc1 Σ_k d_k (d_k = row k+1 − row 0);
+  // and the k-sums Σ_k d_k[c1] d_k[c2] of the lane's entries c1 <= c2
+  float core[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int idx = r * kChainLanes + lane;
+    if (idx < kPairs) {
+      const int c1 = joint[2 * idx], c2 = joint[2 * idx + 1];
+      const float a0 = sig[c1], b0 = sig[c2];
+      float acc = (sig[W + c1] - a0) * (sig[W + c2] - b0);
+#pragma unroll
+      for (int kk = 1; kk < 2 * N; ++kk) acc = acc + (sig[(kk + 1) * W + c1] - a0) * (sig[(kk + 1) * W + c2] - b0);
+      core[r] = acc;
+    }
+  }
+  if (lane < W) {
+    const int c = lane;
+    const float s0 = sig[c];
+    float acc = (sig[W + c] - s0) + (sig[(1 + N) * W + c] - s0);
+#pragma unroll
+    for (int i = 1; i < N; ++i) acc = acc + ((sig[(1 + i) * W + c] - s0) + (sig[(1 + N + i) * W + c] - s0));
+    const float mu = s0 + k.wm1 * acc;
+    mean[c] = mu;
+    e[c] = mu - s0;
+    float s = sig[W + c] - s0;
+#pragma unroll
+    for (int kk = 1; kk < 2 * N; ++kk) s = s + (sig[(kk + 1) * W + c] - s0);
+    sd[c] = k.wc1 * s;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int idx = r * kChainLanes + lane;
+    if (idx < kPairs) {
+      const int c1 = joint[2 * idx], c2 = joint[2 * idx + 1];
+      jc[c1 * W + c2] = core[r];
+      jc[c2 * W + c1] = core[r];
+    }
+  }
+  __syncwarp();
+  // the joint covariance: P⁻ = UT + q, Pz = UT + r and the shifted Pxz
+  constexpr int kJRounds = (W * W + kChainLanes - 1) / kChainLanes;
+#pragma unroll
+  for (int r = 0; r < kJRounds; ++r) {
+    const int idx = r * kChainLanes + lane;
+    if (idx < W * W) {
+      const int c1 = idx / W, c2 = idx % W;
+      float val = k.wc1 * jc[idx];
+      val = val - sd[c1] * e[c2] - e[c1] * sd[c2] + k.sum_wc * (e[c1] * e[c2]);
+      jc[idx] = (c1 < N) == (c2 < N) ? val + cov[idx] : val;
+    }
+  }
+  __syncwarp();
+
+  // K = Pxz Pz⁻¹: Pz Kᵀ = Pxzᵀ by the equilibrated Cholesky solve
+  // (ukf_soa.py:204-255), D = diag(Pz)^½, one refinement step. Every lane
+  // factors Pz; lane r < N solves row r (the others row N − 1 again).
+  float dinv[O], aeq[O][O], l[O][O];
+#pragma unroll
+  for (int i = 0; i < O; ++i) dinv[i] = 1.0f / sqrtf(max_nan(jc[(N + i) * W + N + i], kEps));
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+#pragma unroll
+    for (int j = 0; j < O; ++j) aeq[i][j] = jc[(N + i) * W + N + j] * dinv[i] * dinv[j];
+  }
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float acc = aeq[i][j];
+#pragma unroll
+      for (int kk = 0; kk < j; ++kk) acc = acc - l[i][kk] * l[j][kk];
+      l[i][j] = i == j ? sqrtf(max_nan(acc, kEps)) : acc / l[j][j];
+    }
+  }
+  const int r = lane < N ? lane : N - 1;
+  float b[O], zz[O], resid[O], dz[O], gr[O];
+#pragma unroll
+  for (int i = 0; i < O; ++i) b[i] = jc[r * W + N + i] * dinv[i];
+  tri_solve<O>(l, b, zz);
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    float acc = aeq[i][0] * zz[0];
+#pragma unroll
+    for (int kk = 1; kk < O; ++kk) acc = acc + aeq[i][kk] * zz[kk];
+    resid[i] = b[i] - acc;
+  }
+  tri_solve<O>(l, resid, dz);
+#pragma unroll
+  for (int i = 0; i < O; ++i) gr[i] = (zz[i] + dz[i]) * dinv[i];
+  // x̂_r += K_r (z − ẑ); row r of K·Pz
+  float dx = gr[0] * (z[0] - mean[N]);
+#pragma unroll
+  for (int kk = 1; kk < O; ++kk) dx = dx + gr[kk] * (z[kk] - mean[N + kk]);
+  if (lane < N) {
+    ex[r] = mean[r] + dx;
 #pragma unroll
     for (int j = 0; j < O; ++j) {
-      float acc = gain[i][0] * pz[0][j];
+      float acc = gr[0] * jc[N * W + N + j];
 #pragma unroll
-      for (int kk = 1; kk < O; ++kk) acc = acc + gain[i][kk] * pz[kk][j];
-      kpz[i][j] = acc;
+      for (int kk = 1; kk < O; ++kk) acc = acc + gr[kk] * jc[(N + kk) * W + N + j];
+      kpz[r * O + j] = acc;
+      gain[r * O + j] = gr[j];
     }
   }
+  __syncwarp();
+  // P ← sym(P⁻) − K Pz Kᵀ, written for i <= j and mirrored
+  constexpr int kUpd = N * (N + 1) / 2;
+  constexpr int kUpdRounds = (kUpd + kChainLanes - 1) / kChainLanes;
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
+  for (int rr = 0; rr < kUpdRounds; ++rr) {
+    const int idx = rr * kChainLanes + lane;
+    if (idx < kUpd) {
+      const int i = upd[2 * idx], j = upd[2 * idx + 1];
+      float dec = kpz[i * O] * gain[j * O];
 #pragma unroll
-    for (int j = i; j < N; ++j) {
-      float dec = kpz[i][0] * gain[j][0];
-#pragma unroll
-      for (int kk = 1; kk < O; ++kk) dec = dec + kpz[i][kk] * gain[j][kk];
-      const float val = 0.5f * (p[i][j] + p[j][i]) - dec;
-      p[i][j] = val;
-      p[j][i] = val;
+      for (int kk = 1; kk < O; ++kk) dec = dec + kpz[i * O + kk] * gain[j * O + kk];
+      const float val = 0.5f * (jc[i * W + j] + jc[j * W + i]) - dec;
+      pp[i * N + j] = val;
+      pp[j * N + i] = val;
     }
   }
+  __syncwarp();
 }
 
-// Grid (ceil(B / 64)), one thread per scenario b, any B (the tail threads
-// leave). Reads the carry's tensors where they lie: x (B, S), the estimate
-// ex (B, N), P packed batch-minor (N², B), u0 at u0[b · u_stride] (a column
-// of the (B, horizon) nominals), t (B), the standard normals of the sensor
-// (NSUB·O, B); writes x', ex' and P' in the same layouts.
+// Grid (ceil(B / 4)), 64 threads: scenario b = 4·block + threadIdx / 16 on
+// the 16 lanes of its group, any B. Reads the carry's tensors where they
+// lie: x (B, S), the estimate ex (B, N), P packed batch-minor (N², B), u0
+// at u0[b · u_stride] (a column of the (B, horizon) nominals), t (B), the
+// standard normals of the sensor (NSUB·O, B); writes x', ex' and P' in the
+// same layouts.
 template <int N, int O, int NSUB, class Plant, class Hx>
-__global__ void __launch_bounds__(kChainThreads)
+__global__ void __launch_bounds__(kChainThreads, 1)
 estimator_chain_kernel(Plant plant, Hx hx, ChainConsts<N, O> k, int n_scen,
                        const float* __restrict__ x_in, const float* __restrict__ ex_in,
                        const float* __restrict__ p_in, const float* __restrict__ u0,
                        int u_stride, const float* __restrict__ t_in,
                        const float* __restrict__ noise, float* __restrict__ x_out,
                        float* __restrict__ ex_out, float* __restrict__ p_out) {
-  constexpr int S = Plant::kS;
+  using L = ChainLayout<N, O>;
+  constexpr int S = Plant::kS, W = L::W;
   static_assert(S == N, "the fleets' UKF estimates the plant's own state");
-  const int b = blockIdx.x * kChainThreads + threadIdx.x;
-  if (b >= n_scen) return;
-  float x[S], ex[N], p[N][N];
+  static_assert(L::M <= kChainLanes, "a lane per sigma point");
+  __shared__ float cov[W * W];      // q and r on the joint covariance's diagonal blocks
+  __shared__ float p_reset[N * N];
+  __shared__ unsigned char joint[W * (W + 1)], upd[N * (N + 1)];  // the triangles' (c1, c2)
+  __shared__ float groups[kChainScenarios * L::kFloats];
+  if (threadIdx.x == 0) {  // compile-time indices into the parameter struct
 #pragma unroll
-  for (int i = 0; i < S; ++i) x[i] = x_in[(size_t)b * S + i];
+    for (int i = 0; i < W * W; ++i) cov[i] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < N; ++i) ex[i] = ex_in[(size_t)b * N + i];
+    for (int i = 0; i < N; ++i) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
+      for (int j = 0; j < N; ++j) {
+        cov[i * W + j] = k.q[i][j];
+        p_reset[i * N + j] = k.p_reset[i][j];
+      }
+    }
 #pragma unroll
-    for (int j = 0; j < N; ++j) p[i][j] = p_in[(size_t)(i * N + j) * n_scen + b];
+    for (int i = 0; i < O; ++i) {
+#pragma unroll
+      for (int j = 0; j < O; ++j) cov[(N + i) * W + N + j] = k.r[i][j];
+    }
+    fill_triangle<W>(joint);
+    fill_triangle<N>(upd);
   }
-  const float t = t_in[b];
-  float u = u0[(size_t)b * u_stride];
+  __syncthreads();
+
+  const int lane = threadIdx.x % kChainLanes;
+  const int half = threadIdx.x / kChainLanes % (32 / kChainLanes);  // the group's half of its warp
+  const int b = blockIdx.x * kChainScenarios + threadIdx.x / kChainLanes;
+  const bool live = b < n_scen;
+  const int bl = live ? b : n_scen - 1;
+  float* const g = groups + threadIdx.x / kChainLanes * L::kFloats;
+  float* const pp = g + L::kP;
+  float* const ex = g + L::kEx;
+
+  constexpr int kNNRounds = (N * N + kChainLanes - 1) / kChainLanes;
+  float x[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) x[i] = x_in[(size_t)bl * S + i];
+  if (lane < N) ex[lane] = ex_in[(size_t)bl * N + lane];
+#pragma unroll
+  for (int r = 0; r < kNNRounds; ++r) {
+    const int idx = r * kChainLanes + lane;
+    if (idx < N * N) pp[idx] = p_in[(size_t)idx * n_scen + bl];
+  }
+  const float t = t_in[bl];
+  float u = u0[(size_t)bl * u_stride];
   if (k.control_start > 0.0f) u = t >= k.control_start ? u : 0.0f;
+  __syncwarp();
 
 #pragma unroll 1
   for (int i = 0; i < NSUB; ++i) {
@@ -419,35 +550,41 @@ estimator_chain_kernel(Plant plant, Hx hx, ChainConsts<N, O> k, int n_scen,
     float z[O];
     hx(x, z);
 #pragma unroll
-    for (int j = 0; j < O; ++j) z[j] = z[j] + k.sig[j] * noise[(size_t)(i * O + j) * n_scen + b];
-    ukf_predict_update<N, O>(plant, hx, k, u, z, ex, p);
+    for (int j = 0; j < O; ++j) z[j] = z[j] + k.sig[j] * noise[(size_t)(i * O + j) * n_scen + bl];
+    ukf_group<N, O>(plant, hx, k, cov, joint, upd, u, z, g, lane);
     if (k.has_guard) {
       bool bad = false;
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        bad = bad || !isfinite(ex[j]);
-        ex[j] = isfinite(ex[j]) ? ex[j] : 0.0f;
+      if (lane < N) {
+        const float e = ex[lane];
+        bad = !isfinite(e);
+        ex[lane] = isfinite(e) ? e : 0.0f;
       }
 #pragma unroll
-      for (int a = 0; a < N; ++a) {
-#pragma unroll
-        for (int c = 0; c < N; ++c) bad = bad || !isfinite(p[a][c]);
+      for (int r = 0; r < kNNRounds; ++r) {
+        const int idx = r * kChainLanes + lane;
+        if (idx < N * N) bad = bad || !isfinite(pp[idx]);
       }
+      const unsigned votes = __ballot_sync(kFullMask, bad);
+      const bool reset = ((votes >> (kChainLanes * half)) & ((1u << kChainLanes) - 1u)) != 0u;
 #pragma unroll
-      for (int a = 0; a < N; ++a) {
-#pragma unroll
-        for (int c = 0; c < N; ++c) p[a][c] = bad ? k.p_reset[a][c] : p[a][c];
+      for (int r = 0; r < kNNRounds; ++r) {
+        const int idx = r * kChainLanes + lane;
+        if (idx < N * N && reset) pp[idx] = p_reset[idx];
       }
+      __syncwarp();
     }
   }
+  if (live) {
+    if (lane == 0) {
 #pragma unroll
-  for (int i = 0; i < S; ++i) x_out[(size_t)b * S + i] = x[i];
+      for (int i = 0; i < S; ++i) x_out[(size_t)b * S + i] = x[i];
+    }
+    if (lane < N) ex_out[(size_t)b * N + lane] = ex[lane];
 #pragma unroll
-  for (int i = 0; i < N; ++i) ex_out[(size_t)b * N + i] = ex[i];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) p_out[(size_t)(i * N + j) * n_scen + b] = p[i][j];
+    for (int r = 0; r < kNNRounds; ++r) {
+      const int idx = r * kChainLanes + lane;
+      if (idx < N * N) p_out[(size_t)idx * n_scen + b] = pp[idx];
+    }
   }
 }
 

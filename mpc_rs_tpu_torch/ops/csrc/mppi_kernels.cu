@@ -94,9 +94,10 @@
 // for the two models (cart-pole + shaped4, flagship4 + diag4), the two
 // tiers, the seven noise sources (external noise and the six samplers) and
 // R = 1 and 4: 56 instantiations, K1/K2 using the cart-pole's 28. The
-// estimator chain is instantiated once per fleet model; D1's partials kernel
-// once per MixMode (8), D2's chain for float and bf16 pairs at 16 and 32
-// values a thread.
+// estimator chain is instantiated once per fleet model; K4's probe once per
+// function at 4 and at 1 elements a thread (14); D1's partials kernel once
+// per MixMode (8), D2's chain for float and bf16 pairs at 16 and 32 values a
+// thread.
 //
 // C interface (loaded with ctypes): every function returns the
 // cudaGetLastError() value after its last launch (0 on success), -1 for a
@@ -213,22 +214,58 @@ int launch_model(int model_id, const float* mc, const float* cc, int sampler, in
   return -3;
 }
 
-__global__ void fastmath_eval_kernel(int fn, int count, const float* __restrict__ a,
-                                     const float* __restrict__ b, float* __restrict__ out) {
+enum FastmathFn : int { kFsin, kFcos, kFlog, kFrsqrt, kFsqrt, kFreciprocal, kFdiv };
+
+template <int Fn>
+__device__ __forceinline__ float fastmath_apply(float x, float y) {
+  if constexpr (Fn == kFsin) return fm::fsin(x);
+  if constexpr (Fn == kFcos) return fm::fcos(x);
+  if constexpr (Fn == kFlog) return fm::flog(x);
+  if constexpr (Fn == kFrsqrt) return fm::frsqrt(x);
+  if constexpr (Fn == kFsqrt) return fm::fsqrt(x);
+  if constexpr (Fn == kFreciprocal) return fm::freciprocal(x);
+  return fm::fdiv(x, y);
+}
+
+// K4's probe, one instantiation a function: thread i takes the four
+// elements 4i..4i+3 with one 16-byte load (of a, and of b for fdiv) and one
+// 16-byte store (Width 4, a count of float4s), or element i (Width 1: the
+// count % 4 tail, or the whole vector where a pointer is not 16-byte
+// aligned). The bytes bound it: 8 a point (12 for fdiv) against some 15-30
+// operations.
+template <int Fn, int Width>
+__global__ void __launch_bounds__(kThreads)
+fastmath_eval_kernel(int count, const float* __restrict__ a, const float* __restrict__ b,
+                     float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
-  const float x = a[i];
-  float r;
-  switch (fn) {
-    case 0: r = fm::fsin(x); break;
-    case 1: r = fm::fcos(x); break;
-    case 2: r = fm::flog(x); break;
-    case 3: r = fm::frsqrt(x); break;
-    case 4: r = fm::fsqrt(x); break;
-    case 5: r = fm::freciprocal(x); break;
-    default: r = fm::fdiv(x, b[i]); break;
+  if constexpr (Width == 4) {
+    const float4 x = reinterpret_cast<const float4*>(a)[i];
+    const float4 y = Fn == kFdiv ? reinterpret_cast<const float4*>(b)[i] : x;
+    reinterpret_cast<float4*>(out)[i] =
+        make_float4(fastmath_apply<Fn>(x.x, y.x), fastmath_apply<Fn>(x.y, y.y),
+                    fastmath_apply<Fn>(x.z, y.z), fastmath_apply<Fn>(x.w, y.w));
+  } else {
+    out[i] = fastmath_apply<Fn>(a[i], Fn == kFdiv ? b[i] : 0.0f);
   }
-  out[i] = r;
+}
+
+// The vector instantiation over the aligned float4s, then the scalar one
+// over the rest; a pointer off 16 bytes sends the whole vector to the scalar
+// one.
+template <int Fn>
+int launch_fastmath(int count, const float* a, const float* b, float* out, cudaStream_t stream) {
+  const uintptr_t addr = (uintptr_t)a | (uintptr_t)out | (Fn == kFdiv ? (uintptr_t)b : 0u);
+  const int n_vec = addr % 16 == 0 ? count / 4 : 0;
+  if (n_vec > 0) {
+    fastmath_eval_kernel<Fn, 4><<<(n_vec + kThreads - 1) / kThreads, kThreads, 0, stream>>>(n_vec, a, b, out);
+  }
+  const int done = 4 * n_vec, rest = count - done;
+  if (rest > 0) {
+    fastmath_eval_kernel<Fn, 1><<<(rest + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+        rest, a + done, Fn == kFdiv ? b + done : nullptr, out + done);
+  }
+  return (int)cudaGetLastError();
 }
 
 PartialsArgs partials_args(int k, float inv_lambda, float inv, float lo, float hi, float std_dev,
@@ -259,7 +296,7 @@ int launch_estimator_chain(const Plant& plant, const Hx& hx, const float* cc, in
   for (int i = 0; i < O * O; ++i) k.r[i / O][i % O] = *m++;
   for (int i = 0; i < O; ++i) k.sig[i] = *m++;
   for (int i = 0; i < N * N; ++i) k.p_reset[i / N][i % N] = *m++;
-  const int blocks = (n_scen + kChainThreads - 1) / kChainThreads;
+  const int blocks = (n_scen + kChainScenarios - 1) / kChainScenarios;
   estimator_chain_kernel<N, O, NSUB, Plant, Hx><<<blocks, kChainThreads, 0, stream>>>(
       plant, hx, k, n_scen, x, ex, p, u0, u_stride, t, noise, x_out, ex_out, p_out);
   return (int)cudaGetLastError();
@@ -393,14 +430,23 @@ int mpc_fleet_finalize(int n, int n_scen, int nb, float inv_lambda, const float*
 }
 
 // out[i] = f(a[i]) for fn 0 fsin, 1 fcos, 2 flog, 3 frsqrt, 4 fsqrt,
-// 5 freciprocal; fn 6 fdiv(a[i], b[i]).
+// 5 freciprocal; fn 6 fdiv(a[i], b[i]). One or two launches: 16-byte
+// vectors where a, b and out are 16-byte aligned, single floats for the
+// count % 4 tail and for a pointer that is not.
 int mpc_fastmath_eval(int fn, int count, const float* a, const float* b, float* out,
                       void* stream) {
-  if (fn < 0 || fn > 6) return -3;
-  if (count < 1) return 0;
-  fastmath_eval_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(fn, count, a, b, out);
-  return (int)cudaGetLastError();
+  if (count < 1) return fn < 0 || fn > 6 ? -3 : 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (fn) {
+    case kFsin: return launch_fastmath<kFsin>(count, a, b, out, s);
+    case kFcos: return launch_fastmath<kFcos>(count, a, b, out, s);
+    case kFlog: return launch_fastmath<kFlog>(count, a, b, out, s);
+    case kFrsqrt: return launch_fastmath<kFrsqrt>(count, a, b, out, s);
+    case kFsqrt: return launch_fastmath<kFsqrt>(count, a, b, out, s);
+    case kFreciprocal: return launch_fastmath<kFreciprocal>(count, a, b, out, s);
+    case kFdiv: return launch_fastmath<kFdiv>(count, a, b, out, s);
+    default: return -3;
+  }
 }
 
 // D1: n_solves warm-started solves of the fast-tier cart-pole with shaped4,

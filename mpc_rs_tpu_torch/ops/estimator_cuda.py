@@ -5,8 +5,9 @@ Replaces ``mpc_rs_tpu/ops/estimator_pallas.py::make_estimator_chain``: one
 launch per fleet tick runs, for each of B scenarios and each of
 ``n_substeps`` with u0 held, the plant step, the sensor (hx plus pre-drawn
 standard normals), the SoA UKF predict and update and the guard. The kernel
-(``ops/csrc/estimator_chain.cuh``, one thread per scenario) is instantiated
-for the two fleet models, ``CartPole4Rpm`` (cartpole4) and ``Flagship6Imu``
+(``ops/csrc/estimator_chain.cuh``, a group of 16 lanes per scenario that
+splits its sigma points, sums and gain rows) is instantiated for the two
+fleet models, ``CartPole4Rpm`` (cartpole4) and ``Flagship6Imu``
 (flagship6); its design notes say what bounds it.
 
 ``estimator_chain_plain`` is the same computation in torch ops on the
@@ -15,6 +16,8 @@ sums added one after another (``unroll_sum=True``), as the kernel adds them;
 it takes any model with ``plant_fx``/``fx``/``hx``. ``estimator_chain_fused``
 runs it on CPU tensors and launches the kernel on CUDA tensors, with no
 fallback. ``launches`` counts the calls that launched the kernel.
+``chain_inputs`` makes the seeded inputs on which the card's checks and
+profilers hold the two against each other.
 """
 
 from __future__ import annotations
@@ -191,6 +194,27 @@ def estimator_chain_plain(chain: EstimatorChain, x: torch.Tensor, ukf_x: torch.T
         if chain.p_reset is not None:
             soa = ukf_soa.soa_guard(soa, chain.p_reset)
     return x, soa.x.T.contiguous(), soa.p.reshape(n * n, b)
+
+
+def chain_inputs(chain: EstimatorChain, x: torch.Tensor, ukf_x: torch.Tensor, seed: int = 7) -> tuple:
+    """Arguments of one K7 call on a perturbed carry, made on the CPU from
+    ``seed`` and moved to the device of ``x``: the (B, ·) states ``x`` and
+    ``ukf_x`` plus 0.05 normals, scenario min(5, B − 1)'s estimate NaN (the
+    guard's case), random SPD covariances, u0 the strided first column of
+    random (B, 8) nominals, t = 1.2 s (the flagship's clock inside the
+    pulse) and the sensor normals."""
+    g = torch.Generator().manual_seed(seed)
+    b, n = ukf_x.shape
+    x = x.cpu() + 0.05 * torch.randn(x.shape, generator=g)
+    ex = ukf_x.cpu() + 0.05 * torch.randn(ukf_x.shape, generator=g)
+    ex[min(5, b - 1), 0] = float("nan")
+    a = torch.randn((b, n, n), generator=g)
+    p = (1e-3 * a @ a.transpose(1, 2) + 0.05 * torch.eye(n)).permute(1, 2, 0).reshape(n * n, b).contiguous()
+    u = torch.randn((b, 8), generator=g)
+    t = torch.full((b,), 1.2)
+    noise = torch.randn((chain.n_substeps * chain.sig.shape[0], b), generator=g)
+    x, ex, p, u, t, noise = (v.to(ukf_x.device) for v in (x, ex, p, u, t, noise))
+    return x, ex, p, u[:, 0], t, noise
 
 
 def estimator_chain_fused(chain: EstimatorChain, x: torch.Tensor, ukf_x: torch.Tensor,

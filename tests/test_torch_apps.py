@@ -145,6 +145,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.stdout.startswith("ok")
 
 
+def test_profile_fleet_reads_ptxas_and_compares_k7_dumps(tmp_path):
+    """profile_fleet's helpers: the estimator chain's lines of a ptxas
+    report, the comparison of two K7 output files; it refuses to measure
+    without a card."""
+    from mpc_rs_tpu_torch.runtime import profile_fleet
+
+    log = ("ptxas info    : Compiling entry function '_ZN3mpc22estimator_chain_kernelILi6E' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN3mpc22estimator_chain_kernelILi6E\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 96 registers, used 1 barriers, 480 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120fastmath_eval_kernel' for 'sm_90a'\n"
+           "ptxas info    : Used 12 registers\n")
+    lines = profile_fleet.ptxas_kernel(log, "estimator_chain_kernel")
+    assert len(lines) == 2 and "0 bytes spill stores" in lines[0] and "96 registers" in lines[1]
+    a = {"m/B=1/x": torch.tensor([1.0, float("nan")]), "m/B=1/p": torch.tensor([0.5])}
+    torch.save(a, tmp_path / "a.pt")
+    torch.save({**a, "m/B=1/p": torch.tensor([0.25])}, tmp_path / "b.pt")
+    row = profile_fleet.compare_k7(str(tmp_path / "a.pt"), str(tmp_path / "b.pt"))
+    assert not row["all_same_bits"] and row["outputs"]["m/B=1/x"]["same_bits"]
+    assert row["outputs"]["m/B=1/p"]["max_abs_diff"] == 0.25
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="is_available"):
+            profile_fleet.main([])
+
+
 def test_profile_tick_busy_share_merges_overlaps():
     """The device's busy time is the union of its intervals, and the
     profiler refuses to run without a card."""

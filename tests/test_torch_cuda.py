@@ -270,6 +270,23 @@ def test_cuda_fastmath_matches_plain(card, fn):
         assert float((got - want).abs().max()) < (2e-6 if fn == "flog" else 1e-6)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", mppi_cuda.FASTMATH_FNS)
+def test_cuda_fastmath_scalar_paths_match_vector_path(card, fn):
+    """The probe's scalar instantiation (a view 4 bytes off 16-byte
+    alignment) and its count % 4 tail give the bits of the vector path."""
+    rng = np.random.default_rng(7)
+    a = torch.tensor(rng.uniform(0.5, 50.0, 4099), dtype=torch.float32, device=card)
+    b = torch.tensor(rng.uniform(0.5, 2.0, 4099), dtype=torch.float32, device=card) if fn == "fdiv" else None
+    full = mppi_cuda.fastmath_eval(fn, a, b)
+    tail_b = None if b is None else b[1:]
+    off = mppi_cuda.fastmath_eval(fn, a[1:], tail_b)
+    tail = mppi_cuda.fastmath_eval(fn, a[1:].clone(), None if b is None else tail_b.clone())
+    assert a[1:].data_ptr() % 16 != 0
+    for got in (off, tail):
+        assert torch.equal(got.view(torch.int32), full[1:].view(torch.int32))
+
+
 # --------------------------------------------------------------------------
 # the merged solve: R rollouts a thread, the merge inside the launch
 
@@ -429,43 +446,44 @@ def test_cuda_k2_k1_bench_configs_match_plain(card, sampler, fast):
     assert chain.u0s.cpu().tolist() == u0s  # the same launches, the same bits
 
 
-def _chain_inputs(fl, b, device, seed=0):
-    """A perturbed carry of fleet ``fl`` and a tick's sensor normals; the
-    flagship's clock inside the pulse, scenario 5's estimate NaN."""
-    g = torch.Generator(device=device).manual_seed(seed)
-    c = fl.carry
-    n = c.ukf.x.shape[1]
-    x = c.x[:b] + 0.05 * torch.randn(c.x[:b].shape, generator=g, device=device)
-    ex = c.ukf.x[:b] + 0.05 * torch.randn(c.ukf.x[:b].shape, generator=g, device=device)
-    ex[5, 0] = float("nan")
-    a = torch.randn((b, n, n), generator=g, device=device)
-    p = (1e-3 * a @ a.transpose(1, 2) + 0.05 * torch.eye(n, device=device)).permute(1, 2, 0)
-    u = torch.randn((b, N), generator=g, device=device)
-    t = torch.full((b,), 1.2, device=device)
-    return x, ex, p.reshape(n * n, b).contiguous(), u, t, g
+# flagship6's float32 filter is ill-conditioned in a few x̂ entries at B ≥ 1 000:
+# there two float32 evaluations in one order of operations differ past the
+# band (on the card the kernel and its plain version in 2 entries at each B;
+# on the CPU the JAX package's chain and the plain version,
+# tests/test_torch_estimator_chain.py). At most this many may leave the band.
+K7_ILL_MAX = 4
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model, b", [("cartpole4", 256), ("flagship6", 256), ("flagship6", 100)])
+@pytest.mark.parametrize("b", [1, 3, 100, 1000, 1024])
+@pytest.mark.parametrize("model", ["cartpole4", "flagship6"])
 def test_cuda_estimator_chain_matches_plain(card, model, b):
-    """K7 against its plain version on the same inputs, in float32 (the
-    band) and against float64 (within twice the plain float32 distance);
-    a NaN estimate comes back finite."""
+    """K7 against its plain version on the same inputs: in float32 every
+    entry within the band (flagship6 at B ≥ 1 000: all but at most
+    ``K7_ILL_MAX``), and against float64 within twice the plain float32
+    version's own distance + 2e-4; a NaN estimate comes back finite. At
+    B = 1 and 3 a lane group of a half-filled warp has no scenario."""
     fl = build_fleet(model, None, card, scenarios=b, estimator_chain=True)
     chain = fl.tick.chain
-    x, ex, p, u, t, g = _chain_inputs(fl, b, card)
-    noise = torch.randn((chain.n_substeps * chain.sig.shape[0], b), generator=g, device=card)
-    got = estimator_cuda.estimator_chain_fused(chain, x, ex, p, u[:, 0], t, noise)
-    want = estimator_cuda.estimator_chain_plain(chain, x, ex, p, u[:, 0].contiguous(), t, noise)
-    f64 = estimator_cuda.estimator_chain_plain(chain, *(a.double() for a in (x, ex, p, u[:, 0], t, noise)))
+    args = estimator_cuda.chain_inputs(chain, fl.carry.x, fl.carry.ukf.x)
+    got = estimator_cuda.estimator_chain_fused(chain, *args)
+    want = estimator_cuda.estimator_chain_plain(chain, *args)
+    f64 = estimator_cuda.estimator_chain_plain(chain, *(a.double() for a in args))
     torch.cuda.synchronize()
+    ill = model == "flagship6" and b >= 1000
+    outside = 0
     for g32, w32, w64 in zip(got, want, f64):
-        np.testing.assert_allclose(g32.cpu().numpy(), w32.cpu().numpy(), **F32_BAND)
-        err, ref = float((g32.double() - w64).abs().max()), float((w32.double() - w64).abs().max())
+        g32, w32, w64 = g32.double().cpu(), w32.double().cpu(), w64.cpu()
+        out = (g32 - w32).abs() > F32_BAND["atol"] + F32_BAND["rtol"] * w32.abs()
+        outside += int(out.sum())
+        keep = ~out if ill else torch.ones_like(out)
+        np.testing.assert_allclose(g32[keep].numpy(), w32[keep].numpy(), **F32_BAND)
+        err, ref = float((g32 - w64).abs().max()), float((w32 - w64).abs().max())
         assert err <= 2.0 * ref + 2e-4
+    assert outside <= K7_ILL_MAX
     assert torch.isfinite(got[1]).all() and torch.isfinite(got[2]).all()
     if chain.n_substeps == 1:  # the guard fired in the last substep: P is p_reset
-        assert torch.equal(got[2][:, 5].cpu(), chain.p_reset.flatten().cpu())
+        assert torch.equal(got[2][:, min(5, b - 1)].cpu(), chain.p_reset.flatten().cpu())
 
 
 # --------------------------------------------------------------------------

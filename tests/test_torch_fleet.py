@@ -14,6 +14,7 @@ import math
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +37,7 @@ from mpc_rs_tpu.models.params import CartPoleParams as JParams
 from mpc_rs_tpu.parallel.scenario import init_scenario_carry as jinit_carry
 from mpc_rs_tpu.utils import as_vector_fn
 from mpc_rs_tpu_torch.apps import run as cli
-from mpc_rs_tpu_torch.apps.fleet import build_fleet, run_fleet
+from mpc_rs_tpu_torch.apps.fleet import Fleet, build_fleet, run_fleet, tipped
 from mpc_rs_tpu_torch.estimators import smallalg as tsmall
 from mpc_rs_tpu_torch.estimators import ukf_soa as tsoa
 from mpc_rs_tpu_torch.estimators.ukf import UkfParams, UkfState, merwe_weights, ukf_guard, ukf_init
@@ -399,6 +400,39 @@ def test_flagship_fleet_runs_on_cpu_through_the_pulse():
     assert res.ticks == 160 and res.survival == 1.0 and res.statuses_ok
     assert torch.isfinite(res.carry.x).all() and torch.isfinite(res.carry.ukf.p).all()
     assert abs(float(res.carry.t[0]) - 1.6) < 1e-4
+
+
+@pytest.mark.parametrize("th_max, guard", [
+    ([0.1, np.nan, 2.0], 1.0),
+    ([np.nan, np.nan], math.pi / 2),
+    ([math.radians(60.0), 1.2, np.inf], math.radians(60.0)),
+    ([0.0, 1.5707964, np.nan, 3.0], math.pi / 2),
+])
+def test_tipped_is_the_reference_rule(th_max, guard):
+    """A scenario is tipped when its max |θ| passes the guard, evaluated as
+    the JAX fleet evaluates it (``th_max > guard`` on the numpy readback,
+    mpc_rs_tpu/apps/fleet.py:412): a NaN θ counts as survived, θ at the
+    guard survives, +inf is tipped."""
+    th = np.asarray(th_max, dtype=np.float32)
+    got = tipped(th, guard)
+    np.testing.assert_array_equal(got, th > guard)
+    assert not got[np.isnan(th)].any()
+
+
+def test_run_fleet_counts_a_nan_theta_as_survived():
+    """A tick that leaves scenario 1's θ NaN and scenario 2's past the guard:
+    run_fleet counts one tipped scenario, as the JAX fleet's count does."""
+    carry0 = SimpleNamespace(x=torch.zeros(4, 4), status=torch.zeros(4, dtype=torch.int32))
+
+    def tick(carry, generator):
+        x = carry.x.clone()
+        x[1, 2], x[2, 2], x[3, 2] = float("nan"), 1.2, -0.3
+        return SimpleNamespace(x=x, status=carry.status)
+
+    fl = Fleet(tick, carry0, None, 0.05, 2, math.radians(60.0), None, "clt4")
+    res = run_fleet(fl, t_end=0.2, report_every=0.1)
+    assert res.ticks == 4 and res.tipped == 1 and res.survival == 0.75 and res.statuses_ok
+    assert math.isnan(float(res.carry.x[1, 2]))
 
 
 def test_fleet_defaults_follow_the_jax_package():
