@@ -6,7 +6,8 @@
 Builds the CUDA kernels from the sources in this checkout (printing ptxas's
 registers and spills and the static SASS counts of the production partials
 instantiations beside the build seconds, and failing on a spill in a
-partials or estimator chain instantiation), holds each against its plain
+partials, D1 or estimator chain instantiation, or when a partials
+instantiation's registers leave ``PARTIALS_PTXAS``), holds each against its plain
 PyTorch version on the card (the fast-math probe also on a misaligned view
 and a ragged count, bit for bit against its vector path), counts by
 torch.profiler the kernels a solve,
@@ -17,7 +18,9 @@ entry function, cartpole4 over 10 s and flagship6 over 3 s with the pulse,
 at B = 1024, plus short runs of the other samplers and the exact tier; and
 both fleets again on the fused estimator chain; the two diagnostic entry
 points, the kernel op-mix probe D1 in all eleven modes at K = 819 200 and
-the mul-add probe D2 in its three configurations), and times kernels
+the mul-add probe D2 in its three configurations; a D1 chain of J solves
+is J launches), replays the AoS UKF's float32 α = 1 fidelity check on the
+card, and times kernels
 against plain versions with CUDA events, and the partials kernel at R = 1
 against the wrapper's R (rollouts a thread) in turns. Each path is driven
 with the launch counts set to 0 just before it and read just after.
@@ -72,6 +75,21 @@ PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data shee
 PEAK_HBM = 3.35e12  # bytes/s, H100 SXM HBM3
 PEAK_BF16 = 2 * PEAK_FP32  # FLOP/s, H100 SXM bf16 outside the tensor cores (Programming Guide, cc 9.0)
 CLT_FAMILY_SPREAD = 0.02  # cltone/cltbig/cltreg launch clt's kernel: their D1 times agree this closely
+# ptxas registers of the main path's partials instantiations, by (model,
+# fast tier, R): one per noise source (external, box-muller, clt4, clt4a,
+# wallace, clt2q, box-muller-a), each with no spill; what CUDA 12.8's ptxas
+# made of them on the H100 machine before D1 shared their body
+# (runtime/profile_partials.py's build report). The build must keep them.
+PARTIALS_PTXAS = {
+    ("CartPoleNonlinearT", 0, 1): (44, 46, 46, 44, 45, 45, 45),
+    ("CartPoleNonlinearT", 0, 4): (64, 64, 64, 64, 64, 64, 64),
+    ("CartPoleNonlinearT", 1, 1): (46, 45, 45, 45, 45, 45, 45),
+    ("CartPoleNonlinearT", 1, 4): (64, 72, 64, 73, 75, 76, 73),
+    ("Flagship4", 0, 1): (46, 45, 45, 45, 45, 45, 45),
+    ("Flagship4", 0, 4): (64, 64, 64, 64, 64, 64, 64),
+    ("Flagship4", 1, 1): (48, 48, 48, 48, 48, 48, 48),
+    ("Flagship4", 1, 4): (64, 64, 64, 64, 64, 64, 64),
+}
 # flagship6's float32 filter is ill-conditioned in a few x̂ entries at B >= 1 000:
 # two float32 evaluations in one order of operations differ past the band
 # there (PERF.md §6); at most this many K7 entries may leave it
@@ -152,16 +170,16 @@ def device_events(fn, reps: int = 1) -> list[tuple[str, float]]:
     return events
 
 
-def check_kernels_per_call(fn, want: int, what: str) -> int:
-    """Fail unless a call of ``fn`` launches ``want`` kernels, each the
-    partials kernel. A profile that caught fewer (the profiler drops events)
-    is taken again, up to five times; one kernel too many, or another
-    kernel, fails at once."""
+def check_kernels_per_call(fn, want: int, what: str, kernel: str = "mppi_partials_kernel") -> int:
+    """Fail unless a call of ``fn`` launches ``want`` kernels, each
+    ``kernel`` (default the partials kernel). A profile that caught fewer
+    (the profiler drops events) is taken again, up to five times; one
+    kernel too many, or another kernel, fails at once."""
     names = []
     for _ in range(5):
         names = [n for n, _ in device_events(fn) if not n.startswith(("Memcpy", "Memset"))]
-        check(len(names) <= want and all("mppi_partials_kernel" in n for n in names),
-              f"{what}: kernels launched {names}, want {want} partials launches")
+        check(len(names) <= want and all(kernel in n for n in names),
+              f"{what}: kernels launched {names}, want {want} {kernel} launches")
         if len(names) == want:
             return want
     check(False, f"{what}: the profiler caught {len(names)} of the {want} kernels in five profiles")
@@ -699,6 +717,20 @@ def diag_phases(dev: torch.device, card: dict) -> list[dict]:
             emit({"phase": "d1_kernel_mix", "mode": mode, "k": k, "j": 8, "max_abs_err": err,
                   "plain_f32_max_abs_err": max_err(f32_u0s, want_u0s), "u0s": got_u0s.tolist()})
 
+    # D1-1b. a chain of J solves is J launches of the D1 kernel and nothing
+    # else (no finalize), at R = 1 (K = 16 384) and R = 4 (K = 819 200); the
+    # ticket is zero after them, and the same chain twice gives the same bits
+    d1_per_call = {}
+    for k in (16_384, 819_200):
+        d1_per_call[f"k{k}_j8"] = check_kernels_per_call(lambda: chain(k, "full", 8), 8, f"D1 full K={k} J=8",
+                                                         "kernel_mix_partials_kernel")
+        again = [chain(k, "full", 8) for _ in range(2)]
+        check(torch.equal(again[0][0], again[1][0]), f"D1 full K={k}: the same chain gave other bits")
+    check(bool((mppi_cuda.merge_tickets(dev, 1) == 0).all()), "D1 tickets not zero")
+    emit({"phase": "d1_kernels_per_call", **d1_per_call,
+          "rollouts_per_thread": {k: mppi_cuda.rollouts_per_thread(k) for k in (16_384, 819_200)},
+          "repeat_bit_for_bit": True})
+
     # D2-1. each configuration bit for bit against the plain version, on
     # the script's tile of 1.5s and on a tile of ±[1, 2)
     d2_err = {}
@@ -769,7 +801,7 @@ def diag_phases(dev: torch.device, card: dict) -> list[dict]:
     d1_timing = {}
     for mode in diag_cuda.MODES:
         kern = median_ms(lambda: chain(k, mode, jj), reps=5, warmup=1) / jj
-        dev_ms = device_ms(lambda: chain(k, mode, 8), reps=3, kernels=16) / 8  # a partials and a finalize a solve
+        dev_ms = device_ms(lambda: chain(k, mode, 8), reps=3, kernels=8) / 8  # one kernel a solve
         plain_t = median_ms(lambda: chain(k, mode, 1, torch.float32), reps=3, warmup=1)
         kern2 = median_ms(lambda: chain(k, mode, jj), reps=5, warmup=1) / jj
         # in: x, u_n; out: u0, u_n' (per solve)
@@ -818,9 +850,10 @@ def diag_phases(dev: torch.device, card: dict) -> list[dict]:
                 "library_ms": None}
 
     return [
-        {"name": "kernel_mix_partials_kernel+kernel_mix_finalize_kernel mode=full (D1, kernel_mix_chain_fused, "
+        {"name": "kernel_mix_partials_kernel mode=full, one launch a solve, R=4 (D1, kernel_mix_chain_fused, "
                  "per solve)", "route": "cuda", "source": DIAG_SOURCE, "replaces": "scripts/diag_kernel_mix.py:283",
-         "launches": counts["kernel_mix_chain_fused"], "max_abs_err": d1_err, **timed(d1_timing["full"])},
+         "launches": counts["kernel_mix_chain_fused"], "max_abs_err": d1_err, **timed(d1_timing["full"]),
+         "no_fma_ms": d1_timing["full"][2]["no_fma_ms"]},
         {"name": "fma_chain_kernel<float> rows=64 (D2, fma_chain_fused, per step)", "route": "cuda",
          "source": DIAG_SOURCE, "replaces": "scripts/diag_bf16_vpu.py:38", "launches": counts["fma:float32"],
          "max_abs_err": d2_err[torch.float32], **timed(d2_timing[(torch.float32, 64)])},
@@ -828,6 +861,71 @@ def diag_phases(dev: torch.device, card: dict) -> list[dict]:
          "source": DIAG_SOURCE, "replaces": "scripts/diag_bf16_vpu.py:38", "launches": counts["fma:bfloat16"],
          "max_abs_err": d2_err[torch.bfloat16], **timed(d2_timing[(torch.bfloat16, 128)])},
     ]
+
+
+def ukf_fidelity_phase(dev: torch.device, card: dict) -> None:
+    """The AoS UKF's owed check on the card (tests/test_torch_ukf.py; the
+    JAX package's tests/test_ukf.py:443-536): a 300-tick flagship6 truth
+    (float64 plant on the host, stabilising feedback on (x, dx, θ, dθ),
+    noisy IMU observations, numpy seed 42) replayed through the port's
+    float32 and float64 α=1 filters (eigh root) on CUDA tensors, and through
+    the float64 filter on the CPU. Claim (a): the float32 filter's settled
+    RMS against the truth on the controller channels is under 1.3 × the
+    float64 filter's + 1e-4."""
+    import numpy as np
+
+    from mpc_rs_tpu_torch.estimators import ukf
+    from mpc_rs_tpu_torch.models import dynamics, noise, observation
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+
+    p, dt, ticks = CartPoleParams.two_wheel(), 0.01, 300
+    plant6, hx = dynamics.make_flagship6(p), observation.make_hx_imu6(p)
+    sens = np.array([200.0, 200.0, 10.0, 0.05, 0.05])
+    rng = np.random.default_rng(42)
+    gains = np.array([2.0, 3.0, 30.0, 6.0])
+    x = np.zeros(6)
+    us, zs, truth = [], [], []
+    for _ in range(ticks):
+        u = float(np.clip(-gains @ x[[0, 1, 3, 4]], -10.0, 10.0))
+        x = np.array([float(v) for v in plant6(*(torch.tensor(c, dtype=torch.float64) for c in x),
+                                               torch.tensor(u, dtype=torch.float64), dt, 0.0)])
+        zs.append(hx(torch.tensor(x)).numpy() + sens * rng.standard_normal(5))
+        us.append(u)
+        truth.append(x.copy())
+    truth = np.asarray(truth)
+
+    def fx(xv, uu):
+        return torch.stack(torch.broadcast_tensors(*plant6(*(xv[..., i] for i in range(6)), uu, dt, 0.0)), dim=-1)
+
+    def replay(dtype, where):
+        params, est = ukf.ukf_init(torch.zeros(6, dtype=dtype, device=where), 0.1 * np.eye(6),
+                                   noise.gen_q6(2.15 * dt).to(dtype), np.diag(sens), alpha=1.0)
+        u_d = torch.tensor(us, dtype=dtype, device=where)
+        z_d = torch.tensor(np.asarray(zs), dtype=dtype, device=where)
+        xs = []
+        for i in range(ticks):
+            est = ukf.ukf_step(params, est, u_d[i], z_d[i], fx, hx)
+            xs.append(est.x)
+        return torch.stack(xs).double().cpu().numpy()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t32 = replay(torch.float32, dev)
+    t32_s = time.perf_counter() - t0
+    t64 = replay(torch.float64, dev)
+    t64_cpu = replay(torch.float64, "cpu")
+    sl = [0, 1, 3, 4]
+
+    def settled_rms(traj):
+        return np.sqrt(np.mean((traj[100:, sl] - truth[100:, sl]) ** 2, axis=0))
+
+    r32, r64 = settled_rms(t32), settled_rms(t64)
+    check(bool(np.isfinite(t32).all()) and bool(np.isfinite(t64).all()), "UKF replay: non-finite estimates")
+    check(bool(np.all(r32 < 1.3 * r64 + 1e-4)), f"UKF f32 α=1 fidelity (a): settled RMS {r32} vs f64 {r64}")
+    emit({"phase": "ukf_f32_fidelity", "ticks": ticks, "settled_rms_f32": r32.tolist(),
+          "settled_rms_f64": r64.tolist(), "bound": (1.3 * r64 + 1e-4).tolist(),
+          "f32_vs_f64_rms_max": float(np.sqrt(np.mean((t32 - t64)[100:] ** 2, axis=0)).max()),
+          "f64_card_vs_cpu_max_abs": float(np.abs(t64 - t64_cpu).max()), "f32_replay_s": t32_s, **card})
 
 
 def main() -> None:
@@ -877,6 +975,22 @@ def main() -> None:
     spills = [ln for ln in partials_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
     emit({"phase": "sass", "build_s": build_s, "kernels": sass, "ptxas_partials": partials_ptxas})
     check(not spills, f"ptxas spills in partials instantiations: {spills}")
+    registers = {}
+    for ln in partials_ptxas:
+        tag, used = ln.split(": ", 1)[0], re.search(r"Used (\d+) registers", ln)
+        if used:
+            model_name, _, _, fast, source, rpt = tag.split("/")
+            registers[(model_name, int(fast), int(rpt), int(source))] = int(used.group(1))
+    want = {(m, f, r, src): n for (m, f, r), row in PARTIALS_PTXAS.items() for src, n in enumerate(row)}
+    moved = {f"{k}": (want.get(k), registers.get(k)) for k in want.keys() | registers.keys()
+             if want.get(k) != registers.get(k)}
+    check(not moved, f"partials instantiations' ptxas registers moved (want, got): {moved}")
+    # D1's instantiations (partials_body with D1's policy): registers, no spill
+    d1_ptxas = ptxas_kernel(log, "kernel_mix_partials_kernel")
+    d1_spills = [ln for ln in d1_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
+    emit({"phase": "ptxas_d1", "ptxas": d1_ptxas})
+    check(sum("registers" in ln for ln in d1_ptxas) == 16, f"D1 instantiations in the ptxas report: {d1_ptxas}")
+    check(not d1_spills, f"ptxas spills in the D1 kernel: {d1_spills}")
     check(not any("mppi_finalize_kernel" in r["kernel"] for r in sass), "mppi_finalize_kernel is still built")
     production = [r for r in sass if "finalize_kernel" not in r["kernel"]]
     check(len(production) == 6 and all(r["ATOM"] >= 1 for r in production),
@@ -1111,6 +1225,7 @@ def main() -> None:
     fleet = fleet_phases(dev, card)
     estimator = estimator_phases(dev, card)
     diag = diag_phases(dev, card)
+    ukf_fidelity_phase(dev, card)
 
     emit({"kernels": [
         {"name": "mppi_partials_kernel, merged in the launch (K2, mppi_solve_fused)", "route": "cuda",

@@ -163,3 +163,30 @@ def make_flagship6(p: CartPoleParams):
         return n0, n1, n2, n3, n4, n5
 
     return step
+
+
+def make_pen6(p: CartPoleParams, dt: float):
+    """6-state single-wheel UKF model — examples/ukf-pen3.rs:34-51
+    (``dynamics.py:297-326``). State [x, dx, ddx, theta, dtheta, ddtheta];
+    explicit. The reference's quirk is kept: the denominator takes
+    ``cos(x[2])``, the ẍ slot (ukf-pen3.rs:37)."""
+    d0 = p.d0
+    ml = p.m2 * p.l
+
+    def step(x0, x1, x2, x3, x4, x5, u):
+        c, s = torch.cos(x3), torch.sin(x3)
+        d = d0 - (ml * torch.cos(x2)) ** 2
+        n0 = x0 + x1 * dt
+        n1 = x1 + x2 * dt
+        thrust = p.kt * u / p.r_w + ml * x4 * x4 * s
+        term3 = (p.j2 + p.m2 * p.l * p.l) * thrust
+        term4 = p.m2 * p.g * p.l * p.l * s * c
+        n2 = (term3 + term4) / d
+        n3 = x3 + x4 * dt
+        n4 = x4 + x5 * dt
+        term1 = p.mass_line * p.m2 * p.g * p.l * s
+        term2 = thrust * ml * c
+        n5 = (term1 - term2) / d
+        return n0, n1, n2, n3, n4, n5
+
+    return step

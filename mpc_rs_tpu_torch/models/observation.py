@@ -1,6 +1,6 @@
-"""Observation models (hx) of the fleets.
+"""Observation models (hx) of the fleets and of the UKF examples.
 
-Port of ``mpc_rs_tpu/models/observation.py:19-66``. Vector form: ``hx(x)``
+Port of ``mpc_rs_tpu/models/observation.py:19-84``. Vector form: ``hx(x)``
 takes x of shape (..., n_state) and returns z of shape (..., n_obs), so the
 same function maps a (B, n) batch or an (m, B, n) sigma-point stack.
 """
@@ -43,5 +43,21 @@ def make_hx_imu6(p: CartPoleParams, gear: float = 36.0):
         ax = p.g * torch.sin(th) + ddx * torch.cos(th) + p.l * ddth
         az = p.g * torch.cos(th) - ddx * torch.sin(th) + p.l * dth * dth
         return torch.stack([k * dx, -k * dx, dth * _RAD2DEG, az / p.g, ax / p.g], dim=-1)
+
+    return hx
+
+
+def make_hx_force6(p: CartPoleParams):
+    """6-state → force-based IMU variant — examples/ukf-pen3.rs:53-63
+    (``observation.py:67-84``): v = M2 G cosθ + M2 ẍ sinθ − M2 L θ̇²,
+    h = −M2 G sinθ + M2 ẍ cosθ + M2 L θ̈; encoders ungeared, both positive."""
+    k = 60.0 / (2.0 * math.pi * p.r_w)
+
+    def hx(x):
+        dx, ddx = x[..., 1], x[..., 2]
+        th, dth, ddth = x[..., 3], x[..., 4], x[..., 5]
+        v = p.m2 * p.g * torch.cos(th) + p.m2 * ddx * torch.sin(th) - p.m2 * p.l * dth * dth
+        h = -p.m2 * p.g * torch.sin(th) + p.m2 * ddx * torch.cos(th) + p.m2 * p.l * ddth
+        return torch.stack(torch.broadcast_tensors(k * dx, k * dx, dth * _RAD2DEG, v / p.g, h / p.g), dim=-1)
 
     return hx

@@ -126,8 +126,9 @@ def load_library() -> ctypes.CDLL:
     lib.mpc_fastmath_eval.restype = _I
     lib.mpc_kernel_mix_chain.argtypes = [
         _I, _P, _P, _I, _I,  # mode, model consts, sampler consts, n, k
-        _F, _F, _F, _F, _F, _F, _F, _I,  # 1/lambda, inv, lo, hi, std_dev, cltf mu and 1/sigma, ramp block
-        _P, _P, _U, _I, _P, _P, _P,  # x, u_n, seed, n_solves, partials, u0s, stream
+        _F, _F, _F, _F, _F, _F, _F, _I, _I,  # 1/lambda, inv, lo, hi, std_dev, cltf mu and 1/sigma, ramp
+        # block, rollouts a thread
+        _P, _P, _P, _I, _P, _P, _P, _P,  # x, u_n, seed (device int32), n_solves, partials, tickets, u0s, stream
     ]
     lib.mpc_kernel_mix_chain.restype = _I
     lib.mpc_fma_chain.argtypes = [_I, _I, _I, _I, _F, _P, _P, _P]

@@ -4,15 +4,19 @@
 // D1, the kernel op-mix probe (replaces scripts/diag_kernel_mix.py:283,
 // make_chain :36): J warm-started solves of the fast-tier cart-pole with
 // shaped4, the state held, with parts of the partials kernel switched off
-// or swapped (MixMode). Each solve is kernel_mix_partials_kernel on a grid
-// (ceil(K/256)), one thread per rollout, writing (nb, N+2) log-sum-exp rows
-// as mppi_partials_kernel does, then kernel_mix_finalize_kernel (one block):
-// u_n <- sum(uw) * (1/s) (s = 0 counts as 1), u0s[j] = u_n[0]; no status
-// ladder and no shift (diag_kernel_mix.py:255-260). The J pairs are issued
-// from a C loop on one stream. The TPU kernel streamed its blocks through
-// carried (m, s, uw) accumulators on one core; here the blocks run in
-// parallel and the finalize merges their rows. D1 scales by f32(1/lambda)
-// (:41,243-244), not by a division, and so do these kernels.
+// or swapped (MixMode). A solve is one launch of kernel_mix_partials_kernel,
+// which is the main path's partials_body (mppi_common.cuh) with D1's policy
+// (MixSolve): R rollouts a thread, each folded into a running log-sum-exp,
+// one block reduction per 256 R rollouts, and the merge inside the launch
+// by the problem's ticket, whose last block writes u_n <- sum(uw) * (1/s)
+// (s = 0 counts as 1) and u0s[j] = u_n[0]: D1's own finalize
+// (diag_kernel_mix.py:255-260), no status ladder and no shift. So the probe
+// splits the kernel every solve of the port runs, not a copy of an older
+// one. The J launches are issued from a C loop on one stream, which
+// ops/diag_cuda.py captures once into a CUDA graph and replays. The TPU
+// kernel streamed its blocks through carried (m, s, uw) accumulators on one
+// core. D1 scales by f32(1/lambda) (:41,243-244), not by a division, as
+// the partials kernel does.
 //
 // What bounds D1 on the card: the FP32 issue rate and, in box-muller, the
 // transcendentals, as for mppi_partials_kernel; the probe exists to split a
@@ -49,8 +53,6 @@ enum MixMode : int {
 };
 
 struct MixArgs {
-  PartialsArgs p;      // K, inv, lo, hi, sigma and the sampler constants (p.inv_lambda unused)
-  float inv_lambda;    // f32(1/lambda)
   float cltf_mu;       // f32(4 + 510/256), the mean of four [1, 2) floats
   float cltf_inv_sig;  // f32(256/sqrt(4 (256^2 - 1)/12))
   int ramp_block;      // rollouts of a TPU block (bs*128): nosample's offset step
@@ -58,15 +60,15 @@ struct MixArgs {
 
 // cltf: four bytes of one word as [1, 2) floats by a mantissa bitcast (no
 // int-to-float convert), then clt4's cubic (diag_kernel_mix.py:94-114).
-__device__ __forceinline__ float cltf(uint32_t w, const MixArgs& a) {
+__device__ __forceinline__ float cltf(uint32_t w, const PartialsArgs& a, const MixArgs& m) {
   constexpr uint32_t kMant = 0x007F8000u;
   constexpr uint32_t kOne = 0x3F800000u;
   const float f0 = __uint_as_float(((w << 15) & kMant) | kOne);
   const float f1 = __uint_as_float(((w << 7) & kMant) | kOne);
   const float f2 = __uint_as_float(((w >> 1) & kMant) | kOne);
   const float f3 = __uint_as_float(((w >> 9) & kMant) | kOne);
-  const float z = ((f0 + f1) + (f2 + f3) - a.cltf_mu) * a.cltf_inv_sig;
-  return z * (a.p.clt_a + a.p.clt_b * (z * z));
+  const float z = ((f0 + f1) + (f2 + f3) - m.cltf_mu) * m.cltf_inv_sig;
+  return z * (a.clt_a + a.clt_b * (z * z));
 }
 
 // The controls v[0..N-1] of rollout k in solve `solve`: the mode's noise
@@ -74,28 +76,29 @@ __device__ __forceinline__ float cltf(uint32_t w, const MixArgs& a) {
 // w of the rollout is word w % 4 of call w / 4 (ops/diag_cuda.py).
 template <int Mode>
 __device__ __forceinline__ void mix_controls(float (&v)[kN], const float (&un)[kN], uint32_t k,
-                                             uint32_t key, uint32_t solve, const MixArgs& a) {
+                                             uint32_t key, uint32_t solve, const PartialsArgs& a,
+                                             const MixArgs& m) {
   if constexpr (Mode == kMixNosample) {
     // the ramp of the TPU block: lane k % 128, block k / (bs*128) (:213-219)
     const float ramp = (float)(int)(k & 127u) * 1e-3f;
-    const float off = 1e-4f * (float)(int)(k / (uint32_t)a.ramp_block);
+    const float off = 1e-4f * (float)(int)(k / (uint32_t)m.ramp_block);
 #pragma unroll
-    for (int t = 0; t < kN; ++t) v[t] = clampf((un[t] + ramp) + off, a.p.lo, a.p.hi);
+    for (int t = 0; t < kN; ++t) v[t] = clampf((un[t] + ramp) + off, a.lo, a.hi);
     return;
   }
   float e[kN];
   if constexpr (Mode == kMixFull || Mode == kMixNoroll) {
-    sample<kN, true, kBoxMuller>(e, k, key, solve, a.p);
+    sample<kN, true, kBoxMuller>(e, k, key, solve, a);
   } else if constexpr (Mode == kMixClt) {
-    sample<kN, true, kClt4>(e, k, key, solve, a.p);
+    sample<kN, true, kClt4>(e, k, key, solve, a);
   } else if constexpr (Mode == kMixClt2q) {
-    sample<kN, true, kClt2q>(e, k, key, solve, a.p);
+    sample<kN, true, kClt2q>(e, k, key, solve, a);
   } else if constexpr (Mode == kMixCvtonly) {
     // one word, XORed with a per-step constant to defeat CSE (:151-165)
     uint32_t w[4] = {k, 0u, solve, 0u};
     philox4x32_10(w, key, 0u);
 #pragma unroll
-    for (int t = 0; t < kN; ++t) e[t] = clt4(w[0] ^ (0x9E3779B9u * (uint32_t)(t + 1)), a.p.clt_a, a.p.clt_b);
+    for (int t = 0; t < kN; ++t) e[t] = clt4(w[0] ^ (0x9E3779B9u * (uint32_t)(t + 1)), a.clt_a, a.clt_b);
   } else {  // bitsonly, cltf: one word per step, word t of the rollout
 #pragma unroll
     for (int c = 0; c < kN / 4; ++c) {
@@ -106,113 +109,91 @@ __device__ __forceinline__ void mix_controls(float (&v)[kN], const float (&un)[k
         if constexpr (Mode == kMixBitsonly) {
           e[4 * c + i] = (float)(int)(w[i] >> 9) * 1e-7f;  // (:57-63)
         } else {
-          e[4 * c + i] = cltf(w[i], a);
+          e[4 * c + i] = cltf(w[i], a, m);
         }
       }
     }
   }
 #pragma unroll
-  for (int t = 0; t < kN; ++t) v[t] = clampf(un[t] + e[t], a.p.lo, a.p.hi);
+  for (int t = 0; t < kN; ++t) v[t] = clampf(un[t] + e[t], a.lo, a.hi);
 }
 
-// One block of rollouts of one solve: controls, rollout (or noroll's
-// c += v*v), score, and the block's row (m_b, s_b, uw_b[0..N-1]) of the
-// partials. Rollouts k >= K count as non-finite.
+// D1's policy for partials_body (mppi_common.cuh), in place of MppiSolve:
+// the mode's controls (mix_controls, drawn by every thread, so clt2q's and
+// box-muller's calls see whole warps; partials_body drops rollouts past K
+// after it), and D1's end of a solve (diag_kernel_mix.py:255-260):
+// u_n <- sum(uw) * (1/s), s = 0 counting as 1, and u0s[j] = u_n[0]; no
+// status ladder, no shift.
 template <int Mode>
-__global__ void __launch_bounds__(kThreads)
-kernel_mix_partials_kernel(CartPoleNonlinearT<true> model, MixArgs a, const float* __restrict__ x,
-                           const float* __restrict__ u_n, uint32_t key, uint32_t solve,
-                           float* __restrict__ partials) {
-  __shared__ float red_max[kWarps];
-  __shared__ float red_sum[kWarps][kN + 1];
+struct MixSolve {
+  MixArgs m;
 
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  float un[kN], v[kN];
-#pragma unroll
-  for (int t = 0; t < kN; ++t) un[t] = u_n[t];
-
-  float score = 0.0f;
-  bool finite = false;
-  if (k < a.p.k) {
-    mix_controls<Mode>(v, un, (uint32_t)k, key, solve, a);
-    float c_acc = 0.0f, ct = 0.0f;
-    if constexpr (Mode == kMixNoroll) {
-#pragma unroll
-      for (int t = 0; t < kN; ++t) {
-        c_acc = c_acc + v[t] * v[t];
-        ct = ct + un[t] * a.p.inv * v[t];
-      }
-    } else {
-      float x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3];
-#pragma unroll
-      for (int t = 0; t < kN; ++t) {
-        model.step(x0, x1, x2, x3, v[t]);
-        c_acc = c_acc + Shaped4{}(x0, x1, x2, x3);
-        ct = ct + un[t] * a.p.inv * v[t];
-      }
-    }
-    score = -c_acc - ct;
-    finite = isfinite(score);
-  } else {
-#pragma unroll
-    for (int t = 0; t < kN; ++t) v[t] = 0.0f;
+  __device__ __forceinline__ void controls(float (&v)[kN], const float (&un)[kN], uint32_t k,
+                                           uint32_t key, uint32_t solve,
+                                           const PartialsArgs& a) const {
+    mix_controls<Mode>(v, un, k, key, solve, a, m);
   }
 
-  const float m_b = block_max(finite ? score : kNegBig, red_max);
-  const float ew = finite ? expf((score - m_b) * a.inv_lambda) : 0.0f;
-  float acc[kN + 1];
-  acc[0] = ew;
+  __device__ __forceinline__ void finish(float, const float* tot, const PartialsIO& io,
+                                         int b) const {
+    const float inv_s = 1.0f / (tot[0] == 0.0f ? 1.0f : tot[0]);
+    float* u = io.u_out + (size_t)b * kN;
 #pragma unroll
-  for (int t = 0; t < kN; ++t) acc[t + 1] = ew * v[t];
-  const float s = block_sums<kN + 1>(acc, red_sum);
-
-  float* row = partials + (size_t)blockIdx.x * (kN + 2);
-  if (threadIdx.x == 0) row[0] = m_b;
-  if (threadIdx.x < kN + 1) row[1 + threadIdx.x] = s;
-}
-
-// One block: merge the nb rows by log-sum-exp, write u_n (read by the next
-// solve's partials launch, stream-ordered) and u0.
-__global__ void __launch_bounds__(kThreads)
-kernel_mix_finalize_kernel(float inv_lambda, int nb, const float* __restrict__ partials,
-                           float* __restrict__ u_n, float* __restrict__ u0) {
-  __shared__ float red_max[kWarps];
-  __shared__ float red_sum[kWarps][kN + 1];
-
-  float m = kNegBig;
-  for (int b = threadIdx.x; b < nb; b += kThreads) m = fmaxf(m, partials[(size_t)b * (kN + 2)]);
-  const float m_all = block_max(m, red_max);
-
-  float acc[kN + 1];
-#pragma unroll
-  for (int i = 0; i <= kN; ++i) acc[i] = 0.0f;
-  for (int b = threadIdx.x; b < nb; b += kThreads) {
-    const float* row = partials + (size_t)b * (kN + 2);
-    const float scale = row[0] > kNoFiniteBelow ? expf((row[0] - m_all) * inv_lambda) : 0.0f;
-#pragma unroll
-    for (int i = 0; i <= kN; ++i) acc[i] += row[1 + i] * scale;
+    for (int t = 0; t < kN; ++t) u[t] = tot[1 + t] * inv_s;
+    *io.u0 = u[0];
   }
-  const float tot = block_sums<kN + 1>(acc, red_sum);
+};
 
-  __shared__ float tot_s[kN + 1];
-  if (threadIdx.x < kN + 1) tot_s[threadIdx.x] = tot;
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  const float inv_s = 1.0f / (tot_s[0] == 0.0f ? 1.0f : tot_s[0]);
-#pragma unroll
-  for (int t = 0; t < kN; ++t) u_n[t] = tot_s[1 + t] * inv_s;
-  *u0 = u_n[0];
+// noroll's "rollout" for rollout_score: the state takes the control
+// (x0 = v) and the stage cost is its square, so the score is
+// -(sum v*v) - (sum u_n inv v), the bits of c += v*v (diag_kernel_mix.py).
+struct NoRollModel {
+  __device__ __forceinline__ void step(float& x0, float&, float&, float&, float u) const { x0 = u; }
+};
+
+struct SquareOfX0 {
+  __device__ __forceinline__ float operator()(float x0, float, float, float) const { return x0 * x0; }
+};
+
+// One solve of the chain: partials_body at R rollouts a thread with D1's
+// policy, on a grid (ceil(K/(256 R)), 1), the fast-tier cart-pole and
+// shaped4 (noroll: NoRollModel and SquareOfX0); the launch bounds of
+// mppi_partials_kernel at the same R. (Fast and S select MppiSolve's
+// sampler; MixSolve draws the mode's own noise.)
+template <int Mode, int R, class Model, class Cost, std::enable_if_t<R == 1, int> = 0>
+__global__ void __launch_bounds__(kThreads, 5)
+kernel_mix_partials_kernel(Model model, Cost cost, PartialsArgs a, PartialsIO io,
+                           MixSolve<Mode> pol) {
+  partials_body<kN, Model, Cost, true, kBoxMuller, R>(model, cost, a, io, pol);
 }
 
-template <int Mode>
-int launch_kernel_mix(const CartPoleNonlinearT<true>& model, const MixArgs& a, const float* x,
-                      float* u_n, uint32_t seed, int n_solves, float* partials, float* u0s,
-                      cudaStream_t stream) {
-  const int nb = (a.p.k + kThreads - 1) / kThreads;
+template <int Mode, int R, class Model, class Cost, std::enable_if_t<(R > 1), int> = 0>
+__global__ void __launch_bounds__(kThreads)
+kernel_mix_partials_kernel(Model model, Cost cost, PartialsArgs a, PartialsIO io,
+                           MixSolve<Mode> pol) {
+  partials_body<kN, Model, Cost, true, kBoxMuller, R>(model, cost, a, io, pol);
+}
+
+// J solves, one launch each on one stream: solve j's merging block writes
+// u_n in place (the verbatim warm start of solve j+1; every block of
+// solve j+1 reads it after the launch of solve j ends) and u0s[j], and
+// resets the ticket. The key is read from device memory (seed[0]), so a
+// CUDA graph of the J launches serves every seed.
+template <int Mode, int R>
+int launch_kernel_mix(const CartPoleNonlinearT<true>& model, const PartialsArgs& a,
+                      const MixArgs& m, const float* x, float* u_n, const int* seed, int n_solves,
+                      float* partials, int* tickets, float* u0s, cudaStream_t stream) {
+  const dim3 grid((a.k + kThreads * R - 1) / (kThreads * R), 1);
   for (int j = 0; j < n_solves; ++j) {
-    kernel_mix_partials_kernel<Mode><<<nb, kThreads, 0, stream>>>(model, a, x, u_n, seed, (uint32_t)j,
-                                                                  partials);
-    kernel_mix_finalize_kernel<<<1, kThreads, 0, stream>>>(a.inv_lambda, nb, partials, u_n, u0s + j);
+    const PartialsIO io{x, u_n, nullptr, seed, 0u, (uint32_t)j, partials, nullptr,
+                        u_n, nullptr, tickets, u0s + j, nullptr};
+    if constexpr (Mode == kMixNoroll) {
+      kernel_mix_partials_kernel<Mode, R><<<grid, kThreads, 0, stream>>>(NoRollModel{}, SquareOfX0{}, a, io,
+                                                                         MixSolve<Mode>{m});
+    } else {
+      kernel_mix_partials_kernel<Mode, R><<<grid, kThreads, 0, stream>>>(model, Shaped4{}, a, io,
+                                                                         MixSolve<Mode>{m});
+    }
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
   }

@@ -628,9 +628,20 @@ __device__ __forceinline__ void finish_solve(const Model& model, float m_all, co
 // block (the other warps leave after the reductions); more, by the block.
 constexpr int kWarpMergeRows = 128;
 
-// One block of one problem's rollouts: sample (or read) and clamp, roll out
-// N steps, score, and reduce to the row (m_b, s_b, uw_b[0..N-1]) of that
-// problem's partials; then, with io.u_out, the merge. Grid (ceil(K/(256 R)),
+// partials_body's policy for every MPPI solve: sample sampler S's noise in
+// tier Fast (or read the external noise) and clamp, and finish with the
+// status ladder (finish_solve). It is written out in partials_body itself,
+// which calls another policy's hooks only when Pol is not MppiSolve (D1's
+// MixSolve, diag_kernels.cuh): controls(v, un, k, key, word, a) and
+// finish(m_all, tot, io, b). So the solves' instantiations compile from the
+// very statements they always had, to the same registers. Every policy
+// rolls out and scores with rollout_score on its Model and Cost.
+struct MppiSolve {};
+
+// One block of one problem's rollouts: sample (or read) and clamp (or Pol's
+// controls), roll out N steps, score, and reduce to the row (m_b, s_b,
+// uw_b[0..N-1]) of that problem's partials; then, with io.u_out, the merge.
+// Grid (ceil(K/(256 R)),
 // P): thread i of block g runs rollouts k = (g R + r) 256 + i, r < R, one
 // after another, so each group of 256 rollouts is one warp-aligned range as
 // at R = 1, and the Philox counters, the lane pairs of clt4a and
@@ -647,11 +658,13 @@ constexpr int kWarpMergeRows = 128;
 // lane 0 writes the block's row and draws the problem's ticket (an
 // acquire-release atomic add); the block that draws nb - 1 has every row of
 // the problem in L2. It merges them (one warp for up to kWarpMergeRows
-// rows, else the block), finishes the solve (finish_solve) and resets the
-// ticket for the next launch.
-template <int N, class Model, class Cost, bool Fast, int S, int R>
+// rows, else the block), finishes the solve (finish_solve, or Pol's finish)
+// and resets the ticket for the next launch.
+template <int N, class Model, class Cost, bool Fast, int S, int R, class Pol = MppiSolve>
 __device__ __forceinline__ void partials_body(const Model& model, const Cost& cost,
-                                              const PartialsArgs& a, const PartialsIO& io) {
+                                              const PartialsArgs& a, const PartialsIO& io,
+                                              const Pol& pol = Pol{}) {
+  constexpr bool kSolve = std::is_same_v<Pol, MppiSolve>;
   __shared__ float red_max[kWarps];
   __shared__ float red_sum[kWarps][N + 1];
 
@@ -675,6 +688,10 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
     const uint32_t k = ((uint32_t)blockIdx.x * R + r) * kThreads + threadIdx.x;
     const bool in_range = k < (uint32_t)a.k;  // rollouts past K weigh 0
     float e[N], v[N];
+    if constexpr (!kSolve) {
+      pol.controls(v, un, k, key, io.word0 + (uint32_t)b, a);  // every thread, as sample<>
+      if (!in_range) continue;
+    } else {
 #pragma unroll
     for (int t = 0; t < N; ++t) e[t] = 0.0f;
     if constexpr (S == kExternal) {
@@ -692,6 +709,7 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
     }
 #pragma unroll
     for (int t = 0; t < N; ++t) v[t] = clampf(un[t] + e[t], a.lo, a.hi);
+    }
     const float score = rollout_score<N>(model, cost, a, xb, un, v);
     if (!isfinite(score)) continue;
     float vals[N + 1];
@@ -714,7 +732,13 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   if (io.u_out != nullptr && nb == 1) {  // the problem's only block: no row, no ticket
     if (threadIdx.x <= N) tot[threadIdx.x] = s;
     __syncwarp();
-    if (threadIdx.x == 0) finish_solve<N>(model, m_b, tot, xb, io, b);
+    if (threadIdx.x == 0) {
+      if constexpr (!kSolve) {
+        pol.finish(m_b, tot, io, b);
+      } else {
+        finish_solve<N>(model, m_b, tot, xb, io, b);
+      }
+    }
     return;
   }
   const bool block_merge = io.u_out != nullptr && nb > kWarpMergeRows;
@@ -748,7 +772,11 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
     if (ticket != nb - 1) return;
     const float m_all = merge_rows_block<N>(rows, nb, a.inv_lambda, red_max, red_sum, tot);
     if (threadIdx.x == 0) {
-      finish_solve<N>(model, m_all, tot, xb, io, b);
+      if constexpr (!kSolve) {
+        pol.finish(m_all, tot, io, b);
+      } else {
+        finish_solve<N>(model, m_all, tot, xb, io, b);
+      }
       io.tickets[b] = 0;
     }
     return;
@@ -758,7 +786,11 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   float wtot[N + 1];
   const float m_all = merge_rows_warp<N>(rows, nb, a.inv_lambda, wtot);
   if (threadIdx.x == 0) {
-    finish_solve<N>(model, m_all, wtot, xb, io, b);
+    if constexpr (!kSolve) {
+      pol.finish(m_all, wtot, io, b);
+    } else {
+      finish_solve<N>(model, m_all, wtot, xb, io, b);
+    }
     io.tickets[b] = 0;
   }
 }

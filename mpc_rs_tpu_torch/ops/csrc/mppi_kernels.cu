@@ -95,9 +95,9 @@
 // tiers, the seven noise sources (external noise and the six samplers) and
 // R = 1 and 4: 56 instantiations, K1/K2 using the cart-pole's 28. The
 // estimator chain is instantiated once per fleet model; K4's probe once per
-// function at 4 and at 1 elements a thread (14); D1's partials kernel once
-// per MixMode (8), D2's chain for float and bf16 pairs at 16 and 32 values a
-// thread.
+// function at 4 and at 1 elements a thread (14); D1's kernel (partials_body
+// with D1's policy) once per MixMode at R = 1 and 4 (16), D2's chain for
+// float and bf16 pairs at 16 and 32 values a thread.
 //
 // C interface (loaded with ctypes): every function returns the
 // cudaGetLastError() value after its last launch (0 on success), -1 for a
@@ -452,20 +452,25 @@ int mpc_fastmath_eval(int fn, int count, const float* a, const float* b, float* 
 // D1: n_solves warm-started solves of the fast-tier cart-pole with shaped4,
 // x (4) held, u_n (N) updated in place, u0s (n_solves) written; mode is a
 // MixMode, model_consts the 9 CartPoleNonlinearT floats, sampler_consts as
-// above; key seed, solve j in the counter. partials: (ceil(K/256), N+2).
+// above; key seed[0] (a device int32), solve j in the counter; rpt:
+// rollouts a thread R, 1 or 4. One launch a solve. partials:
+// (ceil(K/(256 R)), N+2) scratch; tickets (1).
 int mpc_kernel_mix_chain(int mode, const float* model_consts, const float* sampler_consts, int n,
                          int k, float inv_lambda, float inv, float lo, float hi, float std_dev,
-                         float cltf_mu, float cltf_inv_sig, int ramp_block, const float* x,
-                         float* u_n, unsigned int seed, int n_solves, float* partials, float* u0s,
-                         void* stream) {
+                         float cltf_mu, float cltf_inv_sig, int ramp_block, int rpt, const float* x,
+                         float* u_n, const int* seed, int n_solves, float* partials, int* tickets,
+                         float* u0s, void* stream) {
   if (n != kN) return -1;
-  if (ramp_block < 1 || k < 1 || n_solves < 1) return -3;
-  const MixArgs a{partials_args(k, 0.0f, inv, lo, hi, std_dev, sampler_consts), inv_lambda,
-                  cltf_mu, cltf_inv_sig, ramp_block};
+  if (ramp_block < 1 || k < 1 || n_solves < 1 || (rpt != 1 && rpt != 4)) return -3;
+  const PartialsArgs a = partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts);
+  const MixArgs m{cltf_mu, cltf_inv_sig, ramp_block};
   const CartPoleNonlinearT<true> model = make_model<true>(model_consts);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MPC_MIX_LAUNCH(M) \
-  return launch_kernel_mix<M>(model, a, x, u_n, seed, n_solves, partials, u0s, s)
+#define MPC_MIX_LAUNCH(M)                                                                         \
+  return rpt == 1 ? launch_kernel_mix<M, 1>(model, a, m, x, u_n, seed, n_solves, partials, tickets, \
+                                            u0s, s)                                                 \
+                  : launch_kernel_mix<M, 4>(model, a, m, x, u_n, seed, n_solves, partials, tickets, \
+                                            u0s, s)
   switch (mode) {
     case kMixFull: MPC_MIX_LAUNCH(kMixFull);
     case kMixNosample: MPC_MIX_LAUNCH(kMixNosample);

@@ -18,10 +18,13 @@ of ``MODES``:
   ``cvtonly``: clt4 on one word a rollout, XORed with 0x9E3779B9·(t+1) per
   step.
 
-Each solve is one launch of ``kernel_mix_partials_kernel`` and one of
-``kernel_mix_finalize_kernel`` (``ops/csrc/diag_kernels.cuh``), which sets
-u_n ← Σ uw · (1/s) (s = 0 counts as 1) and u0s[j] = u_n[0]: D1's own
-finalize (``diag_kernel_mix.py:255-260``), no status ladder and no shift.
+Each solve is one launch of ``kernel_mix_partials_kernel``
+(``ops/csrc/diag_kernels.cuh``): the main path's partials body
+(``mppi_common.cuh``) at R rollouts a thread (``rollouts_per_thread`` of
+``ops/mppi_cuda.py``), with the mode's controls and scoring, whose last
+block merges the rows by the problem's ticket and sets u_n ← Σ uw · (1/s)
+(s = 0 counts as 1) and u0s[j] = u_n[0]: D1's own finalize
+(``diag_kernel_mix.py:255-260``), no status ladder and no shift.
 
 Words (replaces ``pltpu.prng_seed(seed, j·100003 + i)`` and the TPU's
 calls of each mode): Philox4x32-10 keyed (seed, 0) with counter
@@ -52,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -66,6 +70,7 @@ from mpc_rs_tpu_torch.ops.mppi_cuda import (
     _library,
     _ptr,
     _raise_on,
+    _rpt,
     _sampler_consts,
 )
 
@@ -210,8 +215,8 @@ def _mode(mode: str) -> str:
 def _check_mix_config(cfg: MppiConfig, n_solves: int, ramp_block: int) -> None:
     if cfg.n_horizon != HORIZON:
         raise ValueError(f"no kernel for horizon N={cfg.n_horizon}; D1 is built for N={HORIZON}")
-    if not 1 <= cfg.n_rollouts < 2**31 - BLOCK:
-        raise ValueError(f"n_rollouts must be in [1, 2**31 - {BLOCK}), got {cfg.n_rollouts}")
+    if not 1 <= cfg.n_rollouts < 2**31 - 4 * BLOCK:
+        raise ValueError(f"n_rollouts must be in [1, 2**31 - {4 * BLOCK}), got {cfg.n_rollouts}")
     if not cfg.lambda_ > 0.0:
         raise ValueError(f"D1 scales by 1/lambda; lambda must be > 0, got {cfg.lambda_}")
     if cfg.control_inv is not None:
@@ -224,15 +229,65 @@ def _check_mix_config(cfg: MppiConfig, n_solves: int, ramp_block: int) -> None:
 # D1: kernel wrapper
 
 
+class _ChainGraph(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor  # (4,) the held state, copied in before a replay
+    u_n: torch.Tensor  # (N,) the warm start, updated in place by the chain
+    seed: torch.Tensor  # (1,) int32 Philox key
+    u0s: torch.Tensor  # (J,)
+    partials: torch.Tensor  # (ceil(K/(256 R)), N+2) scratch
+    tickets: torch.Tensor  # (1,) int32, left at zero by every launch
+
+
+# One captured chain per (device, stream, mode, config, model, J, ramp block,
+# R), with its own buffers and ticket; replays on that stream only.
+_GRAPHS: dict[tuple, _ChainGraph] = {}
+
+
+def _chain_graph(cfg: MppiConfig, model: CartPoleShaped4, device: torch.device, mode: str, n_solves: int,
+                 ramp_block: int, rpt: int) -> _ChainGraph:
+    """The chain of ``n_solves`` D1 launches captured once into a CUDA graph
+    (the C loop of ``mpc_kernel_mix_chain`` issues them during the capture)."""
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream, mode, cfg, model, n_solves, ramp_block, rpt)
+    if key in _GRAPHS:
+        return _GRAPHS[key]
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    g = _ChainGraph(torch.cuda.CUDAGraph(), torch.zeros(model.n_state, **f32), torch.zeros(cfg.n_horizon, **f32),
+                    torch.zeros(1, **i32), torch.zeros(n_solves, **f32),
+                    torch.empty((-(-cfg.n_rollouts // (BLOCK * rpt)), cfg.n_horizon + 2), **f32),
+                    torch.zeros(1, **i32))
+    lo, hi = cfg.limit
+    args = (_MODE_IDS[mode], model.c_constants[0], _sampler_consts(cfg.std_dev), cfg.n_horizon, cfg.n_rollouts,
+            1.0 / cfg.lambda_, cfg.std_dev ** -2.0, lo, hi, cfg.std_dev, _CLTF_MU, _CLTF_INV_SIG, ramp_block, rpt,
+            _ptr(g.x), _ptr(g.u_n), _ptr(g.seed), n_solves, _ptr(g.partials), _ptr(g.tickets), _ptr(g.u0s))
+    with torch.cuda.graph(g.graph):  # captured on a side stream, replayed on the caller's
+        err = _library().mpc_kernel_mix_chain(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _raise_on(err, "kernel_mix_chain_fused (capture)")
+    _GRAPHS[key] = g
+    return g
+
+
 def kernel_mix_chain_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                            u_n: torch.Tensor, *, mode: str, n_solves: int, base_seed: int = 0,
-                           ramp_block: int = RAMP_BLOCK) -> tuple[torch.Tensor, torch.Tensor]:
+                           ramp_block: int = RAMP_BLOCK, rollouts_per_thread: int | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """J = ``n_solves`` warm-started D1 solves of ``mode`` from the held
     state x (4,), starting at u_n (N,): returns (u0s (J,), the last u_n).
     ``model`` is the fast-tier ``CartPoleShaped4``; words keyed by
-    ``base_seed`` with the solve index in the counter. CUDA tensors must be
-    float32; the kernel works in its own copy of u_n."""
+    ``base_seed`` with the solve index in the counter. One launch a solve,
+    at R rollouts a thread (``rollouts_per_thread`` forces R, default
+    ``mppi_cuda.rollouts_per_thread(K)``). CUDA tensors must be float32.
+
+    On the card the J launches are captured once per (stream, mode, config,
+    J, R) into a CUDA graph and replayed: x, u_n and the key are copied
+    into the graph's buffers, the outputs out of them. On an H100 the
+    replay measured about 1 µs a solve faster than the C loop's launches on
+    the host-clock marginal (``runtime/profile_d1.py``, PERF.md §6), and the
+    TPU probe runs its J solves in one call."""
     mode = _mode(mode)
+    rpt = _rpt(cfg.n_rollouts, 1, rollouts_per_thread)
     if x.device.type == "cpu":
         return kernel_mix_chain_plain(cfg, model, x, u_n, mode=mode, n_solves=n_solves,
                                       base_seed=base_seed, ramp_block=ramp_block)
@@ -243,25 +298,18 @@ def kernel_mix_chain_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Ten
     _check_mix_config(cfg, n_solves, ramp_block)
     _check("x", x, (model.n_state,), torch.float32, x.device)
     _check("u_n", u_n, (cfg.n_horizon,), torch.float32, x.device)
-    lib = _library()
-    nb = -(-cfg.n_rollouts // BLOCK)
-    partials = torch.empty((nb, cfg.n_horizon + 2), dtype=torch.float32, device=x.device)
-    u_buf = u_n.clone()
-    u0s = torch.empty(n_solves, dtype=torch.float32, device=x.device)
-    lo, hi = cfg.limit
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mpc_kernel_mix_chain(
-            _MODE_IDS[mode], (ctypes.c_float * 9)(*model.constants()), _sampler_consts(cfg.std_dev),
-            cfg.n_horizon, cfg.n_rollouts, 1.0 / cfg.lambda_, cfg.std_dev ** -2.0, lo, hi,
-            cfg.std_dev, _CLTF_MU, _CLTF_INV_SIG, ramp_block,
-            _ptr(x), _ptr(u_buf), base_seed & 0xFFFFFFFF, n_solves, _ptr(partials), _ptr(u0s),
-            ctypes.c_void_p(stream),
-        )
-    _raise_on(err, "kernel_mix_chain_fused")
+        g = _chain_graph(cfg, model, x.device, mode, n_solves, ramp_block, rpt)
+        g.x.copy_(x)
+        g.u_n.copy_(u_n)
+        key = base_seed & 0xFFFFFFFF
+        g.seed.copy_(torch.tensor([key - (1 << 32) if key >= 1 << 31 else key], dtype=torch.int32),
+                     non_blocking=True)
+        g.graph.replay()
+        u0s, u_out = g.u0s.clone(), g.u_n.clone()
     launches["kernel_mix_chain_fused"] += 1
     launches[f"mode:{mode}"] += 1
-    return u0s, u_buf
+    return u0s, u_out
 
 
 # --------------------------------------------------------------------------

@@ -30,7 +30,11 @@ For that checkout it measures:
 
 Prints one JSON line per measurement, each with ``--label`` and the card's
 ``nvidia-smi`` name and power limit, and writes them to ``--out``. Needs a
-CUDA card.
+CUDA card. ``--u-out FILE`` also saves every path's outputs (u_n', the
+statuses, u0s and x of a chain, the rows of a rows-only call) at each R, and
+``--compare-u A B`` (no card needed) says, path by path, whether two such
+files hold the same bits: the check that a change left the solves' outputs
+as the parent's.
 """
 
 from __future__ import annotations
@@ -146,12 +150,28 @@ def event_us(fn, reps: int) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def compare_outputs(a: str, b: str) -> dict:
+    """{path: True when every tensor of the path is the same bits in both
+    ``--u-out`` files}, over the paths both files hold."""
+    ua, ub = torch.load(a), torch.load(b)
+    return {name: len(ua[name]) == len(ub[name]) and all(torch.equal(x, y) for x, y in zip(ua[name], ub[name]))
+            for name in ua if name in ub}
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="logs/profile_partials/profile_partials.jsonl")
+    ap.add_argument("--u-out", default=None, help="save every path's outputs at each R to this file")
+    ap.add_argument("--compare-u", nargs=2, metavar=("A", "B"), help="compare two --u-out files and exit")
     args = ap.parse_args(argv)
+    if args.compare_u:
+        same = compare_outputs(*args.compare_u)
+        row = {"phase": "compare_outputs", "files": args.compare_u, "paths": len(same),
+               "all_same_bits": all(same.values()), "differ": [n for n, ok in same.items() if not ok]}
+        print(json.dumps(row), flush=True)
+        return [row]
     if not torch.cuda.is_available():
         raise SystemExit("profile_partials: torch.cuda.is_available() is false; this needs a CUDA card")
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -217,6 +237,16 @@ def main(argv=None) -> list[dict]:
         cases[name + " rows only"] = ((lambda call=call, **kw: call(rows_only=True, **kw)), *cases[name][1:])
     forcing = "rollouts_per_thread" in inspect.signature(mppi_cuda.mppi_solve_fused).parameters
     variants = ({}, {"rollouts_per_thread": 1}, {"rollouts_per_thread": 4}) if forcing else ({},)
+    if args.u_out:
+        outs = {}
+        for name, (call, *_) in cases.items():
+            for kw in variants:
+                res = call(**kw)
+                res = tuple(res) if isinstance(res, tuple) else (res,)
+                outs[f"{name} rpt={kw.get('rollouts_per_thread', 'wrapper')}"] = [t.cpu() for t in res]
+        Path(args.u_out).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(outs, args.u_out)
+        emit({"phase": "outputs", "file": args.u_out, "paths": len(outs)})
     for name, (call, per, reps, ev_reps) in cases.items():
         for turn, kw in enumerate([*variants, *reversed(variants)]):
             by_kernel, launches = device_us(lambda: call(**kw), reps)

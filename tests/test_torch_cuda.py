@@ -490,21 +490,88 @@ def test_cuda_estimator_chain_matches_plain(card, model, b):
 # the diagnostic probes: the op-mix chain (D1) and the mul-add chain (D2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [16384, 819200])
-@pytest.mark.parametrize("mode", diag_cuda.MODES)
-def test_cuda_d1_kernel_mix_matches_plain(card, mode, k):
-    """Eight held-state solves against the plain version in float64 on the
-    same Philox words, at the probe's λ=0.5, at K=16 384 and at the probe's
-    K=819 200 (where nosample's ramp runs over all 100 of its blocks)."""
+# ragged K for D1: 16 401 = 16 384 + 17 and 818 201 = 799·1024 + 25 leave a
+# last block of 17 (25) rollouts at R = 1 and at R = 4. The partials tests'
+# RAGGED_K are too few rollouts for the f32 band in a warm-started chain at
+# λ = 0.5: at K = 3 089 the plain float32 version itself misses float64 by
+# twice the band in `full` (the softmax weighs one or two rollouts).
+D1_RAGGED_K = (16_401, 818_201)
+
+
+def _d1(card, k, mode, j=8, seed=9, plain=None, **kw):
     cfg = _cfg(k)
     x, u_n = torch.tensor(X0, device=card), torch.zeros(N, device=card)
-    got = diag_cuda.kernel_mix_chain_fused(cfg, CART_FAST, x, u_n, mode=mode, n_solves=8, base_seed=9)
-    want = diag_cuda.kernel_mix_chain_plain(cfg, CART_FAST, x.double(), u_n.double(), mode=mode, n_solves=8,
-                                            base_seed=9)
-    torch.cuda.synchronize()
+    if plain is None:
+        return diag_cuda.kernel_mix_chain_fused(cfg, CART_FAST, x, u_n, mode=mode, n_solves=j, base_seed=seed, **kw)
+    return diag_cuda.kernel_mix_chain_plain(cfg, CART_FAST, x.to(plain), u_n.to(plain), mode=mode, n_solves=j,
+                                            base_seed=seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, rpt", [(16384, None), (819200, None), (D1_RAGGED_K[0], 1), (D1_RAGGED_K[0], 4),
+                                    (D1_RAGGED_K[1], 4)])
+@pytest.mark.parametrize("mode", diag_cuda.MODES)
+def test_cuda_d1_kernel_mix_matches_plain(card, mode, k, rpt):
+    """Eight held-state solves against the plain version in float64 on the
+    same Philox words, at the probe's λ=0.5: at K=16 384 (R = 1 by the
+    wrapper's rule), at the probe's K=819 200 (R = 4; nosample's ramp runs
+    over all 100 of its blocks) and at a K that is no multiple of 256·R at
+    R forced to 1 and 4, where the last block's rollouts past K weigh
+    nothing; the ticket zero after each chain."""
+    got = _d1(card, k, mode, rollouts_per_thread=rpt)
+    want = _d1(card, k, mode, plain=torch.float64)
+    assert _tickets_zero(card, 1)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **F32_BAND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [D1_RAGGED_K[0], 819200])
+@pytest.mark.parametrize("mode", ["full", "nosample", "noroll", "clt2q"])
+def test_cuda_d1_r1_and_r4_agree(card, mode, k):
+    """The R = 1 and R = 4 builds give the same chain within the band (the
+    log-sum-exp folds in another order)."""
+    r1, r4 = _d1(card, k, mode, rollouts_per_thread=1), _d1(card, k, mode, rollouts_per_thread=4)
+    for a, b in zip(r1, r4):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **F32_BAND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16384, 819200])
+def test_cuda_d1_chain_repeats_bit_for_bit(card, k):
+    """The same chain twice with the same seed gives the same bits: every
+    solve's merging block resets the ticket, so no solve merges early or
+    waits; another seed gives other u0s."""
+    first, again = _d1(card, k, "full", j=16), _d1(card, k, "full", j=16)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    assert not torch.equal(first[0], _d1(card, k, "full", j=16, seed=10)[0])
+    assert _tickets_zero(card, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16384, 819200])
+def test_cuda_d1_is_one_launch_a_solve(card, k):
+    """torch.profiler sees J kernel_mix_partials_kernel launches in a chain
+    of J solves, and no other kernel (no finalize). Dropped device events
+    make it retry, up to five times."""
+    cfg, x, u_n = _cfg(k), torch.tensor(X0, device=card), torch.zeros(N, device=card)
+
+    def chain(j):
+        return diag_cuda.kernel_mix_chain_fused(cfg, CART_FAST, x, u_n, mode="full", n_solves=j, base_seed=9)
+
+    chain(6)  # the first call of a chain length captures its graph (and fills its buffers)
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(5):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            chain(6)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        assert len(names) <= 6 and all("kernel_mix_partials_kernel" in n for n in names), names
+        if len(names) == 6:
+            break
+    assert len(names) == 6, names
 
 
 @pytest.mark.cuda

@@ -251,6 +251,18 @@ def test_d1_wrappers_check_arguments_and_count_no_cpu_launch():
     assert not any(diag_cuda.launches.values())
 
 
+def test_d1_wrapper_takes_rollouts_per_thread():
+    """R = 1 and 4 are the kernel's (one launch a solve at either); the
+    plain version on the CPU does not depend on it; another R raises."""
+    x, u = torch.tensor(X0), torch.zeros(N)
+    runs = [diag_cuda.kernel_mix_chain_fused(_cfg(1024), MODEL, x, u, mode="clt", n_solves=2, base_seed=3,
+                                             rollouts_per_thread=r) for r in (None, 1, 4)]
+    for u0s, u_n in runs[1:]:
+        assert torch.equal(u0s, runs[0][0]) and torch.equal(u_n, runs[0][1])
+    with pytest.raises(ValueError, match="rollouts_per_thread"):
+        diag_cuda.kernel_mix_chain_fused(_cfg(1024), MODEL, x, u, mode="clt", n_solves=1, rollouts_per_thread=2)
+
+
 # --------------------------------------------------------------------------
 # D2: the plain version against the script's kernel in interpret mode
 
