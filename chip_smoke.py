@@ -40,6 +40,16 @@ transcendental counts one; comparisons and integer ops, such as Philox's,
 are not counted), so the bound is a lower one; the bytes are each input
 read once and each output written once.
 
+The MPPI application family (mppi2, mppi4, mppi4-non-liner-s,
+mppi4-non-liner-ukf) and the HW-flagship chain run on the same kernel built
+for each app's model and horizon: each instantiation is held against its
+plain version at its app's reference shape with every noise source at R = 1
+and 4, its samplers' words at N = 20 and 40 against ``ops/philox.py``; the
+four apps run through the CLI entry function at the JAX package's acceptance
+settings and pass rules, the HW chain (N = 20, K = 800 000, the plant on,
+clt4a and wallace) as a main path; each app's tick at its reference K and
+the HW chain's µs a solve against its 0.06 s budget are printed.
+
 It prints one JSON line per phase, then the kernels line, the ``nvidia-smi``
 name and power limit, and last the line ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; so does a machine without CUDA, or a
@@ -49,6 +59,7 @@ directory without the ``mpc_rs_tpu_torch`` package. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -75,11 +86,13 @@ PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data shee
 PEAK_HBM = 3.35e12  # bytes/s, H100 SXM HBM3
 PEAK_BF16 = 2 * PEAK_FP32  # FLOP/s, H100 SXM bf16 outside the tensor cores (Programming Guide, cc 9.0)
 CLT_FAMILY_SPREAD = 0.02  # cltone/cltbig/cltreg launch clt's kernel: their D1 times agree this closely
-# ptxas registers of the main path's partials instantiations, by (model,
-# fast tier, R): one per noise source (external, box-muller, clt4, clt4a,
-# wallace, clt2q, box-muller-a), each with no spill; what CUDA 12.8's ptxas
-# made of them on the H100 machine before D1 shared their body
-# (runtime/profile_partials.py's build report). The build must keep them.
+# ptxas registers of the partials instantiations, by (model, fast tier, R):
+# one per noise source (external, box-muller, clt4, clt4a, wallace, clt2q,
+# box-muller-a), each with no spill; what CUDA 12.8's ptxas made of them on
+# the H100 machine (runtime/profile_partials.py's build report): the main
+# paths' 56 at N = 8 before D1 shared their body, and the MPPI application
+# family's 42 (linear cart-pole at N = 8, commu4 at N = 20, the double
+# integrator at N = 40) as they were built first. The build must keep them.
 PARTIALS_PTXAS = {
     ("CartPoleNonlinearT", 0, 1): (44, 46, 46, 44, 45, 45, 45),
     ("CartPoleNonlinearT", 0, 4): (64, 64, 64, 64, 64, 64, 64),
@@ -89,6 +102,12 @@ PARTIALS_PTXAS = {
     ("Flagship4", 0, 4): (64, 64, 64, 64, 64, 64, 64),
     ("Flagship4", 1, 1): (48, 48, 48, 48, 48, 48, 48),
     ("Flagship4", 1, 4): (64, 64, 64, 64, 64, 64, 64),
+    ("CartPoleLinear", 0, 1): (47, 48, 45, 48, 48, 44, 48),
+    ("CartPoleLinear", 0, 4): (58, 64, 56, 59, 60, 56, 64),
+    ("Commu4", 0, 1): (71, 80, 72, 80, 72, 72, 80),
+    ("Commu4", 0, 4): (123, 128, 128, 127, 128, 128, 127),
+    ("DoubleIntegrator", 0, 1): (127, 135, 134, 141, 130, 134, 167),
+    ("DoubleIntegrator", 0, 4): (255, 244, 254, 254, 254, 254, 254),
 }
 # flagship6's float32 filter is ill-conditioned in a few x̂ entries at B >= 1 000:
 # two float32 evaluations in one order of operations differ past the band
@@ -928,6 +947,282 @@ def ukf_fidelity_phase(dev: torch.device, card: dict) -> None:
           "f64_card_vs_cpu_max_abs": float(np.abs(t64 - t64_cpu).max()), "f32_replay_s": t32_s, **card})
 
 
+FAMILY_SOURCES = {"mppi2": "mpc_rs_tpu_torch/ops/csrc/family_mppi2.cu",
+                  "mppi4": "mpc_rs_tpu_torch/ops/csrc/family_mppi4.cu",
+                  "hw_flagship": "mpc_rs_tpu_torch/ops/csrc/family_commu4.cu"}
+HW_BUDGET_S = 0.06  # the HW flagship's control budget a solve (SURVEY §6)
+
+
+def family_phases(dev: torch.device, card: dict) -> list[dict]:
+    """The MPPI application family on K1/K2: each (model, N) instantiation
+    against its plain version at its app's reference shape, every noise
+    source at R = 1 and 4, the in-kernel samplers' words at N = 20 and 40
+    against ``ops/philox.py``; the HW-flagship chain (N = 20, K = 800 000,
+    the plant on, clt4a and wallace) against the plain chain; the four apps
+    through the CLI entry at the JAX package's acceptance settings and rules
+    (``mpc_rs_tpu/apps/acceptance.py:39-52,246-262``) and the HW chain as
+    main paths (counts reset before each, read after); each app's tick at
+    its reference K; the HW chain's µs a solve against its 0.06 s budget.
+    Returns the kernels line's entries."""
+    import numpy as np
+
+    from mpc_rs_tpu_torch.apps import run as cli
+    from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+    from mpc_rs_tpu_torch.ops import mppi_cuda, philox
+    from mpc_rs_tpu_torch.ops.mppi_cuda import (CartPoleLinearShaped4, CartPoleShaped4, Commu4Cost4,
+                                                DoubleIntegratorQuad2, Flagship4Diag4)
+
+    sw, tw = CartPoleParams.single_wheel(), CartPoleParams.two_wheel()
+    # app: (model, N, reference K, λ, σ, limit, x0, control_inv, λ where the f32 solve is well conditioned)
+    apps = {
+        "mppi2": (DoubleIntegratorQuad2(0.05), 40, 8000, 2.5, 1.0, 3.0, (1.0, 0.0), 2.5, 2.5),
+        "mppi4": (CartPoleLinearShaped4(sw, 0.1), 8, 800_000, 0.5, 3.0, 20.0, X0, None, 0.5),
+        "mppi4-non-liner-s": (CartPoleShaped4(sw, 0.1), 8, 1_500_000, 0.5, 10.0, 10.0, (0.0, 0.0, 0.01, 0.0),
+                              None, 0.5),
+        "mppi4-non-liner-ukf": (Flagship4Diag4(tw, 0.15), 8, 500_000, 1.4, 4.0, 10.0, (0.0, 0.0, 0.05, 0.0),
+                                None, 50.0),
+        "hw_flagship": (Commu4Cost4(tw, 0.05), 20, 800_000, 2.0, 2.0, 10.0, (0.0, 0.0, 0.1, 0.0), None, 2.0),
+    }
+
+    def cfg_of(app, lam=None, k=None):
+        _, n, k_ref, lam_ref, sd, lim, _, inv, _ = apps[app]
+        return MppiConfig(n_horizon=n, n_rollouts=k or k_ref, lambda_=lam_ref if lam is None else lam,
+                          std_dev=sd, limit=(-lim, lim), control_inv=inv)
+
+    def x_of(app):
+        return torch.tensor(apps[app][6], dtype=torch.float32, device=dev)
+
+    gen = torch.Generator(device=dev).manual_seed(808)
+    err = {app: 0.0 for app in apps}
+    noise_rows = []
+    # FA1. each instantiation against its plain version in float64 on the
+    # same noise, at the app's reference shape, every source at R = 1 and 4;
+    # the kernel's in-kernel noise (written by the same partials kernel on a
+    # grid of one problem through the batched entry) against ops/philox.py's
+    # words. mppi4-non-liner-ukf's f32 solve is ill-conditioned at its λ=1.4
+    # (PERF.md): the band holds at λ=50, and at the app's λ the kernel is
+    # held to twice the plain f32 version's own distance from float64.
+    for app, (m, n, k, *_rest) in apps.items():
+        band_lam = apps[app][8]
+        cfg = cfg_of(app, band_lam)
+        x = x_of(app)
+        u_n = 0.3 * torch.randn(n, generator=gen, device=dev)
+        for source in ("external", *philox.SAMPLERS):
+            for rpt in (1, 4):
+                if source == "external":
+                    words = apps[app][4] * torch.randn((k, n), generator=gen, device=dev)
+                    got_u, got_st = mppi_cuda.mppi_solve_fused(cfg, m, x, u_n, noise=words, rollouts_per_thread=rpt)
+                else:
+                    out = torch.empty((1, k, n), device=dev)
+                    mppi_cuda.mppi_batch_partials_fused(cfg, m, x[None], u_n[None], sampler=source, noise_out=out,
+                                                        seeds=torch.tensor([21], dtype=torch.int32, device=dev),
+                                                        rollouts_per_thread=rpt)
+                    words = mppi_cuda.solve_noise(cfg, m, 21, 0, source, device=dev)
+                    same = bool(torch.equal(out[0], words))
+                    noise_err = max_err(out[0], words)
+                    check(same if source in ("clt4", "clt4a", "clt2q") else noise_err < 1e-4,
+                          f"{app} {source} R={rpt}: kernel noise vs ops/philox.py words {noise_err}")
+                    if rpt == 1:
+                        noise_rows.append({"app": app, "n": n, "sampler": source, "same_bits": same,
+                                           "max_abs_err": noise_err})
+                    got_u, got_st = mppi_cuda.mppi_solve_fused(cfg, m, x, u_n, seed=21, sampler=source,
+                                                               rollouts_per_thread=rpt)
+                want_u, want_st = mppi_cuda.mppi_solve_plain(cfg, m, x.double(), u_n.double(), noise=words.double(),
+                                                             rollouts_per_thread=rpt)
+                check(int(got_st) == int(want_st) == MppiStatus.OK,
+                      f"{app} {source} R={rpt} statuses {int(got_st)}/{int(want_st)}")
+                err[app] = max(err[app], check_band(got_u, want_u, f"{app} {source} R={rpt} vs plain"))
+        if band_lam != apps[app][3]:  # the app's λ: twice the plain f32 version's own distance
+            cfg_app = cfg_of(app)
+            got_u, got_st = mppi_cuda.mppi_solve_fused(cfg_app, m, x, u_n, seed=21)
+            words = mppi_cuda.solve_noise(cfg_app, m, 21, 0, device=dev)
+            want = mppi_cuda.mppi_solve_plain(cfg_app, m, x.double(), u_n.double(), noise=words.double())[0]
+            own = max_err(mppi_cuda.mppi_solve_plain(cfg_app, m, x, u_n, noise=words)[0], want)
+            app_err = max_err(got_u, want)
+            check(int(got_st) == 0 and app_err <= 2 * own + F32_BAND["atol"],
+                  f"{app} at the app's λ: {app_err} against twice the plain f32 distance {own}")
+            emit({"phase": "family_app_lambda", "app": app, "lambda": apps[app][3], "max_abs_err": app_err,
+                  "plain_f32_vs_f64": own})
+        emit({"phase": "family_vs_plain", "app": app, "n": n, "k": k, "lambda": band_lam,
+              "sources": ["external", *philox.SAMPLERS], "rollouts_per_thread": [1, 4], "max_abs_err": err[app]})
+    emit({"phase": "family_sampler_words", "rows": noise_rows})
+
+    # FA2. the HW-flagship chain (K1 at N = 20): plant on at λ=200, where the
+    # chain is well conditioned (tests/test_torch_mppi_family.py), against
+    # the plain chain in float64; the app's λ=2 with the state held; a
+    # seeded chain, the state held, is sequential K2 solves bit for bit
+    hw, _, k_hw = apps["hw_flagship"][:3]
+    x_hw, zeros20 = x_of("hw_flagship"), torch.zeros(20, device=dev)
+    hw_err = 0.0
+    for sampler in ("clt4a", "wallace"):
+        for lam, plant in ((200.0, True), (2.0, False)):
+            c = cfg_of("hw_flagship", lam)
+            chain = mppi_cuda.mppi_chain_fused(c, hw, x_hw, zeros20, n_solves=8, base_seed=5, plant=plant,
+                                               sampler=sampler)
+            plain = mppi_cuda.mppi_chain_plain(c, hw, x_hw.double(), zeros20.double(), n_solves=8, base_seed=5,
+                                               plant=plant, sampler=sampler)
+            check(chain.statuses.tolist() == plain.statuses.tolist() == [0] * 8, f"HW chain {sampler} statuses")
+            e = max(check_band(chain.u0s, plain.u0s, f"HW chain {sampler} λ={lam} u0s"),
+                    check_band(chain.u_n, plain.u_n, f"HW chain {sampler} λ={lam} u_n"),
+                    check_band(chain.x, plain.x, f"HW chain {sampler} λ={lam} x"))
+            hw_err = max(hw_err, e)
+            emit({"phase": "hw_chain_vs_plain", "sampler": sampler, "lambda": lam, "plant": plant, "j": 8,
+                  "max_abs_err": e})
+        seeds = torch.arange(4, dtype=torch.int32, device=dev) * 17 + 3
+        c = cfg_of("hw_flagship")
+        chain = mppi_cuda.mppi_chain_fused(c, hw, x_hw, zeros20, seeds=seeds, sampler=sampler)
+        u, u0s = zeros20, []
+        for j in range(4):
+            u, _ = mppi_cuda.mppi_solve_fused(c, hw, x_hw, u, seed=int(seeds[j]), sampler=sampler)
+            u0s.append(u[0])
+        check(torch.equal(chain.u0s, torch.stack(u0s)) and torch.equal(chain.u_n, u),
+              f"HW chain {sampler}: not the sequential K2 solves")
+    err["hw_flagship"] = max(err["hw_flagship"], hw_err)
+
+    # FA3. the main paths: the four apps through the CLI entry at the
+    # acceptance settings and pass rules, and the HW chain; counts reset
+    # just before each and read just after
+    runs = {}
+
+    def drive(label, argv, model_key):
+        mppi_cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        counts = dict(mppi_cuda.launches)
+        runs[label] = (res, counts, time.perf_counter() - t0)
+        check(counts[model_key] >= 1 and counts["mppi_solve_fused"] == counts[model_key],
+              f"{label}: {model_key} launches {counts[model_key]} of {counts['mppi_solve_fused']}")
+        return res, counts
+
+    log_dir = ["--log-dir", "logs/chip_smoke_family"]
+    res, counts = drive("mppi2", ["mppi2"], "model:DoubleIntegratorQuad2")
+    check(bool(np.isfinite(res.x).all()) and abs(res.x[0]) < 0.3 and abs(res.x[1]) < 0.3
+          and len(res.statuses) >= 100, f"mppi2 did not regulate |x| < 0.3 in 5 s: {res.x}")
+    res, counts = drive("mppi4", ["mppi4", "--k", "65536", *log_dir], "model:CartPoleLinearShaped4")
+    check(not res.tipped and bool(np.isfinite(res.x).all()) and len(res.statuses) >= 100,
+          f"mppi4 at K=65 536 tipped past 60 degrees in 10 s: {res.x}")
+    for label, argv, key in (
+        ("mppi4-non-liner-s", ["mppi4-non-liner-s", "--k", "16384"], "model:CartPoleShaped4"),
+        ("mppi4-non-liner-ukf", ["mppi4-non-liner-ukf", "--k", "16384"], "model:Flagship4Diag4"),
+        ("mppi4-non-liner-ukf+est", ["mppi4-non-liner-ukf", "--k", "16384", "--use-ukf-estimate",
+                                     "--control-period", "0.02"], "model:Flagship4Diag4"),
+    ):
+        res, counts = drive(label, [*argv, *log_dir], key)
+        check(not res.tipped and res.t >= 9.5, f"{label} did not survive to 9.5 s: t={res.t}, tipped={res.tipped}")
+        # every controller call solves, but the flagship's past its π/2 guard
+        check(counts[key] == res.n_solves if label == "mppi4-non-liner-s" else 0 < counts[key] <= res.n_solves,
+              f"{label}: {counts[key]} launches, {res.n_solves} controller calls")
+    for label, (res, counts, secs) in runs.items():
+        n_solves = len(res.statuses) if hasattr(res, "statuses") else res.n_solves
+        emit({"phase": "family_main_path", "app": label, "solves": n_solves,
+              "final_x": np.asarray(res.x).tolist(), "t": getattr(res, "t", None),
+              "launches": {k: v for k, v in counts.items() if v}, "wall_s": secs, **card})
+    hw_counts = {}
+    for sampler in ("clt4a", "wallace"):
+        mppi_cuda.reset_launches()
+        chain = mppi_cuda.mppi_chain_fused(cfg_of("hw_flagship"), hw, x_hw, zeros20, n_solves=200, base_seed=9,
+                                           plant=True, sampler=sampler)
+        torch.cuda.synchronize()
+        hw_counts[sampler] = dict(mppi_cuda.launches)
+        check(hw_counts[sampler]["model:Commu4Cost4"] == 1 and hw_counts[sampler]["mppi_chain_fused"] == 1,
+              f"HW chain {sampler}: launches {hw_counts[sampler]}")
+        check(bool((chain.statuses == 0).all()) and bool(torch.isfinite(chain.x).all())
+              and abs(float(chain.x[2])) < math.pi / 2, f"HW chain {sampler}: statuses or x {chain.x.tolist()}")
+        emit({"phase": "hw_chain_main_path", "sampler": sampler, "j": 200, "final_x": chain.x.tolist(),
+              "launches": {k: v for k, v in hw_counts[sampler].items() if v}, **card})
+
+    # FA4. timings: each app's K2 at its reference K (CUDA events, device
+    # time, the plain float32 version, the bound); each app's tick at its
+    # reference K over a short run; the HW chain a solve by device time, by
+    # events over 64 solves and by the marginal of 64 and 320 solves
+    timing = {}
+    for app, (m, n, k, *_rest) in apps.items():
+        c, x, u = cfg_of(app), x_of(app), torch.zeros(n, device=dev)
+        kern = median_ms(lambda: mppi_cuda.mppi_solve_fused(c, m, x, u, seed=3), reps=30)
+        dev_ms = device_ms(lambda: mppi_cuda.mppi_solve_fused(c, m, x, u, seed=3), reps=10)
+        plain = lambda: mppi_cuda.mppi_solve_plain(c, m, x, u, seed=3)  # noqa: E731
+        plain_t = median_ms(plain, reps=5, warmup=1)
+        bnd = bound(flops_of(plain), 2 * nbytes(x, u) - nbytes(x) + 4)
+        timing[app] = (kern, plain_t, bnd)
+        emit({"phase": "timing_family_k2", "app": app, "n": n, "k": k,
+              "rollouts_per_thread": mppi_cuda.rollouts_per_thread(k), "kernel_us_per_solve": 1e3 * kern,
+              "device_us_per_solve": 1e3 * dev_ms, "plain_us_per_solve": 1e3 * plain_t, **bnd, **card})
+    ticks = {"mppi2": runs["mppi2"][0].tick_seconds}
+    short = {"mppi4": ["mppi4", "--t-end", "2", *log_dir],
+             "mppi4-non-liner-s": ["mppi4-non-liner-s", "--t-end", "1", *log_dir],
+             "mppi4-non-liner-ukf": ["mppi4-non-liner-ukf", "--t-end", "0.5", *log_dir]}
+    for app, argv in short.items():
+        res = cli.main(argv)
+        ticks[app] = res.tick_seconds if hasattr(res, "tick_seconds") else res.solve_seconds
+    for app, secs in ticks.items():
+        ms = sorted(1e3 * t for t in secs)
+        emit({"phase": "family_tick", "app": app, "k": apps[app][2], "ticks": len(ms),
+              "what": "solve + host plant step" if app in ("mppi2", "mppi4") else "controller call (solve, u_n read back)",
+              "tick_ms_median": statistics.median(ms), "tick_ms_p99": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+              **card})
+    hw_cfg = cfg_of("hw_flagship")
+    hw_timing = {}
+    for sampler in ("clt4a", "wallace"):
+        chain = lambda **kw: mppi_cuda.mppi_chain_fused(hw_cfg, hw, x_hw, zeros20, n_solves=64,  # noqa: E731
+                                                        base_seed=1, plant=True, sampler=sampler, **kw)
+        ev = median_ms(chain, reps=5, warmup=1) / 64
+        dv = device_ms(chain, reps=2, kernels=64) / 64
+
+        def wall(j):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mppi_cuda.mppi_chain_fused(hw_cfg, hw, x_hw, zeros20, n_solves=j, base_seed=1, plant=True,
+                                       sampler=sampler)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        wall(64)
+        marg = sorted((wall(320) - wall(64)) / 256 for _ in range(3))[1]
+        plain = lambda: mppi_cuda.mppi_solve_plain(hw_cfg, hw, x_hw, zeros20, seed=3, sampler=sampler)  # noqa: E731
+        plain_t = median_ms(plain, reps=3, warmup=1)
+        bnd = bound(flops_of(plain), 2 * nbytes(x_hw, zeros20) - nbytes(x_hw) + 4)
+        hw_timing[sampler] = (ev, plain_t, bnd)
+        emit({"phase": "hw_flagship_budget", "sampler": sampler, "k": k_hw, "n": 20,
+              "rollouts_per_thread": mppi_cuda.rollouts_per_thread(k_hw),
+              "device_us_per_solve": 1e3 * dv, "event_us_per_solve": 1e3 * ev, "marginal_us_per_solve": 1e6 * marg,
+              "budget_us": 1e6 * HW_BUDGET_S, "headroom": HW_BUDGET_S / marg, "plain_us_per_solve": 1e3 * plain_t,
+              "r_turns": r_turns(chain, 64), **bnd, **card})
+
+    def timed(t):
+        kern, plain_t, bnd = t
+        return {"ms": kern, "plain_ms": plain_t, "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+                "library_ms": None}
+
+    def launched(app, key):
+        return runs[app][1][key]
+
+    return [
+        {"name": "mppi_partials_kernel<40, DoubleIntegrator, Quad2> on one problem (K2, mppi2, N=40, K=8000)",
+         "route": "cuda", "source": FAMILY_SOURCES["mppi2"], "replaces": f"{PALLAS}:438",
+         "launches": launched("mppi2", "model:DoubleIntegratorQuad2"), "max_abs_err": err["mppi2"],
+         **timed(timing["mppi2"])},
+        {"name": "mppi_partials_kernel<8, CartPoleLinear, Shaped4> on one problem (K2, mppi4, K=800000)",
+         "route": "cuda", "source": FAMILY_SOURCES["mppi4"], "replaces": f"{PALLAS}:438",
+         "launches": launched("mppi4", "model:CartPoleLinearShaped4"), "max_abs_err": err["mppi4"],
+         **timed(timing["mppi4"])},
+        {"name": "mppi_partials_kernel<8, CartPoleNonlinearT, Shaped4> (K2, mppi4-non-liner-s, K=1.5M, sigma=10)",
+         "route": "cuda", "source": COMMON_SOURCE, "replaces": f"{PALLAS}:438",
+         "launches": launched("mppi4-non-liner-s", "model:CartPoleShaped4"), "max_abs_err": err["mppi4-non-liner-s"],
+         **timed(timing["mppi4-non-liner-s"])},
+        {"name": "mppi_partials_kernel<8, Flagship4, Diag4> on one problem (K2, mppi4-non-liner-ukf, K=5e5)",
+         "route": "cuda", "source": COMMON_SOURCE, "replaces": f"{PALLAS}:438",
+         "launches": launched("mppi4-non-liner-ukf", "model:Flagship4Diag4")
+         + launched("mppi4-non-liner-ukf+est", "model:Flagship4Diag4"),
+         "max_abs_err": err["mppi4-non-liner-ukf"], **timed(timing["mppi4-non-liner-ukf"])},
+        *({"name": f"mppi_partials_kernel<20, Commu4, Commu4Cost> chain, {s_} (K1, HW flagship, K=800000, "
+                   f"per solve of 64)", "route": "cuda", "source": FAMILY_SOURCES["hw_flagship"],
+           "replaces": f"{PALLAS}:1004", "launches": hw_counts[s_]["model:Commu4Cost4"],
+           "max_abs_err": err["hw_flagship"], **timed(hw_timing[s_])} for s_ in ("clt4a", "wallace")),
+    ]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU")
@@ -960,7 +1255,7 @@ def main() -> None:
           "count": torch.cuda.device_count(), "torch": torch.__version__, "cuda": torch.version.cuda})
     check(cap == (9, 0), f"compute capability {cap}, the kernels are built for sm_90a")
 
-    # 2. build: one nvcc, one library
+    # 2. build: one nvcc a source, all at once, one library
     t0 = time.perf_counter()
     so, build_s = build.build()
     build.load_library()
@@ -968,7 +1263,7 @@ def main() -> None:
     log = so.with_suffix(".log").read_text() if so.with_suffix(".log").is_file() else ""
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "library": so.name, "build_s": build_s, "build_wall_s": build_wall,
-          "horizon": mppi_cuda.HORIZON, "ptxas": ptxas})
+          "built_model_horizons": sorted(mppi_cuda.BUILT), "ptxas": ptxas})
     # the production partials instantiations' static SASS and ptxas report
     sass = sass_counts(so, Path(build.find_nvcc()).parent / "cuobjdump")
     partials_ptxas = ptxas_partials(log)
@@ -979,7 +1274,7 @@ def main() -> None:
     for ln in partials_ptxas:
         tag, used = ln.split(": ", 1)[0], re.search(r"Used (\d+) registers", ln)
         if used:
-            model_name, _, _, fast, source, rpt = tag.split("/")
+            _, model_name, _, _, fast, source, rpt = tag.split("/")
             registers[(model_name, int(fast), int(rpt), int(source))] = int(used.group(1))
     want = {(m, f, r, src): n for (m, f, r), row in PARTIALS_PTXAS.items() for src, n in enumerate(row)}
     moved = {f"{k}": (want.get(k), registers.get(k)) for k in want.keys() | registers.keys()
@@ -1226,6 +1521,7 @@ def main() -> None:
     estimator = estimator_phases(dev, card)
     diag = diag_phases(dev, card)
     ukf_fidelity_phase(dev, card)
+    family = family_phases(dev, card)
 
     emit({"kernels": [
         {"name": "mppi_partials_kernel, merged in the launch (K2, mppi_solve_fused)", "route": "cuda",
@@ -1243,6 +1539,7 @@ def main() -> None:
         *fleet,
         *estimator,
         *diag,
+        *family,
     ]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

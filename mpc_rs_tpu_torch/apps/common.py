@@ -15,9 +15,10 @@ import numpy as np
 import torch
 
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
-from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, mppi_solve_fused
+from mpc_rs_tpu_torch.ops.mppi_cuda import mppi_solve_fused
 
 DEG60 = math.radians(60.0)
+PI_2 = math.pi / 2.0
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -33,16 +34,22 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
-def make_mppi_solver(cfg: MppiConfig, model: CartPoleShaped4, device: str | torch.device):
+def make_mppi_solver(cfg: MppiConfig, model, device: str | torch.device, sampler: str | None = None):
     """solve(seed: int, x: np (S,), u_n: tensor (N,)) -> (u_n', status).
 
-    Float32 on ``device``. Each solve samples Philox noise keyed by ``seed``
-    (``ops/philox.py``), so the CPU and CUDA paths draw the same samples."""
+    ``model`` is any model the kernels are built for (``ops/mppi_cuda.py``:
+    ``MODELS`` at a horizon of ``BUILT``). Float32 on ``device``; u_n may
+    lie on the host and is moved there. Each solve samples ``sampler``'s
+    Philox noise (default box-muller, as ``mpc_rs_tpu/apps/common.py:25-61``)
+    keyed by ``seed`` (``ops/philox.py``), so the CPU and CUDA paths draw
+    the same samples."""
     device = resolve_device(device)
+    sampler = sampler or "box-muller"
 
     def solve(seed, x, u_n):
         xt = torch.as_tensor(np.asarray(x, np.float32), device=device)
-        return mppi_solve_fused(cfg, model, xt, u_n, seed=int(seed))
+        un = torch.as_tensor(u_n, dtype=torch.float32, device=device)
+        return mppi_solve_fused(cfg, model, xt, un, seed=int(seed), sampler=sampler)
 
     return solve
 

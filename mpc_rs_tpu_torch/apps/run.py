@@ -13,20 +13,44 @@ def build_parser() -> argparse.ArgumentParser:
     """One subcommand per example, each taking only the options it uses."""
     from mpc_rs_tpu_torch.ops.philox import SAMPLERS
 
-    common = argparse.ArgumentParser(add_help=False)
-    common.add_argument("--k", type=int, default=None, help="MPPI rollouts (default: reference K)")
-    common.add_argument("--t-end", type=float, default=10.0, help="sim duration [s]")
-    common.add_argument("--seed", type=int, default=0, help="PRNG seed")
-    common.add_argument("--device", default="cuda",
-                        help="torch device: cuda (fused kernels, default) or cpu (plain path)")
+    def common_options(t_end: float) -> argparse.ArgumentParser:
+        common = argparse.ArgumentParser(add_help=False)
+        common.add_argument("--k", type=int, default=None, help="MPPI rollouts (default: reference K)")
+        common.add_argument("--t-end", type=float, default=t_end, help=f"sim duration [s] (default {t_end:g})")
+        common.add_argument("--seed", type=int, default=0, help="PRNG seed")
+        common.add_argument("--device", default="cuda",
+                            help="torch device: cuda (fused kernels, default) or cpu (plain path)")
+        return common
+
+    common = common_options(10.0)
     ap = argparse.ArgumentParser(
         prog="mpc_rs_tpu_torch.apps.run",
         description="Run a reference-example workload on the PyTorch/CUDA port.",
     )
     sub = ap.add_subparsers(dest="example", required=True, metavar="example")
 
-    mppi = sub.add_parser("mppi4-non-liner", parents=[common], help="single-robot MPPI closed loop")
-    mppi.add_argument("--log-dir", default="logs", help="CSV log directory")
+    sampler = argparse.ArgumentParser(add_help=False)
+    sampler.add_argument("--sampler", choices=list(SAMPLERS), default="box-muller",
+                         help="in-kernel noise generator (default box-muller)")
+    log_dir = argparse.ArgumentParser(add_help=False)
+    log_dir.add_argument("--log-dir", default="logs", help="CSV log directory")
+
+    # examples/mppi2.rs runs 5 s
+    sub.add_parser("mppi2", parents=[common_options(5.0), sampler], help="MPPI on a double integrator (N=40)")
+    sub.add_parser("mppi4", parents=[common, log_dir, sampler], help="MPPI on the linear cart-pole")
+    sub.add_parser("mppi4-non-liner", parents=[common, log_dir], help="single-robot MPPI closed loop")
+    mppi_s = sub.add_parser("mppi4-non-liner-s", parents=[common, log_dir, sampler],
+                            help="multi-rate loop: MPPI at 10 Hz, UKF(4,3) on a delayed sensor")
+    mppi_s.add_argument("--ref-qr", action="store_true",
+                        help="the reference's hand-tuned UKF Q/R (tips within 1-2 s at 333 Hz)")
+    ukf = sub.add_parser("mppi4-non-liner-ukf", parents=[common, log_dir, sampler],
+                         help="flagship multi-rate loop: 6-state plant, UKF2(6,5), the 2 N pulse")
+    ukf.add_argument("--use-ukf-estimate", action="store_true",
+                     help="feed the controller the UKF estimate (default: the true state, DEBUG_UKF)")
+    ukf.add_argument("--ukf-alpha", type=float, default=None,
+                     help="UKF sigma-point spread α (default 1 with --use-ukf-estimate, else 1e-3)")
+    ukf.add_argument("--control-period", type=float, default=None,
+                     help="controller period [s] (default 3e-3; 0: a solve every physics tick)")
 
     fleet = sub.add_parser("fleet", parents=[common], help="scenario fleet: B closed loops per tick")
     fleet.add_argument("--model", choices=["cartpole4", "flagship6"], default="cartpole4",

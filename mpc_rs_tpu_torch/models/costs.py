@@ -1,12 +1,18 @@
 """Stage costs of the port, component-wise on tensors.
 
 Port of ``mpc_rs_tpu/models/costs.py``; the kernels carry the same costs as
-the ``Shaped4`` and ``Diag4`` device functors (``ops/csrc/mppi_common.cuh``).
+the ``Shaped4``, ``Diag4``, ``Quad2`` and ``Commu4Cost`` device functors
+(``ops/csrc/mppi_common.cuh``).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def quad2(x0, x1):
+    """x0² + x1² — examples/mppi2.rs:53."""
+    return x0 * x0 + x1 * x1
 
 
 def shaped4(x0, x1, x2, x3):
@@ -36,3 +42,11 @@ def make_diag4(c0: float, c1: float, c2: float, c3: float):
         return c0 * x0 * x0 + c1 * x1 * x1 + c2 * x2 * x2 + c3 * x3 * x3
 
     return cost
+
+
+def commu4(x0, x1, x2, x3):
+    """HW flagship cost — examples/mppi4-ukf-commu.rs:171-177.
+
+    0 + 1.2 + 3θ² + 3θ̇² (the 1.2 constant is in the reference verbatim).
+    x0 and x1 do not enter; the result takes x2's shape."""
+    return 1.2 + 3.0 * x2 * x2 + 3.0 * x3 * x3

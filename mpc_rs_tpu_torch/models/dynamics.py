@@ -10,7 +10,8 @@ The operation order and the grouping of Python-float constants are those of
 the JAX package: a leading product of floats is folded in double and meets
 the tensor once. The CUDA kernels carry the controller models as device
 functors with the same constants folded on the host
-(``ops/csrc/mppi_common.cuh``: ``CartPoleNonlinearT``, ``Flagship4``).
+(``ops/csrc/mppi_common.cuh``: ``CartPoleNonlinearT``, ``Flagship4``,
+``DoubleIntegrator``, ``CartPoleLinear``, ``Commu4``).
 
 ``fast=True`` swaps sin/cos for the polynomials of ``ops/fastmath.py`` and
 divides once, by ``fdiv``/``freciprocal``: exact division here, the hardware
@@ -29,6 +30,38 @@ def _sincos(fast: bool):
     if fast:
         return fastmath.fsincos
     return lambda th: (torch.sin(th), torch.cos(th))
+
+
+def make_double_integrator(dt: float):
+    """2-state double integrator — examples/mppi2.rs:22-27
+    (``dynamics.py:22-31``). x0 += x1*dt (old x1); x1 += u*dt."""
+
+    def step(x0, x1, u):
+        return x0 + x1 * dt, x1 + u * dt
+
+    return step
+
+
+def make_cartpole_linear(p: CartPoleParams, dt: float):
+    """Linear 4-state wheeled pendulum — examples/mppi4.rs:82-89
+    (``dynamics.py:34-54``). Sequential (semi-implicit) update: x3 from old
+    x2; x2 from *new* x3; x1 from *new* x2; x0 from *new* x1 (Rust mutates
+    in place). State: [x, dx, theta, dtheta]. The kernels carry it as the
+    ``CartPoleLinear`` functor with the same four constants."""
+    d = p.d_lin
+    a32 = p.mass_line / d * p.m2 * p.g * p.l
+    b3 = -p.m2 * p.l / d / p.r_w * p.kt
+    a12 = -p.m2 * p.m2 * p.g * p.l * p.l / d
+    b1 = (p.m2 * p.l * p.l + p.j2) / d / p.r_w * p.kt
+
+    def step(x0, x1, x2, x3, u):
+        x3 = x3 + (a32 * x2 + b3 * u) * dt
+        x2 = x2 + x3 * dt
+        x1 = x1 + (a12 * x2 + b1 * u) * dt
+        x0 = x0 + x1 * dt
+        return x0, x1, x2, x3
+
+    return step
 
 
 def make_cartpole_nonlinear(p: CartPoleParams, dt: float | None = None, *, fast: bool = False):
@@ -161,6 +194,32 @@ def make_flagship6(p: CartPoleParams):
         n1 = x1 + n2 * dt
         n0 = x0 + n1 * dt
         return n0, n1, n2, n3, n4, n5
+
+    return step
+
+
+def make_commu4(p: CartPoleParams, dt: float):
+    """4-state controller model of the HW flagship — mppi4-ukf-commu.rs:154-169
+    (``dynamics.py:270-294``). State [x, dx, theta, dtheta]; fully explicit
+    (all reads old state). The kernels carry it as the ``Commu4`` functor."""
+    d1 = p.d1_two
+    ml = p.m2 * p.l
+    mll_j2 = p.m2 * p.l * p.l + p.j2
+
+    def step(x0, x1, x2, x3, u):
+        c, s = torch.cos(x2), torch.sin(x2)
+        d = d1 - (ml * c) ** 2
+        n0 = x0 + x1 * dt
+        term1 = mll_j2 * ml / d * x3 * x3 * s
+        term2 = -(ml**2) * p.g / d * s * c
+        term3 = 2.0 * mll_j2 / (d * p.r_w) * p.kt * u
+        n1 = x1 + (term1 + term2 + term3) * dt
+        n2 = x2 + x3 * dt
+        t1 = -(ml**2) / d * x3 * x3 * s * c
+        t2 = p.m2 * p.g * p.l * p.mass_line_two / d * s
+        t3 = -2.0 * ml / (d * p.r_w) * p.kt * u * c
+        n3 = x3 + (t1 + t2 + t3) * dt
+        return n0, n1, n2, n3
 
     return step
 

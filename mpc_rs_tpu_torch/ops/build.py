@@ -1,10 +1,11 @@
-"""Build and load the port's CUDA kernels (``ops/csrc/mppi_kernels.cu`` and
-the headers it includes).
+"""Build and load the port's CUDA kernels (the sources of ``ops/csrc/`` and
+the headers they include).
 
-The source is compiled with one ``nvcc`` into a shared library with a plain
-C interface, loaded through ``ctypes``. The build runs at first use and is
-keyed by a hash of the source, its headers and the flags, so a fresh
-checkout builds once and a changed source rebuilds. Output goes to
+Each source is compiled by its own ``nvcc``, all of them at once, and the
+objects are linked into one shared library with a plain C interface,
+loaded through ``ctypes``. The build runs at first use and is keyed by a
+hash of the sources, their headers and the flags, so a fresh checkout
+builds once and a changed source rebuilds. Output goes to
 ``mpc_rs_tpu_torch/_build/``; delete that directory to force a rebuild.
 
 Nothing here runs at import time: this module imports on machines without
@@ -24,8 +25,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCE = "mppi_kernels.cu"  # K1/K2, the fleet's K5/K6 and K7, the fast-math probe, D1/D2
-HEADERS = ("mppi_common.cuh", "fastmath.cuh", "estimator_chain.cuh", "diag_kernels.cuh")
+# mppi_kernels.cu: the C entries, K1/K2 and the fleet's K5/K6 at N = 8, K7, the
+# fast-math probe, D1/D2; family_*.cu: K1/K2 of the MPPI application family,
+# one model each (mppi_launch.cuh)
+SOURCES = ("mppi_kernels.cu", "family_mppi2.cu", "family_mppi4.cu", "family_commu4.cu")
+HEADERS = ("mppi_common.cuh", "mppi_launch.cuh", "fastmath.cuh", "estimator_chain.cuh",
+           "diag_kernels.cuh")
 
 # No --use_fast_math (sinf/cosf/logf/expf and '/' stay the accurate forms;
 # the fast tier writes its polynomials and rcp.approx out in fastmath.cuh),
@@ -34,7 +39,7 @@ HEADERS = ("mppi_common.cuh", "fastmath.cuh", "estimator_chain.cuh", "diag_kerne
 # reference. sm_90a is Hopper's architecture-specific target.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -51,7 +56,7 @@ def find_nvcc() -> str:
 
 def _source_key() -> str:
     h = hashlib.sha256()
-    for f in (SOURCE, *HEADERS):
+    for f in (*SOURCES, *HEADERS):
         h.update(f.encode())
         h.update((CSRC / f).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -59,25 +64,47 @@ def _source_key() -> str:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the source if no library for its hash exists.
+    """Compile the sources if no library for their hash exists: one ``nvcc
+    -c`` a source, all started together, then one link.
 
-    Returns (library path, seconds spent compiling; 0.0 when cached). The
-    compiler's output, ptxas register and spill counts included, is kept in
-    ``_build/<library>.log``. A failed compile raises with that output.
+    Returns (library path, wall seconds spent compiling and linking; 0.0
+    when cached). The compilers' output, ptxas register and spill counts
+    included, is kept in ``_build/<library>.log``, one section a source. A
+    failed compile raises with that output.
     """
     so = BUILD_DIR / f"libmpc_kernels_{_source_key()}.so"
     if so.is_file():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCE)]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{tag}.{Path(src).stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     seconds = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    so.with_suffix(".log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)  # atomic: a concurrent loader sees the whole file or none
     return so, seconds
 
@@ -94,14 +121,14 @@ def load_library() -> ctypes.CDLL:
     so, _ = build()
     lib = ctypes.CDLL(str(so))
     lib.mpc_mppi_solve.argtypes = [
-        _P, _I, _I, _P,  # model consts, fast, sampler, sampler consts
+        _I, _P, _P, _I, _I, _P,  # model, model and cost consts, fast, sampler, sampler consts
         _I, _I, _F, _F, _F, _F, _F, _I,  # n, k, 1/lambda, inv, lo, hi, std_dev, rollouts a thread
         _P, _P, _P, _P, _I, _U, _U,  # x, u_n, noise, seeds, seed_index, base_seed, solve_word
         _P, _P, _P, _P, _P,  # partials, tickets, u_out, status, stream
     ]
     lib.mpc_mppi_solve.restype = _I
     lib.mpc_mppi_chain.argtypes = [
-        _P, _I, _I, _P,  # model consts, fast, sampler, sampler consts
+        _I, _P, _P, _I, _I, _P,  # model, model and cost consts, fast, sampler, sampler consts
         _I, _I, _F, _F, _F, _F, _F, _I,  # n, k, 1/lambda, inv, lo, hi, std_dev, rollouts a thread
         _P, _P, _P, _P, _U, _I, _I,  # x, u_n, noise, seeds, base_seed, n_solves, plant
         _P, _P, _P, _P, _P,  # partials, tickets, u0s, statuses, stream

@@ -22,7 +22,7 @@
 
 namespace mpc {
 
-constexpr int kN = 8;  // the horizon the kernels are built for
+constexpr int kN = 8;  // the main paths' horizon (the fleets, mppi4-non-liner, D1)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegBig = -3.4e38f;        // mppi_pallas.py:302
@@ -168,6 +168,88 @@ struct Flagship4 {
   }
 };
 
+// The state count S of a model: Model::kS where it declares one, else 4
+// (the four-state models, whose step takes x0..x3 one by one; a model of
+// another S steps a float (&)[S] and its cost reads one).
+template <class M, class = void>
+struct StateCount : std::integral_constant<int, 4> {};
+template <class M>
+struct StateCount<M, std::void_t<decltype(M::kS)>> : std::integral_constant<int, M::kS> {};
+template <class M>
+constexpr int kStates = StateCount<M>::value;
+
+// Double integrator of mppi2 (mpc_rs_tpu/models/dynamics.py:22-31):
+// explicit, x0 from the old x1.
+struct DoubleIntegrator {
+  static constexpr int kS = 2;
+  float dt;
+
+  __device__ __forceinline__ void step(float (&x)[2], float u) const {
+    const float n0 = x[0] + x[1] * dt;
+    const float n1 = x[1] + u * dt;
+    x[0] = n0;
+    x[1] = n1;
+  }
+};
+
+// Linear cart-pole of mppi4 (dynamics.py:34-54), sequential as the Rust
+// crate mutates in place: x3 from the old x2, x2 from the new x3, x1 from
+// the new x2, x0 from the new x1. Host folding (d = p.d_lin):
+struct CartPoleLinear {
+  float a32;  // p.mass_line / d * p.m2 * p.g * p.l
+  float b3;   // -p.m2 * p.l / d / p.r_w * p.kt
+  float a12;  // -p.m2 * p.m2 * p.g * p.l * p.l / d
+  float b1;   // (p.m2 * p.l * p.l + p.j2) / d / p.r_w * p.kt
+  float dt;
+
+  __device__ __forceinline__ void step(float& x0, float& x1, float& x2, float& x3,
+                                       float u) const {
+    x3 = x3 + (a32 * x2 + b3 * u) * dt;
+    x2 = x2 + x3 * dt;
+    x1 = x1 + (a12 * x2 + b1 * u) * dt;
+    x0 = x0 + x1 * dt;
+  }
+};
+
+// Controller model of the HW flagship (dynamics.py:270-294, make_commu4):
+// fully explicit, every component from the old state. Host folding
+// (ml = m2·l, mll_j2 = m2·l² + j2):
+struct Commu4 {
+  float d1;   // p.d1_two
+  float ml;   // ml
+  float k1;   // mll_j2 * ml
+  float k2;   // -(ml**2) * g
+  float k3;   // 2 * mll_j2
+  float r_w;  // p.r_w
+  float kt;   // p.kt
+  float k4;   // -(ml**2)
+  float k5;   // m2 * g * l * mass_line_two
+  float k6;   // -2 * ml
+  float dt;
+
+  __device__ __forceinline__ void step(float& x0, float& x1, float& x2, float& x3,
+                                       float u) const {
+    float s, c;
+    sincos_tier<false>(x2, s, c);
+    const float mc = ml * c;
+    const float d = d1 - mc * mc;
+    const float n0 = x0 + x1 * dt;
+    const float term1 = k1 / d * x3 * x3 * s;
+    const float term2 = k2 / d * s * c;
+    const float term3 = k3 / (d * r_w) * kt * u;
+    const float n1 = x1 + (term1 + term2 + term3) * dt;
+    const float n2 = x2 + x3 * dt;
+    const float t1 = k4 / d * x3 * x3 * s * c;
+    const float t2 = k5 / d * s;
+    const float t3 = k6 / (d * r_w) * kt * u * c;
+    const float n3 = x3 + (t1 + t2 + t3) * dt;
+    x0 = n0;
+    x1 = n1;
+    x2 = n2;
+    x3 = n3;
+  }
+};
+
 // Shaped cart-pole cost (mpc_rs_tpu/models/costs.py:16-27).
 struct Shaped4 {
   __device__ __forceinline__ float operator()(float x0, float x1, float x2,
@@ -189,6 +271,21 @@ struct Diag4 {
   __device__ __forceinline__ float operator()(float x0, float x1, float x2,
                                               float x3) const {
     return c0 * x0 * x0 + c1 * x1 * x1 + c2 * x2 * x2 + c3 * x3 * x3;
+  }
+};
+
+// mppi2's cost x0² + x1² (costs.py:11-13).
+struct Quad2 {
+  __device__ __forceinline__ float operator()(const float (&x)[2]) const {
+    return x[0] * x[0] + x[1] * x[1];
+  }
+};
+
+// The HW flagship's cost 1.2 + 3θ² + 3θ̇² (costs.py:40-44; the 1.2 is the
+// reference's, kept).
+struct Commu4Cost {
+  __device__ __forceinline__ float operator()(float x0, float x1, float x2, float x3) const {
+    return 1.2f + 3.0f * x2 * x2 + 3.0f * x3 * x3;
   }
 };
 
@@ -563,11 +660,14 @@ __device__ __forceinline__ float merge_rows_block(const float* rows, int nb, flo
 }
 
 // Roll one control sequence v out N steps from xb and score it: the
-// negated sum of the stage costs and of the control term u_n·inv·v.
+// negated sum of the stage costs and of the control term u_n·inv·v. A
+// four-state model steps x0..x3 one by one; another S steps an array.
 template <int N, class Model, class Cost>
 __device__ __forceinline__ float rollout_score(const Model& model, const Cost& cost,
-                                               const PartialsArgs& a, const float (&xb)[4],
+                                               const PartialsArgs& a,
+                                               const float (&xb)[kStates<Model>],
                                                const float (&un)[N], const float (&v)[N]) {
+  if constexpr (kStates<Model> == 4) {
   float x0 = xb[0], x1 = xb[1], x2 = xb[2], x3 = xb[3];
   float c_acc = 0.0f, ct = 0.0f;
 #pragma unroll
@@ -577,6 +677,19 @@ __device__ __forceinline__ float rollout_score(const Model& model, const Cost& c
     ct = ct + un[t] * a.inv * v[t];
   }
   return -c_acc - ct;
+  } else {
+    float x[kStates<Model>];
+#pragma unroll
+    for (int i = 0; i < kStates<Model>; ++i) x[i] = xb[i];
+    float c_acc = 0.0f, ct = 0.0f;
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      model.step(x, v[t]);
+      c_acc = c_acc + cost(x);
+      ct = ct + un[t] * a.inv * v[t];
+    }
+    return -c_acc - ct;
+  }
 }
 
 // What a partials launch reads and writes besides the model and the cost.
@@ -589,7 +702,7 @@ __device__ __forceinline__ float rollout_score(const Model& model, const Cost& c
 // block reads them before it draws its ticket, and the merge writes them
 // after the last ticket.
 struct PartialsIO {
-  const float* x;        // (P, 4) start states
+  const float* x;        // (P, S) start states
   const float* u_n;      // (P, N) nominals
   const float* noise;    // (P, K, N) external noise (already scaled by sigma), or null
   const int* seeds;      // (P) Philox keys, or null
@@ -601,7 +714,7 @@ struct PartialsIO {
   int* status;           // (P) MppiStatus
   int* tickets;          // (P) zeros; the merging block resets its problem's to 0
   float* u0;             // (1) or null: u_out[0][0], K1's u0 of the solve
-  float* x_plant;        // (4) or null: x itself (P = 1), K1's plant, stepped with u0
+  float* x_plant;        // (S) or null: x itself (P = 1), K1's plant, stepped with u0
 };
 
 // The end of problem b's solve, by one thread, on the merged totals: the
@@ -610,23 +723,87 @@ struct PartialsIO {
 // start state xb (x_plant is x: the step needs no second read of it).
 template <int N, class Model>
 __device__ __forceinline__ void finish_solve(const Model& model, float m_all, const float* tot,
-                                             const float (&xb)[4], const PartialsIO& io, int b) {
+                                             const float (&xb)[kStates<Model>],
+                                             const PartialsIO& io, int b) {
   float* u = io.u_out + (size_t)b * N;
   io.status[b] = status_ladder<N>(m_all, tot, u);
   if (io.u0 != nullptr) *io.u0 = u[0];
   if (io.x_plant != nullptr) {
+    if constexpr (kStates<Model> == 4) {
     float x0 = xb[0], x1 = xb[1], x2 = xb[2], x3 = xb[3];
     model.step(x0, x1, x2, x3, u[0]);
     io.x_plant[0] = x0;
     io.x_plant[1] = x1;
     io.x_plant[2] = x2;
     io.x_plant[3] = x3;
+    } else {
+      float x[kStates<Model>];
+#pragma unroll
+      for (int i = 0; i < kStates<Model>; ++i) x[i] = xb[i];
+      model.step(x, u[0]);
+#pragma unroll
+      for (int i = 0; i < kStates<Model>; ++i) io.x_plant[i] = x[i];
+    }
   }
 }
 
 // Problems of at most this many blocks are merged by one warp of their last
 // block (the other warps leave after the reductions); more, by the block.
 constexpr int kWarpMergeRows = 128;
+
+// The end of partials_body for a horizon whose N + 1 sums (s, uw) span more
+// than warp 0 (N >= 32: mppi2's N = 40): block_sums leaves sum i in thread
+// i, so they are gathered in shared memory (tot) first, and lane 0 writes
+// the row from there. Otherwise the steps of partials_body's own end: the
+// only block finishes from its sums; a block writes its row and draws the
+// problem's ticket, and the last merges the rows (one warp up to
+// kWarpMergeRows rows, else the block) and finishes the solve.
+template <int N, class Model>
+__device__ __forceinline__ void partials_end_wide(const Model& model, const PartialsArgs& a,
+                                                  const PartialsIO& io, int nb, float m_b, float s,
+                                                  const float (&xb)[kStates<Model>],
+                                                  float* red_max, float (*red_sum)[N + 1],
+                                                  float* tot) {
+  const int b = blockIdx.y;
+  if (threadIdx.x <= N) tot[threadIdx.x] = s;
+  __syncthreads();
+  if (io.u_out != nullptr && nb == 1) {  // the problem's only block: no row, no ticket
+    if (threadIdx.x == 0) finish_solve<N>(model, m_b, tot, xb, io, b);
+    return;
+  }
+  const bool block_merge = io.u_out != nullptr && nb > kWarpMergeRows;
+  if (threadIdx.x >= 32 && !block_merge) return;
+  float* rows = io.partials + (size_t)b * nb * (N + 2);
+  __shared__ int ticket;
+  if (threadIdx.x == 0) {
+    float* row = rows + (size_t)blockIdx.x * (N + 2);
+    row[0] = m_b;
+    for (int i = 0; i <= N; ++i) row[1 + i] = tot[i];
+    if (io.u_out != nullptr) {
+      ticket = cuda::atomic_ref<int, cuda::thread_scope_device>(io.tickets[b])
+                   .fetch_add(1, cuda::memory_order_acq_rel);
+    }
+  }
+  if (io.u_out == nullptr) return;
+  if (block_merge) {
+    __syncthreads();
+    if (ticket != nb - 1) return;
+    const float m_all = merge_rows_block<N>(rows, nb, a.inv_lambda, red_max, red_sum, tot);
+    if (threadIdx.x == 0) {
+      finish_solve<N>(model, m_all, tot, xb, io, b);
+      io.tickets[b] = 0;
+    }
+    return;
+  }
+  __syncwarp();
+  if (ticket != nb - 1) return;
+  float wtot[N + 1];
+  const float m_all = merge_rows_warp<N>(rows, nb, a.inv_lambda, wtot);
+  if (threadIdx.x == 0) {
+    finish_solve<N>(model, m_all, wtot, xb, io, b);
+    io.tickets[b] = 0;
+  }
+}
 
 // partials_body's policy for every MPPI solve: sample sampler S's noise in
 // tier Fast (or read the external noise) and clamp, and finish with the
@@ -670,11 +847,12 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
 
   const int b = blockIdx.y;
   const uint32_t key = io.seeds != nullptr ? (uint32_t)io.seeds[b] : io.base_seed;
-  float un[N], xb[4];
+  constexpr int kX = kStates<Model>;  // (S is the sampler)
+  float un[N], xb[kX];
 #pragma unroll
   for (int t = 0; t < N; ++t) un[t] = io.u_n[(size_t)b * N + t];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) xb[i] = io.x[(size_t)b * 4 + i];
+  for (int i = 0; i < kX; ++i) xb[i] = io.x[(size_t)b * kX + i];
 
   // the thread's rollouts one after another, in a loop that is not unrolled
   // (the code of one rollout, not R), each folded into the thread's running
@@ -729,6 +907,11 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
 
   const int nb = gridDim.x;
   __shared__ float tot[N + 1];
+  if constexpr (N >= 32) {
+    static_assert(kSolve, "a policy other than MppiSolve runs at N = kN only");
+    partials_end_wide<N>(model, a, io, nb, m_b, s, xb, red_max, red_sum, tot);
+    return;
+  }
   if (io.u_out != nullptr && nb == 1) {  // the problem's only block: no row, no ticket
     if (threadIdx.x <= N) tot[threadIdx.x] = s;
     __syncwarp();
@@ -795,23 +978,44 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   }
 }
 
-// The kernel, partials_body at R rollouts a thread. Its two definitions
-// differ only in their launch bounds. At R = 1 (small grids, where the
-// wrapper's rule takes it) they ask for 5 blocks an SM, at most 48
-// registers a thread: left to itself ptxas holds the exact tier to 40 (6
-// blocks) and spills around sinf's slow path. At R = 4 ptxas takes what it
-// needs (64-80 registers, 3-4 blocks an SM), as a minimum of one block an
-// SM would let it take far more.
+// Blocks an SM that the kernel at R = 1 asks ptxas for: 5 at the main
+// paths' N = 8 (at most 48 registers a thread). A longer horizon holds
+// N nominals, N controls and N + 1 running sums in registers (some 3N + 10
+// floats), which 48 registers cannot, so there ptxas takes what it needs
+// (71-80 registers at N = 20, 128-167 at N = 40).
+template <int N>
+constexpr int kMinBlocksR1 = N <= kN ? 5 : 1;
+
+// Blocks an SM that the kernel at R = 4 asks for past N = 8: 2 at N = 20
+// (at most 128 registers; left to itself ptxas took 123-128 for six noise
+// sources and 80 with 80 bytes of spill for box-muller), 1 at N = 40 (254).
+template <int N>
+constexpr int kMinBlocksWide = N <= 20 ? 2 : 1;
+
+// The kernel, partials_body at R rollouts a thread. Its definitions differ
+// only in their launch bounds. At R = 1 (small grids, where the wrapper's
+// rule takes it) they ask for kMinBlocksR1 blocks an SM: at N = 8 5, at most
+// 48 registers a thread: left to itself ptxas holds the exact tier to 40 (6
+// blocks) and spills around sinf's slow path. At R = 4 and N = 8 ptxas
+// takes what it needs (64-80 registers, 3-4 blocks an SM), as a minimum of
+// one block an SM would let it take far more; past N = 8, kMinBlocksWide.
 template <int N, class Model, class Cost, bool Fast, int S, int R,
           std::enable_if_t<R == 1, int> = 0>
-__global__ void __launch_bounds__(kThreads, 5)
+__global__ void __launch_bounds__(kThreads, kMinBlocksR1<N>)
 mppi_partials_kernel(Model model, Cost cost, PartialsArgs a, PartialsIO io) {
   partials_body<N, Model, Cost, Fast, S, R>(model, cost, a, io);
 }
 
 template <int N, class Model, class Cost, bool Fast, int S, int R,
-          std::enable_if_t<(R > 1), int> = 0>
+          std::enable_if_t<(R > 1 && N <= kN), int> = 0>
 __global__ void __launch_bounds__(kThreads)
+mppi_partials_kernel(Model model, Cost cost, PartialsArgs a, PartialsIO io) {
+  partials_body<N, Model, Cost, Fast, S, R>(model, cost, a, io);
+}
+
+template <int N, class Model, class Cost, bool Fast, int S, int R,
+          std::enable_if_t<(R > 1 && N > kN), int> = 0>
+__global__ void __launch_bounds__(kThreads, kMinBlocksWide<N>)
 mppi_partials_kernel(Model model, Cost cost, PartialsArgs a, PartialsIO io) {
   partials_body<N, Model, Cost, Fast, S, R>(model, cost, a, io);
 }

@@ -89,24 +89,32 @@
 // in plant mode, steps x. All launches go to the caller's stream, with no
 // host synchronisation between them.
 //
-// Instantiated for one horizon, N = kN = 8, the main paths'
-// (mpc_rs_tpu/apps/mppi_examples.py:49, apps/fleet.py); the partials kernel
-// for the two models (cart-pole + shaped4, flagship4 + diag4), the two
-// tiers, the seven noise sources (external noise and the six samplers) and
-// R = 1 and 4: 56 instantiations, K1/K2 using the cart-pole's 28. The
-// estimator chain is instantiated once per fleet model; K4's probe once per
-// function at 4 and at 1 elements a thread (14); D1's kernel (partials_body
-// with D1's policy) once per MixMode at R = 1 and 4 (16), D2's chain for
-// float and bf16 pairs at 16 and 32 values a thread.
+// The partials kernel is instantiated for each (model, N) pair a path
+// runs, each at the seven noise sources (external noise and the six
+// samplers) and R = 1 and 4. Here, at the main paths' N = kN = 8
+// (mpc_rs_tpu/apps/mppi_examples.py:49, apps/fleet.py), for the two models
+// of the fleets and of mppi4-non-liner(-s/-ukf) (cart-pole + shaped4,
+// flagship4 + diag4) in both tiers: 56 instantiations, each model's serving
+// K1/K2 and the fleet alike. The MPPI application family has one source a
+// model, the exact tier only (the JAX apps run no fast tier), 14
+// instantiations each (mppi_launch.cuh): the double integrator + quad2 at
+// N = 40 (mppi2), the linear cart-pole + shaped4 at N = 8 (mppi4), commu4 +
+// commu4 at N = 20 (the HW flagship). The estimator chain is instantiated
+// once per fleet model; K4's probe once per function at 4 and at 1 elements
+// a thread (14); D1's kernel (partials_body with D1's policy) once per
+// MixMode at R = 1 and 4 (16), D2's chain for float and bf16 pairs at 16 and
+// 32 values a thread.
 //
 // C interface (loaded with ctypes): every function returns the
-// cudaGetLastError() value after its last launch (0 on success), -1 for a
-// horizon other than kN, -2 for an unknown sampler, -3 for an unknown model
-// or function or an R other than 1 or 4, -4 for a batch the grid cannot hold.
+// cudaGetLastError() value after its last launch (0 on success), -1 when no
+// kernel is built for the (model, N, tier) asked for (the pairs in
+// launch_model; D1 and the rows' merge: N = kN only), -2 for an unknown
+// sampler, -3 for an unknown model or function or an R other than 1 or 4,
+// -4 for a batch the grid cannot hold.
 
 #include "diag_kernels.cuh"
 #include "estimator_chain.cuh"
-#include "mppi_common.cuh"
+#include "mppi_launch.cuh"
 
 namespace {
 
@@ -117,67 +125,16 @@ CartPoleNonlinearT<Fast> make_model(const float* c) {
   return CartPoleNonlinearT<Fast>{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8]};
 }
 
-// The partials kernel at R rollouts a thread, by noise source (external
-// noise or a sampler ID); returns the launch's cudaGetLastError(), or -2 for
-// an unknown source.
-template <bool Fast, int R, class Model, class Cost>
-int launch_partials_r(int source, const Model& model, const Cost& cost, const PartialsArgs& a,
-                      dim3 grid, const PartialsIO& io, cudaStream_t stream) {
-#define MPC_PARTIALS_LAUNCH(S)                                                                \
-  mppi_partials_kernel<kN, Model, Cost, Fast, S, R><<<grid, kThreads, 0, stream>>>(model, cost, a, io)
-  switch (source) {
-    case kExternal: MPC_PARTIALS_LAUNCH(kExternal); break;
-    case kBoxMuller: MPC_PARTIALS_LAUNCH(kBoxMuller); break;
-    case kClt4: MPC_PARTIALS_LAUNCH(kClt4); break;
-    case kClt4a: MPC_PARTIALS_LAUNCH(kClt4a); break;
-    case kWallace: MPC_PARTIALS_LAUNCH(kWallace); break;
-    case kClt2q: MPC_PARTIALS_LAUNCH(kClt2q); break;
-    case kBoxMullerA: MPC_PARTIALS_LAUNCH(kBoxMullerA); break;
-    default: return -2;
-  }
-#undef MPC_PARTIALS_LAUNCH
-  return (int)cudaGetLastError();
+Flagship4Consts flagship_consts(const float* m) {
+  return Flagship4Consts{m[0], m[1], m[2],  m[3],  m[4],  m[5],  m[6],  m[7], m[8],
+                         m[9], m[10], m[11], m[12], m[13], m[14], m[15], m[16]};
 }
 
-// The partials kernel on a grid of n_problems problems of ceil(K/(256 R))
-// blocks each, sampler by ID (or external noise when io.noise is not null);
-// -2 for an unknown sampler or for external noise without a noise pointer,
-// -3 for an R other than 1 or 4.
-template <bool Fast, class Model, class Cost>
-int launch_partials_grid(int sampler, int rpt, const Model& model, const Cost& cost,
-                         const PartialsArgs& a, int n_problems, const PartialsIO& io,
-                         cudaStream_t stream) {
-  if (io.noise == nullptr && sampler == kExternal) return -2;
-  const int source = io.noise != nullptr ? (int)kExternal : sampler;
-  const int per_block = kThreads * rpt;
-  const dim3 grid((a.k + per_block - 1) / per_block, n_problems);
-  if (rpt == 1) return launch_partials_r<Fast, 1>(source, model, cost, a, grid, io, stream);
-  if (rpt == 4) return launch_partials_r<Fast, 4>(source, model, cost, a, grid, io, stream);
-  return -3;
-}
-
-// J warm-started solves (K1), one launch each on one stream: solve j's
-// merge writes u_n in place (the verbatim warm start of solve j+1), u0s[j]
-// and statuses[j], and in plant mode steps x.
-template <bool Fast>
-int launch_chain(const CartPoleNonlinearT<Fast>& model, int sampler, int rpt,
-                 const PartialsArgs& a, float* x, float* u_n, const float* noise, const int* seeds,
-                 uint32_t base_seed, int n_solves, int plant, float* partials, int* tickets,
-                 float* u0s, int* statuses, cudaStream_t stream) {
-  for (int j = 0; j < n_solves; ++j) {
-    // per-solve seeds: key seeds[j], solve word 0 (a single solve with
-    // seed seeds[j] draws the same noise); scalar seed: key base_seed, word j
-    const PartialsIO io{x, u_n, noise != nullptr ? noise + (size_t)j * a.k * kN : nullptr,
-                        seeds != nullptr ? seeds + j : nullptr, base_seed,
-                        seeds != nullptr ? 0u : (uint32_t)j, partials, nullptr,
-                        u_n, statuses + j, tickets, u0s + j, plant ? x : nullptr};
-    const int err = launch_partials_grid<Fast>(sampler, rpt, model, Shaped4{}, a, 1, io, stream);
-    if (err != 0) return err;
-  }
-  return 0;
-}
-
-enum ModelId : int { kCartPoleShaped4 = 0, kFlagship4Diag4 = 1 };
+// Model IDs (ops/mppi_cuda.py: each model class's model_id).
+enum ModelId : int {
+  kCartPoleShaped4 = 0, kFlagship4Diag4 = 1, kDoubleIntegratorQuad2 = 2, kCartPoleLinearShaped4 = 3,
+  kCommu4Cost4 = 4
+};
 
 // Rows merged outside the partials launch (off the main paths: the tests,
 // and later the multi-GPU merge): one warp per scenario merges its nb rows
@@ -195,23 +152,31 @@ fleet_finalize_kernel(float inv_lambda, int n_scen, int nb, const float* __restr
   if ((threadIdx.x & 31) == 0) status[sc] = status_ladder<N>(m_all, tot, u_out + (size_t)sc * N);
 }
 
-// The n_scen scenario solves of one model: scenario b keyed seeds[b] with
-// counter word b.
+// A call of model model_id at horizon n in tier fast, on the instantiations
+// built for it: the N = kN models in both tiers here, each family model at
+// its own N in the exact tier (its source); -1 for any other (model, N,
+// tier), -3 for an unknown model.
 template <bool Fast>
-int launch_model(int model_id, const float* mc, const float* cc, int sampler, int rpt,
-                 const PartialsArgs& a, int n_scen, const PartialsIO& io, cudaStream_t stream) {
+int launch_model_tier(int model_id, int n, const SolveCall& c) {
+  const float* mc = c.model_consts;
+  const float* cc = c.cost_consts;
   if (model_id == kCartPoleShaped4) {
-    return launch_partials_grid<Fast>(sampler, rpt, make_model<Fast>(mc), Shaped4{}, a, n_scen, io,
-                                      stream);
+    return n == kN ? launch_call<kN, Fast>(make_model<Fast>(mc), Shaped4{}, c) : -1;
   }
   if (model_id == kFlagship4Diag4) {
-    const Flagship4<Fast> m{Flagship4Consts{mc[0], mc[1], mc[2], mc[3], mc[4], mc[5], mc[6],
-                                            mc[7], mc[8], mc[9], mc[10], mc[11], mc[12],
-                                            mc[13], mc[14], mc[15], mc[16]}};
-    return launch_partials_grid<Fast>(sampler, rpt, m, Diag4{cc[0], cc[1], cc[2], cc[3]}, a,
-                                      n_scen, io, stream);
+    return n == kN ? launch_call<kN, Fast>(Flagship4<Fast>{flagship_consts(mc)},
+                                           Diag4{cc[0], cc[1], cc[2], cc[3]}, c)
+                   : -1;
   }
-  return -3;
+  if (model_id < kDoubleIntegratorQuad2 || model_id > kCommu4Cost4) return -3;
+  if (Fast) return -1;
+  if (model_id == kDoubleIntegratorQuad2) return n == 40 ? launch_double_integrator_quad2(c) : -1;
+  if (model_id == kCartPoleLinearShaped4) return n == kN ? launch_cartpole_linear_shaped4(c) : -1;
+  return n == 20 ? launch_commu4(c) : -1;
+}
+
+int launch_model(int model_id, int fast, int n, const SolveCall& c) {
+  return fast ? launch_model_tier<true>(model_id, n, c) : launch_model_tier<false>(model_id, n, c);
 }
 
 enum FastmathFn : int { kFsin, kFcos, kFlog, kFrsqrt, kFsqrt, kFreciprocal, kFdiv };
@@ -316,69 +281,71 @@ extern "C" {
 // zeros, one a problem, which every launch leaves at zero; a stream's
 // launches may share them, concurrent streams may not.
 
-// One solve (K2), one launch. model_consts: 9 host floats
-// (CartPoleNonlinearT order); fast selects the tier. Device pointers: x (4),
-// u_n (N), noise (K, N) or null (then the sampler draws), seeds
+// model: 0 cart-pole + shaped4 (9 constants, CartPoleNonlinearT order;
+// N = 8, either tier), 1 flagship4 + diag4 (17 constants, Flagship4Consts
+// order, and 4 cost coefficients; N = 8, either tier), 2 double integrator
+// + quad2 (dt; N = 40, two states), 3 linear cart-pole + shaped4 (5
+// constants, CartPoleLinear order; N = 8), 4 commu4 + commu4 (11
+// constants, Commu4 order; N = 20); models 2-4 in the exact tier only.
+// cost_consts: the 4 diag4 coefficients, else unused. S below is the
+// model's state count (2 for model 2, else 4).
+
+// One solve (K2), one launch; fast selects the tier. Device pointers: x
+// (S), u_n (N), noise (K, N) or null (then the sampler draws), seeds
 // (>= seed_index+1) or null, partials (ceil(K/(256 R)), N+2) scratch,
 // tickets (1), u_out (N), status (1).
-int mpc_mppi_solve(const float* model_consts, int fast, int sampler, const float* sampler_consts,
-                   int n, int k, float inv_lambda, float inv, float lo, float hi, float std_dev,
-                   int rpt, const float* x, const float* u_n, const float* noise, const int* seeds,
-                   int seed_index, unsigned int base_seed, unsigned int solve_word,
-                   float* partials, int* tickets, float* u_out, int* status, void* stream) {
-  if (n != kN) return -1;
-  const PartialsArgs a = partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts);
+int mpc_mppi_solve(int model, const float* model_consts, const float* cost_consts, int fast,
+                   int sampler, const float* sampler_consts, int n, int k, float inv_lambda,
+                   float inv, float lo, float hi, float std_dev, int rpt, const float* x,
+                   const float* u_n, const float* noise, const int* seeds, int seed_index,
+                   unsigned int base_seed, unsigned int solve_word, float* partials, int* tickets,
+                   float* u_out, int* status, void* stream) {
   const PartialsIO io{x, u_n, noise, seeds != nullptr ? seeds + seed_index : nullptr, base_seed,
                       solve_word, partials, nullptr, u_out, status, tickets, nullptr, nullptr};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? launch_partials_grid<true>(sampler, rpt, make_model<true>(model_consts), Shaped4{},
-                                           a, 1, io, s)
-              : launch_partials_grid<false>(sampler, rpt, make_model<false>(model_consts),
-                                            Shaped4{}, a, 1, io, s);
+  const SolveCall c{model_consts, cost_consts, sampler, rpt,
+                    partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts), io, 1, 0,
+                    static_cast<cudaStream_t>(stream)};
+  return launch_model(model, fast, n, c);
 }
 
-// J warm-started solves (K1), J launches. x (4) and u_n (N) are updated in
-// place, the plant stepped by the model of the tier; noise (J, K, N) or
-// null; seeds (J) or null (then base_seed with j in the counter); tickets
-// (1); u0s (J), statuses (J).
-int mpc_mppi_chain(const float* model_consts, int fast, int sampler, const float* sampler_consts,
-                   int n, int k, float inv_lambda, float inv, float lo, float hi, float std_dev,
-                   int rpt, float* x, float* u_n, const float* noise, const int* seeds,
-                   unsigned int base_seed, int n_solves, int plant, float* partials, int* tickets,
-                   float* u0s, int* statuses, void* stream) {
-  if (n != kN) return -1;
-  const PartialsArgs a = partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? launch_chain<true>(make_model<true>(model_consts), sampler, rpt, a, x, u_n, noise,
-                                   seeds, base_seed, n_solves, plant, partials, tickets, u0s,
-                                   statuses, s)
-              : launch_chain<false>(make_model<false>(model_consts), sampler, rpt, a, x, u_n,
-                                    noise, seeds, base_seed, n_solves, plant, partials, tickets,
-                                    u0s, statuses, s);
+// J warm-started solves (K1), J launches. x (S) and u_n (N) are updated in
+// place, the plant stepped by the solve's model (of its tier); noise
+// (J, K, N) or null; seeds (J) or null (then base_seed with j in the
+// counter); tickets (1); u0s (J), statuses (J).
+int mpc_mppi_chain(int model, const float* model_consts, const float* cost_consts, int fast,
+                   int sampler, const float* sampler_consts, int n, int k, float inv_lambda,
+                   float inv, float lo, float hi, float std_dev, int rpt, float* x, float* u_n,
+                   const float* noise, const int* seeds, unsigned int base_seed, int n_solves,
+                   int plant, float* partials, int* tickets, float* u0s, int* statuses,
+                   void* stream) {
+  if (n_solves < 1) return 0;
+  const PartialsIO io{x, u_n, noise, seeds, base_seed, 0u, partials, nullptr, u_n, statuses,
+                      tickets, u0s, plant ? x : nullptr};
+  const SolveCall c{model_consts, cost_consts, sampler, rpt,
+                    partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts), io, 1,
+                    n_solves, static_cast<cudaStream_t>(stream)};
+  return launch_model(model, fast, n, c);
 }
 
-// B scenario solves, one launch. model: 0 cart-pole + shaped4 (9 model
-// constants, CartPoleNonlinearT order), 1 flagship4 + diag4 (17 constants,
-// Flagship4Consts order, and 4 cost coefficients). Device pointers:
-// x (B, 4), u_n (B, N), noise (B, K, N) or null, seeds (B) or null, partials
-// (B, ceil(K/(256 R)), N+2), noise_out (B, K, N) or null (then the sampled
-// noise is not written); u_out (B, N), or null to write the partials rows
-// only (then tickets and status are not used), status (B), tickets (B).
+// B scenario solves, one launch (the fleets: model 0 or 1 at N = 8). Device
+// pointers: x (B, S), u_n (B, N), noise (B, K, N) or null, seeds (B) or
+// null, partials (B, ceil(K/(256 R)), N+2), noise_out (B, K, N) or null
+// (then the sampled noise is not written); u_out (B, N), or null to write
+// the partials rows only (then tickets and status are not used), status
+// (B), tickets (B).
 int mpc_fleet_partials(int model, int fast, int sampler, const float* model_consts,
                        const float* cost_consts, const float* sampler_consts, int n, int n_scen,
                        int k, float inv_lambda, float inv, float lo, float hi, float std_dev,
                        int rpt, const float* x, const float* u_n, const float* noise,
                        const int* seeds, float* partials, float* noise_out, int* tickets,
                        float* u_out, int* status, void* stream) {
-  if (n != kN) return -1;
   if (n_scen < 1 || n_scen > 65535) return -4;
-  const PartialsArgs a = partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts);
   const PartialsIO io{x, u_n, noise, seeds, 0u, 0u, partials, noise_out, u_out, status, tickets,
                       nullptr, nullptr};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? launch_model<true>(model, model_consts, cost_consts, sampler, rpt, a, n_scen, io, s)
-              : launch_model<false>(model, model_consts, cost_consts, sampler, rpt, a, n_scen, io,
-                                    s);
+  const SolveCall c{model_consts, cost_consts, sampler, rpt,
+                    partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts), io, n_scen,
+                    0, static_cast<cudaStream_t>(stream)};
+  return launch_model(model, fast, n, c);
 }
 
 // The fused estimator chain (K7) of B scenarios, one tick. model: 0
@@ -407,10 +374,7 @@ int mpc_estimator_chain(int model, int n_sub, const float* plant_consts, const f
                                            u_stride, t, noise, x_out, ex_out, p_out, s);
   }
   if (model == kFlagship4Diag4 && n_sub == 1) {
-    const Flagship6Plant plant{Flagship4Consts{pc[0], pc[1], pc[2], pc[3], pc[4], pc[5], pc[6],
-                                               pc[7], pc[8], pc[9], pc[10], pc[11], pc[12],
-                                               pc[13], pc[14], pc[15], pc[16]},
-                               pc[17]};
+    const Flagship6Plant plant{flagship_consts(pc), pc[17]};
     const HxImu6 hx{oc[0], oc[1], oc[2], oc[3], oc[4]};
     return launch_estimator_chain<6, 5, 1>(plant, hx, chain_consts, n_scen, x, ex, p, u0,
                                            u_stride, t, noise, x_out, ex_out, p_out, s);

@@ -63,7 +63,7 @@ from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
 from mpc_rs_tpu_torch.ops import philox
 from mpc_rs_tpu_torch.ops.mppi_cuda import (
     BLOCK,
-    HORIZON,
+    FLEET_HORIZON,
     NEG_BIG,
     CartPoleShaped4,
     _check,
@@ -213,8 +213,8 @@ def _mode(mode: str) -> str:
 
 
 def _check_mix_config(cfg: MppiConfig, n_solves: int, ramp_block: int) -> None:
-    if cfg.n_horizon != HORIZON:
-        raise ValueError(f"no kernel for horizon N={cfg.n_horizon}; D1 is built for N={HORIZON}")
+    if cfg.n_horizon != FLEET_HORIZON:
+        raise ValueError(f"no kernel for horizon N={cfg.n_horizon}; D1 is built for N={FLEET_HORIZON}")
     if not 1 <= cfg.n_rollouts < 2**31 - 4 * BLOCK:
         raise ValueError(f"n_rollouts must be in [1, 2**31 - {4 * BLOCK}), got {cfg.n_rollouts}")
     if not cfg.lambda_ > 0.0:

@@ -24,11 +24,18 @@ solve), so a run can show that it went through the kernels; the batched
 wrappers also count their launches per sampler and in the fast tier.
 
 The kernels are specialised for the models of the apps instead of tracing
-arbitrary callables (``mppi_pallas.py:287-297``): the nonlinear cart-pole
-with ``shaped4`` (``CartPoleShaped4``, the one model of K1/K2) and the
-flagship controller model with ``diag4`` (``Flagship4Diag4``), each in the
-exact or the fast tier (``fast``). Sampling is Philox4x32-10 by the contract
-of ``ops/philox.py``, with any of its ``SAMPLERS``.
+arbitrary callables (``mppi_pallas.py:287-297``), each at the horizon its
+app runs (``BUILT``): the nonlinear cart-pole with ``shaped4``
+(``CartPoleShaped4``: mppi4-non-liner(-s), cartpole4) and the flagship
+controller model with ``diag4`` (``Flagship4Diag4``: mppi4-non-liner-ukf,
+flagship6), both at N = 8 in the exact or the fast tier (``fast``); and, in
+the exact tier, the MPPI application family's double integrator with
+``quad2`` at N = 40 (``DoubleIntegratorQuad2``: mppi2), linear cart-pole
+with ``shaped4`` at N = 8 (``CartPoleLinearShaped4``: mppi4) and the HW
+flagship's ``make_commu4`` with ``costs.commu4`` at N = 20
+(``Commu4Cost4``). K1/K2 and the scenario batch take every one of them.
+Sampling is Philox4x32-10 by the contract of ``ops/philox.py``,
+with any of its ``SAMPLERS``.
 """
 
 from __future__ import annotations
@@ -47,14 +54,19 @@ from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops import fastmath, philox
 
 BLOCK = 256  # threads per block: each group of 256 rollouts of a block
-HORIZON = 8  # the one horizon N the kernels are built for (kN in the source)
+FLEET_HORIZON = 8  # kN in the source: the fleets' and the rows' merge's N (D1's too)
+# (model_id, N) pairs mppi_partials_kernel is built for (launch_model in
+# ops/csrc/mppi_kernels.cu): the cart-pole and the flagship at N = 8 in both
+# tiers, the family's models in the exact tier at their apps' N
+BUILT = frozenset({(0, 8), (1, 8), (2, 40), (3, 8), (4, 20)})
+FAST_TIER_MODELS = frozenset({0, 1})
 NEG_BIG = -3.4e38  # score of a block with no finite rollout (mppi_pallas.py:302)
 NO_FINITE_BELOW = -3.3e38  # mppi_pallas.py:898,1022
 ROLLOUTS_PER_THREAD = (1, 4)  # the R the kernel is built for
 MIN_BLOCKS = 4 * 132  # four blocks on each of an H100's 132 SMs
 
 # Wrapper calls that launched their kernels since the last reset; CPU calls
-# do not count.
+# do not count. "model:<class>" counts the K1/K2/batch calls of each model.
 launches = {"mppi_solve_fused": 0, "mppi_chain_fused": 0, "mppi_solve_batch_fused": 0,
             "mppi_batch_partials_fused": 0, "finalize_batch_fused": 0, "fastmath_eval": 0,
             "fast_tier": 0, **{f"sampler:{name}": 0 for name in ("external", *philox.SAMPLERS)}}
@@ -69,7 +81,10 @@ def rollouts_per_thread(k: int, b: int = 1) -> int:
     """R for B problems of K rollouts: the largest of ``ROLLOUTS_PER_THREAD``
     whose grid, ceil(K/(256 R)) blocks a problem, keeps at least
     ``MIN_BLOCKS`` blocks (the reductions then run once per 256 R rollouts);
-    1 when none does, where R = 4 would leave SMs idle (K1 at K = 10 240)."""
+    1 when none does, where R = 4 would leave SMs idle (K1 at K = 10 240).
+    The same threshold past N = 8, where R = 4 holds fewer blocks an SM (2
+    at N = 20, 1 at N = 40): measured there, a grid of one short wave at
+    R = 4 loses to R = 1 (PERF.md §6)."""
     fits = [r for r in ROLLOUTS_PER_THREAD if -(-k // (BLOCK * r)) * b >= MIN_BLOCKS]
     return max(fits, default=1)
 
@@ -174,6 +189,110 @@ class Flagship4Diag4:
         return list(self.c)
 
 
+@dataclasses.dataclass(frozen=True)
+class DoubleIntegratorQuad2:
+    """``make_double_integrator(dt)`` with ``costs.quad2``: mppi2's
+    controller (examples/mppi2.rs), two states, N = 40, exact tier."""
+
+    dt: float
+    fast = False
+    n_state = 2
+    model_id = 2  # kDoubleIntegratorQuad2 in mppi_kernels.cu
+
+    @functools.cached_property
+    def step(self):
+        return dynamics.make_double_integrator(self.dt)
+
+    cost = staticmethod(costs.quad2)
+    c_constants = CartPoleShaped4.c_constants
+
+    def constants(self) -> list[float]:
+        """``DoubleIntegrator``: dt."""
+        return [self.dt]
+
+    def cost_constants(self) -> list[float]:
+        return []
+
+
+@dataclasses.dataclass(frozen=True)
+class CartPoleLinearShaped4:
+    """``make_cartpole_linear(params, dt)`` with ``costs.shaped4``: mppi4's
+    controller (examples/mppi4.rs), N = 8, exact tier."""
+
+    params: CartPoleParams
+    dt: float
+    fast = False
+    n_state = 4
+    model_id = 3  # kCartPoleLinearShaped4 in mppi_kernels.cu
+
+    @functools.cached_property
+    def step(self):
+        return dynamics.make_cartpole_linear(self.params, self.dt)
+
+    cost = staticmethod(costs.shaped4)
+    c_constants = CartPoleShaped4.c_constants
+
+    def constants(self) -> list[float]:
+        """``CartPoleLinear`` (a32, b3, a12, b1, dt), folded in double as
+        ``dynamics.py:42-45`` folds them."""
+        p = self.params
+        d = p.d_lin
+        return [p.mass_line / d * p.m2 * p.g * p.l, -p.m2 * p.l / d / p.r_w * p.kt,
+                -p.m2 * p.m2 * p.g * p.l * p.l / d, (p.m2 * p.l * p.l + p.j2) / d / p.r_w * p.kt,
+                self.dt]
+
+    def cost_constants(self) -> list[float]:
+        return []
+
+
+@dataclasses.dataclass(frozen=True)
+class Commu4Cost4:
+    """``make_commu4(params, dt)`` with ``costs.commu4``: the HW flagship's
+    controller (mppi4-ukf-commu.rs, bench.py:230-288), N = 20, exact tier."""
+
+    params: CartPoleParams
+    dt: float
+    fast = False
+    n_state = 4
+    model_id = 4  # kCommu4Cost4 in mppi_kernels.cu
+
+    @functools.cached_property
+    def step(self):
+        return dynamics.make_commu4(self.params, self.dt)
+
+    cost = staticmethod(costs.commu4)
+    c_constants = CartPoleShaped4.c_constants
+
+    def constants(self) -> list[float]:
+        """``Commu4`` (``ops/csrc/mppi_common.cuh``), folded in double as
+        ``dynamics.py:276-292`` folds them."""
+        p = self.params
+        ml = p.m2 * p.l
+        mll_j2 = p.m2 * p.l * p.l + p.j2
+        return [p.d1_two, ml, mll_j2 * ml, -(ml**2) * p.g, 2.0 * mll_j2, p.r_w, p.kt, -(ml**2),
+                p.m2 * p.g * p.l * p.mass_line_two, -2.0 * ml, self.dt]
+
+    def cost_constants(self) -> list[float]:
+        return []
+
+
+MODELS = (CartPoleShaped4, Flagship4Diag4, DoubleIntegratorQuad2, CartPoleLinearShaped4, Commu4Cost4)
+launches.update({f"model:{m.__name__}": 0 for m in MODELS})
+
+
+def check_built(model, n: int) -> None:
+    """Raise unless K1/K2 have a kernel for ``model`` at horizon ``n`` (and
+    in its tier)."""
+    if not isinstance(model, MODELS):
+        raise ValueError(f"no kernel for model {type(model).__name__}; K1/K2 are built for "
+                         f"{', '.join(m.__name__ for m in MODELS)}")
+    if (model.model_id, n) not in BUILT:
+        built = sorted(m for i, m in BUILT if i == model.model_id)
+        raise ValueError(f"no kernel for horizon N={n} with {type(model).__name__}; it is built for N={built}")
+    if model.fast and model.model_id not in FAST_TIER_MODELS:
+        raise ValueError(f"no fast-tier kernel for {type(model).__name__}")
+
+
 class ChainResult(NamedTuple):
     u0s: torch.Tensor  # (J,) first control of each solve (0 on failure)
     statuses: torch.Tensor  # (J,) int32 MppiStatus
@@ -249,7 +368,7 @@ def finalize_batch_plain(cfg: MppiConfig, partials: torch.Tensor
     return torch.where((status == MppiStatus.OK)[..., None], u_new, 0.0), status
 
 
-def solve_noise(cfg: MppiConfig, model: CartPoleShaped4, seed: int, solve: int,
+def solve_noise(cfg: MppiConfig, model, seed: int, solve: int,
                 sampler: str = "box-muller", device=None) -> torch.Tensor:
     """(K, N) float32 noise that K1/K2 sample in-kernel for one solve: key
     ``seed``, stream ``solve`` (``ops/philox.py``), the transcendentals of
@@ -258,7 +377,7 @@ def solve_noise(cfg: MppiConfig, model: CartPoleShaped4, seed: int, solve: int,
                                fast=model.fast, device=device)[0]
 
 
-def mppi_solve_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
+def mppi_solve_plain(cfg: MppiConfig, model, x: torch.Tensor,
                      u_n: torch.Tensor, *, seed: int = 0, solve: int = 0,
                      noise: torch.Tensor | None = None, sampler: str = "box-muller",
                      rollouts_per_thread: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -270,7 +389,7 @@ def mppi_solve_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                                                          rollouts_per_thread=rollouts_per_thread))
 
 
-def mppi_chain_plain(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
+def mppi_chain_plain(cfg: MppiConfig, model, x: torch.Tensor,
                      u_n: torch.Tensor, *, seeds: torch.Tensor | None = None,
                      n_solves: int | None = None, base_seed: int = 0,
                      noise: torch.Tensor | None = None, plant: bool = False,
@@ -372,18 +491,15 @@ def _launch(fn, args, what: str, tickets: torch.Tensor | None = None) -> None:
     _raise_on(err, what)
 
 
-def _kernel_args(cfg: MppiConfig, model: CartPoleShaped4, x, u_n, noise, noise_shape, sampler, rpt):
+def _kernel_args(cfg: MppiConfig, model, x, u_n, noise, noise_shape, sampler, rpt):
     """Validate for the kernel; return (library, common leading C args)."""
     device = x.device
     if device.type != "cuda":
         raise ValueError(f"the fused kernels take CPU or CUDA tensors, got {device}")
-    if not isinstance(model, CartPoleShaped4):
-        raise ValueError("the K1/K2 kernels are built for CartPoleShaped4 only (either tier)")
     if sampler not in philox.SAMPLERS:
         raise ValueError(f"sampler must be one of {philox.SAMPLERS}, got {sampler!r}")
     n, k = cfg.n_horizon, cfg.n_rollouts
-    if n != HORIZON:
-        raise ValueError(f"no kernel for horizon N={n}; the kernels are built for N={HORIZON}")
+    check_built(model, n)
     if not 1 <= k < 2**31 - 4 * BLOCK:
         raise ValueError(f"n_rollouts must be in [1, 2**31 - {4 * BLOCK}), got {k}")
     _check("x", x, (model.n_state,), torch.float32, device)
@@ -393,18 +509,19 @@ def _kernel_args(cfg: MppiConfig, model: CartPoleShaped4, x, u_n, noise, noise_s
     lib = _library()
     lo, hi = cfg.limit
     inv = cfg.std_dev ** -2.0 if cfg.control_inv is None else cfg.control_inv
-    head = (model.c_constants[0], int(model.fast), _SAMPLER_IDS[sampler], _sampler_consts(cfg.std_dev),
-            n, k, inv_lambda(cfg.lambda_), inv, lo, hi, cfg.std_dev, rpt)
+    head = (model.model_id, *model.c_constants, int(model.fast), _SAMPLER_IDS[sampler],
+            _sampler_consts(cfg.std_dev), n, k, inv_lambda(cfg.lambda_), inv, lo, hi, cfg.std_dev, rpt)
     return lib, head
 
 
-def mppi_solve_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
+def mppi_solve_fused(cfg: MppiConfig, model, x: torch.Tensor,
                      u_n: torch.Tensor, *, seed: int = 0, solve: int = 0,
                      noise: torch.Tensor | None = None, sampler: str = "box-muller",
                      rollouts_per_thread: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """One MPPI solve (K2), one launch: returns (u_n' (N,), status int32
     0-d), with the semantics of ``controllers.mppi.mppi_solve`` (zero
-    fallback on failure).
+    fallback on failure). ``model`` is one of ``MODELS`` at a horizon of
+    ``BUILT``; x (S,) and u_n (N,).
 
     ``noise``: optional (K, N) perturbations, already scaled by σ; without
     it the kernel samples ``sampler``'s Philox noise keyed by ``seed`` with
@@ -429,10 +546,11 @@ def mppi_solve_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                                      _ptr(tickets), _ptr(u_out), _ptr(status)),
                 "mppi_solve_fused", tickets)
     launches["mppi_solve_fused"] += 1
+    launches[f"model:{type(model).__name__}"] += 1
     return u_out, status
 
 
-def mppi_chain_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
+def mppi_chain_fused(cfg: MppiConfig, model, x: torch.Tensor,
                      u_n: torch.Tensor, *, seeds: torch.Tensor | None = None,
                      n_solves: int | None = None, base_seed: int = 0,
                      noise: torch.Tensor | None = None, plant: bool = False,
@@ -440,8 +558,8 @@ def mppi_chain_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                      ) -> ChainResult:
     """J receding-horizon solves (K1), one launch each, each warm-started
     verbatim from the last; with ``plant`` the state takes one step of the
-    model (of its tier) with each solve's u0 (a device-resident closed
-    loop), otherwise x is held. ``sampler``, the tier and
+    solve's model (of its tier) with each solve's u0 (a device-resident
+    closed loop, the plant of ``bench.py:255``), otherwise x is held. ``sampler``, the tier and
     ``rollouts_per_thread`` as for ``mppi_solve_fused``.
 
     Seeding: ``seeds`` (J,) int32 — solve j keys Philox with seeds[j], and
@@ -472,6 +590,7 @@ def mppi_chain_fused(cfg: MppiConfig, model: CartPoleShaped4, x: torch.Tensor,
                                      _ptr(tickets), _ptr(u0s), _ptr(statuses)),
                 "mppi_chain_fused", tickets)
     launches["mppi_chain_fused"] += 1
+    launches[f"model:{type(model).__name__}"] += 1
     return ChainResult(u0s, statuses, u_buf, x_buf)
 
 
@@ -497,8 +616,7 @@ def _batch_kernel_args(cfg: MppiConfig, model, xs, u_ns):
     if device.type != "cuda":
         raise ValueError(f"the fused kernels take CPU or CUDA tensors, got {device}")
     n, k = cfg.n_horizon, cfg.n_rollouts
-    if n != HORIZON:
-        raise ValueError(f"no kernel for horizon N={n}; the kernels are built for N={HORIZON}")
+    check_built(model, n)
     if not 1 <= k < 2**31 - 4 * BLOCK:
         raise ValueError(f"n_rollouts must be in [1, 2**31 - {4 * BLOCK}), got {k}")
     b = xs.shape[0]
@@ -550,6 +668,7 @@ def _batch(cfg: MppiConfig, model, xs, u_ns, seeds, sampler, noise, noise_out, r
                  _ptr(tickets), _ptr(u_out), _ptr(status)),
                 what, tickets)
     launches[what] += 1
+    launches[f"model:{type(model).__name__}"] += 1
     launches[f"sampler:{name}"] += 1
     launches["fast_tier"] += int(model.fast)
     return (partials, u_out, status) if merge else (partials,)
@@ -586,8 +705,8 @@ def finalize_batch_fused(cfg: MppiConfig, partials: torch.Tensor
         return finalize_batch_plain(cfg, partials)
     b, nb, width = partials.shape
     n = cfg.n_horizon
-    if n != HORIZON or width != n + 2:
-        raise ValueError(f"partials rows must be N+2 = {HORIZON + 2} wide, got {width} for N={n}")
+    if n != FLEET_HORIZON or width != n + 2:
+        raise ValueError(f"partials rows must be N+2 = {FLEET_HORIZON + 2} wide, got {width} for N={n}")
     _check("partials", partials, (b, nb, width), torch.float32, partials.device)
     u_out = torch.empty((b, n), dtype=torch.float32, device=partials.device)
     status = torch.empty(b, dtype=torch.int32, device=partials.device)

@@ -24,9 +24,18 @@ For that checkout it measures:
   box-muller and fast clt4a); the fleet's solve at B = 1024 (cartpole4:
   K = 1024 fast clt4; flagship6: K = 8192 fast clt4a) and K6's B = 8,
   K = 65 536 (exact wallace), each also as the rows-only launch
-  (``mppi_batch_partials_fused``). Where the checkout's wrappers take
+  (``mppi_batch_partials_fused``); where the checkout has the MPPI
+  application family's models, K2 at each app's reference K (mppi2: N=40,
+  K=8000; mppi4: K=800 000; mppi4-non-liner-s: K=1.5 M, σ=10;
+  mppi4-non-liner-ukf: flagship4, K=5e5) and K1 on the HW flagship
+  (``bench.py:230-288``: commu4 at N=20, K=800 000, λ=2, σ=2, ±10, the plant
+  on, clt4a and wallace), and two shapes that test the R rule past N=8
+  (N=20, K=300 000; N=40, K=160 000). Where the checkout's wrappers take
   ``rollouts_per_thread``, each shape is also measured with it forced to 1
-  and to 4, in turns with the wrapper's own choice.
+  and to 4, in turns with the wrapper's own choice;
+- the HW-flagship chain against its 0.06 s budget: µs a solve by device
+  time, by CUDA events over a chain of J, and by the host-clock marginal of
+  two chain lengths (J = 64 and 320), with the headroom.
 
 Prints one JSON line per measurement, each with ``--label`` and the card's
 ``nvidia-smi`` name and power limit, and writes them to ``--out``. Needs a
@@ -55,10 +64,13 @@ from torch.autograd import DeviceType
 N = 8
 X0 = (0.5, 0.0, 0.1, 0.0)
 KERNELS = ("mppi_partials_kernel", "mppi_finalize_kernel", "fleet_finalize_kernel")
-# mangled partials instantiation: model and tier, cost, tier, sampler ID, then
-# the rollouts per thread where the kernel has that parameter
-PARTIALS_RE = re.compile(r"mppi_partials_kernelILi8ENS_\d+(CartPoleNonlinearT|Flagship4)ILb([01])EEENS_\d+"
-                         r"(Shaped4|Diag4)ELb([01])ELi(\d+)E(?:Li(\d+)E)?")
+# mangled partials instantiation: horizon, model (and its tier where it is a
+# template), cost, tier, sampler ID, then the rollouts per thread where the
+# kernel has that parameter
+PARTIALS_RE = re.compile(r"mppi_partials_kernelILi(\d+)ENS_\d+"
+                         r"(CartPoleNonlinearT|Flagship4|DoubleIntegrator|CartPoleLinear|Commu4)(?:ILb([01])EE)?ENS_\d+"
+                         r"(Shaped4|Diag4|Quad2|Commu4Cost)ELb([01])ELi(\d+)E(?:Li(\d+)E)?")
+HW_BUDGET_S = 0.06  # the HW flagship's control budget a solve (SURVEY §6)
 PRODUCTION = {("CartPoleNonlinearT", False, 1): "cartpole_exact_box-muller (mppi4-non-liner)",
               ("CartPoleNonlinearT", True, 2): "cartpole_fast_clt4 (cartpole4)",
               ("Flagship4", True, 3): "flagship_fast_clt4a (flagship6)"}
@@ -81,10 +93,10 @@ def sass_counts(so: Path, cuobjdump: Path) -> list[dict]:
         name = func.split()[0]
         m = PARTIALS_RE.search(name)
         if m:
-            key = (m.group(1), m.group(2) == "1", int(m.group(5)))
-            if key not in PRODUCTION:
+            key = (m.group(2), m.group(5) == "1", int(m.group(6)))
+            if m.group(1) != str(N) or key not in PRODUCTION:
                 continue
-            what = PRODUCTION[key] + (f" R={m.group(6)}" if m.group(6) else "")
+            what = PRODUCTION[key] + (f" R={m.group(7)}" if m.group(7) else "")
         elif "finalize_kernel" in name:
             what = name
         else:
@@ -101,7 +113,8 @@ def sass_counts(so: Path, cuobjdump: Path) -> list[dict]:
 
 def ptxas_partials(log: str) -> list[str]:
     """ptxas's 'Used N registers' lines of the partials instantiations, each
-    with the function it reports on."""
+    with its tag N/model/model tier/cost/tier/sampler ID/R ('-' where the
+    mangled name has no such part)."""
     out, func = [], ""
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
@@ -158,6 +171,84 @@ def compare_outputs(a: str, b: str) -> dict:
             for name in ua if name in ub}
 
 
+def measure(emit, name, call, per, reps, ev_reps, variants) -> None:
+    """Device µs by kernel, kernels a call and CUDA-event µs of ``call``
+    at each R variant, in turns (variants, then the same reversed), per
+    measured unit (``per`` calls)."""
+    for turn, kw in enumerate([*variants, *reversed(variants)]):
+        by_kernel, launches = device_us(lambda: call(**kw), reps)
+        emit({"phase": "time", "path": name, "rpt": kw.get("rollouts_per_thread", "wrapper"), "turn": turn,
+              "device_us": {k: v / per for k, v in by_kernel.items()},
+              "device_us_total": sum(by_kernel.values()) / per, "kernels_per_call": launches,
+              "event_us": event_us(lambda: call(**kw), ev_reps) / per})
+
+
+def hw_flagship(mppi_cuda, MppiConfig, CartPoleParams, dev):
+    """(model, config, x0) of the HW flagship (bench.py:230-288): two-wheel
+    parameters, commu4 + costs.commu4, N=20, K=800 000, λ=2, σ=2, ±10,
+    x0 = [0, 0, 0.1, 0]."""
+    cfg = MppiConfig(n_horizon=20, n_rollouts=800_000, lambda_=2.0, std_dev=2.0, limit=(-10.0, 10.0))
+    return mppi_cuda.Commu4Cost4(CartPoleParams.two_wheel(), 0.05), cfg, torch.tensor((0.0, 0.0, 0.1, 0.0), device=dev)
+
+
+def family_cases(mppi_cuda, MppiConfig, CartPoleParams, dev, jj) -> dict:
+    """The family's K2 at each app's reference shape and the HW-flagship
+    K1 chain, where the checkout has the family's models; else {}."""
+    if not hasattr(mppi_cuda, "Commu4Cost4"):
+        return {}
+    sw, tw = CartPoleParams.single_wheel(), CartPoleParams.two_wheel()
+
+    def k2(model, n, k, lam, sd, lim, x0, sampler="box-muller", **kw):
+        cfg = MppiConfig(n_horizon=n, n_rollouts=k, lambda_=lam, std_dev=sd, limit=(-lim, lim), **kw)
+        x, u = torch.tensor(x0, device=dev), torch.zeros(n, device=dev)
+        return lambda **r: mppi_cuda.mppi_solve_fused(cfg, model, x, u, seed=3, sampler=sampler, **r)
+
+    hw, hw_cfg, hw_x = hw_flagship(mppi_cuda, MppiConfig, CartPoleParams, dev)
+    out = {
+        "K2 mppi2 N=40 K=8000 exact box-muller": (
+            k2(mppi_cuda.DoubleIntegratorQuad2(0.05), 40, 8000, 2.5, 1.0, 3.0, (1.0, 0.0), control_inv=2.5), 1, 20, 50),
+        "K2 mppi4 K=800000 exact box-muller": (
+            k2(mppi_cuda.CartPoleLinearShaped4(sw, 0.1), 8, 800_000, 0.5, 3.0, 20.0, X0), 1, 20, 50),
+        "K2 mppi4-non-liner-s K=1500000 sigma=10 exact box-muller": (
+            k2(mppi_cuda.CartPoleShaped4(sw, 0.1), 8, 1_500_000, 0.5, 10.0, 10.0, (0.0, 0.0, 0.01, 0.0)), 1, 20, 50),
+        "K2 mppi4-non-liner-ukf flagship4 K=500000 exact box-muller": (
+            k2(mppi_cuda.Flagship4Diag4(tw, 0.15), 8, 500_000, 1.4, 4.0, 10.0, (0.0, 0.0, 0.05, 0.0)), 1, 20, 50),
+    }
+    # the R rule past N = 8, where R = 4 holds 2 (N=20) and 1 (N=40) blocks
+    # an SM: grids of 293 and 157 blocks at R = 4, under the rule's 528
+    out["K2 HW flagship N=20 K=300000 exact clt4a (R rule)"] = (
+        k2(hw, 20, 300_000, 2.0, 2.0, 10.0, (0.0, 0.0, 0.1, 0.0), sampler="clt4a"), 1, 20, 50)
+    out["K2 mppi2 N=40 K=160000 exact box-muller (R rule)"] = (
+        k2(mppi_cuda.DoubleIntegratorQuad2(0.05), 40, 160_000, 2.5, 1.0, 3.0, (1.0, 0.0), control_inv=2.5), 1, 20, 50)
+    for s in ("clt4a", "wallace"):
+        out[f"K1 HW flagship N=20 K=800000 {s} plant (per solve of {jj})"] = (
+            (lambda s=s, **kw: mppi_cuda.mppi_chain_fused(hw_cfg, hw, hw_x, torch.zeros(20, device=dev), n_solves=jj,
+                                                          base_seed=1, plant=True, sampler=s, **kw)), jj, 3, 5)
+    return out
+
+
+def hw_budget(emit, mppi_cuda, MppiConfig, CartPoleParams, dev) -> None:
+    """µs a solve of the HW-flagship chain (plant on) by the host-clock
+    marginal of two chain lengths, J = 64 and 320, three turns each, beside
+    the 0.06 s budget; the device and event µs are the K1 rows above."""
+    hw, cfg, x = hw_flagship(mppi_cuda, MppiConfig, CartPoleParams, dev)
+    for s in ("clt4a", "wallace"):
+        def wall(j):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mppi_cuda.mppi_chain_fused(cfg, hw, x, torch.zeros(20, device=dev), n_solves=j, base_seed=1,
+                                       plant=True, sampler=s)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        wall(64)
+        marg = [(wall(320) - wall(64)) / 256 for _ in range(3)]
+        us = sorted(marg)[1] * 1e6
+        emit({"phase": "hw_flagship_budget", "sampler": s, "marginal_us_per_solve": us,
+              "marginal_us_turns": [m * 1e6 for m in marg], "budget_us": HW_BUDGET_S * 1e6,
+              "headroom": HW_BUDGET_S * 1e6 / us})
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
@@ -165,6 +256,8 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--out", default="logs/profile_partials/profile_partials.jsonl")
     ap.add_argument("--u-out", default=None, help="save every path's outputs at each R to this file")
     ap.add_argument("--compare-u", nargs=2, metavar=("A", "B"), help="compare two --u-out files and exit")
+    ap.add_argument("--hw-only", action="store_true",
+                    help="build, then measure the HW-flagship chain and the family's K2 paths only")
     args = ap.parse_args(argv)
     if args.compare_u:
         same = compare_outputs(*args.compare_u)
@@ -220,6 +313,12 @@ def main(argv=None) -> list[dict]:
         return call
 
     jj = 64
+    family = family_cases(mppi_cuda, MppiConfig, CartPoleParams, dev, jj)
+    if args.hw_only:
+        for name, (call, per, reps, ev_reps) in family.items():
+            measure(emit, name, call, per, reps, ev_reps, ({}, {"rollouts_per_thread": 1}, {"rollouts_per_thread": 4}))
+        hw_budget(emit, mppi_cuda, MppiConfig, CartPoleParams, dev)
+        return lines
     cases = {  # name: (call, calls per measured unit, reps for the profiler, reps for events)
         "K2 K=800000 exact box-muller": (
             lambda **kw: mppi_cuda.mppi_solve_fused(k2cfg(800_000), cart[False], x, u0, seed=3, **kw), 1, 20, 50),
@@ -231,6 +330,7 @@ def main(argv=None) -> list[dict]:
         "K5 flagship6 B=1024 K=8192 fast clt4a": (fleet_case("flagship6", 1024, 8192, True, "clt4a"), 1, 10, 30),
         "K6 cartpole B=8 K=65536 exact wallace": (fleet_case("cartpole4", 8, 65_536, False, "wallace"), 1, 20, 50),
     }
+    cases.update(family)
     # the partials launch without its merge (rows only), at the fleet shapes
     for name in [n for n in cases if n.startswith(("K5", "K6"))]:
         call = cases[name][0]
@@ -248,12 +348,9 @@ def main(argv=None) -> list[dict]:
         torch.save(outs, args.u_out)
         emit({"phase": "outputs", "file": args.u_out, "paths": len(outs)})
     for name, (call, per, reps, ev_reps) in cases.items():
-        for turn, kw in enumerate([*variants, *reversed(variants)]):
-            by_kernel, launches = device_us(lambda: call(**kw), reps)
-            emit({"phase": "time", "path": name, "rpt": kw.get("rollouts_per_thread", "wrapper"), "turn": turn,
-                  "device_us": {k: v / per for k, v in by_kernel.items()},
-                  "device_us_total": sum(by_kernel.values()) / per, "kernels_per_call": launches,
-                  "event_us": event_us(lambda: call(**kw), ev_reps) / per})
+        measure(emit, name, call, per, reps, ev_reps, variants)
+    if family:
+        hw_budget(emit, mppi_cuda, MppiConfig, CartPoleParams, dev)
     torch.cuda.synchronize()
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in lines))

@@ -247,8 +247,9 @@ def test_cuda_batch_failure_probes(card):
     u, st = mppi_cuda.mppi_solve_batch_fused(lam0, CART_FAST, torch.tensor([X0] * 8, device=card),
                                              torch.zeros(8, N, device=card), seeds=seeds, sampler="clt4")
     assert (st == MppiStatus.INVALID_U).all() and torch.equal(u.cpu(), torch.zeros(8, N))
-    with pytest.raises(ValueError, match="CartPoleShaped4 only"):
-        mppi_solve_fused(_cfg(256), FLAG, torch.tensor(X0, device=card), torch.zeros(N, device=card))
+    # K1/K2 take the flagship at N = 8 (mppi4-non-liner-ukf's solve); no other N
+    with pytest.raises(ValueError, match="no kernel for horizon N=20"):
+        mppi_solve_fused(_cfg(256, n=20), FLAG, torch.tensor(X0, device=card), torch.zeros(20, device=card))
 
 
 @pytest.mark.cuda
@@ -584,3 +585,94 @@ def test_cuda_d2_fma_chain_bit_for_bit(card, dtype, rows):
     assert torch.equal(got, diag_cuda.fma_chain_plain(x, 256))
     with pytest.raises(ValueError, match="tiles"):
         diag_cuda.fma_chain_fused(torch.zeros((16, 128), dtype=dtype, device=card), 256, 1)
+
+
+# --------------------------------------------------------------------------
+# the MPPI application family: K1/K2 at each app's model and horizon
+
+_SW, _TW = CartPoleParams.single_wheel(), CartPoleParams.two_wheel()
+# app: (model, N, λ, σ, limit, x0, control_inv)
+FAMILY = {
+    "mppi2": (mppi_cuda.DoubleIntegratorQuad2(0.05), 40, 2.5, 1.0, 3.0, (1.0, 0.0), 2.5),
+    "mppi4": (mppi_cuda.CartPoleLinearShaped4(_SW, 0.1), 8, 0.5, 3.0, 20.0, X0, None),
+    "hw_flagship": (mppi_cuda.Commu4Cost4(_TW, 0.05), 20, 2.0, 2.0, 10.0, (0.0, 0.0, 0.1, 0.0), None),
+    "flagship_k2": (Flagship4Diag4(_TW, 0.15), 8, 50.0, 4.0, 10.0, (0.0, 0.0, 0.05, 0.0), None),
+}
+
+
+def _family(app, k, lam=None):
+    m, n, lam0, sd, lim, x0, inv = FAMILY[app]
+    cfg = MppiConfig(n_horizon=n, n_rollouts=k, lambda_=lam0 if lam is None else lam, std_dev=sd,
+                     limit=(-lim, lim), control_inv=inv)
+    return m, n, cfg, x0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpt", [1, 4])
+@pytest.mark.parametrize("k", [1000, 40_000])  # one block, and 157 blocks at R = 1 (the block's merge)
+@pytest.mark.parametrize("app", list(FAMILY))
+def test_cuda_family_k2_matches_plain(card, app, k, rpt):
+    m, n, cfg, x0 = _family(app, k)
+    rng = np.random.default_rng(k + n)
+    noise = torch.tensor(cfg.std_dev * rng.standard_normal((k, n)), dtype=torch.float32, device=card)
+    u_n = torch.tensor(0.3 * rng.standard_normal(n), dtype=torch.float32, device=card)
+    x = torch.tensor(x0, dtype=torch.float32, device=card)
+    got_u, got_st = mppi_solve_fused(cfg, m, x, u_n, noise=noise, rollouts_per_thread=rpt)
+    want_u, want_st = mppi_cuda.mppi_solve_plain(cfg, m, x.double(), u_n.double(), noise=noise.double(),
+                                                 rollouts_per_thread=rpt)
+    assert int(got_st) == int(want_st) == 0
+    np.testing.assert_allclose(got_u.cpu().numpy(), want_u.cpu().numpy(), **F32_BAND)
+    rows = mppi_cuda.mppi_batch_partials_fused(cfg, m, x[None], u_n[None], noise=noise[None],
+                                               rollouts_per_thread=rpt)
+    want_rows = mppi_cuda.mppi_batch_partials_plain(cfg, m, x[None].double(), u_n[None].double(),
+                                                    noise[None].double(), rollouts_per_thread=rpt)
+    assert rows.shape == want_rows.shape == (1, -(-k // (256 * rpt)), n + 2)
+    got_fin = mppi_cuda.finalize_batch_plain(cfg, rows.double())[0]
+    np.testing.assert_allclose(got_fin.cpu().numpy(), want_u.cpu().numpy()[None], **F32_BAND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", philox.SAMPLERS)
+@pytest.mark.parametrize("app", ["mppi2", "hw_flagship"])
+def test_cuda_family_sampler_words_at_long_horizons(card, app, sampler):
+    """The in-kernel noise at N=40 and N=20 is ops/philox.py's, and the
+    sampled solve is the plain solve fed it."""
+    m, n, cfg, x0 = _family(app, 3001)
+    x, u_n = torch.tensor(x0, dtype=torch.float32, device=card), torch.zeros(n, device=card)
+    out = torch.empty((1, 3001, n), device=card)
+    mppi_cuda.mppi_batch_partials_fused(cfg, m, x[None], u_n[None], sampler=sampler, noise_out=out,
+                                        seeds=torch.tensor([7], dtype=torch.int32, device=card))
+    words = mppi_cuda.solve_noise(cfg, m, 7, 0, sampler, device=card)
+    if sampler in ("clt4", "clt4a", "clt2q"):
+        assert torch.equal(out[0], words)
+    np.testing.assert_allclose(out[0].cpu().numpy(), words.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    got_u, got_st = mppi_solve_fused(cfg, m, x, u_n, seed=7, sampler=sampler)
+    want_u, _ = mppi_cuda.mppi_solve_plain(cfg, m, x.double(), u_n.double(), noise=words.double())
+    assert int(got_st) == 0
+    np.testing.assert_allclose(got_u.cpu().numpy(), want_u.cpu().numpy(), **F32_BAND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["mppi2", "hw_flagship", "flagship_k2"])
+def test_cuda_family_plant_chain_matches_plain(card, app):
+    """K1 in plant mode steps the solve's model (two states for mppi2), at
+    a λ where the chain is well conditioned, against the float64 plain
+    chain."""
+    m, n, cfg, x0 = _family(app, 20_000, lam=200.0)
+    x = torch.tensor(x0, dtype=torch.float32, device=card)
+    chain = mppi_chain_fused(cfg, m, x, torch.zeros(n, device=card), n_solves=6, base_seed=4, plant=True,
+                             sampler="wallace")
+    plain = mppi_cuda.mppi_chain_plain(cfg, m, x.double(), torch.zeros(n, dtype=torch.float64, device=card),
+                                       n_solves=6, base_seed=4, plant=True, sampler="wallace")
+    assert chain.statuses.tolist() == plain.statuses.tolist() == [0] * 6 and chain.x.shape == (len(x0),)
+    for a, b in ((chain.u0s, plain.u0s), (chain.u_n, plain.u_n), (chain.x, plain.x)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **F32_BAND)
+    assert bool((mppi_cuda.merge_tickets(card, 1) == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_family_unbuilt_pairs_raise(card):
+    m, n, cfg, x0 = _family("mppi2", 256)
+    x = torch.tensor(x0, dtype=torch.float32, device=card)
+    with pytest.raises(ValueError, match="no kernel for horizon N=8"):
+        mppi_solve_fused(_cfg(256), m, x, torch.zeros(N, device=card))
