@@ -50,6 +50,17 @@ settings and pass rules, the HW chain (N = 20, K = 800 000, the plant on,
 clt4a and wallace) as a main path; each app's tick at its reference K and
 the HW chain's µs a solve against its 0.06 s budget are printed.
 
+The hardware-in-the-loop layer runs against fake MCUs behind PTYs: the
+native COBS codec (loaded, never rebuilt in place) against the Python codec
+on 1 000 seeded payloads; the cart-pole's partials kernel at serve's
+plan-streaming N = 40 (single solve and the batch of 8 robots at K = 8192,
+every noise source at R = 1 and 4) against its float64 plain version, with
+its ptxas registers and no spill; and, through the CLI entry, ``uart``,
+``mppi4-commu`` (K = 800 000), ``mppi4-ukf-commu`` (K = 800 000, N = 20,
+the filter in float32 and in float64) and ``serve`` (8 robots, K = 8192:
+M = 1 at depth 0 and 2, M = 4 at depth 1, which is N = 40), each solve or
+dispatch one counted launch.
+
 It prints one JSON line per phase, then the kernels line, the ``nvidia-smi``
 name and power limit, and last the line ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; so does a machine without CUDA, or a
@@ -86,28 +97,31 @@ PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data shee
 PEAK_HBM = 3.35e12  # bytes/s, H100 SXM HBM3
 PEAK_BF16 = 2 * PEAK_FP32  # FLOP/s, H100 SXM bf16 outside the tensor cores (Programming Guide, cc 9.0)
 CLT_FAMILY_SPREAD = 0.02  # cltone/cltbig/cltreg launch clt's kernel: their D1 times agree this closely
-# ptxas registers of the partials instantiations, by (model, fast tier, R):
+# ptxas registers of the partials instantiations, by (model, N, fast tier, R):
 # one per noise source (external, box-muller, clt4, clt4a, wallace, clt2q,
 # box-muller-a), each with no spill; what CUDA 12.8's ptxas made of them on
 # the H100 machine (runtime/profile_partials.py's build report): the main
 # paths' 56 at N = 8 before D1 shared their body, and the MPPI application
 # family's 42 (linear cart-pole at N = 8, commu4 at N = 20, the double
-# integrator at N = 40) as they were built first. The build must keep them.
+# integrator at N = 40) as they were built first, and serve's cart-pole at
+# N = 40 (family_serve.cu) as it was built first. The build must keep them.
 PARTIALS_PTXAS = {
-    ("CartPoleNonlinearT", 0, 1): (44, 46, 46, 44, 45, 45, 45),
-    ("CartPoleNonlinearT", 0, 4): (64, 64, 64, 64, 64, 64, 64),
-    ("CartPoleNonlinearT", 1, 1): (46, 45, 45, 45, 45, 45, 45),
-    ("CartPoleNonlinearT", 1, 4): (64, 72, 64, 73, 75, 76, 73),
-    ("Flagship4", 0, 1): (46, 45, 45, 45, 45, 45, 45),
-    ("Flagship4", 0, 4): (64, 64, 64, 64, 64, 64, 64),
-    ("Flagship4", 1, 1): (48, 48, 48, 48, 48, 48, 48),
-    ("Flagship4", 1, 4): (64, 64, 64, 64, 64, 64, 64),
-    ("CartPoleLinear", 0, 1): (47, 48, 45, 48, 48, 44, 48),
-    ("CartPoleLinear", 0, 4): (58, 64, 56, 59, 60, 56, 64),
-    ("Commu4", 0, 1): (71, 80, 72, 80, 72, 72, 80),
-    ("Commu4", 0, 4): (123, 128, 128, 127, 128, 128, 127),
-    ("DoubleIntegrator", 0, 1): (127, 135, 134, 141, 130, 134, 167),
-    ("DoubleIntegrator", 0, 4): (255, 244, 254, 254, 254, 254, 254),
+    ("CartPoleNonlinearT", 8, 0, 1): (44, 46, 46, 44, 45, 45, 45),
+    ("CartPoleNonlinearT", 8, 0, 4): (64, 64, 64, 64, 64, 64, 64),
+    ("CartPoleNonlinearT", 8, 1, 1): (46, 45, 45, 45, 45, 45, 45),
+    ("CartPoleNonlinearT", 8, 1, 4): (64, 72, 64, 73, 75, 76, 73),
+    ("Flagship4", 8, 0, 1): (46, 45, 45, 45, 45, 45, 45),
+    ("Flagship4", 8, 0, 4): (64, 64, 64, 64, 64, 64, 64),
+    ("Flagship4", 8, 1, 1): (48, 48, 48, 48, 48, 48, 48),
+    ("Flagship4", 8, 1, 4): (64, 64, 64, 64, 64, 64, 64),
+    ("CartPoleLinear", 8, 0, 1): (47, 48, 45, 48, 48, 44, 48),
+    ("CartPoleLinear", 8, 0, 4): (58, 64, 56, 59, 60, 56, 64),
+    ("Commu4", 20, 0, 1): (71, 80, 72, 80, 72, 72, 80),
+    ("Commu4", 20, 0, 4): (123, 128, 128, 127, 128, 128, 127),
+    ("DoubleIntegrator", 40, 0, 1): (127, 135, 134, 141, 130, 134, 167),
+    ("DoubleIntegrator", 40, 0, 4): (255, 244, 254, 254, 254, 254, 254),
+    ("CartPoleNonlinearT", 40, 0, 1): (108, 148, 127, 156, 141, 127, 143),
+    ("CartPoleNonlinearT", 40, 0, 4): (255, 254, 254, 254, 250, 254, 255),
 }
 # flagship6's float32 filter is ill-conditioned in a few x̂ entries at B >= 1 000:
 # two float32 evaluations in one order of operations differ past the band
@@ -1223,6 +1237,243 @@ def family_phases(dev: torch.device, card: dict) -> list[dict]:
     ]
 
 
+SERVE_SOURCE = "mpc_rs_tpu_torch/ops/csrc/family_serve.cu"  # the cart-pole at serve's N = 40
+NATIVE_FILES = ("native/mpcio.cpp", "native/libmpcio.so", "native/libmpcio.so.src.sha256")
+
+
+def native_digests() -> dict:
+    import hashlib
+
+    return {f: hashlib.sha256(Path(f).read_bytes()).hexdigest() for f in NATIVE_FILES if Path(f).is_file()}
+
+
+def ms_quantiles(seconds) -> dict:
+    ms = sorted(1e3 * t for t in seconds)
+    check(bool(ms), "no timed calls")
+    return {"median_ms": statistics.median(ms), "p99_ms": ms[min(len(ms) - 1, int(0.99 * len(ms)))]}
+
+
+def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
+    """The hardware-in-the-loop layer and the serve bridge: the native COBS
+    codec against the Python one; the cart-pole's partials kernel at serve's
+    plan-streaming N = 40 (single solve and the B = 8 batch, every noise
+    source at R = 1 and 4) against its float64 plain version, its samplers'
+    words against ``ops/philox.py``, its ptxas registers and spill; and, as
+    main paths through the CLI entry (counts reset before each, read
+    after), ``uart``, ``mppi4-commu`` (K = 800 000), ``mppi4-ukf-commu``
+    (K = 800 000, N = 20) and ``serve`` (8 robots, K = 8192; M = 1 at
+    depth 0 and 2, M = 4 at depth 1, which is N = 40), each against a fake
+    MCU behind a PTY. ``native/`` must be the same bytes after. Returns the
+    kernels line's entries."""
+    import numpy as np
+
+    from mpc_rs_tpu_torch.apps import run as cli
+    from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
+    from mpc_rs_tpu_torch.io import cobs
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+    from mpc_rs_tpu_torch.ops import mppi_cuda, philox
+    from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4
+    from mpc_rs_tpu_torch.runtime.profile_partials import ptxas_partials
+
+    native_before = native_digests()
+    # H1. the native codec, loaded (never rebuilt in place), against the
+    # Python codec on seeded payloads of 0-600 bytes, some with runs of 254+
+    # non-zero bytes (the 0xFF code)
+    t0 = time.perf_counter()
+    native = cobs.native_library()
+    check(native is not None, "the native mpcio library did not load")
+    rng = np.random.default_rng(2024)
+    total = 0
+    for i in range(1000):
+        payload = rng.integers(0, 256, int(rng.integers(0, 601)), dtype=np.uint8)
+        if i % 3 == 0 and payload.size:  # a run of non-zero bytes
+            a = int(rng.integers(0, payload.size))
+            payload[a:a + int(rng.integers(200, 400))] |= 1
+        payload = payload.tobytes()
+        enc = cobs.cobs_encode(payload, use_native=True)
+        check(enc == cobs._py_cobs_encode(payload), f"COBS encode: native and Python differ on payload {i}")
+        check(cobs.cobs_decode(enc, use_native=True) == payload == cobs._py_cobs_decode(enc),
+              f"COBS decode of payload {i}")
+        total += len(payload)
+    emit({"phase": "hil_io", "library": str(native.path), "built": native.built, "payloads": 1000,
+          "payload_bytes": total, "seconds": time.perf_counter() - t0})
+
+    # H2. the partials kernel on the cart-pole at N = 40 (family_serve.cu):
+    # K2 on one problem and the batch of serve's 8 robots at K = 8192, each
+    # noise source at R = 1 and 4, against the float64 plain version at
+    # λ = 20, where the f32 solve is well conditioned; at serve's λ = 0.5
+    # against twice the plain f32 version's own distance from float64
+    n, k, b = 40, 8192, 8
+    m40 = CartPoleShaped4(CartPoleParams.single_wheel(), 0.01)
+
+    def cfg40(lam, kk=k):
+        return MppiConfig(n_horizon=n, n_rollouts=kk, lambda_=lam, std_dev=3.0, limit=(-20.0, 20.0))
+
+    def batch_plain(cfg, xs, u_ns, noise, dtype, rpt=None):
+        parts = mppi_cuda.mppi_batch_partials_plain(cfg, m40, xs.to(dtype), u_ns.to(dtype), noise.to(dtype),
+                                                    rollouts_per_thread=rpt)
+        return mppi_cuda.finalize_batch_plain(cfg, parts)
+
+    gen = torch.Generator(device=dev).manual_seed(940)
+    xs = torch.zeros((b, 4), device=dev)
+    xs[:, 2] = 0.2 * torch.rand(b, generator=gen, device=dev) - 0.1
+    xs[:, 3] = 0.4 * torch.rand(b, generator=gen, device=dev) - 0.2
+    u_ns = 0.3 * torch.randn((b, n), generator=gen, device=dev)
+    seeds = torch.arange(b, dtype=torch.int32, device=dev) * 31 + 5
+    n40_err, rows = 0.0, []
+    for source in ("external", *philox.SAMPLERS):
+        for rpt in (1, 4):
+            cfg = cfg40(20.0)
+            if source == "external":
+                noise = 3.0 * torch.randn((b, k, n), generator=gen, device=dev)
+                got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, m40, xs, u_ns, noise=noise,
+                                                                 rollouts_per_thread=rpt)
+                one_u, one_st = mppi_cuda.mppi_solve_fused(cfg, m40, xs[0], u_ns[0], noise=noise[0],
+                                                           rollouts_per_thread=rpt)
+            else:
+                noise = torch.empty((b, k, n), device=dev)
+                got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, m40, xs, u_ns, seeds=seeds, sampler=source,
+                                                                 noise_out=noise, rollouts_per_thread=rpt)
+                words = mppi_cuda.batch_noise(cfg, m40, seeds, source)
+                noise_err = max_err(noise, words)
+                check(torch.equal(noise, words) if source in ("clt4", "clt4a", "clt2q") else noise_err < 1e-4,
+                      f"N=40 {source} R={rpt}: kernel noise vs ops/philox.py words {noise_err}")
+                one_u, one_st = mppi_cuda.mppi_solve_fused(cfg, m40, xs[0], u_ns[0], seed=int(seeds[0]),
+                                                           sampler=source, rollouts_per_thread=rpt)
+                check(torch.equal(mppi_cuda.solve_noise(cfg, m40, int(seeds[0]), 0, source, device=dev),
+                                  mppi_cuda.batch_noise(cfg, m40, seeds[:1], source)[0]),
+                      f"N=40 {source}: a single solve's words are not robot 0's")
+            want_u, want_st = batch_plain(cfg, xs, u_ns, noise, torch.float64, rpt)
+            check(bool((got_st == 0).all()) and bool((want_st == 0).all()) and int(one_st) == 0,
+                  f"N=40 {source} R={rpt} statuses {got_st.tolist()} / {want_st.tolist()} / {int(one_st)}")
+            e = max(check_band(got_u, want_u, f"N=40 batch {source} R={rpt} vs plain"),
+                    check_band(one_u, want_u[0], f"N=40 K2 {source} R={rpt} vs plain"))
+            n40_err = max(n40_err, e)
+            rows.append({"source": source, "rollouts_per_thread": rpt, "max_abs_err": e})
+    cfg_app = cfg40(0.5)
+    got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg_app, m40, xs, u_ns, seeds=seeds, sampler="box-muller")
+    words = mppi_cuda.batch_noise(cfg_app, m40, seeds, "box-muller")
+    want_u, want_st = batch_plain(cfg_app, xs, u_ns, words, torch.float64)
+    own = max_err(batch_plain(cfg_app, xs, u_ns, words, torch.float32)[0], want_u)
+    app_err = max_err(got_u, want_u)
+    check(bool((got_st == 0).all()) and app_err <= 2 * own + F32_BAND["atol"],
+          f"N=40 at serve's λ=0.5: {app_err} against twice the plain f32 distance {own}")
+    tickets_zero = bool((mppi_cuda.merge_tickets(dev, 1) == 0).all()) and bool(
+        (mppi_cuda.merge_tickets(dev, b) == 0).all())
+    check(tickets_zero, "N=40: merge tickets not zero after the calls")
+    n40_ptxas = [ln for ln in ptxas_partials(log) if ln.startswith("40/CartPoleNonlinearT/")]
+    spills = [ln for ln in n40_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
+    check(sum("registers" in ln for ln in n40_ptxas) == 14, f"N=40 cart-pole instantiations: {n40_ptxas}")
+    check(not spills, f"ptxas spills in the N=40 cart-pole: {spills}")
+    emit({"phase": "family_serve_n40", "n": n, "k": k, "b": b, "lambda": 20.0, "rows": rows,
+          "max_abs_err": n40_err, "app_lambda_max_abs_err": app_err, "app_lambda_plain_f32_vs_f64": own,
+          "tickets_zero": tickets_zero, "ptxas": n40_ptxas})
+
+    # H3-H5. the HIL apps through the CLI entry against a fake MCU
+    log_dir = ["--log-dir", "logs/chip_smoke_hil"]
+    t0 = time.perf_counter()
+    n_reads = cli.main(["uart", "--sim-mcu", "--t-end", "1.5"])
+    check(n_reads > 10, f"uart read {n_reads} State packets in 1.5 s")
+    emit({"phase": "hil_uart", "state_packets": n_reads, "wall_s": time.perf_counter() - t0})
+
+    def drive_commu(argv, model_key, all_ok=True):
+        mppi_cuda.reset_launches()
+        t_start = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        counts = dict(mppi_cuda.launches)
+        check(res.solves > 0, f"{argv[0]}: no solve")
+        # every solve of the run, and the one before traffic, is one launch
+        check(counts["mppi_solve_fused"] == counts[model_key] == res.solves + 1,
+              f"{argv[0]}: launches {counts['mppi_solve_fused']} ({model_key} {counts[model_key]}), "
+              f"{res.solves} solves + 1 before traffic")
+        check(not all_ok or all(st == MppiStatus.OK for st in res.statuses),
+              f"{argv[0]}: statuses {sorted(set(res.statuses))}")
+        return res, counts, time.perf_counter() - t_start
+
+    res, counts, secs = drive_commu(["mppi4-commu", "--sim-mcu", "--t-end", "3"], "model:CartPoleShaped4")
+    check(res.max_abs_theta < math.radians(60.0) and res.upright and res.plant_max_abs_theta < math.radians(60.0),
+          f"mppi4-commu tipped: max |theta| {res.max_abs_theta}, the plant's {res.plant_max_abs_theta}")
+    emit({"phase": "hil_mppi4_commu", "k": 800_000, "sim_s": 3.0, "time_scale": 1.0, "solves": res.solves,
+          "packets": res.packets, "max_abs_theta": res.max_abs_theta,
+          "plant_max_abs_theta": res.plant_max_abs_theta, "solve": ms_quantiles(res.solve_seconds),
+          "launches": {key: v for key, v in counts.items() if v}, "wall_s": secs, **card})
+    # the HW flagship: its UKF in the JAX app's float32, whose α=1e-3 filter
+    # goes non-finite a few packets after a control acts, in the JAX package
+    # too (tests/test_torch_commu.py; the solves then fail to a zero
+    # control), and in the reference's float64, which must stay finite with
+    # every solve OK. In both, every solve made on a finite estimate is OK.
+    for ukf_dtype in ("float32", "float64"):
+        held = ukf_dtype == "float64"
+        res, counts, secs = drive_commu(["mppi4-ukf-commu", "--sim-mcu", "--t-end", "3", "--ukf-dtype", ukf_dtype,
+                                         *log_dir], "model:Commu4Cost4", all_ok=held)
+        check(res.solves >= 20, f"mppi4-ukf-commu {ukf_dtype}: {res.solves} solves")
+        check(res.finite or not held, f"mppi4-ukf-commu {ukf_dtype}: the estimate went non-finite")
+        check(all(st == MppiStatus.OK for st in res.statuses[:res.finite_solves]),
+              f"mppi4-ukf-commu {ukf_dtype}: a solve on a finite estimate failed, "
+              f"statuses {res.statuses[:res.finite_solves]}")
+        emit({"phase": "hil_mppi4_ukf_commu", "ukf_dtype": ukf_dtype, "k": 800_000, "n": 20, "sim_s": 3.0,
+              "time_scale": 1.0, "solves": res.solves, "packets": res.packets, "upright": res.upright,
+              "finite": res.finite, "finite_solves": res.finite_solves, "statuses": dict(Counter(res.statuses)),
+              "max_abs_theta_estimate": res.max_abs_theta, "plant_max_abs_theta": res.plant_max_abs_theta,
+              "solve": ms_quantiles(res.solve_seconds),
+              "est_step": ms_quantiles(res.est_seconds), "launches": {key: v for key, v in counts.items() if v},
+              "wall_s": secs, **card})
+
+    # H6. serve: 8 robots at K = 8192, slow-motion twins at time-scale 0.2
+    serve_runs = {}
+    for label, extra in (("m1_d0", []), ("m1_d2", ["--pipeline-depth", "2"]),
+                         ("m4_d1", ["--ticks-per-dispatch", "4", "--pipeline-depth", "1"])):
+        mppi_cuda.reset_launches()
+        t_start = time.perf_counter()
+        summary = cli.main(["serve", "--sim-mcu", "--robots", "8", "--k", "8192", "--time-scale", "0.2",
+                            "--t-end", "1.0", "--seed", "3", "--report-every", "100", *extra])
+        torch.cuda.synchronize()
+        counts = dict(mppi_cuda.launches)
+        serve_runs[label] = (summary, counts)
+        # every dispatch, and the solve before traffic, is one batched launch
+        check(counts["mppi_solve_batch_fused"] == counts["model:CartPoleShaped4"] == summary["dispatches"] + 1
+              and summary["dispatches"] > 0,
+              f"serve {label}: launches {counts['mppi_solve_batch_fused']}, dispatches {summary['dispatches']}")
+        check(all(v > 0 for v in summary["rx"]) and all(v > 0 for v in summary["tx"]),
+              f"serve {label}: a link without frames: rx {summary['rx']} tx {summary['tx']}")
+        check(summary["bad_frames"] == 0, f"serve {label}: {summary['bad_frames']} bad frames")
+        check(summary["horizon"] == (40 if label == "m4_d1" else 8), f"serve {label}: N={summary['horizon']}")
+        emit({"phase": "serve", "case": label, "robots": 8, "k": 8192, "time_scale": 0.2,
+              "horizon": summary["horizon"], "ticks_per_s": summary["ticks_per_s"],
+              "dispatches_per_s": summary["dispatches_per_s"], "solve_ms_p50": summary["solve_ms_p50"],
+              "upright": sum(th < math.radians(60.0) for th in summary["max_abs_theta"]),
+              "ticks": summary["ticks"], "dispatches": summary["dispatches"],
+              "launches": {key: v for key, v in counts.items() if v}, "wall_s": time.perf_counter() - t_start,
+              **card})
+
+    # timings: one batched launch of serve's shapes at N = 8 and 40 (device
+    # time by torch.profiler, a call by CUDA events), the plain version, the bound
+    timing = {}
+    for nn, dt in ((8, 0.1), (40, 0.01)):
+        m = CartPoleShaped4(CartPoleParams.single_wheel(), dt)
+        cfg = MppiConfig(n_horizon=nn, n_rollouts=k, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+        x8, u8 = xs.clone(), torch.zeros((b, nn), device=dev)
+        call = lambda: mppi_cuda.mppi_solve_batch_fused(cfg, m, x8, u8, seeds=seeds, sampler="box-muller")  # noqa: E731
+        plain = lambda: mppi_cuda.finalize_batch_plain(cfg, mppi_cuda.mppi_batch_partials_plain(  # noqa: E731
+            cfg, m, x8, u8, mppi_cuda.batch_noise(cfg, m, seeds, "box-muller")))
+        kern, dev_us = median_ms(call, reps=50), 1e3 * device_ms(call)
+        plain_t = median_ms(plain, reps=5, warmup=1)
+        timing[nn] = (kern, plain_t, bound(flops_of(plain), nbytes(x8, u8, seeds, u8) + 4 * b))
+        emit({"phase": "timing_serve_batch", "n": nn, "b": b, "k": k, "rollouts_per_thread":
+              mppi_cuda.rollouts_per_thread(k, b), "device_us": dev_us, "event_us": 1e3 * kern,
+              "plain_us": 1e3 * plain_t, **timing[nn][2], **card})
+    check(native_digests() == native_before, "native/ changed during the run")
+    kern, plain_t, bnd = timing[40]
+    return [
+        {"name": "mppi_partials_kernel<40, CartPoleNonlinearT, Shaped4> on B problems (K5/K6, serve plan "
+                 "streaming, B=8, K=8192)", "route": "cuda", "source": SERVE_SOURCE, "replaces": f"{PALLAS}:692",
+         "launches": serve_runs["m4_d1"][1]["mppi_solve_batch_fused"], "max_abs_err": n40_err,
+         "ms": kern, "plain_ms": plain_t, "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+         "library_ms": None},
+    ]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU")
@@ -1274,9 +1525,9 @@ def main() -> None:
     for ln in partials_ptxas:
         tag, used = ln.split(": ", 1)[0], re.search(r"Used (\d+) registers", ln)
         if used:
-            _, model_name, _, _, fast, source, rpt = tag.split("/")
-            registers[(model_name, int(fast), int(rpt), int(source))] = int(used.group(1))
-    want = {(m, f, r, src): n for (m, f, r), row in PARTIALS_PTXAS.items() for src, n in enumerate(row)}
+            n_steps, model_name, _, _, fast, source, rpt = tag.split("/")
+            registers[(model_name, int(n_steps), int(fast), int(rpt), int(source))] = int(used.group(1))
+    want = {(m, n_, f, r, src): n for (m, n_, f, r), row in PARTIALS_PTXAS.items() for src, n in enumerate(row)}
     moved = {f"{k}": (want.get(k), registers.get(k)) for k in want.keys() | registers.keys()
              if want.get(k) != registers.get(k)}
     check(not moved, f"partials instantiations' ptxas registers moved (want, got): {moved}")
@@ -1522,6 +1773,7 @@ def main() -> None:
     diag = diag_phases(dev, card)
     ukf_fidelity_phase(dev, card)
     family = family_phases(dev, card)
+    hil = hil_phases(dev, card, log)
 
     emit({"kernels": [
         {"name": "mppi_partials_kernel, merged in the launch (K2, mppi_solve_fused)", "route": "cuda",
@@ -1540,6 +1792,7 @@ def main() -> None:
         *estimator,
         *diag,
         *family,
+        *hil,
     ]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

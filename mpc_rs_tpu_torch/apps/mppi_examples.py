@@ -35,6 +35,7 @@ from mpc_rs_tpu_torch.ops.mppi_cuda import (
     DoubleIntegratorQuad2,
     Flagship4Diag4,
 )
+from mpc_rs_tpu_torch.runtime.console import print_con, print_rcv
 from mpc_rs_tpu_torch.runtime.logger import CsvLogger
 from mpc_rs_tpu_torch.runtime.loop import MultiRateConfig, pulse_disturbance, run_multirate_loop
 
@@ -276,7 +277,9 @@ def mppi4_non_liner_ukf(args):
     C=[0.1,0.1,1,0.5]; DEBUG_UKF (the controller sees the true state) is the
     reference default (:31), ``--use-ukf-estimate`` feeds it the estimate.
     ``--control-period`` sets the controller's period (default 3 ms; 0:
-    free-running, a solve every physics tick)."""
+    free-running, a solve every physics tick). ``--console`` prints the
+    reference's Con:/Rcv: streams (``runtime/console.py``) from the
+    controller and the estimator."""
     p = CartPoleParams.two_wheel()
     t_hor, n = 1.2, 8
     dt = t_hor / n
@@ -293,13 +296,29 @@ def mppi4_non_liner_ukf(args):
         z = hx(torch.tensor(x, dtype=torch.float32)).numpy()
         return z + rng_.normal(size=5) * r_diag
 
+    t0_wall = []
+
+    def _t():  # seconds since the first console line (mppi_examples.py:237-244)
+        if not t0_wall:
+            t0_wall.append(time.time())
+        return time.time() - t0_wall[0]
+
     def controller(seed, xh, u_n):
         # 6-state estimate → 4-state controller input [x, dx, θ, θ̇] (:78)
         x4 = np.array([xh[0], xh[1], xh[3], xh[4]])
         if abs(x4[2]) > PI_2:
             return u_n, 0
         u, status = solve(seed, x4, u_n)
-        return u.cpu(), int(status)  # one read-back a solve; the loop reads u_n every tick
+        u = u.cpu()  # one read-back a solve; the loop reads u_n every tick
+        if args.console:
+            print_con(_t(), float(u[0]), x4)
+        return u, int(status)
+
+    def est_update(est, u, z, dte):
+        est = est_step(est, u, torch.tensor(z, dtype=torch.float32), dte)
+        if args.console:
+            print_rcv(_t(), u, est.x.numpy(), z, p_diag=torch.diagonal(est.p).numpy())
+        return est
 
     def predictor(xh, u_n):
         xp = np.array(xh)
@@ -324,7 +343,7 @@ def mppi4_non_liner_ukf(args):
             mr,
             plant_step=lambda x, u, dtp, f: np_step(plant6, x, u, dtp, f),
             sensor=sensor,
-            est_predict_update=lambda est, u, z, dte: est_step(est, u, torch.tensor(z, dtype=torch.float32), dte),
+            est_predict_update=est_update,
             est_state=lambda est: est.x.double().numpy(),
             controller=controller,
             predictor=predictor,

@@ -1,7 +1,10 @@
 """CLI entry: ``python -m mpc_rs_tpu_torch.apps.run <example> [options]``.
 
 Runs on the CUDA device by default and raises when there is none; the plain
-PyTorch path runs only with ``--device cpu``.
+PyTorch path runs only with ``--device cpu``. ``--device`` is the torch
+device here; the serial link of the hardware apps, which the JAX CLI calls
+``--device``, is ``--serial`` (a comma-separated list, one path a robot, for
+``serve``).
 """
 
 from __future__ import annotations
@@ -51,6 +54,44 @@ def build_parser() -> argparse.ArgumentParser:
                      help="UKF sigma-point spread α (default 1 with --use-ukf-estimate, else 1e-3)")
     ukf.add_argument("--control-period", type=float, default=None,
                      help="controller period [s] (default 3e-3; 0: a solve every physics tick)")
+
+    ukf.add_argument("--console", action="store_true",
+                     help="ANSI Con:/Rcv: console streams (mppi4-non-liner-ukf.rs:291-349)")
+
+    def hil_options(serial_help: str) -> argparse.ArgumentParser:
+        hil = argparse.ArgumentParser(add_help=False)
+        hil.add_argument("--serial", default="/dev/ttyUSB0", help=serial_help)
+        hil.add_argument("--sim-mcu", action="store_true",
+                         help="replace the robot with a fake MCU behind a PTY")
+        hil.add_argument("--time-scale", type=float, default=1.0,
+                         help="sim seconds per wall second for --sim-mcu (slow-motion twin, <1 for slow hosts)")
+        return hil
+
+    hil = hil_options("serial device of the robot (115200 baud, COBS frames)")
+    sub.add_parser("uart", parents=[common, hil], help="serial echo smoke test: Control out, State in")
+    sub.add_parser("mppi4-commu", parents=[common, hil, sampler],
+                   help="HW-in-loop MPPI on the nonlinear cart-pole (State in, Control out)")
+    commu = sub.add_parser("mppi4-ukf-commu", parents=[common, hil, log_dir, sampler],
+                           help="HW flagship: Sensor3 with dropout, UKF2(6,5), MPPI N=20 K=8e5")
+    commu.add_argument("--console", action="store_true",
+                       help="ANSI Con:/Rcv: console streams (mppi4-non-liner-ukf.rs:291-349)")
+    commu.add_argument("--ukf-dtype", choices=["float32", "float64"], default="float32",
+                       help="the UKF's precision on the host (default float32, the JAX app's; float64 is "
+                            "the reference's, in which its alpha=1e-3 filter stays finite)")
+    serve = sub.add_parser("serve", parents=[common, hil_options(
+        "comma-separated serial devices, one per robot")], help="B robot links, one batched solve a tick")
+    serve.add_argument("--robots", type=int, default=8, help="number of robot links B")
+    serve.add_argument("--stale-timeout", type=float, default=0.5,
+                       help="seconds without a frame before a robot gets zero control")
+    serve.add_argument("--pipeline-depth", type=int, default=0,
+                       help="batched solves kept in flight beyond the one consumed (0: synchronous); each "
+                            "level adds one period of control latency")
+    serve.add_argument("--ticks-per-dispatch", type=int, default=1,
+                       help="stream the first M entries of each plan at successive ticks, dispatching every "
+                            "M ticks (M=1: the reference's freshest-state-wins posture)")
+    serve.add_argument("--control-period", type=float, default=None,
+                       help="control tick period [s] of simulated time (default 0.01)")
+    serve.add_argument("--report-every", type=float, default=1.0, help="report period [s] of wall time")
 
     fleet = sub.add_parser("fleet", parents=[common], help="scenario fleet: B closed loops per tick")
     fleet.add_argument("--model", choices=["cartpole4", "flagship6"], default="cartpole4",

@@ -1,0 +1,330 @@
+"""Fleet serving bridge: many robot links, one device, one batched solve a
+tick — port of ``mpc_rs_tpu/apps/serve.py:53-338``.
+
+    robot i ──COBS State──▶ reader thread ──▶ latest-state table ─┐
+    robot j ──COBS State──▶ reader thread ──▶ latest-state table ─┤
+                                                                  ▼
+                                     mppi_solve_batch_fused (B robots)
+                                                                  │
+    robot i ◀──COBS Control(u0_i)──── control tick ◀──────────────┘
+
+Per robot the semantics are mppi4-commu.rs's: the freshest State wins
+(examples/mppi4-commu.rs:42-59), a warm-started u_n per robot, zero control
+when its solve fails (examples/mppi4-ukf-commu.rs:76-81), and
+Control::from_current out (src/packet.rs:69-76). A link quiet for
+``--stale-timeout`` seconds gets zero control until it resumes; the batched
+solve keeps serving the rest of the fleet.
+
+Robot links are serial devices (``--serial /dev/ttyUSB0,/dev/ttyUSB1,…``,
+one a robot) or ``--sim-mcu`` PTY fake MCUs (one simulated robot a link).
+On the card a tick's B solves are one launch of the scenario-batched
+partials kernel (K5/K6), merged in the launch; B is the robot count (the
+JAX package's padding of B to a multiple of 8 is the TPU's layout and is
+not ported).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from mpc_rs_tpu_torch.apps.commu_examples import SimMcu
+from mpc_rs_tpu_torch.apps.common import DEG60, resolve_device
+from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
+from mpc_rs_tpu_torch.io.packets import Control, State
+from mpc_rs_tpu_torch.io.serial import SerialPort
+from mpc_rs_tpu_torch.models.params import CartPoleParams
+from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, check_built, mppi_solve_batch_fused
+
+
+class Dispatch:
+    """One batched solve in flight: the next warm start (B, N) on the
+    device, and the host copy of what the tick reads (u0 (B,), or the
+    (B, N) plan) with the event that says when it has landed."""
+
+    def __init__(self, u_n: torch.Tensor, host: torch.Tensor, done: torch.cuda.Event | None):
+        self.u_n, self.host, self.done = u_n, host, done
+
+    def result(self) -> np.ndarray:
+        """The host copy, once the solve and its copy have landed (this
+        dispatch's event only: solves queued after it are not waited for)."""
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host.numpy()
+
+
+def make_batch_solver(cfg: MppiConfig, model, device: str | torch.device, sampler: str = "box-muller",
+                      plan: bool = False):
+    """``solve(seeds (B,) int32, xs (B, S), u_ns (B, N)) -> Dispatch``, which
+    returns without waiting for the device, so the caller can pipeline
+    dispatches (``serve.py:53-99``).
+
+    On a CUDA device one launch of ``mppi_solve_batch_fused`` (K5/K6), robot
+    b keyed by Philox seed ``seeds[b]`` with ``sampler``; on the CPU its
+    plain version. The zero fallback (examples/mppi4-ukf-commu.rs:76-81)
+    is applied per robot on the device, with ``torch.where`` on status != 0,
+    before the sequence becomes the next warm start, so the warm-start chain
+    never leaves the device: the host reads back only the (B,) u0 column,
+    or the (B, N) plan with ``plan``. The states and seeds are copied out of
+    the caller's arrays before the call returns (the caller rewrites its
+    state table every tick while a solve may still be queued), through
+    pinned buffers of their own, and the read-back goes into a pinned
+    buffer of its own with an event recorded after it. Raises unless the
+    kernel is built for ``model`` at ``cfg.n_horizon``, on every device."""
+    device = resolve_device(device)
+    check_built(model, cfg.n_horizon)
+    cuda = device.type == "cuda"
+
+    def to_device(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)  # a fresh copy, never the caller's array
+        return t.pin_memory().to(device, non_blocking=True) if cuda else t
+
+    def solve(seeds, xs, u_ns: torch.Tensor) -> Dispatch:
+        seeds_d = to_device(np.array(seeds, np.int32))
+        xs_d = to_device(np.array(xs, np.float32))
+        u, st = mppi_solve_batch_fused(cfg, model, xs_d, u_ns, seeds=seeds_d, sampler=sampler)
+        u = torch.where((st != 0)[:, None], 0.0, u)  # zero fallback, per robot
+        out = u if plan else u[:, 0]
+        if not cuda:
+            return Dispatch(u, out.clone(), None)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return Dispatch(u, host, done)
+
+    return solve
+
+
+class RobotLink:
+    """One robot's serial link and a reader thread keeping its freshest
+    State (the reference's reader thread → mpsc channel, batched:
+    examples/mppi4-commu.rs:42-50)."""
+
+    def __init__(self, index: int, port: SerialPort, mcu: SimMcu | None = None):
+        self.index = index
+        self.port = port
+        self.mcu = mcu
+        self.x = np.zeros(4, np.float64)
+        self.last_rx = -1.0  # wall time of the last good frame (-1: never)
+        self.n_rx = 0
+        self.n_tx = 0
+        self.max_abs_theta = 0.0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._reader, daemon=True)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def _reader(self):
+        while not self._stop.is_set():
+            s = self.port.read_latest_packet(State)
+            if s is None:
+                continue
+            x = s.to_vector()
+            with self._lock:
+                self.x = x
+                self.last_rx = time.time()
+                self.n_rx += 1
+                self.max_abs_theta = max(self.max_abs_theta, abs(float(x[2])))
+
+    def snapshot(self):
+        with self._lock:
+            return self.x, self.last_rx
+
+    def send(self, current: float):
+        try:
+            self.port.write_packet(Control.from_current(current))
+            self.n_tx += 1
+        except OSError:
+            pass  # the link is gone; staleness zeroes it
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=2.0)
+        self.port.close()
+        if self.mcu:
+            self.mcu.stop()
+
+
+def _open_links(args, b: int) -> list[RobotLink]:
+    """B links: fake MCUs (robot i seeded ``seed + i``) with ``--sim-mcu``,
+    else one ``--serial`` path a robot (``serve.py:155-173``)."""
+    links = []
+    try:
+        if args.sim_mcu:
+            scale = args.time_scale or 1.0
+            for i in range(b):
+                mcu = SimMcu(mode="state", rate_hz=100.0, seed=args.seed + i, duration=args.t_end + 30,
+                             time_scale=scale).start()
+                try:
+                    port = SerialPort(mcu.device, 115200, timeout_ms=20)
+                except BaseException:
+                    mcu.stop()
+                    raise
+                links.append(RobotLink(i, port, mcu).start())
+        else:
+            devices = [d for d in args.serial.split(",") if d]
+            if len(devices) != b:
+                raise ValueError(f"--robots {b} but --serial lists {len(devices)} links; "
+                                 "pass a comma-separated serial path per robot")
+            for i, dev in enumerate(devices):
+                links.append(RobotLink(i, SerialPort(dev, 115200, timeout_ms=20)).start())
+    except BaseException:
+        for ln in links:
+            ln.stop()
+        raise
+    return links
+
+
+def serve(args) -> dict:
+    """Serve a robot fleet from one device: B links, one batched solve a
+    dispatch.
+
+    The controller of each robot is mppi4-commu's (nonlinear cart-pole,
+    T=0.8 N=8, σ=3, λ=0.5, ±20: examples/mppi4-commu.rs:8-19) at a fleet
+    K (default 8192). ``--pipeline-depth D`` keeps D more solves in flight
+    than the one the tick consumes: the controls sent at tick t come from
+    tick t−D's states. ``--ticks-per-dispatch M`` > 1 streams the first M
+    entries of each returned plan at successive ticks, its steps
+    re-discretised to the tick period: N = clip(round(0.8 / period), 8, 40),
+    40 at the default 0.01 s (the kernel is built for N = 8 and 40; any other
+    N raises). Returns the JAX runner's summary."""
+    b = args.robots
+    p = CartPoleParams.single_wheel()
+    t_hor, n = 0.8, 8
+    scale = args.time_scale or 1.0
+    period_sim = args.control_period if args.control_period else 0.01
+    m_stream = max(1, int(args.ticks_per_dispatch or 1))
+    if m_stream > 1:
+        # plan streaming: entries 1..M-1 are open-loop, computed from a state
+        # j ticks stale (serve.py:188-201)
+        dt = period_sim
+        n = int(np.clip(round(t_hor / dt), max(8, m_stream), 40))
+    else:
+        dt = t_hor / n
+    k = args.k or 8192
+    cfg = MppiConfig(n_horizon=n, n_rollouts=k, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+    device = resolve_device(args.device)
+    solve = make_batch_solver(cfg, CartPoleShaped4(p, dt), device, plan=m_stream > 1)
+
+    xs = np.zeros((b, 4), np.float32)
+    u_dev = torch.zeros((b, n), dtype=torch.float32, device=device)
+    seeds0 = np.arange(b, dtype=np.int32)
+    solve(seeds0, xs, u_dev).result()  # before real-time traffic starts
+
+    period = period_sim / scale
+    stale = args.stale_timeout / scale
+    depth = max(0, int(args.pipeline_depth or 0))
+    pending: deque = deque()
+    links = _open_links(args, b)
+
+    ticks = 0
+    solve_s = []
+    t0 = time.time()
+    next_report = t0 + args.report_every
+    deadline = t0 + args.t_end / scale
+    dispatched = 0
+    last_fresh = np.zeros(b, bool)
+
+    def dispatch() -> bool:
+        """Snapshot the freshest states and queue one batched solve."""
+        nonlocal u_dev, dispatched
+        snap_t = time.time()
+        fresh = np.zeros(b, bool)
+        for ln in links:
+            x, last_rx = ln.snapshot()
+            xs[ln.index] = x
+            fresh[ln.index] = last_rx > 0 and (snap_t - last_rx) < stale
+        last_fresh[:] = fresh
+        if not fresh.any():
+            return False
+        seeds = np.int32(args.seed) + np.int32(dispatched) * np.int32(b) + seeds0
+        s0 = time.time()
+        d = solve(seeds, xs, u_dev)
+        u_dev = d.u_n
+        dispatched += 1
+        pending.append((s0, d, fresh.copy()))
+        return True
+
+    def pop_plan():
+        s0, d, fr = pending.popleft()
+        u_plan = d.result()  # waits for this solve only
+        solve_s.append(time.time() - s0)
+        if u_plan.ndim == 1:
+            u_plan = u_plan[:, None]
+        return u_plan, fr
+
+    plan, plan_fresh, plan_j = None, None, m_stream
+    try:
+        while time.time() < deadline:
+            tick_t0 = time.time()
+            if plan_j >= m_stream or plan is None:
+                # the plan is spent: keep `depth` more dispatches in flight
+                # than the one about to be consumed, then take the oldest
+                if not pending:
+                    dispatch()
+                while pending and len(pending) <= depth:
+                    if not dispatch():
+                        break
+                if pending:
+                    plan, plan_fresh = pop_plan()
+                    plan_j = 0
+            if plan is not None and plan_j < plan.shape[1]:
+                for ln in links:
+                    i = ln.index
+                    ln.send(float(plan[i, plan_j]) if plan_fresh[i] else 0.0)
+                ticks += 1
+                plan_j += 1
+            now = time.time()
+            if now >= next_report:
+                next_report += args.report_every
+                el = now - t0
+                med = 1e3 * float(np.median(solve_s[-200:])) if solve_s else 0.0
+                print(
+                    f"[serve] t={el * scale:6.2f}s ticks/s={ticks / el:7.1f} "
+                    f"solves/s={dispatched / el:6.1f} "
+                    f"active={int(last_fresh.sum())}/{b} depth={len(pending)} "
+                    f"solve_ms={med:6.2f} "
+                    f"rx={sum(ln.n_rx for ln in links)} "
+                    f"bad={sum(ln.port.n_bad_frames for ln in links)}"
+                )
+            ahead = (tick_t0 + period) - time.time()
+            if ahead > 0:
+                time.sleep(ahead)
+        while pending:
+            pending.popleft()[1].result()  # drain without sending past the deadline
+    finally:
+        for ln in links:
+            ln.stop()
+
+    el = time.time() - t0
+    summary = {
+        "robots": b,
+        "ticks": ticks,
+        "ticks_per_s": ticks / el,
+        "dispatches": dispatched,
+        "dispatches_per_s": dispatched / el,
+        "ticks_per_dispatch": m_stream,
+        "plan_dt": dt,
+        "horizon": n,
+        "robot_solves_per_s": ticks * b / el,
+        "rx": [ln.n_rx for ln in links],
+        "tx": [ln.n_tx for ln in links],
+        "max_abs_theta": [ln.max_abs_theta for ln in links],
+        "solve_ms_p50": 1e3 * float(np.median(solve_s)) if solve_s else 0.0,
+        "bad_frames": sum(ln.port.n_bad_frames for ln in links),
+    }
+    survived = sum(1 for th in summary["max_abs_theta"] if th < DEG60)
+    print(
+        f"[serve] done: {ticks} ticks, {summary['robot_solves_per_s']:.0f} "
+        f"robot-solves/s, {survived}/{b} robots upright "
+        f"(solve p50 {summary['solve_ms_p50']:.2f} ms)"
+    )
+    return summary

@@ -13,6 +13,10 @@ functors with the same constants folded on the host
 (``ops/csrc/mppi_common.cuh``: ``CartPoleNonlinearT``, ``Flagship4``,
 ``DoubleIntegrator``, ``CartPoleLinear``, ``Commu4``).
 
+The exact nonlinear cart-pole and ``make_accel6`` also step Python floats
+(``math``'s sin/cos), as the fake MCU of the hardware apps does on the host;
+the other makers take tensors only.
+
 ``fast=True`` swaps sin/cos for the polynomials of ``ops/fastmath.py`` and
 divides once, by ``fdiv``/``freciprocal``: exact division here, the hardware
 approximate reciprocal inside the kernel.
@@ -20,16 +24,27 @@ approximate reciprocal inside the kernel.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops import fastmath
 
 
+def _sin(x):
+    """sin of a tensor, or of a Python float (the fake MCU's host step)."""
+    return torch.sin(x) if isinstance(x, torch.Tensor) else math.sin(x)
+
+
+def _cos(x):
+    return torch.cos(x) if isinstance(x, torch.Tensor) else math.cos(x)
+
+
 def _sincos(fast: bool):
     if fast:
         return fastmath.fsincos
-    return lambda th: (torch.sin(th), torch.cos(th))
+    return lambda th: (_sin(th), _cos(th))
 
 
 def make_double_integrator(dt: float):
@@ -193,6 +208,52 @@ def make_flagship6(p: CartPoleParams):
         n2 = ddx
         n1 = x1 + n2 * dt
         n0 = x0 + n1 * dt
+        return n0, n1, n2, n3, n4, n5
+
+    return step
+
+
+def make_accel6(p: CartPoleParams, with_force: bool = True, quirk_denominator: bool = False):
+    """6-state explicit model with the accelerations as states — three
+    reference variants share it (``dynamics.py:222-267``). State [x, dx,
+    ddx, theta, dtheta, ddtheta]; every read is of the old state, and
+    (u, dt, f) come at call time.
+
+    - mpc-ukf-s.rs:135-155: ``with_force=True`` (denominator cos θ);
+    - mpc-ukf-commu.rs:151-166: ``with_force=False`` (denominator cos θ),
+      the fake MCU's plant;
+    - mppi4-ukf-commu.rs:137-153: ``with_force=False,
+      quirk_denominator=True``, that app's UKF model.
+
+    ``quirk_denominator`` keeps mppi4-ukf-commu.rs:139 as it is: its
+    denominator takes ``cos(x[2])``, the ẍ slot, d = D1 − (M2 L cos ẍ)²."""
+    d1 = p.d1_two
+    ml = p.m2 * p.l
+    mll_j2 = p.m2 * p.l * p.l + p.j2
+
+    def step(x0, x1, x2, x3, x4, x5, u, dt, f=0.0):
+        c, s = _cos(x3), _sin(x3)
+        d_cos = _cos(x2) if quirk_denominator else c
+        d = d1 - (ml * d_cos) ** 2
+        n0 = x0 + x1 * dt
+        n1 = x1 + x2 * dt
+        term1 = mll_j2 * ml / d * x4 * x4 * s
+        term2 = -(ml**2) * p.g / d * s * c
+        term3 = 2.0 * mll_j2 / (d * p.r_w) * p.kt * u
+        n2 = term1 + term2 + term3
+        if with_force:
+            n2 = n2 + mll_j2 / d * f * c
+        n3 = x3 + x4 * dt
+        n4 = x4 + x5 * dt
+        t1 = -(ml**2) / d * x4 * x4 * s * c
+        t3 = -2.0 * ml / (d * p.r_w) * p.kt * u * c
+        if with_force:
+            t2 = (p.m2 * p.g * s - 2.0 * f) * p.l * p.mass_line_two / d
+            t4 = -ml * f * c * c / d
+            n5 = t1 + t2 + t3 + t4
+        else:
+            t2 = p.m2 * p.g * p.l * p.mass_line_two / d * s
+            n5 = t1 + t2 + t3
         return n0, n1, n2, n3, n4, n5
 
     return step

@@ -1,6 +1,7 @@
-"""Process-noise builders (gen_q) of the fleets.
+"""Process-noise builders (gen_q) of the fleets, and the sensor-dropout
+measurement noise of the hardware apps.
 
-Port of ``mpc_rs_tpu/models/noise.py:12-84``: the same piecewise-white-noise
+Port of ``mpc_rs_tpu/models/noise.py:12-99``: the same piecewise-white-noise
 matrices in the same operation order. ``dt`` may be a Python float or a 0-d
 tensor; the result has ``dtype`` (default: that of a tensor ``dt``, else
 float64).
@@ -81,3 +82,21 @@ def gen_q4(dt, accel_var=(25.0, 400.0), dtype=None) -> torch.Tensor:
         torch.stack([z, z, w[0], w[1]]),
         torch.stack([z, z, w[2], w[3]]),
     ])
+
+
+def gen_r_mask(r_diag, enable_mask, dropped: float = 1e6) -> torch.Tensor:
+    """Sensor-dropout R — mppi4-ukf-commu.rs:228-236 (``noise.py:85-92``):
+    channels whose enable bit is 0 get the variance ``dropped``. ``r_diag``
+    (..., n_obs) and ``enable_mask`` (..., n_obs) of {0, 1}; returns the
+    (..., n_obs, n_obs) diagonal in the dtype of ``r_diag``."""
+    r_diag = torch.as_tensor(r_diag)
+    mask = torch.as_tensor(enable_mask, device=r_diag.device)
+    return torch.diag_embed(torch.where(mask.bool(), r_diag, dropped))
+
+
+def enable_bits_to_mask(enable, n: int = 5) -> torch.Tensor:
+    """u8 enable bitmask → (..., n) float32 mask of {0, 1}, bit i for
+    channel i — src/packet.rs:112-118 (``noise.py:95-99``)."""
+    enable = torch.as_tensor(enable, dtype=torch.int32)
+    bits = (enable[..., None] >> torch.arange(n, dtype=torch.int32, device=enable.device)) & 1
+    return bits.to(torch.float32)

@@ -1,6 +1,7 @@
-"""Observation models (hx) of the fleets and of the UKF examples.
+"""Observation models (hx) of the fleets and of the UKF examples, and the
+sensor-dropout mask of the hardware apps.
 
-Port of ``mpc_rs_tpu/models/observation.py:19-84``. Vector form: ``hx(x)``
+Port of ``mpc_rs_tpu/models/observation.py:19-97``. Vector form: ``hx(x)``
 takes x of shape (..., n_state) and returns z of shape (..., n_obs), so the
 same function maps a (B, n) batch or an (m, B, n) sigma-point stack.
 """
@@ -61,3 +62,14 @@ def make_hx_force6(p: CartPoleParams):
         return torch.stack(torch.broadcast_tensors(k * dx, k * dx, dth * _RAD2DEG, v / p.g, h / p.g), dim=-1)
 
     return hx
+
+
+def make_masked_hx(hx, enable_mask):
+    """Zero disabled observation channels — mppi4-ukf-commu.rs:282-292
+    (``observation.py:87-97``): ``hx(x) * enable_mask``, paired with the
+    inflated R of ``noise.gen_r_mask``."""
+
+    def masked(x):
+        return hx(x) * enable_mask
+
+    return masked

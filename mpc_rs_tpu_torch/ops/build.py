@@ -27,8 +27,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # mppi_kernels.cu: the C entries, K1/K2 and the fleet's K5/K6 at N = 8, K7, the
 # fast-math probe, D1/D2; family_*.cu: K1/K2 of the MPPI application family,
-# one model each (mppi_launch.cuh)
-SOURCES = ("mppi_kernels.cu", "family_mppi2.cu", "family_mppi4.cu", "family_commu4.cu")
+# one model each, and the cart-pole at serve's plan-streaming N = 40
+# (mppi_launch.cuh)
+SOURCES = ("mppi_kernels.cu", "family_mppi2.cu", "family_mppi4.cu", "family_commu4.cu", "family_serve.cu")
 HEADERS = ("mppi_common.cuh", "mppi_launch.cuh", "fastmath.cuh", "estimator_chain.cuh",
            "diag_kernels.cuh")
 

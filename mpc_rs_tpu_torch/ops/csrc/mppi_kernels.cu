@@ -99,7 +99,8 @@
 // model, the exact tier only (the JAX apps run no fast tier), 14
 // instantiations each (mppi_launch.cuh): the double integrator + quad2 at
 // N = 40 (mppi2), the linear cart-pole + shaped4 at N = 8 (mppi4), commu4 +
-// commu4 at N = 20 (the HW flagship). The estimator chain is instantiated
+// commu4 at N = 20 (the HW flagship); and serve's plan-streaming horizon,
+// the cart-pole + shaped4 at N = 40 (family_serve.cu). The estimator chain is instantiated
 // once per fleet model; K4's probe once per function at 4 and at 1 elements
 // a thread (14); D1's kernel (partials_body with D1's policy) once per
 // MixMode at R = 1 and 4 (16), D2's chain for float and bf16 pairs at 16 and
@@ -154,13 +155,15 @@ fleet_finalize_kernel(float inv_lambda, int n_scen, int nb, const float* __restr
 
 // A call of model model_id at horizon n in tier fast, on the instantiations
 // built for it: the N = kN models in both tiers here, each family model at
-// its own N in the exact tier (its source); -1 for any other (model, N,
-// tier), -3 for an unknown model.
+// its own N in the exact tier (its source), and the cart-pole at N = 40 in
+// the exact tier (family_serve.cu); -1 for any other (model, N, tier), -3
+// for an unknown model.
 template <bool Fast>
 int launch_model_tier(int model_id, int n, const SolveCall& c) {
   const float* mc = c.model_consts;
   const float* cc = c.cost_consts;
   if (model_id == kCartPoleShaped4) {
+    if (n == 40 && !Fast) return launch_cartpole_shaped4_n40(c);  // serve's plan streaming
     return n == kN ? launch_call<kN, Fast>(make_model<Fast>(mc), Shaped4{}, c) : -1;
   }
   if (model_id == kFlagship4Diag4) {

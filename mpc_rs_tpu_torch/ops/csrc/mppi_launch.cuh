@@ -93,5 +93,7 @@ int launch_call(const Model& model, const Cost& cost, const SolveCall& c) {
 int launch_double_integrator_quad2(const SolveCall& c);  // mppi2, N = 40 (family_mppi2.cu)
 int launch_cartpole_linear_shaped4(const SolveCall& c);  // mppi4, N = 8 (family_mppi4.cu)
 int launch_commu4(const SolveCall& c);                   // the HW flagship, N = 20 (family_commu4.cu)
+// The serve bridge's plan-streaming horizon (exact tier):
+int launch_cartpole_shaped4_n40(const SolveCall& c);  // cart-pole + shaped4, N = 40 (family_serve.cu)
 
 }  // namespace mpc

@@ -33,7 +33,9 @@ the exact tier, the MPPI application family's double integrator with
 ``quad2`` at N = 40 (``DoubleIntegratorQuad2``: mppi2), linear cart-pole
 with ``shaped4`` at N = 8 (``CartPoleLinearShaped4``: mppi4) and the HW
 flagship's ``make_commu4`` with ``costs.commu4`` at N = 20
-(``Commu4Cost4``). K1/K2 and the scenario batch take every one of them.
+(``Commu4Cost4``); and the cart-pole with ``shaped4`` at N = 40 in the exact
+tier, the horizon of ``serve``'s plan streaming. K1/K2 and the scenario
+batch take every one of them.
 Sampling is Philox4x32-10 by the contract of ``ops/philox.py``,
 with any of its ``SAMPLERS``.
 """
@@ -57,9 +59,10 @@ BLOCK = 256  # threads per block: each group of 256 rollouts of a block
 FLEET_HORIZON = 8  # kN in the source: the fleets' and the rows' merge's N (D1's too)
 # (model_id, N) pairs mppi_partials_kernel is built for (launch_model in
 # ops/csrc/mppi_kernels.cu): the cart-pole and the flagship at N = 8 in both
-# tiers, the family's models in the exact tier at their apps' N
-BUILT = frozenset({(0, 8), (1, 8), (2, 40), (3, 8), (4, 20)})
-FAST_TIER_MODELS = frozenset({0, 1})
+# tiers (FAST_BUILT), the family's models in the exact tier at their apps' N,
+# and the cart-pole in the exact tier at serve's plan-streaming N = 40
+BUILT = frozenset({(0, 8), (1, 8), (2, 40), (3, 8), (4, 20), (0, 40)})
+FAST_BUILT = frozenset({(0, 8), (1, 8)})
 NEG_BIG = -3.4e38  # score of a block with no finite rollout (mppi_pallas.py:302)
 NO_FINITE_BELOW = -3.3e38  # mppi_pallas.py:898,1022
 ROLLOUTS_PER_THREAD = (1, 4)  # the R the kernel is built for
@@ -289,8 +292,8 @@ def check_built(model, n: int) -> None:
     if (model.model_id, n) not in BUILT:
         built = sorted(m for i, m in BUILT if i == model.model_id)
         raise ValueError(f"no kernel for horizon N={n} with {type(model).__name__}; it is built for N={built}")
-    if model.fast and model.model_id not in FAST_TIER_MODELS:
-        raise ValueError(f"no fast-tier kernel for {type(model).__name__}")
+    if model.fast and (model.model_id, n) not in FAST_BUILT:
+        raise ValueError(f"no fast-tier kernel for {type(model).__name__} at N={n}")
 
 
 class ChainResult(NamedTuple):

@@ -676,3 +676,75 @@ def test_cuda_family_unbuilt_pairs_raise(card):
     x = torch.tensor(x0, dtype=torch.float32, device=card)
     with pytest.raises(ValueError, match="no kernel for horizon N=8"):
         mppi_solve_fused(_cfg(256), m, x, torch.zeros(N, device=card))
+
+
+# --------------------------------------------------------------------------
+# serve: the cart-pole at the plan-streaming N = 40, and the batch solver
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpt", [1, 4])
+@pytest.mark.parametrize("source", ["external", "box-muller", "clt4a", "wallace"])
+def test_cuda_serve_n40_matches_plain(card, source, rpt):
+    """The (cart-pole, N = 40) instantiation on serve's batch of 8 robots at
+    K = 8192 and on one problem, against the float64 plain version (λ = 20,
+    where the f32 solve is well conditioned); the kernel's noise is
+    ops/philox.py's."""
+    m = CartPoleShaped4(CartPoleParams.single_wheel(), 0.01)
+    cfg = _cfg(8192, lam=20.0, n=40)
+    rng = np.random.default_rng(40 + rpt)
+    xs = torch.tensor(np.c_[np.zeros((8, 2)), rng.uniform(-0.1, 0.1, (8, 2))], dtype=torch.float32, device=card)
+    u_ns = torch.tensor(0.3 * rng.standard_normal((8, 40)), dtype=torch.float32, device=card)
+    seeds = torch.arange(8, dtype=torch.int32, device=card) + 9
+    if source == "external":
+        noise = torch.tensor(3.0 * rng.standard_normal((8, 8192, 40)), dtype=torch.float32, device=card)
+        got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, noise=noise, rollouts_per_thread=rpt)
+    else:
+        noise = torch.empty((8, 8192, 40), device=card)
+        got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, seeds=seeds, sampler=source,
+                                                         noise_out=noise, rollouts_per_thread=rpt)
+        np.testing.assert_allclose(noise.cpu().numpy(), mppi_cuda.batch_noise(cfg, m, seeds, source).cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    parts = mppi_cuda.mppi_batch_partials_plain(cfg, m, xs.double(), u_ns.double(), noise.double(),
+                                                rollouts_per_thread=rpt)
+    want_u, want_st = mppi_cuda.finalize_batch_plain(cfg, parts)
+    assert got_st.tolist() == want_st.tolist() == [0] * 8
+    np.testing.assert_allclose(got_u.cpu().numpy(), want_u.cpu().numpy(), **F32_BAND)
+    one_u, one_st = mppi_solve_fused(cfg, m, xs[0], u_ns[0], noise=noise[0], rollouts_per_thread=rpt)
+    assert int(one_st) == 0
+    np.testing.assert_allclose(one_u.cpu().numpy(), want_u[0].cpu().numpy(), **F32_BAND)
+    assert bool((mppi_cuda.merge_tickets(card, 8) == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 40])
+def test_cuda_serve_batch_solver_matches_its_plain_path(card, n):
+    """serve's batch solver on the card (one counted launch a dispatch, the
+    zero fallback on the device, the read-back into pinned memory behind an
+    event) against the same solver on the CPU: three dispatches queued
+    before the first is read, the state table rewritten after each call,
+    robot 3's NaN state zeroed, the others in the f32 band."""
+    from mpc_rs_tpu_torch.apps.serve import make_batch_solver
+
+    m = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1 if n == 8 else 0.01)
+    cfg = _cfg(8192, lam=20.0, n=n)  # a well-conditioned λ: the warm starts chain
+    xs = np.zeros((8, 4), np.float32)
+    xs[:, 2] = np.linspace(-0.1, 0.1, 8)
+    xs[3, 2] = np.nan
+    gpu, cpu = make_batch_solver(cfg, m, card, plan=True), make_batch_solver(cfg, m, "cpu", plan=True)
+    mppi_cuda.reset_launches()
+    u_g, u_c, pending = torch.zeros((8, n), device=card), torch.zeros((8, n)), []
+    for d in range(3):
+        seeds = np.arange(8, dtype=np.int32) + 8 * d
+        x_now = xs.copy()
+        dg = gpu(seeds, xs, u_g)
+        xs[:, 0] += 0.01  # the table is rewritten while the solve may be queued
+        dc = cpu(seeds, x_now, u_c)
+        u_g, u_c = dg.u_n, dc.u_n
+        pending.append((dg, dc))
+    assert mppi_cuda.launches["mppi_solve_batch_fused"] == 3
+    for dg, dc in pending:
+        got, want = dg.result(), dc.result()
+        assert np.all(got[3] == 0.0) and np.all(want[3] == 0.0)
+        keep = [b for b in range(8) if b != 3]
+        np.testing.assert_allclose(got[keep], want[keep], **F32_BAND)
