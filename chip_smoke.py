@@ -69,6 +69,8 @@ directory without the ``mpc_rs_tpu_torch`` package. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import re
@@ -1238,7 +1240,8 @@ def family_phases(dev: torch.device, card: dict) -> list[dict]:
 
 
 SERVE_SOURCE = "mpc_rs_tpu_torch/ops/csrc/family_serve.cu"  # the cart-pole at serve's N = 40
-NATIVE_FILES = ("native/mpcio.cpp", "native/libmpcio.so", "native/libmpcio.so.src.sha256")
+NATIVE_FILES = ("native/mpcio.cpp", "native/libmpcio.so", "native/libmpcio.so.src.sha256", "native/oracle.cpp",
+                "native/liboracle.so", "native/liboracle.so.src.sha256")
 
 
 def native_digests() -> dict:
@@ -1403,10 +1406,17 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     # too (tests/test_torch_commu.py; the solves then fail to a zero
     # control), and in the reference's float64, which must stay finite with
     # every solve OK. In both, every solve made on a finite estimate is OK.
+    # The float64 run prints its console streams (captured): an Rcv line for
+    # each packet of the traffic loop, none for the first frame's filter step.
     for ukf_dtype in ("float32", "float64"):
         held = ukf_dtype == "float64"
-        res, counts, secs = drive_commu(["mppi4-ukf-commu", "--sim-mcu", "--t-end", "3", "--ukf-dtype", ukf_dtype,
-                                         *log_dir], "model:Commu4Cost4", all_ok=held)
+        console = io.StringIO()
+        with contextlib.redirect_stdout(console) if held else contextlib.nullcontext():
+            res, counts, secs = drive_commu(["mppi4-ukf-commu", "--sim-mcu", "--t-end", "3", "--ukf-dtype",
+                                             ukf_dtype, *log_dir, *(["--console"] if held else [])],
+                                            "model:Commu4Cost4", all_ok=held)
+        rcv = console.getvalue().count("\x1b[36mRcv:") if held else None
+        check(not held or rcv == res.packets - 1, f"mppi4-ukf-commu --console: {rcv} Rcv lines, {res.packets} packets")
         check(res.solves >= 20, f"mppi4-ukf-commu {ukf_dtype}: {res.solves} solves")
         check(res.finite or not held, f"mppi4-ukf-commu {ukf_dtype}: the estimate went non-finite")
         check(all(st == MppiStatus.OK for st in res.statuses[:res.finite_solves]),
@@ -1415,6 +1425,7 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
         emit({"phase": "hil_mppi4_ukf_commu", "ukf_dtype": ukf_dtype, "k": 800_000, "n": 20, "sim_s": 3.0,
               "time_scale": 1.0, "solves": res.solves, "packets": res.packets, "upright": res.upright,
               "finite": res.finite, "finite_solves": res.finite_solves, "statuses": dict(Counter(res.statuses)),
+              "console_rcv_lines": rcv,
               "max_abs_theta_estimate": res.max_abs_theta, "plant_max_abs_theta": res.plant_max_abs_theta,
               "solve": ms_quantiles(res.solve_seconds),
               "est_step": ms_quantiles(res.est_seconds), "launches": {key: v for key, v in counts.items() if v},
@@ -1442,6 +1453,7 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
         emit({"phase": "serve", "case": label, "robots": 8, "k": 8192, "time_scale": 0.2,
               "horizon": summary["horizon"], "ticks_per_s": summary["ticks_per_s"],
               "dispatches_per_s": summary["dispatches_per_s"], "solve_ms_p50": summary["solve_ms_p50"],
+              "dispatch_ms_p50": summary["dispatch_ms_p50"],
               "upright": sum(th < math.radians(60.0) for th in summary["max_abs_theta"]),
               "ticks": summary["ticks"], "dispatches": summary["dispatches"],
               "launches": {key: v for key, v in counts.items() if v}, "wall_s": time.perf_counter() - t_start,
@@ -1473,6 +1485,240 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
          "library_ms": None},
     ]
 
+
+
+# The estimator ladder's pass criteria, copied from the JAX package's
+# acceptance harness with their thresholds (mpc_rs_tpu/apps/acceptance.py:
+# chk_pid_tips :80, chk_kf1d :85, chk_kf2d :90, chk_est_finite :100,
+# _settled_rmse :115, chk_ukf_one :130, chk_ukf_two :138, chk_ukf_pen :148,
+# chk_ukf_pen2 :159, chk_ukf_pen3 :178).
+# tests/test_torch_estimator_ladder.py holds each to the JAX check's verdict.
+def _finite(x) -> bool:
+    import numpy as np
+
+    return bool(np.all(np.isfinite(np.asarray(x, dtype=np.float64))))
+
+
+def _settled_rmse(a, b, lo=50) -> float:
+    import numpy as np
+
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return float(np.sqrt(np.mean(d[lo:] ** 2)))
+
+
+def _enc_k() -> float:
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+
+    return 60.0 / (2.0 * math.pi * CartPoleParams.single_wheel().r_w)
+
+
+def chk_kf1d(ret, out) -> bool:
+    return abs(float(ret.mean) - 50.0) < 3.0 and float(ret.var) < 2.0
+
+
+def chk_kf2d(ret, out) -> bool:
+    import numpy as np
+
+    x_est, p = ret
+    x = np.asarray(x_est, dtype=np.float64)
+    return _finite(x) and abs(x[0] - 49.5) < 5.0 and abs(x[1] - 100.0) < 10.0 and float(np.trace(np.asarray(p))) < 20.0
+
+
+def chk_est_finite(ret, out) -> bool:
+    return _finite(ret.x) and _finite(ret.p)
+
+
+def chk_ukf_one(ret, out) -> bool:
+    e = _settled_rmse(ret.est[:, 0], ret.act[:, 0])
+    o = _settled_rmse(ret.obs[:, 0], ret.act[:, 0])
+    return chk_est_finite(ret, out) and e < o and e <= 1.0
+
+
+def chk_ukf_two(ret, out) -> bool:
+    e0 = _settled_rmse(ret.est[:, 0], ret.act[:, 0])
+    o0 = _settled_rmse(ret.obs[:, 0], ret.act[:, 0])
+    e1 = _settled_rmse(ret.est[:, 1], ret.act[:, 1])
+    return chk_est_finite(ret, out) and e0 <= 1.2 * o0 and e0 <= 4.0 and e1 <= 5.0
+
+
+def chk_ukf_pen(ret, out) -> bool:
+    e_dx = _settled_rmse(ret.est[:, 1], ret.act[:, 1])
+    o_dx = _settled_rmse(ret.obs[:, 0], ret.act[:, 1])
+    e_th = _settled_rmse(ret.est[:, 3], ret.act[:, 3])
+    o_th = _settled_rmse(ret.obs[:, 1], ret.act[:, 3])
+    return chk_est_finite(ret, out) and e_dx < o_dx and e_th < o_th and e_dx <= 0.75 and e_th <= 0.75
+
+
+def chk_ukf_pen2(ret, out) -> bool:
+    k = _enc_k()
+    dx_o = 0.5 * (ret.obs[:, 0] + ret.obs[:, 1]) / k
+    th_o = ret.obs[:, 2] * math.pi / 180.0
+    e_dx = _settled_rmse(ret.est[:, 1], ret.act[:, 1])
+    o_dx = _settled_rmse(dx_o, ret.act[:, 1])
+    e_th = _settled_rmse(ret.est[:, 3], ret.act[:, 3])
+    o_th = _settled_rmse(th_o, ret.act[:, 3])
+    return (chk_est_finite(ret, out) and e_th <= 1.15 * o_th and e_th <= 0.015
+            and e_dx <= 3.0 * o_dx and e_dx <= 1.2)
+
+
+def chk_ukf_pen3(ret, out) -> bool:
+    k = _enc_k()
+    dx_o = 0.5 * (ret.obs[:, 0] + ret.obs[:, 1]) / k
+    e_dx = _settled_rmse(ret.est[:, 1], ret.act[:, 1])
+    o_dx = _settled_rmse(dx_o, ret.act[:, 1])
+    e_th = _settled_rmse(ret.est[:, 4], ret.act[:, 4])
+    return chk_est_finite(ret, out) and e_dx <= 1.3 * o_dx and e_dx <= 0.6 and e_th <= 0.05
+
+
+def chk_pid_tips(ret, out) -> bool:
+    return "over 60 degrees" in out  # the reference's PID is under-gained and tips by design
+
+
+LADDER_CHECKS = {"one-liner-kf": chk_kf1d, "two-liner-kf": chk_kf2d, "ukf-one": chk_ukf_one,
+                 "ukf-two": chk_ukf_two, "ukf-pen": chk_ukf_pen, "ukf-pen2": chk_ukf_pen2,
+                 "ukf-pen3": chk_ukf_pen3, "pid": chk_pid_tips}
+
+
+# The smoke run's parity band: it fails on no survival-interval overlap or a
+# KS p at or below 1e-3, the band the JAX package's small-N re-check holds
+# (tests/test_parity_dist.py:40,59). The reference's pass rule (both p > 0.01)
+# decides the 200-episode entries of PARITY_DIST_TORCH.json.
+PARITY_KS_P_MIN = 1e-3
+PARITY_EPISODES = 200
+
+
+def fleet_finish_phases(dev: torch.device, card: dict) -> None:
+    """The fleet slice's last paths and the estimator ladder: the oracle
+    loaded read-only and one recorded episode re-derived bit for bit;
+    200-episode parity of the cartpole4 and flagship fleets (torch-op
+    estimator and K7) against the oracle's recorded episodes; the AoS fleet
+    under each sigma root at the JAX gates; a resumed fleet against the
+    uninterrupted one, bit for bit; the eight ladder apps through the CLI
+    entry at their acceptance criteria. Each path runs with the launch
+    counts set to 0 just before it and read just after."""
+    from mpc_rs_tpu_torch.apps import run as cli
+    from mpc_rs_tpu_torch.apps.fleet import build_fleet, resume_fleet, run_fleet
+    from mpc_rs_tpu_torch.ops import estimator_cuda, mppi_cuda
+    from mpc_rs_tpu_torch.runtime.checkpoint import carry_fields, load_fleet
+    from mpc_rs_tpu_torch.scripts import oracle
+    from mpc_rs_tpu_torch.scripts import parity_dist as pd
+
+    def counted(fn):
+        mppi_cuda.reset_launches()
+        estimator_cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in {**mppi_cuda.launches, **estimator_cuda.launches}.items() if v}
+        return out, counts, time.perf_counter() - t0
+
+    native_before = native_digests()
+
+    # P1. the oracle, read-only, and cartpole4-est seed 5000 against the record
+    t0 = time.perf_counter()
+    native = oracle.oracle_library()
+    stamp = native.path.with_name(native.path.name + ".src.sha256")
+    fresh = pd.oracle_episode("cartpole4-est", pd.ORACLE_SEED["cartpole4-est"])
+    recorded = pd.recorded_oracle("cartpole4-est")[0]
+    check(fresh == recorded, f"the oracle's cartpole4-est seed 5000 {fresh} is not the record's {recorded}")
+    emit({"phase": "parity_oracle_record", "library": str(native.path), "built": native.built,
+          "source_sha256": native.digest, "stamp": stamp.read_text().strip() if stamp.is_file() else None,
+          "episode": fresh, "equals_record": True, "seconds": time.perf_counter() - t0})
+
+    # P2. 200 episodes a config and estimator against the 200 recorded oracle episodes
+    record = json.loads(Path(pd.RECORD).read_text())
+    for config in ("cartpole4-est", "flagship-est"):
+        ora = pd.recorded_oracle(config)
+        ticks = pd.N_TICKS[config]
+        for est in ("torch", "chain"):
+            eps, counts, secs = counted(lambda: pd.run_library_fleet(config, PARITY_EPISODES, dev, est))
+            s = pd.summarize(eps, ora)
+            check(counts.get("mppi_solve_batch_fused") == ticks
+                  and counts.get("estimator_chain_fused", 0) == (ticks if est == "chain" else 0),
+                  f"parity {config} {est}: launches {counts} for {ticks} ticks")
+            p_rms, p_max = s["tests"]["ks_rms_theta"]["p"], s["tests"]["ks_max_theta"]["p"]
+            row = {"phase": f"parity_{config.replace('-', '_')}", "estimator": est, "episodes": PARITY_EPISODES,
+                   "oracle_episodes": len(ora), "ticks": ticks,
+                   **{side: {"survival": s[side]["survival"], "rms_theta_mean": s[side]["rms_theta_mean"],
+                             "max_theta_p99": s[side]["max_theta_p99"]} for side in ("library", "oracle")},
+                   "ks_rms_theta": s["tests"]["ks_rms_theta"], "ks_max_theta": s["tests"]["ks_max_theta"],
+                   "survival_ci_overlap": s["tests"]["survival_ci_overlap"], "pass_rule_p_above_0.01": s["pass"],
+                   "jax_tpu_record": {"library_rms_theta_mean": record[config]["library"]["rms_theta_mean"],
+                                      "oracle_rms_theta_mean": record[config]["oracle"]["rms_theta_mean"],
+                                      "ks_rms_p": record[config]["tests"]["ks_rms_theta"]["p"],
+                                      "ks_max_p": record[config]["tests"]["ks_max_theta"]["p"]},
+                   "launches": counts, "seconds": secs, **card}
+            emit(row)
+            check(s["tests"]["survival_ci_overlap"], f"parity {config} {est}: the survival intervals do not overlap")
+            check(min(p_rms, p_max) > PARITY_KS_P_MIN,
+                  f"parity {config} {est}: KS p {p_rms} (θ-RMS), {p_max} (max|θ|) at or below {PARITY_KS_P_MIN}")
+
+    # P3. the AoS fleet through the CLI entry at B = 1024, under each root
+    for model, root, t_end, gate in (("flagship6", "eigh", 3, 0.95), ("flagship6", "jacobi", 3, 0.95),
+                                     ("flagship6", "cholesky", 3, 0.95), ("cartpole4", "eigh", 10, 0.99)):
+        res, counts, secs = counted(lambda: cli.main(
+            ["fleet", "--model", model, "--scenarios", "1024", "--t-end", str(t_end), "--ukf-layout", "aos",
+             "--sqrt-method", root, "--log-dir", "logs/chip_smoke_fleet_aos"]))
+        tick_ms = sorted(1e3 * t for t in res.tick_seconds)
+        emit({"phase": "fleet_aos", "model": model, "sqrt_method": root, "scenarios": res.scenarios,
+              "ticks": res.ticks, "survival": res.survival, "survived": res.scenarios - res.tipped,
+              "statuses_ok": res.statuses_ok, "median_max_theta": res.median_max_theta,
+              "tick_ms_median": statistics.median(tick_ms), "tick_ms_p99": tick_ms[int(0.99 * len(tick_ms))],
+              "scenario_ticks_per_s": res.scenario_ticks_per_s, "launches": counts, "seconds": secs, **card})
+        check(res.survival >= gate and res.statuses_ok,
+              f"AoS fleet {model} {root}: survival {res.survival} (gate {gate}), statuses ok {res.statuses_ok}")
+        check(counts.get("mppi_solve_batch_fused") == res.ticks and "estimator_chain_fused" not in counts,
+              f"AoS fleet {model} {root}: launches {counts} for {res.ticks} ticks")
+
+    # P4. resume: two chunks straight against one chunk, --resume, one chunk
+    t0 = time.perf_counter()
+    d = Path("logs/chip_smoke_resume")
+    base = ["fleet", "--model", "cartpole4", "--scenarios", "1024", "--report-every", "1"]
+    def straight_then_resumed():
+        straight = cli.main([*base, "--t-end", "2", "--log-dir", str(d / "a")])
+        cli.main([*base, "--t-end", "1", "--log-dir", str(d / "b")])
+        return straight, cli.main([*base, "--t-end", "1", "--log-dir", str(d / "c"),
+                                   "--resume", str(d / "b" / "fleet" / "fleet.pt")])
+
+    (straight, resumed), counts, _ = counted(straight_then_resumed)
+    template = build_fleet("cartpole4", None, dev, scenarios=1024).carry
+    (ca, ga), (cc, gc) = (load_fleet(str(d / x / "fleet" / "fleet.pt"), template, dev) for x in ("a", "c"))
+    fa, fr, fca, fcc = carry_fields(straight.carry), carry_fields(resumed.carry), carry_fields(ca), carry_fields(cc)
+    same = (all(torch.equal(fa[k], fr[k]) and torch.equal(fca[k], fcc[k]) for k in fa)
+            and torch.equal(ga.get_state(), gc.get_state()))
+    check(same, "the resumed cartpole4 fleet differs from the uninterrupted one")
+    check(counts.get("mppi_solve_batch_fused") == straight.ticks + 2 * resumed.ticks,
+          f"resume: launches {counts}")
+
+    def chain_fleet():
+        return build_fleet("flagship6", None, dev, scenarios=1024, estimator_chain=True, seed=3)
+
+    ckpt = str(d / "chain" / "fleet.pt")
+    straight_chain = run_fleet(chain_fleet(), t_end=0.4, report_every=0.2)
+    run_fleet(chain_fleet(), t_end=0.2, report_every=0.2, checkpoint=ckpt)
+    resumed_chain = run_fleet(resume_fleet(chain_fleet(), ckpt, seed=0), t_end=0.2, report_every=0.2)
+    fa, fr = carry_fields(straight_chain.carry), carry_fields(resumed_chain.carry)
+    check(all(torch.equal(fa[k], fr[k]) for k in fa), "the resumed flagship chain fleet differs")
+    emit({"phase": "fleet_resume", "cartpole4_ticks": [straight.ticks, resumed.ticks],
+          "flagship6_chain_ticks": [straight_chain.ticks, resumed_chain.ticks], "bit_for_bit": True,
+          "generator_state_equal": True, "launches_cartpole4": counts, "seconds": time.perf_counter() - t0})
+
+    # P5. the estimator ladder through the CLI entry, float64 on the card, at
+    # its acceptance criteria (seed 0, held); seeds 1-4 reported
+    for app, check_fn in LADDER_CHECKS.items():
+        extra = ["--log-dir", "logs/chip_smoke_ladder"] if app == "pid" else []
+        verdicts, secs = [], []
+        for seed in range(5):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                (ret, counts, _) = counted(lambda: cli.main([app, "--seed", str(seed), *extra]))
+            secs.append(time.perf_counter() - t0)
+            verdicts.append(bool(check_fn(ret, buf.getvalue())))
+        emit({"phase": "estimator_ladder", "app": app, "device": str(dev), "passes_seed_0": verdicts[0],
+              "passes_seeds_0_4": verdicts, "seconds": secs, "launches": counts})
+        check(verdicts[0], f"{app} at seed 0 fails its acceptance criterion")
+    check(native_digests() == native_before, "native/ changed during the run")
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1774,6 +2020,7 @@ def main() -> None:
     ukf_fidelity_phase(dev, card)
     family = family_phases(dev, card)
     hil = hil_phases(dev, card, log)
+    fleet_finish_phases(dev, card)
 
     emit({"kernels": [
         {"name": "mppi_partials_kernel, merged in the launch (K2, mppi_solve_fused)", "route": "cuda",

@@ -361,9 +361,7 @@ def mppi4_ukf_commu(args) -> CommuResult:
         est_s.append(time.perf_counter() - t0)
         packets += 1
         finite = finite and bool(torch.isfinite(est.x).all())
-        if args.console:
-            print_rcv(time.time() - el.t0, u, est.x.numpy(), z, p_diag=torch.diagonal(est.p).numpy())
-        return est
+        return est, z
 
     try:
         # the reference starts its reader/UKF thread before the control
@@ -374,7 +372,7 @@ def mppi4_ukf_commu(args) -> CommuResult:
         while time.time() < first_deadline:
             s0 = port.read_latest_packet(Sensor3)
             if s0 is not None:
-                est = estimate(est, 0.0, s0, 1.0 / 100.0)
+                est, _ = estimate(est, 0.0, s0, 1.0 / 100.0)  # prints no Rcv line, as the JAX app
                 last_rx = time.time()
                 break
         deadline = time.time() + args.t_end / scale
@@ -383,7 +381,9 @@ def mppi4_ukf_commu(args) -> CommuResult:
             if s is not None:
                 dt_est = min(max((time.time() - last_rx) * scale, 1e-4), 0.1)
                 last_rx = time.time()
-                est = estimate(est, pre_u, s, dt_est)
+                est, z = estimate(est, pre_u, s, dt_est)
+                if args.console:
+                    print_rcv(time.time() - el.t0, pre_u, est.x.numpy(), z, p_diag=torch.diagonal(est.p).numpy())
             xh = est.x.double().numpy()
             max_th = max(max_th, abs(float(xh[3])))
             # the guard is armed once the filter has digested a few packets:

@@ -16,18 +16,28 @@ Both run the fast tier by default (polynomial sin/cos, one approximate
 reciprocal in the kernel) with the clt4 sampler below K=2048 and clt4a from
 K=2048; ``--no-fast-math`` runs the exact tier with wallace, and
 ``--sampler`` takes any of the six. The UKF uses α=1, the f32 fleets'
-spread (``fleet.py:84-98``), and the Jacobi sigma root of the SoA
-estimator. ``build_fleet(..., estimator_chain=True)`` runs plant, sensor and
-UKF as the fused estimator chain (K7); it is off by default and has no CLI
-flag, as in the JAX package.
+spread (``fleet.py:84-98``). The estimator runs in the batch-minor SoA
+layout by default, always on the Jacobi sigma root; ``--ukf-layout aos``
+runs the AoS filter on the root ``--sqrt-method`` names, by default the
+JAX package's off a TPU (``fleet.py:81-83``): ``eigh`` for cartpole4,
+``jacobi`` for flagship6. ``build_fleet(..., estimator_chain=True)`` runs
+plant, sensor and UKF as the fused estimator chain (K7, SoA only); it is
+off by default and has no CLI flag, as in the JAX package.
+``build_fleet(..., obs_normalize=True)`` rescales the flagship's z, hx and R
+by 1/σ a channel (``fleet.py:137-146``), a filter that is the same in exact
+arithmetic; it has no CLI flag either, as there.
 
-Not ported: the QP fleet, ``--resume`` and checkpoints, and the AoS
-estimator layout; the CLI has no flags for them.
+The CLI saves the fleet's carry and generator after every report chunk to
+``<--log-dir>/fleet/fleet.pt`` (``runtime/checkpoint.py``), and
+``--resume`` continues from such a file, or from a JAX ``fleet.npz``.
+
+Not ported: the QP fleet (``--controller qp``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 import statistics
 import time
 from typing import NamedTuple
@@ -43,6 +53,7 @@ from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops.estimator_cuda import CartPole4Rpm, Flagship6Imu
 from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Flagship4Diag4
 from mpc_rs_tpu_torch.parallel.scenario import init_scenario_carry, make_scenario_step
+from mpc_rs_tpu_torch.runtime.checkpoint import load_fleet, load_jax_fleet_npz, save_fleet
 from mpc_rs_tpu_torch.runtime.loop import pulse_disturbance
 
 MODELS = ("cartpole4", "flagship6")
@@ -57,31 +68,49 @@ class Fleet(NamedTuple):
     guard: float  # tip-over guard [rad]
     cfg: MppiConfig
     sampler: str
+    ukf_layout: str = "soa"  # "soa" or "aos"
+    sqrt_method: str = "jacobi"  # the AoS filter's sigma root (the SoA layout takes Jacobi)
 
 
 def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: int = 1024,
                 feed_true_state: bool = False, fast_math: bool | None = None,
                 sampler: str | None = None, ukf_alpha: float | None = None,
-                estimator_chain: bool = False) -> Fleet:
+                estimator_chain: bool = False, ukf_layout: str = "soa", sqrt_method: str | None = None,
+                obs_normalize: bool | None = None) -> Fleet:
     """The tick, the initial float32 carry and a seeded generator of a fleet
     model on ``device``. ``estimator_chain``: the tick runs the fused
-    estimator chain (K7) in place of the torch-op estimator."""
+    estimator chain (K7) in place of the torch-op estimator.
+    ``ukf_layout``/``sqrt_method``: the estimator's layout and, for the AoS
+    one, its sigma root (None: the model's default). ``obs_normalize``
+    (flagship6; None is off): the filter on observations scaled by 1/σ. K7
+    compiles the raw hx in, so ``estimator_chain`` with ``obs_normalize``
+    raises, as does ``obs_normalize`` on cartpole4, which has no such
+    option in the JAX package."""
     device = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     fast = True if fast_math is None else fast_math
     alpha = 1.0 if ukf_alpha is None else ukf_alpha
+    if obs_normalize and (estimator_chain or model != "flagship6"):
+        raise ValueError("obs_normalize is the flagship6 fleet's torch-op estimator's option: "
+                         "K7 compiles the raw hx in")
     if model == "flagship6":
         dt = 0.01  # 100 Hz control+sensor
         k = k or 8192
         p = CartPoleParams.two_wheel()
         est = Flagship6Imu(p, dt)  # plant, UKF process model and sensor
         ctrl = Flagship4Diag4(p, 1.2 / 8, (0.1, 0.1, 1.0, 0.5), fast=fast)
-        sens = torch.tensor([200.0, 200.0, 10.0, 0.05, 0.05], **f32)
+        sens_raw = torch.tensor([200.0, 200.0, 10.0, 0.05, 0.05], **f32)
+        hx = est.hx
+        if obs_normalize:
+            hx = lambda x: est.hx(x) / sens_raw  # noqa: E731
+            sens, r = torch.ones(5, **f32), torch.diag(1.0 / sens_raw)  # diag(σ)/σ²: σ-as-R kept
+        else:
+            sens, r = sens_raw, torch.diag(sens_raw)
         p0 = 0.1 * torch.eye(6, **f32)
         # ~2.15·dt in gen_q6's dt powers: absorbs the unmodeled 2 N push
         q = noise.gen_q6(torch.tensor(2.15 * dt, **f32))
-        r = torch.diag(sens)
-        params, ukf0 = ukf_init(torch.zeros(6, **f32), p0, q, r, alpha=alpha)
+        sqrt_method = sqrt_method or "jacobi"
+        params, ukf0 = ukf_init(torch.zeros(6, **f32), p0, q, r, alpha=alpha, sqrt_method=sqrt_method)
         cfg = MppiConfig(n_horizon=8, n_rollouts=k, lambda_=1.4, std_dev=4.0, limit=(-10.0, 10.0))
         kw = dict(state_slice=(0, 1, 3, 4), n_substeps=1, disturbance=pulse_disturbance(1.0, 1.5, 2.0))
         x0 = torch.zeros(6, **f32)
@@ -98,7 +127,9 @@ def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: 
         p0 = 0.1 * torch.eye(4, **f32)
         q = noise.gen_q4(dt / n_sub, dtype=torch.float32).to(device)
         r = torch.diag(sens * sens)
-        params, ukf0 = ukf_init(x0, p0, q, r, alpha=alpha)
+        hx = est.hx
+        sqrt_method = sqrt_method or "eigh"  # the JAX rule off a TPU (fleet.py:81-83)
+        params, ukf0 = ukf_init(x0, p0, q, r, alpha=alpha, sqrt_method=sqrt_method)
         cfg = MppiConfig(n_horizon=8, n_rollouts=k, lambda_=0.5, std_dev=10.0, limit=(-10.0, 10.0))
         kw = dict(n_substeps=n_sub, disturbance=None)
         theta_idx, guard = 2, math.radians(60.0)
@@ -106,13 +137,13 @@ def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: 
         raise ValueError(f"unknown fleet model {model!r}; choose from {MODELS}")
     sampler = sampler or (("clt4a" if k >= 2048 else "clt4") if fast else "wallace")
     plant_fx = est.plant_fx if kw["disturbance"] is not None else est.fx
-    tick = make_scenario_step(cfg, ctrl, plant_fx, params, est.fx, est.hx, sens, dt_tick=dt,
+    tick = make_scenario_step(cfg, ctrl, plant_fx, params, est.fx, hx, sens, dt_tick=dt,
                               ukf_p_reset=p0, feed_true_state=feed_true_state, sampler=sampler,
                               estimator_chain=estimator_chain, chain_model=est, ukf_q_const=q,
-                              ukf_r_const=r, **kw)
-    carry = init_scenario_carry(scenarios, x0, torch.zeros(8, **f32), ukf0)
+                              ukf_r_const=r, ukf_layout=ukf_layout, **kw)
+    carry = init_scenario_carry(scenarios, x0, torch.zeros(8, **f32), ukf0, ukf_layout=ukf_layout)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return Fleet(tick, carry, gen, dt, theta_idx, guard, cfg, sampler)
+    return Fleet(tick, carry, gen, dt, theta_idx, guard, cfg, sampler, ukf_layout, sqrt_method)
 
 
 def tipped(th_max: np.ndarray, guard: float) -> np.ndarray:
@@ -134,9 +165,11 @@ class FleetResult(NamedTuple):
     scenario_ticks_per_s: float  # over the whole run, host clock
 
 
-def run_fleet(fl: Fleet, *, t_end: float, report_every: float) -> FleetResult:
+def run_fleet(fl: Fleet, *, t_end: float, report_every: float, checkpoint: str | None = None) -> FleetResult:
     """Run whole report chunks until ``t_end`` and print one line per chunk
     (survival, median max |θ|, scenario-ticks/s), as ``fleet.py:391-418``.
+    With ``checkpoint`` (a path), the carry and the generator are saved
+    there after every chunk (``fleet.py:418``), outside the chunk's clock.
     A scenario is tipped once its max |θ| over a chunk passes the guard, by
     the reference's ``th_max > guard`` (``mpc_rs_tpu/apps/fleet.py:412``;
     ``tipped``): a NaN θ counts as survived, as it does there."""
@@ -168,20 +201,45 @@ def run_fleet(fl: Fleet, *, t_end: float, report_every: float) -> FleetResult:
         med = float(np.median(th))
         print(f"t={done * fl.dt:6.1f}s  survival={surv:6.3f}  median max|θ|={med:.4f}  "
               f"{b * chunk / wall:,.0f} scenario-ticks/s", flush=True)
+        if checkpoint is not None:
+            save_fleet(checkpoint, carry, fl.generator)
     n_tipped = int(ever_tipped.sum())
     return FleetResult(carry, b, done, n_tipped, 1.0 - n_tipped / b, not bool(bad_status.any()),
                        med, ticks, b * done / wall_total)
 
 
+def resume_fleet(fl: Fleet, path: str, seed: int) -> Fleet:
+    """``fl`` with the carry and generator of the checkpoint at ``path``: a
+    port ``fleet.pt`` (``load_fleet``), or a JAX ``fleet.npz``
+    (``load_jax_fleet_npz``), whose per-scenario PRNG keys have no
+    counterpart: the generator is then seeded from ``seed``."""
+    dev = fl.carry.x.device
+    if path.endswith(".npz"):
+        carry = load_jax_fleet_npz(path, fl.ukf_layout, template=fl.carry, device=dev)
+        print(f"resumed fleet from {path} (a JAX fleet.npz: its PRNG keys are dropped; "
+              f"the generator is seeded from --seed {seed})", flush=True)
+        return fl._replace(carry=carry, generator=torch.Generator(device=dev).manual_seed(seed))
+    carry, gen = load_fleet(path, fl.carry, dev)
+    print(f"resumed fleet from {path}", flush=True)
+    return fl._replace(carry=carry, generator=gen)
+
+
 def fleet(args) -> FleetResult:
-    """The ``fleet`` CLI entry: build, run, and print a summary."""
+    """The ``fleet`` CLI entry: build (or resume), run with a checkpoint
+    after every chunk, and print a summary."""
     fl = build_fleet(args.model, args.k, args.device, seed=args.seed, scenarios=args.scenarios,
-                     fast_math=args.fast_math, sampler=args.sampler, ukf_alpha=args.ukf_alpha)
+                     fast_math=args.fast_math, sampler=args.sampler, ukf_alpha=args.ukf_alpha,
+                     ukf_layout=args.ukf_layout or "soa", sqrt_method=args.sqrt_method)
+    if args.resume:
+        fl = resume_fleet(fl, args.resume, args.seed)
+    root = "aos, " + fl.sqrt_method if fl.ukf_layout == "aos" else "soa, jacobi"
     print(f"fleet {args.model}: B={args.scenarios} K={fl.cfg.n_rollouts} sampler={fl.sampler} "
-          f"fast_math={args.fast_math is not False} device={fl.carry.x.device}", flush=True)
+          f"fast_math={args.fast_math is not False} ukf=({root}) device={fl.carry.x.device}", flush=True)
+    ckpt = os.path.join(args.log_dir, "fleet", "fleet.pt")
     el = Elapsed()
-    res = run_fleet(fl, t_end=args.t_end, report_every=args.report_every)
+    res = run_fleet(fl, t_end=args.t_end, report_every=args.report_every, checkpoint=ckpt)
     el.print()
+    print(f"checkpoint: {ckpt}")
     print(f"survived {res.scenarios - res.tipped}/{res.scenarios} over {res.ticks} ticks; "
           f"median tick {1e3 * statistics.median(res.tick_seconds):.3f} ms; "
           f"all statuses 0: {res.statuses_ok}")

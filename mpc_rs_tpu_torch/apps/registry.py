@@ -1,15 +1,16 @@
 """Example registry of the port: reference binary name → runner.
 
-Ported so far: the MPPI application family (``mppi2``, ``mppi4``,
-``mppi4-non-liner``, ``mppi4-non-liner-s``, ``mppi4-non-liner-ukf``), the
-scenario ``fleet``, the hardware-in-the-loop apps (``uart``,
-``mppi4-commu``, ``mppi4-ukf-commu``) and the fleet serving bridge
-``serve``; ROADMAP.md lists the rest.
+Ported so far (18 of the JAX package's 26): the MPPI application family
+(``mppi2``, ``mppi4``, ``mppi4-non-liner``, ``mppi4-non-liner-s``,
+``mppi4-non-liner-ukf``), the scenario ``fleet``, the hardware-in-the-loop
+apps (``uart``, ``mppi4-commu``, ``mppi4-ukf-commu``), the fleet serving
+bridge ``serve``, and the estimator ladder with the PID baseline
+(``one-liner-kf`` … ``ukf-pen3``, ``pid``); ROADMAP.md lists the rest.
 """
 
 from __future__ import annotations
 
-from mpc_rs_tpu_torch.apps import commu_examples, mppi_examples
+from mpc_rs_tpu_torch.apps import commu_examples, estimator_examples, mppi_examples
 from mpc_rs_tpu_torch.apps import fleet as fleet_mod
 from mpc_rs_tpu_torch.apps import serve as serve_mod
 
@@ -24,6 +25,14 @@ EXAMPLES = {
     "mppi4-ukf-commu": commu_examples.mppi4_ukf_commu,
     "fleet": fleet_mod.fleet,  # scenario-fleet north star (BASELINE.json)
     "serve": serve_mod.serve,  # one batched solve a tick for B robot links
+    "one-liner-kf": estimator_examples.one_liner_kf,
+    "two-liner-kf": estimator_examples.two_liner_kf,
+    "ukf-one": estimator_examples.ukf_one,
+    "ukf-two": estimator_examples.ukf_two,
+    "ukf-pen": estimator_examples.ukf_pen,
+    "ukf-pen2": estimator_examples.ukf_pen2,
+    "ukf-pen3": estimator_examples.ukf_pen3,
+    "pid": estimator_examples.pid,
 }
 
 

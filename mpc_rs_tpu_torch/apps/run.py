@@ -93,7 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
                        help="control tick period [s] of simulated time (default 0.01)")
     serve.add_argument("--report-every", type=float, default=1.0, help="report period [s] of wall time")
 
-    fleet = sub.add_parser("fleet", parents=[common], help="scenario fleet: B closed loops per tick")
+    fleet = sub.add_parser("fleet", parents=[common, log_dir], help="scenario fleet: B closed loops per tick")
     fleet.add_argument("--model", choices=["cartpole4", "flagship6"], default="cartpole4",
                        help="fleet plant/estimator stack")
     fleet.add_argument("--scenarios", type=int, default=1024, help="fleet batch size B")
@@ -105,6 +105,29 @@ def build_parser() -> argparse.ArgumentParser:
                        help="fast-tier dynamics and sampling (default: on)")
     fleet.add_argument("--ukf-alpha", type=float, default=None,
                        help="UKF sigma-point spread α (default 1, the f32 fleets' spread)")
+    fleet.add_argument("--ukf-layout", choices=["soa", "aos"], default=None,
+                       help="fleet estimator layout: batch-minor SoA (default) or the batched AoS filter")
+    fleet.add_argument("--sqrt-method", choices=["eigh", "jacobi", "cholesky"], default=None,
+                       help="the AoS filter's sigma root (default: eigh for cartpole4, jacobi for flagship6; "
+                            "the SoA layout always takes jacobi)")
+    fleet.add_argument("--resume", default=None,
+                       help="fleet checkpoint to resume from: the port's fleet.pt, or a JAX fleet.npz "
+                            "(its PRNG keys are dropped and the generator is seeded from --seed)")
+
+    # the estimator ladder (float64 on --device): the seed drives the noise
+    ladder = argparse.ArgumentParser(add_help=False)
+    ladder.add_argument("--seed", type=int, default=0, help="numpy seed of the noise")
+    ladder.add_argument("--device", default="cuda",
+                        help="torch device: cuda (default) or cpu")
+    for name, what in (("one-liner-kf", "1-D KF with Gaussian algebra"),
+                       ("two-liner-kf", "2-state linear KF, Joseph form"),
+                       ("ukf-one", "scalar UKF"), ("ukf-two", "2-state UKF with an x1^4 drift"),
+                       ("ukf-pen", "4-state pendulum UKF, [dx, dtheta] observed"),
+                       ("ukf-pen2", "4-state pendulum UKF, rpm/gyro observed"),
+                       ("ukf-pen3", "6-state pendulum UKF, force IMU observed")):
+        sub.add_parser(name, parents=[ladder], help=what)
+    pid = sub.add_parser("pid", parents=[ladder, log_dir], help="velocity-form PID baseline (tips by design)")
+    pid.add_argument("--t-end", type=float, default=10.0, help="sim duration [s] (default 10)")
     return ap
 
 

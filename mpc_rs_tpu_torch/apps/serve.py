@@ -226,7 +226,7 @@ def serve(args) -> dict:
     links = _open_links(args, b)
 
     ticks = 0
-    solve_s = []
+    solve_s, dispatch_s = [], []  # from the dispatch's return, and from before it, to the u0 read back
     t0 = time.time()
     next_report = t0 + args.report_every
     deadline = t0 + args.t_end / scale
@@ -246,17 +246,20 @@ def serve(args) -> dict:
         if not fresh.any():
             return False
         seeds = np.int32(args.seed) + np.int32(dispatched) * np.int32(b) + seeds0
-        s0 = time.time()
+        d0 = time.time()
         d = solve(seeds, xs, u_dev)
+        s0 = time.time()  # the JAX runner's clock starts after its async dispatch returns (serve.py:255-258)
         u_dev = d.u_n
         dispatched += 1
-        pending.append((s0, d, fresh.copy()))
+        pending.append((d0, s0, d, fresh.copy()))
         return True
 
     def pop_plan():
-        s0, d, fr = pending.popleft()
+        d0, s0, d, fr = pending.popleft()
         u_plan = d.result()  # waits for this solve only
-        solve_s.append(time.time() - s0)
+        now = time.time()
+        solve_s.append(now - s0)
+        dispatch_s.append(now - d0)
         if u_plan.ndim == 1:
             u_plan = u_plan[:, None]
         return u_plan, fr
@@ -299,7 +302,7 @@ def serve(args) -> dict:
             if ahead > 0:
                 time.sleep(ahead)
         while pending:
-            pending.popleft()[1].result()  # drain without sending past the deadline
+            pending.popleft()[2].result()  # drain without sending past the deadline
     finally:
         for ln in links:
             ln.stop()
@@ -319,6 +322,7 @@ def serve(args) -> dict:
         "tx": [ln.n_tx for ln in links],
         "max_abs_theta": [ln.max_abs_theta for ln in links],
         "solve_ms_p50": 1e3 * float(np.median(solve_s)) if solve_s else 0.0,
+        "dispatch_ms_p50": 1e3 * float(np.median(dispatch_s)) if dispatch_s else 0.0,
         "bad_frames": sum(ln.port.n_bad_frames for ln in links),
     }
     survived = sum(1 for th in summary["max_abs_theta"] if th < DEG60)

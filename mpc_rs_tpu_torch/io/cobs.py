@@ -20,26 +20,15 @@ otherwise; True raises when it does not load; False takes the Python codec.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
+
+from mpc_rs_tpu_torch.io.native import NativeLibrary, load_stamped
 
 NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 SOURCE = NATIVE_DIR / "mpcio.cpp"
 COMMITTED = NATIVE_DIR / "libmpcio.so"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-GXX_FLAGS = ("-O2", "-fPIC", "-shared")
-
-
-@dataclasses.dataclass(frozen=True)
-class NativeLibrary:
-    lib: ctypes.CDLL
-    path: Path
-    built: bool  # compiled into _build/ (the committed binary's stamp did not match)
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -60,48 +49,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _source_sha256() -> str:
-    return hashlib.sha256(SOURCE.read_bytes()).hexdigest()
-
-
-def _committed_matches(digest: str) -> bool:
-    stamp = COMMITTED.with_name(COMMITTED.name + ".src.sha256")
-    return COMMITTED.is_file() and stamp.is_file() and stamp.read_text().split()[:1] == [digest]
-
-
-def _build(digest: str) -> Path:
-    """Compile ``native/mpcio.cpp`` into ``_build/libmpcio_<sha>.so`` (atomic)."""
-    so = BUILD_DIR / f"libmpcio_{digest[:16]}.so"
-    if so.is_file():
-        return so
-    gxx = shutil.which(os.environ.get("CXX", "g++"))
-    if gxx is None:
-        raise OSError("g++ not found")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([gxx, *GXX_FLAGS, str(SOURCE), "-o", str(tmp)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise OSError(f"g++ failed ({proc.returncode}): {proc.stderr}")
-    os.replace(tmp, so)
-    return so
-
-
 @functools.cache
 def native_library() -> NativeLibrary | None:
     """The loaded library, or None when neither the committed binary (stamp
     matching the source) nor a build of the source loads."""
     if not SOURCE.is_file():
         return None
-    digest = _source_sha256()
-    if _committed_matches(digest):
-        try:
-            return NativeLibrary(_declare(ctypes.CDLL(str(COMMITTED))), COMMITTED, False)
-        except OSError:
-            pass  # e.g. another C library: build the source instead
     try:
-        so = _build(digest)
-        return NativeLibrary(_declare(ctypes.CDLL(str(so))), so, True)
+        return load_stamped(SOURCE, COMMITTED, BUILD_DIR, _declare)
     except OSError:
         return None
 

@@ -79,6 +79,28 @@ def make_cartpole_linear(p: CartPoleParams, dt: float):
     return step
 
 
+
+def make_cartpole_linear_pid(p: CartPoleParams, dt: float):
+    """The PID example's linear cart-pole — examples/pid.rs:62-78
+    (``dynamics.py:329-351``). ``make_cartpole_linear`` but for the
+    reference's D constant, which takes ``J1 / R_W * R_W`` (== J1, * and /
+    associate left) for ``J1 / (R_W * R_W)``; kept, so trajectories match."""
+    mass_line = p.m1 + p.m2 + p.j1 / p.r_w * p.r_w  # quirk: == m1 + m2 + j1
+    d = mass_line * (p.m2 * p.l * p.l + p.j2) - p.m2 * p.m2 * p.l * p.l
+    a32 = mass_line / d * p.m2 * p.g * p.l
+    b3 = -p.m2 * p.l / d / p.r_w * p.kt
+    a12 = -p.m2 * p.m2 * p.g * p.l * p.l / d
+    b1 = (p.m2 * p.l * p.l + p.j2) / d / p.r_w * p.kt
+
+    def step(x0, x1, x2, x3, u):
+        x3 = x3 + (a32 * x2 + b3 * u) * dt
+        x2 = x2 + x3 * dt
+        x1 = x1 + (a12 * x2 + b1 * u) * dt
+        x0 = x0 + x1 * dt
+        return x0, x1, x2, x3
+
+    return step
+
 def make_cartpole_nonlinear(p: CartPoleParams, dt: float | None = None, *, fast: bool = False):
     """Nonlinear 4-state cart-pole — examples/mppi4-non-liner.rs:81-94.
 

@@ -1,7 +1,7 @@
-"""Observation models (hx) of the fleets and of the UKF examples, and the
-sensor-dropout mask of the hardware apps.
+"""Observation models (hx) of the fleets and of the UKF examples, the
+sensor-dropout mask of the hardware apps, and a simulated Gaussian sensor.
 
-Port of ``mpc_rs_tpu/models/observation.py:19-97``. Vector form: ``hx(x)``
+Port of ``mpc_rs_tpu/models/observation.py:19-113``. Vector form: ``hx(x)``
 takes x of shape (..., n_state) and returns z of shape (..., n_obs), so the
 same function maps a (B, n) batch or an (m, B, n) sigma-point stack.
 """
@@ -29,6 +29,15 @@ def make_hx_rpm_gyro4(p: CartPoleParams):
 
     return hx
 
+
+
+def make_hx_vel2():
+    """4-state → [dx, dθ] — examples/ukf-pen.rs:86-91, mpc-ukf-x.rs:108-113."""
+
+    def hx(x):
+        return torch.stack(torch.broadcast_tensors(x[..., 1], x[..., 3]), dim=-1)
+
+    return hx
 
 def make_hx_imu6(p: CartPoleParams, gear: float = 36.0):
     """6-state → [rpm, −rpm, deg/s, az/G, ax/G] — mppi4-non-liner-ukf.rs:169-179.
@@ -73,3 +82,18 @@ def make_masked_hx(hx, enable_mask):
         return hx(x) * enable_mask
 
     return masked
+
+
+def make_gaussian_sensor(hx, stddevs):
+    """Simulated sensor hx(x) + diag(σ)·N(0, 1) — e.g.
+    mppi4-non-liner-ukf.rs:181-191 (``observation.py:100-113``). The
+    standard normals come from the ``torch.Generator`` the caller passes,
+    as the JAX package's come from an explicit key."""
+    sig = torch.as_tensor(stddevs)
+
+    def sensor(generator: torch.Generator, x):
+        s = sig.to(dtype=x.dtype, device=x.device)
+        eps = torch.randn(x.shape[:-1] + s.shape, generator=generator, dtype=x.dtype, device=x.device)
+        return hx(x) + s * eps
+
+    return sensor

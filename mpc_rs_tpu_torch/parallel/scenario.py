@@ -1,18 +1,25 @@
 """Scenario-batched closed loops on one GPU — the fleet's tick.
 
 Port of ``mpc_rs_tpu/parallel/scenario.py:38-45,47-337,360-386`` for one
-device and the batch-minor (SoA) estimator. Each tick advances B
-independent closed loops: one scenario-batched MPPI solve
-(``ops/mppi_cuda.py::mppi_solve_batch_fused``, the K5/K6 kernel on a CUDA
-device), then ``n_substeps`` of plant → sensor → UKF predict/update/guard:
-in torch ops (the JAX package's ``rest_soa``), or, with
-``estimator_chain=True`` (opt-in, as there), as one call of
-``ops/estimator_cuda.py::estimator_chain_fused`` (its ``rest_chain``: the
-K7 kernel on a CUDA device).
+device. Each tick advances B independent closed loops: one
+scenario-batched MPPI solve (``ops/mppi_cuda.py::mppi_solve_batch_fused``,
+the K5/K6 kernel on a CUDA device), then ``n_substeps`` of plant → sensor →
+UKF predict/update/guard. The estimator runs in one of three forms:
+- ``ukf_layout="soa"`` (the default): the batch-minor filter in torch ops
+  (the JAX package's ``rest_soa``), its covariance carried packed (n², B);
+- ``ukf_layout="soa"`` with ``estimator_chain=True`` (opt-in, as there):
+  one call of ``ops/estimator_cuda.py::estimator_chain_fused`` (its
+  ``rest_chain``: the K7 kernel on a CUDA device);
+- ``ukf_layout="aos"``: the AoS filter of ``estimators/ukf.py`` (its
+  ``ukf_predict``, ``ukf_update`` and ``ukf_guard``, with the sigma root of
+  ``UkfParams.sqrt_method``) on (B, n) means and (B, n, n) covariances in
+  torch ops, the JAX package's vmapped ``rest`` (``scenario.py:190-220``).
+  K7 runs the SoA filter only: ``estimator_chain=True`` with ``"aos"``
+  raises, where the JAX step quietly runs without the chain.
 
 What is not ported: the ``shard_map`` over a (scenario × rollouts) mesh
 (on one device the rollout merge, ``scenario.py:150-158``, is the
-identity) and the AoS estimator layout.
+identity).
 
 Randomness comes from an explicit ``torch.Generator`` on the carry's
 device: per tick one (B,) int32 draw of kernel seeds (scenario b keys its
@@ -31,7 +38,7 @@ import torch
 
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
 from mpc_rs_tpu_torch.estimators import ukf_soa
-from mpc_rs_tpu_torch.estimators.ukf import UkfParams, UkfState
+from mpc_rs_tpu_torch.estimators.ukf import UkfParams, UkfState, ukf_guard, ukf_predict, ukf_update
 from mpc_rs_tpu_torch.ops.estimator_cuda import EstimatorChain, estimator_chain_fused
 from mpc_rs_tpu_torch.ops.mppi_cuda import mppi_solve_batch_fused
 
@@ -39,7 +46,9 @@ from mpc_rs_tpu_torch.ops.mppi_cuda import mppi_solve_batch_fused
 class ScenarioCarry(NamedTuple):
     x: torch.Tensor  # (B, S) true plant states
     u_n: torch.Tensor  # (B, N) nominal sequences
-    ukf: UkfState  # x (B, n); p (n², B) packed batch-minor; q (B, n, n); r (B, o, o); sigma_f None
+    # x (B, n); q (B, n, n); r (B, o, o); p (n², B) packed batch-minor and sigma_f None
+    # under the SoA layout, p (B, n, n) and sigma_f (B, 2n+1, n) under the AoS one
+    ukf: UkfState
     status: torch.Tensor  # (B,) int32 last MPPI status
     t: torch.Tensor  # (B,) sim time — drives disturbance windows
 
@@ -65,6 +74,7 @@ def make_scenario_step(
     chain_model=None,  # the chain's models (ops/estimator_cuda.py) — required for it
     ukf_q_const=None,  # (n, n) static process noise — required for the chain
     ukf_r_const=None,  # (o, o) static measurement noise — required for the chain
+    ukf_layout: str = "soa",  # the estimator's layout: "soa" or "aos"
 ):
     """Returns ``step(carry, generator, *, mppi_noise=None, sensor_noise=None)
     -> carry`` advancing every scenario one control tick: MPPI → plant →
@@ -87,7 +97,15 @@ def make_scenario_step(
     JAX package's ``make_estimator_chain``; the mean's pair sums then add up
     in sequence (``unroll_sum=True``), so a tick agrees with the torch-op
     path to rounding, not bit for bit.
+
+    ``ukf_layout="aos"``: the AoS filter on the carry of
+    ``init_scenario_carry(..., ukf_layout="aos")``; it draws the same sensor
+    noise as the SoA path.
     """
+    if ukf_layout not in ("soa", "aos"):
+        raise ValueError(f"ukf_layout must be 'soa' or 'aos', got {ukf_layout!r}")
+    if estimator_chain and ukf_layout == "aos":
+        raise ValueError("estimator_chain=True runs the SoA filter (K7); there is no chain for ukf_layout='aos'")
     sig = torch.as_tensor(sensor_stddevs)
     p_reset = None if ukf_p_reset is None else torch.as_tensor(ukf_p_reset)
     dt_sub = dt_tick / n_substeps
@@ -130,19 +148,34 @@ def make_scenario_step(
             # sensor->UKF chain runs (mppi4-non-liner-ukf.rs:224-288)
             u0 = torch.where(carry.t >= control_start, u0, 0.0)
         ukf = carry.ukf
-        n = ukf.x.shape[-1]
-        q, r = ukf.q[0], ukf.r[0]
         s_dev = sig.to(device=dev, dtype=dtype)
-        soa = ukf_soa.SoaUkfState(x=ukf.x.T, p=ukf.p.reshape(n, n, b), sigma_f=None)
-        x = carry.x
-        for i in range(n_substeps):
-            if disturbance is None:
-                x = plant_fx(x, u0)
-            else:
-                x = plant_fx(x, u0, disturbance(carry.t + torch.full_like(carry.t, i) * dt_sub))
+
+        def sense(x, i):
             eps = (sensor_noise[i] if sensor_noise is not None else
                    torch.randn((b, s_dev.shape[0]), generator=generator, device=dev, dtype=dtype))
-            z = ukf_hx(x) + s_dev * eps
+            return ukf_hx(x) + s_dev * eps
+
+        def plant(x, i):
+            if disturbance is None:
+                return plant_fx(x, u0)
+            return plant_fx(x, u0, disturbance(carry.t + torch.full_like(carry.t, i) * dt_sub))
+
+        x = carry.x
+        if ukf_layout == "aos":
+            u_col = u0[:, None]  # broadcast over the sigma points of each scenario
+            for i in range(n_substeps):
+                x = plant(x, i)
+                z = sense(x, i)
+                ukf = ukf_update(ukf_params, ukf_predict(ukf_params, ukf, u_col, ukf_fx), z, ukf_hx)
+                if p_reset is not None:
+                    ukf = ukf_guard(ukf, p_reset)
+            return ScenarioCarry(x=x, u_n=u_new, ukf=ukf, status=status, t=carry.t + dt_tick)
+        n = ukf.x.shape[-1]
+        q, r = ukf.q[0], ukf.r[0]
+        soa = ukf_soa.SoaUkfState(x=ukf.x.T, p=ukf.p.reshape(n, n, b), sigma_f=None)
+        for i in range(n_substeps):
+            x = plant(x, i)
+            z = sense(x, i)
             soa = ukf_soa.soa_predict(ukf_params, soa, u0, ukf_fx, q)
             soa = ukf_soa.soa_update(ukf_params, soa, z.T, ukf_hx, r)
             if p_reset is not None:
@@ -155,17 +188,23 @@ def make_scenario_step(
 
 
 def init_scenario_carry(batch: int, x0: torch.Tensor, u0: torch.Tensor,
-                        ukf_state: UkfState) -> ScenarioCarry:
-    """Broadcast one scenario's initial condition to a (B, ...) carry, with
-    the covariance packed batch-minor as one (n², B) tensor (the JAX
-    package's ``ukf_layout="soa"`` carry)."""
+                        ukf_state: UkfState, ukf_layout: str = "soa") -> ScenarioCarry:
+    """Broadcast one scenario's initial condition to a (B, ...) carry. Under
+    ``ukf_layout="soa"`` the covariance is packed batch-minor as one (n², B)
+    tensor and sigma_f is dropped (the JAX package's ``"soa"`` carry); under
+    ``"aos"`` every field is tiled batch-leading, sigma_f included."""
     tile = lambda a: a.expand((batch,) + tuple(a.shape)).contiguous()  # noqa: E731
     n = ukf_state.x.shape[-1]
-    ukf = UkfState(
-        x=tile(ukf_state.x),
-        p=ukf_state.p.reshape(n * n, 1).expand(n * n, batch).contiguous(),
-        q=tile(ukf_state.q), r=tile(ukf_state.r), sigma_f=None,
-    )
+    if ukf_layout == "aos":
+        ukf = UkfState(*(tile(a) for a in ukf_state))
+    elif ukf_layout == "soa":
+        ukf = UkfState(
+            x=tile(ukf_state.x),
+            p=ukf_state.p.reshape(n * n, 1).expand(n * n, batch).contiguous(),
+            q=tile(ukf_state.q), r=tile(ukf_state.r), sigma_f=None,
+        )
+    else:
+        raise ValueError(f"ukf_layout must be 'soa' or 'aos', got {ukf_layout!r}")
     dev = x0.device
     return ScenarioCarry(
         x=tile(x0), u_n=tile(u0), ukf=ukf,
@@ -175,11 +214,12 @@ def init_scenario_carry(batch: int, x0: torch.Tensor, u0: torch.Tensor,
 
 
 def carry_from_numpy(arrays: Mapping[str, Any], device=None) -> ScenarioCarry:
-    """The port's carry from numpy arrays of a JAX ``ScenarioCarry`` with
-    the SoA-packed ``ukf.p`` (n², B): keys ``x``, ``u_n``, ``ukf`` (a mapping
-    with ``x``, ``p``, ``q``, ``r``), ``status``, ``t``. The JAX per-scenario
-    PRNG keys (``key``) and ``ukf.sigma_f`` have no counterpart and are
-    ignored; any other key raises."""
+    """The port's carry from numpy arrays of a JAX ``ScenarioCarry``: keys
+    ``x``, ``u_n``, ``ukf`` (a mapping with ``x``, ``p``, ``q``, ``r`` and,
+    under the AoS layout, ``sigma_f``), ``status``, ``t``. ``ukf.p`` is
+    (n², B) under the SoA layout and (B, n, n) under the AoS one. The JAX
+    per-scenario PRNG keys (``key``) have no counterpart and are ignored;
+    any other key raises."""
     unknown = set(arrays) - {"x", "u_n", "ukf", "status", "t", "key"}
     if unknown:
         raise ValueError(f"unknown ScenarioCarry fields: {sorted(unknown)}")
@@ -187,6 +227,7 @@ def carry_from_numpy(arrays: Mapping[str, Any], device=None) -> ScenarioCarry:
     u = arrays["ukf"]
     return ScenarioCarry(
         x=t(arrays["x"]), u_n=t(arrays["u_n"]),
-        ukf=UkfState(x=t(u["x"]), p=t(u["p"]), q=t(u["q"]), r=t(u["r"]), sigma_f=None),
+        ukf=UkfState(x=t(u["x"]), p=t(u["p"]), q=t(u["q"]), r=t(u["r"]),
+                     sigma_f=None if u.get("sigma_f") is None else t(u["sigma_f"])),
         status=t(arrays["status"]).to(torch.int32), t=t(arrays["t"]),
     )

@@ -22,6 +22,7 @@ case runs 2 s of simulated time.
 
 import contextlib
 import io
+import time
 
 import jax
 import jax.numpy as jnp
@@ -500,7 +501,8 @@ def _run(argv):
 def test_registry_lists_the_ported_examples():
     assert set(registry.EXAMPLES) == {"mppi2", "mppi4", "mppi4-non-liner", "mppi4-non-liner-s",
                                       "mppi4-non-liner-ukf", "fleet", "uart", "mppi4-commu",
-                                      "mppi4-ukf-commu", "serve"}
+                                      "mppi4-ukf-commu", "serve", "one-liner-kf", "two-liner-kf",
+                                      "ukf-one", "ukf-two", "ukf-pen", "ukf-pen2", "ukf-pen3", "pid"}
     args = cli.build_parser().parse_args(["serve", "--serial", "/dev/ttyUSB0,/dev/ttyUSB1", "--robots", "2",
                                           "--device", "cpu"])
     assert args.serial == "/dev/ttyUSB0,/dev/ttyUSB1" and args.device == "cpu" and args.robots == 2
@@ -587,3 +589,41 @@ def test_mppi4_non_liner_ukf_console_streams(tmp_path):
     quiet = _run(["mppi4-non-liner-ukf", "--device", "cpu", "--k", "256", "--t-end", "0.05",
                   "--log-dir", str(tmp_path)])[1]
     assert "Con:" not in quiet and "Rcv:" not in quiet
+
+
+def test_mppi4_ukf_commu_console_prints_an_rcv_line_a_traffic_packet(tmp_path):
+    """With ``--console`` the HW flagship prints Rcv only in the traffic
+    loop, as the JAX app does (``mpc_rs_tpu/apps/commu_examples.py:254-277``):
+    the first frame's filter step before control starts prints nothing, so
+    the Rcv lines number the packets read less one."""
+    res, out = _run(["mppi4-ukf-commu", "--device", "cpu", "--sim-mcu", "--k", "256", "--time-scale", "0.2",
+                     "--t-end", "0.4", "--ukf-dtype", "float64", "--console", "--log-dir", str(tmp_path)])
+    assert res.packets >= 5
+    assert out.count("\x1b[36mRcv:") == res.packets - 1
+    assert out.count("\x1b[32mCon:") >= 1
+
+
+def test_serve_solve_clock_starts_after_the_dispatch_returns(monkeypatch):
+    """``solve_ms_p50`` runs from the return of the dispatch to the u0 read
+    back, as the JAX runner's (``mpc_rs_tpu/apps/serve.py:255-258``);
+    ``dispatch_ms_p50`` from before the dispatch. A dispatch that sleeps
+    50 ms on the host lands in the second and not in the first."""
+    from mpc_rs_tpu_torch.apps import serve as serve_mod
+
+    real = serve_mod.make_batch_solver
+
+    def slow_solver(*a, **kw):
+        solve = real(*a, **kw)
+
+        def slow(*args):
+            time.sleep(0.05)
+            return solve(*args)
+
+        return slow
+
+    monkeypatch.setattr(serve_mod, "make_batch_solver", slow_solver)
+    summary, _ = _run(["serve", "--device", "cpu", "--sim-mcu", "--robots", "2", "--k", "64", "--time-scale", "0.2",
+                       "--t-end", "0.5", "--seed", "1"])
+    assert summary["dispatches"] >= 2
+    assert summary["dispatch_ms_p50"] >= 50.0, summary
+    assert summary["solve_ms_p50"] < 25.0, summary

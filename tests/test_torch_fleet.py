@@ -449,15 +449,15 @@ def test_fleet_cli_without_cuda_raises():
         pytest.skip("a CUDA device is present; the default device runs")
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["fleet", "--scenarios", "8", "--t-end", "0.05"])
-    with pytest.raises(SystemExit):
-        cli.main(["fleet", "--resume", "x.npz"])  # not ported: the flag does not exist
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["fleet", "--resume", "x.npz"])  # the flag exists; the card is still the default
 
 
 @pytest.mark.parametrize("argv", [
     ["mppi4-non-liner", "--scenarios", "8"],
     ["mppi4-non-liner", "--sampler", "clt4"],
     ["mppi4-non-liner", "--no-fast-math"],
-    ["fleet", "--log-dir", "logs"],
+    ["fleet", "--console"],
 ])
 def test_cli_rejects_options_of_another_example(argv):
     """Each example parses only its own options; another's is an error, not

@@ -6,6 +6,7 @@ source, else a build into the port's ``_build/``; ``native/`` never
 written)."""
 
 import hashlib
+import shutil
 import struct
 import time
 from pathlib import Path
@@ -113,7 +114,7 @@ def test_use_native_true_raises_without_the_library(monkeypatch):
 def test_a_stale_stamp_builds_the_source_into_the_ports_build_dir(monkeypatch, tmp_path):
     """A committed binary whose stamp is not the source's sha256 is not
     loaded: the source is compiled into the port's build directory."""
-    if cobs.shutil.which("g++") is None:
+    if shutil.which("g++") is None:
         pytest.skip("needs g++")
     before = _native_digests()
     stale = tmp_path / "native"
