@@ -61,6 +61,14 @@ the filter in float32 and in float64) and ``serve`` (8 robots, K = 8192:
 M = 1 at depth 0 and 2, M = 4 at depth 1, which is N = 40), each solve or
 dispatch one counted launch.
 
+The gradient-MPC slice (float64 batched torch ops, no kernel of its own)
+runs the six ``mpc_examples`` apps on the card at their JAX acceptance
+criteria (``op-mpc-x`` a prefix of its ticks) with each app's solve times
+and PANOC iterations beside the 0.03 s budget, ``op-mpc-x-calc-nl`` on the
+card against the CPU tick by tick, the QP fleet at B = 1024 on both
+solvers (timed and profiled), and 200 ``qp-parking`` episodes against a
+fresh oracle, written to ``PARITY_DIST_TORCH.json``.
+
 It prints one JSON line per phase, then the kernels line, the ``nvidia-smi``
 name and power limit, and last the line ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; so does a machine without CUDA, or a
@@ -1720,6 +1728,223 @@ def fleet_finish_phases(dev: torch.device, card: dict) -> None:
         check(verdicts[0], f"{app} at seed 0 fails its acceptance criterion")
     check(native_digests() == native_before, "native/ changed during the run")
 
+# --------------------------------------------------------------------------
+# gradient MPC: the six mpc_examples apps, the QP fleet and qp-parking.
+# Their acceptance criteria, copied from mpc_rs_tpu/apps/acceptance.py
+# (chk_op_en2 :50-52, chk_parks :55-60, chk_mpc_ukf_x_faithful :63-74,
+# chk_multirate_survives :46-47; SPECS :264-270, fleet-qp :218-226, 318-321),
+# read from the port's results: ``ret.u`` of op-en2, ``ret.x`` of the others.
+
+PANOC_BUDGET_S = 0.03  # the reference's real-time budget a PANOC solve (SURVEY §6)
+OP_MPC_X_TICKS = 10  # op-mpc-x's prefix on the card (of 1 001 ticks, ~0.7 s each)
+NOISE_ITERS = 30  # past this many iterations a condensed-QP PANOC solve is noise-driven
+# how far from the optimum op-mpc-x-calc's tol-1e-6 stop can be: 2·√n·tol/λ_min(2H), λ_min = 0.1254
+CALC_RADIUS = 2.0 * math.sqrt(8) * 1e-6 / 0.1253964616268916
+
+
+def chk_op_en2(ret, out) -> bool:
+    u = ret.u.double().cpu()
+    return abs(float(u[0])) < 1e-3 and abs(float(u[1])) < 1e-3
+
+
+def chk_parks(ret, out) -> bool:
+    x = ret.x
+    return _finite(x) and "over pi/2" not in out and "Error:" not in out and abs(x[0]) < 0.3 and abs(x[2]) < 0.1
+
+
+def chk_mpc_ukf_x_faithful(ret, out) -> bool:
+    # the reference's proven behavior: the cart glides away under the π/2
+    # guard or noise tips it past π/2; stabilizing at the origin would not be it
+    x = ret.x
+    glided = "Error:" not in out and abs(x[2]) < math.pi / 2 and abs(x[0]) > 10.0
+    return glided or "Error:" in out
+
+
+def chk_multirate_survives(ret, out) -> bool:
+    return (not ret.tipped) and ret.t >= 9.5
+
+
+MPC_CHECKS = {"op-en2": chk_op_en2, "op-mpc-x": chk_parks, "op-mpc-x-calc": chk_parks, "op-mpc-x-calc-nl": chk_parks,
+              "mpc-ukf-x": chk_mpc_ukf_x_faithful, "mpc-ukf-s": chk_multirate_survives}
+
+
+def gradient_mpc_phases(dev: torch.device, card: dict) -> None:
+    """The gradient-MPC slice (float64 solves in batched torch ops, no
+    kernel of its own): the six apps through the CLI entry (op-mpc-x's
+    first OP_MPC_X_TICKS ticks through its library function) at their JAX
+    acceptance criteria with each app's solve times and PANOC iterations
+    beside the 0.03 s budget; op-mpc-x-calc-nl on the card against the CPU;
+    the QP fleet at B = 1024 on both solvers; 200 qp-parking episodes
+    against a fresh oracle. Each path runs with the launch counts set to 0
+    just before it and read just after: none launches a kernel of the port."""
+    import types
+
+    import numpy as np
+
+    from mpc_rs_tpu_torch.apps import mpc_examples as me
+    from mpc_rs_tpu_torch.apps import run as cli
+    from mpc_rs_tpu_torch.apps.fleet import build_qp_fleet
+    from mpc_rs_tpu_torch.controllers import panoc
+    from mpc_rs_tpu_torch.controllers.qp import box_qp_newton, build_condensed_qp, qp_linear_term
+    from mpc_rs_tpu_torch.models import dynamics, reference
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+    from mpc_rs_tpu_torch.ops import estimator_cuda, mppi_cuda
+    from mpc_rs_tpu_torch.runtime.profile_tick import _union_us
+    from mpc_rs_tpu_torch.scripts import parity_dist as pd
+
+    def counted(fn):
+        mppi_cuda.reset_launches()
+        estimator_cuda.reset_launches()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in {**mppi_cuda.launches, **estimator_cuda.launches}.items() if v}
+        check(not counts, f"a gradient-MPC path launched the port's kernels: {counts}")
+        return out, buf.getvalue(), time.perf_counter() - t0
+
+    def solve_stats(log) -> dict:
+        it = sorted(log.iterations)
+        return {**ms_quantiles(log.seconds), "solves": len(it), "iterations_median": statistics.median(it),
+                "iterations_max": it[-1], "budget_ms": 1e3 * PANOC_BUDGET_S,
+                "solves_within_budget": sum(s <= PANOC_BUDGET_S for s in log.seconds) / len(log.seconds)}
+
+    # a host read-back of a device flag after one small kernel: what each of
+    # PANOC's loop conditions costs on the card
+    flag = torch.zeros(1, device=dev)
+    readback_s = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        flag.add_(1.0)
+        bool((flag > 0).any())
+        readback_s.append(time.perf_counter() - t0)
+    readback_us = 1e3 * ms_quantiles(readback_s)["median_ms"]
+    emit({"phase": "mpc_readback", "readback_us_median": readback_us, **card})
+
+    logs = "logs/chip_smoke_mpc"
+    # G1. the six apps on the card at their acceptance criteria
+    for app in MPC_CHECKS:
+        panoc.reset_readbacks()
+        if app == "op-mpc-x":
+            args = types.SimpleNamespace(device="cuda", max_iter=None, fd=False, log_dir=logs)
+            ret, out, secs = counted(lambda: me.run_op_mpc_x(args, max_ticks=OP_MPC_X_TICKS))
+            ok = _finite(ret.x) and "Error:" not in out and ret.ticks == OP_MPC_X_TICKS
+            verdict = f"{OP_MPC_X_TICKS} of 1001 ticks finite, no bail (chk_parks needs all 1001)"
+        else:
+            argv = [app] + ([] if app == "op-en2" else ["--log-dir", logs])
+            ret, out, secs = counted(lambda: cli.main(argv))
+            ok, verdict = bool(MPC_CHECKS[app](ret, out)), MPC_CHECKS[app].__name__
+        row = {"phase": "mpc_app", "app": app, "device": str(dev), "passes": bool(ok), "criterion": verdict,
+               "seconds": secs, **card}
+        if app == "op-en2":
+            row.update(iterations=int(ret.iterations), u=ret.u.cpu().tolist())
+        else:
+            stats = solve_stats(ret.log)
+            per_solve = panoc.readbacks / stats["solves"]
+            row.update(ticks=getattr(ret, "ticks", getattr(ret, "n_solves", None)), final_x=list(map(float, ret.x)),
+                       solve=stats, readbacks_per_solve=per_solve,
+                       readback_share_of_median_solve=per_solve * readback_us / (1e3 * stats["median_ms"]))
+        emit(row)
+        check(ok, f"{app} on the card fails its acceptance criterion {verdict}")
+
+    # G2. op-mpc-x-calc-nl on the card against the CPU: both apps, then the
+    # card's solve at every CPU tick's state and warm start
+    runs = {}
+    for d in ("cuda", "cpu"):
+        ret, out, _ = counted(lambda: cli.main(["op-mpc-x-calc-nl", "--device", d, "--log-dir", f"{logs}/{d}"]))
+        runs[d] = (ret, bool(chk_parks(ret, out)))
+    solve_cpu, _ = me.op_mpc_x_calc_controller("cpu")
+    solve_dev, _ = me.op_mpc_x_calc_controller(dev)
+    p = CartPoleParams.single_wheel()
+    plant = dynamics.as_vector_fn(dynamics.make_cartpole_nonlinear(p, 0.1), 4)
+    a, bm = dynamics.linear_ab(p, 0.1)
+    qp = build_condensed_qp(a, bm, np.diag([5.0, 5.0, 1.0, 1.0]), 8)
+    gen_ref = reference.make_gen_ref_raised_cosine(8)
+    x, u = torch.tensor([0.5, 0.0, 0.1, 0.0], dtype=torch.float64), torch.zeros(8, dtype=torch.float64)
+    clean_err, noisy_err, noisy, iters_equal = 0.0, 0.0, 0, 0
+    for _ in range(51):
+        rc = solve_cpu(x, u)
+        rd = solve_dev(x.to(dev), u.to(dev))
+        ud = rd.u.cpu()
+        if int(rc.iterations) <= NOISE_ITERS:
+            check(int(rd.iterations) == int(rc.iterations), f"op-mpc-x-calc-nl: card {int(rd.iterations)} "
+                  f"iterations against the CPU's {int(rc.iterations)}")
+            clean_err = max(clean_err, float((ud - rc.u).abs().max()))
+        else:  # noise-driven: both within CALC_RADIUS of the exact optimum
+            noisy += 1
+            u_star = box_qp_newton(qp.h, qp_linear_term(qp, x, gen_ref(x).flatten(-2)), torch.zeros(8, dtype=torch.float64),
+                                   -30.0, 30.0)
+            noisy_err = max(noisy_err, float((ud - u_star).abs().max()), float((rc.u - u_star).abs().max()))
+        iters_equal += int(rd.iterations) == int(rc.iterations)
+        u = rc.u
+        x = plant(x, float(u[0]))
+    traj_err = float(np.abs(runs["cuda"][0].x - runs["cpu"][0].x).max())
+    emit({"phase": "mpc_calc_nl_card_vs_cpu", "ticks": 51, "clean_ticks": 51 - noisy, "noise_driven_ticks": noisy,
+          "iterations_equal_ticks": iters_equal, "clean_max_abs_u_err": clean_err,
+          "noise_driven_max_abs_u_from_optimum": noisy_err, "final_state_max_abs_diff": traj_err,
+          "card_parks": runs["cuda"][1], "cpu_parks": runs["cpu"][1], **card})
+    check(clean_err <= 1e-9, f"op-mpc-x-calc-nl: card against CPU {clean_err} on a clean tick (1e-9)")
+    check(noisy_err <= CALC_RADIUS, f"op-mpc-x-calc-nl: {noisy_err} from the optimum on a noise-driven tick "
+                                    f"({CALC_RADIUS})")
+    check(runs["cuda"][1] and runs["cpu"][1] and traj_err <= 1e-5,
+          f"op-mpc-x-calc-nl: verdicts {runs['cuda'][1]}, {runs['cpu'][1]}, final states {traj_err} apart")
+
+    # G3. the QP fleet at B = 1024, 3 s, through the CLI entry on both solvers,
+    # then its tick timed and profiled; one shared tick's Newton against PANOC
+    # apps/acceptance.py's fleet-qp gate is parked >= 0.95 and upright 1.0 at
+    # B = 64; at B = 1024 the tail of x0 (|θ0| up to 0.8 rad) tips a few
+    # scenarios in 3 s in the JAX package's own fleets (Newton upright
+    # 0.998-1.0 over seeds 0-3; float32 PANOC 0.996 at B = 512:
+    # tests/gradient_mpc_properties.py --fleet), so upright is gated at 0.99
+    gates = {"newton": (0.95, 0.99), "panoc": (0.95, 0.99)}
+    for solver, (park_min, up_min) in gates.items():
+        res, out, secs = counted(lambda: cli.main(["fleet", "--controller", "qp", "--qp-solver", solver,
+                                                   "--scenarios", "1024", "--t-end", "3"]))
+        fl = build_qp_fleet(1024, dev, solver=solver)
+        carry = fl.tick(fl.carry)
+        torch.cuda.synchronize()
+        tick_s = []
+        for _ in range(20 if solver == "newton" else 10):
+            t0 = time.perf_counter()
+            carry = fl.tick(carry)
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t0)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with torch.profiler.record_function(PROFILED):
+                for _ in range(5):
+                    carry = fl.tick(carry)
+                torch.cuda.synchronize()
+        span = next(e.time_range for e in prof.events() if e.name == PROFILED)
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name != PROFILED and span.start <= e.time_range.start <= span.end]
+        busy = _union_us((e.time_range.start, min(e.time_range.end, span.end)) for e in device)
+        emit({"phase": "qp_fleet", "solver": solver, "scenarios": res.scenarios, "ticks": res.ticks,
+              "parked": res.parked, "upright": res.upright, "median_abs_x": res.median_abs_x,
+              "scenario_ticks_per_s": res.scenario_ticks_per_s, "tick": ms_quantiles(tick_s),
+              "device_launches_per_tick": len(device) / 5 if device else "not measured",
+              "device_busy_share": busy / span.elapsed_us() if device else "not measured",
+              "gate": {"parked_min": park_min, "upright_min": up_min}, "seconds": secs, **card})
+        check(res.parked >= park_min and res.upright >= up_min,
+              f"QP fleet {solver}: parked {res.parked} (gate {park_min}), upright {res.upright} (gate {up_min})")
+    shared = build_qp_fleet(1024, dev, solver="newton").carry
+    u_newton = build_qp_fleet(1024, dev, solver="newton").tick(shared)[1]
+    u_panoc = build_qp_fleet(1024, dev, solver="panoc").tick(shared)[1]
+    emit({"phase": "qp_fleet_newton_vs_panoc", "scenarios": 1024,
+          "max_abs_du": float((u_newton - u_panoc).abs().max()),
+          "median_abs_du": float((u_newton - u_panoc).abs().amax(dim=1).median()), **card})
+
+    # G4. qp-parking, 200 episodes on the card against a fresh oracle
+    entry, _, secs = counted(lambda: pd.run_qp_parking(PARITY_EPISODES, dev, jobs=8))
+    entry.update({"ic_seed": pd.QP_IC_SEED, "ticks": pd.QP_TICKS, "oracle_source": "fresh", "seconds": secs,
+                  "device": torch.cuda.get_device_name(dev), "nvidia_smi": nvidia_smi_line()})
+    emit({"phase": "parity_qp_parking", **entry})
+    check(entry["flag_agreement"] == 1.0 and entry["library_park_rate"] == 1.0 and entry["oracle_park_rate"] == 1.0
+          and entry["max_final_state_diff"] < 1e-4, f"qp-parking: {entry}")
+    pd.write_entry(str(pd.OUT), pd.QP_PARKING, entry)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU")
@@ -2021,6 +2246,7 @@ def main() -> None:
     family = family_phases(dev, card)
     hil = hil_phases(dev, card, log)
     fleet_finish_phases(dev, card)
+    gradient_mpc_phases(dev, card)
 
     emit({"kernels": [
         {"name": "mppi_partials_kernel, merged in the launch (K2, mppi_solve_fused)", "route": "cuda",

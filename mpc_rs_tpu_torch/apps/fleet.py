@@ -31,7 +31,11 @@ The CLI saves the fleet's carry and generator after every report chunk to
 ``<--log-dir>/fleet/fleet.pt`` (``runtime/checkpoint.py``), and
 ``--resume`` continues from such a file, or from a JAX ``fleet.npz``.
 
-Not ported: the QP fleet (``--controller qp``).
+``--controller qp`` runs the gradient-MPC fleet (``build_qp_fleet``,
+``fleet.py:251-369``): B op-mpc-x-calc-nl parking problems a tick, the
+condensed QP solved by batched projected Newton (``--qp-solver newton``,
+the default) or by batched PANOC (``--qp-solver panoc``), the nonlinear
+plant stepped on the device.
 """
 
 from __future__ import annotations
@@ -47,8 +51,16 @@ import torch
 
 from mpc_rs_tpu_torch.apps.common import Elapsed, resolve_device
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
+from mpc_rs_tpu_torch.controllers.panoc import PanocConfig, box_projection, panoc_solve
+from mpc_rs_tpu_torch.controllers.qp import (
+    active_set_inverse_table,
+    box_qp_newton,
+    build_condensed_qp,
+    make_qp_value_and_grad,
+    qp_linear_term,
+)
 from mpc_rs_tpu_torch.estimators.ukf import ukf_init
-from mpc_rs_tpu_torch.models import noise
+from mpc_rs_tpu_torch.models import dynamics, noise, reference
 from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops.estimator_cuda import CartPole4Rpm, Flagship6Imu
 from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Flagship4Diag4
@@ -224,9 +236,121 @@ def resume_fleet(fl: Fleet, path: str, seed: int) -> Fleet:
     return fl._replace(carry=carry, generator=gen)
 
 
-def fleet(args) -> FleetResult:
-    """The ``fleet`` CLI entry: build (or resume), run with a checkpoint
-    after every chunk, and print a summary."""
+class QpFleet(NamedTuple):
+    tick: object  # tick((x, u_n)) -> (x, u_n)
+    carry: tuple  # (x (B, 4), u_n (B, N))
+    dt: float  # control tick [s]
+    solver: str
+
+
+QP_PARK_X, QP_UPRIGHT = 0.3, math.pi / 2  # parked |x| and upright |θ| (fleet.py:345-346)
+
+
+def build_qp_fleet(scenarios: int, device, *, seed: int = 0, max_iter: int = 60, solver: str = "newton",
+                   x0=None, dtype=torch.float32) -> QpFleet:
+    """Batched gradient-MPC fleet (``fleet.py:251-330``): B independent
+    op-mpc-x-calc-nl parking problems (the condensed QP of the linear model,
+    the nonlinear plant: examples/op-mpc-x-calc.rs:73-98), float32.
+
+    ``solver="newton"``: one batched ``box_qp_newton`` a tick (12
+    iterations, no safeguard: this instance class is held to the oracle's
+    enumerated optimum without it), the B linear terms from two matmuls,
+    the active-set inverse table below B = 16 (``fleet.py:286-296``);
+    ``solver="panoc"``: one batched ``panoc_solve`` (tol 1e-5, memory 10,
+    ``max_iter``), each lane its own loop. x0: B draws of (0.5, 0, 0.1, 0) +
+    0.2·N(0, 1) from a torch generator seeded ``seed``, or the (B, 4) numpy
+    array given. ``dtype`` float64 builds the same fleet in float64."""
+    device = resolve_device(device)
+    if solver not in ("newton", "panoc"):
+        raise ValueError(f"unknown QP solver {solver!r}; choose newton or panoc")
+    p = CartPoleParams.single_wheel()
+    t_hor, n = 0.8, 8
+    dt = t_hor / n
+    a, bm = dynamics.linear_ab(p, dt)
+    qp = build_condensed_qp(a, bm, np.diag([5.0, 5.0, 1.0, 1.0]), n, dtype=dtype, device=device)
+    gen_ref = reference.make_gen_ref_raised_cosine(n)
+    lim = 30.0
+    plant = dynamics.as_vector_fn(dynamics.make_cartpole_nonlinear(p, dt), 4)
+
+    if solver == "newton":
+        inv_tbl = active_set_inverse_table(qp.h) if scenarios < 16 else None
+
+        def solve_batch(x, u_n):
+            b = qp_linear_term(qp, x, gen_ref(x).flatten(-2))
+            return box_qp_newton(qp.h, b, u_n, -lim, lim, iters=12, inv_table=inv_tbl, safeguard=False)
+    else:
+        vg_factory = make_qp_value_and_grad(qp, gen_ref)
+        cfg = PanocConfig(tol=1e-5, max_iter=max_iter, lbfgs_mem=10)
+        proj = box_projection(-lim, lim)
+
+        def solve_batch(x, u_n):
+            return panoc_solve(cfg, None, proj, u_n, value_and_grad=vg_factory(x)).u
+
+    def tick(carry):
+        x, u_n = carry
+        u_new = solve_batch(x, u_n)
+        return plant(x, u_new[:, 0]), u_new
+
+    if x0 is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        z = torch.randn((scenarios, 4), generator=gen, dtype=dtype, device=device)
+        x = torch.tensor([0.5, 0.0, 0.1, 0.0], dtype=dtype, device=device) + 0.2 * z
+    else:
+        x = torch.tensor(np.asarray(x0), dtype=dtype, device=device).reshape(scenarios, 4)
+    return QpFleet(tick, (x, torch.zeros((scenarios, n), dtype=dtype, device=device)), dt, solver)
+
+
+class QpFleetResult(NamedTuple):
+    carry: tuple  # the final (x, u_n)
+    scenarios: int
+    ticks: int
+    parked: float  # share with |x| < 0.3 at the last report
+    upright: float  # share with |θ| < π/2 at the last report
+    median_abs_x: float
+    scenario_ticks_per_s: float  # over the whole run, host clock
+
+
+def run_qp_fleet(fl: QpFleet, *, t_end: float, report_every: float) -> QpFleetResult:
+    """Whole report chunks until ``t_end``, the carry read back once a chunk
+    (``fleet.py:335-356``), one line a chunk with the JAX line's fields."""
+    carry = fl.carry
+    b = carry[0].shape[0]
+    chunk = max(1, min(int(round(report_every / fl.dt)), int(t_end / fl.dt)))
+    n_ticks = int(t_end / fl.dt)
+    done, wall_total = 0, 0.0
+    parked = upright = med = float("nan")
+    while done < n_ticks:
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            carry = fl.tick(carry)
+        x = carry[0].cpu().numpy()  # readback = sync
+        wall = time.perf_counter() - t0
+        wall_total += wall
+        done += chunk
+        parked = float((np.abs(x[:, 0]) < QP_PARK_X).mean())
+        upright = float((np.abs(x[:, 2]) < QP_UPRIGHT).mean())
+        med = float(np.median(np.abs(x[:, 0])))
+        print(f"t={done * fl.dt:6.1f}s  parked={parked:6.3f}  upright={upright:6.3f}  "
+              f"median|x|={med:.3f}  {b * chunk / wall:,.0f} scenario-ticks/s", flush=True)
+    return QpFleetResult(carry, b, done, parked, upright, med, b * done / wall_total)
+
+
+def _run_qp_fleet(args) -> QpFleetResult:
+    fl = build_qp_fleet(args.scenarios, args.device, seed=args.seed, max_iter=args.max_iter or 60,
+                        solver=args.qp_solver)
+    print(f"fleet qp: B={args.scenarios} solver={fl.solver} device={fl.carry[0].device}", flush=True)
+    el = Elapsed()
+    res = run_qp_fleet(fl, t_end=args.t_end, report_every=args.report_every)
+    el.print()
+    return res
+
+
+def fleet(args):
+    """The ``fleet`` CLI entry: the QP fleet with ``--controller qp``; else
+    build (or resume) the MPPI fleet, run it with a checkpoint after every
+    chunk, and print a summary."""
+    if args.controller == "qp":
+        return _run_qp_fleet(args)
     fl = build_fleet(args.model, args.k, args.device, seed=args.seed, scenarios=args.scenarios,
                      fast_math=args.fast_math, sampler=args.sampler, ukf_alpha=args.ukf_alpha,
                      ukf_layout=args.ukf_layout or "soa", sqrt_method=args.sqrt_method)

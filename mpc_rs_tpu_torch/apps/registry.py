@@ -1,16 +1,20 @@
 """Example registry of the port: reference binary name → runner.
 
-Ported so far (18 of the JAX package's 26): the MPPI application family
+Ported so far (24 of the JAX package's 26): the MPPI application family
 (``mppi2``, ``mppi4``, ``mppi4-non-liner``, ``mppi4-non-liner-s``,
-``mppi4-non-liner-ukf``), the scenario ``fleet``, the hardware-in-the-loop
-apps (``uart``, ``mppi4-commu``, ``mppi4-ukf-commu``), the fleet serving
-bridge ``serve``, and the estimator ladder with the PID baseline
-(``one-liner-kf`` … ``ukf-pen3``, ``pid``); ROADMAP.md lists the rest.
+``mppi4-non-liner-ukf``), the scenario ``fleet`` (MPPI, or the QP fleet
+with ``--controller qp``), the hardware-in-the-loop apps (``uart``,
+``mppi4-commu``, ``mppi4-ukf-commu``), the fleet serving bridge ``serve``,
+the estimator ladder with the PID baseline (``one-liner-kf`` …
+``ukf-pen3``, ``pid``), and the gradient-MPC apps (``op-en2``,
+``op-mpc-x``, ``op-mpc-x-calc``, ``op-mpc-x-calc-nl``, ``mpc-ukf-x``,
+``mpc-ukf-s``). ``mpc-ukf-commu`` and ``tune`` are still to port
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from mpc_rs_tpu_torch.apps import commu_examples, estimator_examples, mppi_examples
+from mpc_rs_tpu_torch.apps import commu_examples, estimator_examples, mpc_examples, mppi_examples
 from mpc_rs_tpu_torch.apps import fleet as fleet_mod
 from mpc_rs_tpu_torch.apps import serve as serve_mod
 
@@ -33,6 +37,12 @@ EXAMPLES = {
     "ukf-pen2": estimator_examples.ukf_pen2,
     "ukf-pen3": estimator_examples.ukf_pen3,
     "pid": estimator_examples.pid,
+    "op-en2": mpc_examples.op_en2,
+    "op-mpc-x": mpc_examples.op_mpc_x,
+    "op-mpc-x-calc": mpc_examples.op_mpc_x_calc,
+    "op-mpc-x-calc-nl": mpc_examples.op_mpc_x_calc_nl,
+    "mpc-ukf-x": mpc_examples.mpc_ukf_x,
+    "mpc-ukf-s": mpc_examples.mpc_ukf_s,
 }
 
 

@@ -93,7 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
                        help="control tick period [s] of simulated time (default 0.01)")
     serve.add_argument("--report-every", type=float, default=1.0, help="report period [s] of wall time")
 
-    fleet = sub.add_parser("fleet", parents=[common, log_dir], help="scenario fleet: B closed loops per tick")
+    panoc = argparse.ArgumentParser(add_help=False)
+    panoc.add_argument("--max-iter", type=int, default=None, help="PANOC iteration budget (default: the app's)")
+
+    fleet = sub.add_parser("fleet", parents=[common, log_dir, panoc], help="scenario fleet: B closed loops per tick")
     fleet.add_argument("--model", choices=["cartpole4", "flagship6"], default="cartpole4",
                        help="fleet plant/estimator stack")
     fleet.add_argument("--scenarios", type=int, default=1024, help="fleet batch size B")
@@ -113,6 +116,26 @@ def build_parser() -> argparse.ArgumentParser:
     fleet.add_argument("--resume", default=None,
                        help="fleet checkpoint to resume from: the port's fleet.pt, or a JAX fleet.npz "
                             "(its PRNG keys are dropped and the generator is seeded from --seed)")
+    fleet.add_argument("--controller", choices=["mppi", "qp"], default="mppi",
+                       help="fleet controller: sampling MPPI or batched gradient MPC (condensed QP)")
+    fleet.add_argument("--qp-solver", choices=["newton", "panoc"], default="newton",
+                       help="the QP fleet's solver: batched projected Newton (default) or batched PANOC")
+
+    # gradient MPC (float64 solves on --device)
+    sub.add_parser("op-en2", parents=[common], help="PANOC smoke test: min |u|^2 on a unit ball")
+    op_x = sub.add_parser("op-mpc-x", parents=[common, log_dir, panoc],
+                          help="nonlinear-cost gradient MPC, N=50 rollout with a cosh barrier")
+    op_x.add_argument("--fd", action="store_true",
+                      help="the reference's finite-difference gradients (parity mode, its quirk kept)")
+    sub.add_parser("op-mpc-x-calc", parents=[common, log_dir, panoc], help="condensed-QP PANOC, linear plant")
+    sub.add_parser("op-mpc-x-calc-nl", parents=[common, log_dir, panoc],
+                   help="condensed-QP PANOC, nonlinear plant (model mismatch)")
+    sub.add_parser("mpc-ukf-x", parents=[common, log_dir, panoc],
+                   help="PANOC on a UKF(4,2) estimate with a rate-limited planner and a control low-pass")
+    ukf_s = sub.add_parser("mpc-ukf-s", parents=[common, log_dir, panoc],
+                           help="multi-rate loop: two-wheel condensed-QP PANOC, UKF(6,5), the 2 N pulse")
+    ukf_s.add_argument("--use-ukf-estimate", action="store_true",
+                       help="feed the controller the UKF estimate (default: the true state, DEBUG_UKF)")
 
     # the estimator ladder (float64 on --device): the seed drives the noise
     ladder = argparse.ArgumentParser(add_help=False)

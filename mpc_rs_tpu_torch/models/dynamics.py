@@ -47,6 +47,18 @@ def _sincos(fast: bool):
     return lambda th: (_sin(th), _cos(th))
 
 
+def as_vector_fn(step, n: int):
+    """A component-wise ``step(*xs, u)`` as ``f(x, u)`` on (..., n) tensors
+    (``mpc_rs_tpu/utils/structs.py:28-41``): the components broadcast and
+    stack on the last axis, so one step maps a state, a batch or a sigma set."""
+
+    def f(x, u):
+        out = step(*(x[..., i] for i in range(n)), u)
+        return torch.stack(torch.broadcast_tensors(*out), dim=-1)
+
+    return f
+
+
 def make_double_integrator(dt: float):
     """2-state double integrator — examples/mppi2.rs:22-27
     (``dynamics.py:22-31``). x0 += x1*dt (old x1); x1 += u*dt."""
@@ -332,3 +344,30 @@ def make_pen6(p: CartPoleParams, dt: float):
         return n0, n1, n2, n3, n4, n5
 
     return step
+
+
+def linear_ab(p: CartPoleParams, dt: float, two_wheel: bool = False):
+    """Discrete-time (A, B) of the linearized cart-pole as nested Python
+    floats, the same numbers as ``mpc_rs_tpu/models/dynamics.py:354-380``.
+
+    Single-wheel: examples/op-mpc-x-calc.rs:10-21.
+    Two-wheel:    examples/mpc-ukf-s.rs:101-111.
+    """
+    if two_wheel:
+        d = p.d_lin_two
+        a_th = p.mass_line_two * p.m2 * p.g * p.l / d * dt
+        b_dx = 2.0 * (p.m2 * p.l * p.l + p.j2) / (d * p.r_w) * p.kt * dt
+        b_dth = -2.0 * p.m2 * p.l / (d * p.r_w) * p.kt * dt
+    else:
+        d = p.d_lin
+        a_th = p.mass_line / d * p.m2 * p.g * p.l * dt
+        b_dx = (p.m2 * p.l * p.l + p.j2) / d / p.r_w * p.kt * dt
+        b_dth = -p.m2 * p.l / d / p.r_w * p.kt * dt
+    a = [
+        [1.0, dt, 0.0, 0.0],
+        [0.0, 1.0, -p.m2 * p.m2 * p.g * p.l * p.l / d * dt, 0.0],
+        [0.0, 0.0, 1.0, dt],
+        [0.0, 0.0, a_th, 1.0],
+    ]
+    b = [[0.0], [b_dx], [0.0], [b_dth]]
+    return a, b

@@ -55,6 +55,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.oracle_ukf_predict.argtypes = [i, i, d, d, d, _D, _D, _D, _D]
     lib.oracle_ukf_update.restype = i
     lib.oracle_ukf_update.argtypes = [i, i, i, _D, _D, _D, _D, _D]
+    lib.oracle_qp_cost_grad.restype = None
+    lib.oracle_qp_cost_grad.argtypes = [_D, _D, _D, _D]
+    lib.oracle_qp_solve_box.restype = i
+    lib.oracle_qp_solve_box.argtypes = [_D, d, d, _D]
     return lib
 
 
@@ -111,6 +115,27 @@ def ora_mppi(lib, dyn_id: int, cost_id: int, x0, u_n, eps, lam: float, sigma: fl
     st = lib.oracle_mppi_solve(dyn_id, cost_id, k, n, _dp(x0), _dp(u_n), _dp(eps), float(lam), float(sigma),
                                float(limit[0]), float(limit[1]), float(dt), _dp(out))
     return out, st
+
+
+def ora_qp_cost_grad(lib, x, u) -> tuple[float, np.ndarray]:
+    """The op-mpc-x-calc condensed QP's cost and gradient at (x, u) (N = 8),
+    from the oracle's own F/G/Q built from its literals."""
+    x = np.ascontiguousarray(x, np.float64)
+    u = np.ascontiguousarray(u, np.float64)
+    c, g = np.empty(1), np.empty(u.shape[0])
+    lib.oracle_qp_cost_grad(_dp(x), _dp(u), _dp(c), _dp(g))
+    return float(c[0]), g
+
+
+def ora_qp_solve_box(lib, x, lo: float, hi: float) -> np.ndarray:
+    """The exact minimizer of the same QP on the box [lo, hi]⁸, by the
+    oracle's enumeration of all 3⁸ active sets and their KKT conditions."""
+    x = np.ascontiguousarray(x, np.float64)
+    u = np.empty(8)
+    rc = lib.oracle_qp_solve_box(_dp(x), float(lo), float(hi), _dp(u))
+    if rc != 0:
+        raise RuntimeError(f"oracle_qp_solve_box returned {rc}")
+    return u
 
 
 class OraUkf:

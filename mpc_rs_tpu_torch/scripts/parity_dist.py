@@ -13,7 +13,8 @@ KS tests on each episode's θ-RMS and max|θ|. A config passes when the
 survival intervals overlap and both KS p-values exceed 0.01
 (``scripts/parity_dist.py:496-510``).
 
-Configs (``scripts/parity_dist.py:16-43``), in the order they were ported:
+Configs (``scripts/parity_dist.py:16-43``), in the order they were ported
+(the first four are sampled; ``qp-parking`` is deterministic):
 - ``cartpole4-est``: the cartpole4 fleet (UKF(4,3) in the loop, 20 Hz
   control, 5 substeps at 100 Hz, K=1024), 200 ticks;
 - ``flagship-est``: the flagship6 fleet (UKF(6,5) in the loop, 100 Hz, K=8192,
@@ -21,7 +22,15 @@ Configs (``scripts/parity_dist.py:16-43``), in the order they were ported:
 - ``flagship-dbg``: the same with the controller on the true state;
 - ``cartpole4``: the mppi4-non-liner loop, B batched single solves at
   K=16 384, N=8, λ=0.5, σ=3, ±20 in the exact tier (box-muller), the plant
-  stepped at DT=0.1, 100 ticks.
+  stepped at DT=0.1, 100 ticks;
+- ``qp-parking`` (``scripts/parity_dist.py:388-453``): op-mpc-x-calc-nl's
+  parking loop from 200 shared initial states (``default_rng(777)``), 60
+  ticks of 0.1 s: the port's float64 ``box_qp_newton`` with the active-set
+  table, all episodes batched on the device, against the oracle's exact
+  3⁸ active-set enumeration and its own nonlinear plant, episode by
+  episode; parked when |x| < 0.3 and |θ| < 0.1. It passes when every
+  episode's parked flag agrees; the entry also holds both park rates and
+  the largest final-state difference. Its oracle always runs fresh.
 
 The port's side runs the fleet at its defaults, one scenario an episode,
 B = episodes, exactly the config's ticks, θ read after each tick;
@@ -52,7 +61,8 @@ ROOT = Path(__file__).resolve().parents[2]
 RECORD = ROOT / "PARITY_DIST_r05.json"
 OUT = ROOT / "PARITY_DIST_TORCH.json"
 
-CONFIGS = ("cartpole4-est", "flagship-est", "flagship-dbg", "cartpole4")
+CONFIGS = ("cartpole4-est", "flagship-est", "flagship-dbg", "cartpole4")  # the sampled ones
+QP_PARKING = "qp-parking"  # the deterministic one
 N_TICKS = {"cartpole4": 100, "flagship-dbg": 1000, "flagship-est": 1000, "cartpole4-est": 200}
 K = {"cartpole4": 16384, "flagship-dbg": 8192, "flagship-est": 8192, "cartpole4-est": 1024}
 ORACLE_SEED = {"cartpole4": 2000, "flagship-dbg": 3000, "flagship-est": 4000, "cartpole4-est": 5000}
@@ -275,6 +285,103 @@ def run_library(config: str, episodes: int, device, estimator: str = "torch") ->
 
 
 # --------------------------------------------------------------------------
+# qp-parking: deterministic, shared initial states, compared episode by episode
+
+QP_IC_SEED, QP_TICKS, QP_DT, QP_LIMIT = 777, 60, 0.1, 30.0
+
+
+def qp_parking_ics(episodes: int) -> np.ndarray:
+    """(episodes, 4) initial states (``scripts/parity_dist.py:418-420``)."""
+    r = np.random.default_rng(QP_IC_SEED)
+    return np.array([0.5, 0.0, 0.1, 0.0]) + r.uniform(-0.15, 0.15, size=(episodes, 4))
+
+
+def run_qp_parking_library(ics: np.ndarray, device) -> np.ndarray:
+    """The port's side: every episode batched, 60 ticks of the float64
+    Newton solve with the active-set table from u = 0 (16 iterations, the
+    safeguard on) and the nonlinear plant on the device. Returns the states
+    (QP_TICKS + 1, episodes, 4), a tipped episode stepped on (the caller
+    stops reading it where the JAX loop breaks)."""
+    from mpc_rs_tpu_torch.apps.common import resolve_device
+    from mpc_rs_tpu_torch.controllers.qp import (active_set_inverse_table, box_qp_newton, build_condensed_qp,
+                                                 qp_linear_term)
+    from mpc_rs_tpu_torch.models import dynamics, reference
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+
+    device = resolve_device(device)
+    sw = CartPoleParams.single_wheel()
+    a, bm = dynamics.linear_ab(sw, QP_DT)
+    qp = build_condensed_qp(a, bm, np.diag([5.0, 5.0, 1.0, 1.0]), 8, dtype=torch.float64, device=device)
+    gen_ref = reference.make_gen_ref_raised_cosine(8)
+    tbl = active_set_inverse_table(qp.h)
+    plant = dynamics.as_vector_fn(dynamics.make_cartpole_nonlinear(sw, QP_DT), 4)
+    x = torch.tensor(ics, dtype=torch.float64, device=device)
+    u0 = torch.zeros((x.shape[0], 8), dtype=torch.float64, device=device)
+    xs = [x]
+    for _ in range(QP_TICKS):
+        b = qp_linear_term(qp, x, gen_ref(x).flatten(-2))
+        u = box_qp_newton(qp.h, b, u0, -QP_LIMIT, QP_LIMIT, inv_table=tbl)
+        x = plant(x, u[:, 0])
+        xs.append(x)
+    return torch.stack(xs).cpu().numpy()
+
+
+def qp_parking_oracle(ic) -> np.ndarray:
+    """One oracle episode: the exact box-QP solve and the oracle's plant,
+    60 ticks or until |θ| > π/2; its states (≤ QP_TICKS + 1, 4)."""
+    from mpc_rs_tpu_torch.scripts import oracle as ora
+
+    lib = ora.load_oracle()
+    xo = np.array(ic, np.float64)
+    xs = [xo]
+    for _ in range(QP_TICKS):
+        uo = ora.ora_qp_solve_box(lib, xo, -QP_LIMIT, QP_LIMIT)
+        xo = ora.ora_dynamics(lib, 0, xo, uo[0], QP_DT)
+        xs.append(xo)
+        if abs(xo[2]) > math.pi / 2:
+            break
+    return np.array(xs)
+
+
+def run_qp_parking(episodes: int, device, jobs: int = 1) -> dict:
+    """Both sides of ``qp-parking`` and the JAX script's statistics
+    (``scripts/parity_dist.py:430-453``): tick by tick the library steps,
+    then the oracle; an episode stops at the first tick either side's |θ|
+    passes π/2 (the library's checked first), and is parked on a side when
+    that side did not tip and ends with |x| < 0.3 and |θ| < 0.1."""
+    import concurrent.futures as cf
+
+    ics = qp_parking_ics(episodes)
+    lib_xs = run_qp_parking_library(ics, device)
+    if jobs > 1:
+        with cf.ProcessPoolExecutor(max_workers=jobs, mp_context=multiprocessing.get_context("spawn")) as pool:
+            ora_xs = list(pool.map(qp_parking_oracle, ics))
+    else:
+        ora_xs = [qp_parking_oracle(ic) for ic in ics]
+    lib_park = ora_park = agree = 0
+    max_final_dx = 0.0
+    for e in range(episodes):
+        ok_l = ok_o = True
+        for t in range(1, QP_TICKS + 1):
+            xl, xo = lib_xs[t, e], ora_xs[e][t]
+            if abs(xl[2]) > math.pi / 2:
+                ok_l = False
+                break
+            if abs(xo[2]) > math.pi / 2:
+                ok_o = False
+                break
+        parked_l = bool(ok_l and abs(xl[0]) < 0.3 and abs(xl[2]) < 0.1)
+        parked_o = bool(ok_o and abs(xo[0]) < 0.3 and abs(xo[2]) < 0.1)
+        lib_park += parked_l
+        ora_park += parked_o
+        agree += parked_l == parked_o
+        max_final_dx = max(max_final_dx, float(np.max(np.abs(xl - xo))))
+    return {"episodes": episodes, "library_park_rate": lib_park / episodes, "oracle_park_rate": ora_park / episodes,
+            "flag_agreement": agree / episodes, "max_final_state_diff": max_final_dx,
+            "pass": agree == episodes}
+
+
+# --------------------------------------------------------------------------
 # statistics (scripts/parity_dist.py:460-510)
 
 
@@ -336,7 +443,7 @@ def main(argv=None) -> dict:
     from mpc_rs_tpu_torch.apps.common import resolve_device
 
     ap = argparse.ArgumentParser(prog="mpc_rs_tpu_torch.scripts.parity_dist", description=__doc__.split("\n")[0])
-    ap.add_argument("--config", required=True, choices=CONFIGS)
+    ap.add_argument("--config", required=True, choices=CONFIGS + (QP_PARKING,))
     ap.add_argument("--estimator", choices=["torch", "chain"], default="torch",
                     help="the fleets' estimator: torch ops (default) or the fused chain (K7)")
     ap.add_argument("--episodes", type=int, default=200, help="the port's episodes (and fresh oracle ones)")
@@ -349,6 +456,17 @@ def main(argv=None) -> dict:
     if Path(args.out).resolve() == RECORD.resolve():
         raise SystemExit(f"{RECORD.name} is the JAX package's record; write elsewhere")
     device = resolve_device(args.device)
+
+    if args.config == QP_PARKING:
+        if args.oracle_from_record:
+            raise SystemExit(f"qp-parking has no recorded oracle episodes in {RECORD.name}; run it fresh")
+        t0 = time.perf_counter()
+        entry = run_qp_parking(args.episodes, device, args.jobs)
+        entry.update({"ic_seed": QP_IC_SEED, "ticks": QP_TICKS, "oracle_source": "fresh",
+                      "seconds": time.perf_counter() - t0, **_card(device)})
+        write_entry(args.out, QP_PARKING, entry)
+        print(json.dumps(entry, indent=1))
+        return entry
 
     t0 = time.perf_counter()
     lib = run_library(args.config, args.episodes, device, args.estimator)
@@ -364,13 +482,18 @@ def main(argv=None) -> dict:
                   "estimator": None if args.config == "cartpole4" else args.estimator,
                   "library_seconds": lib_s, "oracle_seconds": time.perf_counter() - t1, **_card(device),
                   "raw": {"library": lib, **({} if args.oracle_from_record else {"oracle": ora})}})
-    data = json.loads(Path(args.out).read_text()) if Path(args.out).is_file() else {}
-    data[entry_name(args.config, args.estimator)] = entry
-    tmp = f"{args.out}.{os.getpid()}.tmp"
-    Path(tmp).write_text(json.dumps(data, indent=1) + "\n")
-    os.replace(tmp, args.out)
+    write_entry(args.out, entry_name(args.config, args.estimator), entry)
     print(json.dumps({k: v for k, v in entry.items() if k != "raw"}, indent=1))
     return entry
+
+
+def write_entry(out: str, name: str, entry: dict) -> None:
+    """Read-modify-write one entry of the JSON file ``out``."""
+    data = json.loads(Path(out).read_text()) if Path(out).is_file() else {}
+    data[name] = entry
+    tmp = f"{out}.{os.getpid()}.tmp"
+    Path(tmp).write_text(json.dumps(data, indent=1) + "\n")
+    os.replace(tmp, out)
 
 
 if __name__ == "__main__":

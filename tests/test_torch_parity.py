@@ -1,4 +1,5 @@
-"""The port's distributional-parity harness and oracle wrappers.
+"""The port's distributional-parity harness and oracle wrappers (and the
+deterministic ``qp-parking`` config).
 
 - ``scripts/oracle.py``'s wrappers against ``tests/test_native_oracle.py``'s
   on the same inputs and the same loaded library, bit for bit; the library
@@ -150,3 +151,84 @@ def test_cli_writes_one_entry_and_never_the_record(tmp_path, monkeypatch, capsys
     with pytest.raises(ValueError, match="no estimator"):
         pd.run_library("cartpole4", 2, "cpu", "chain")
     assert '"pass"' in capsys.readouterr().out
+
+
+# --------------------------------------------------------------------------
+# the gradient-MPC oracle calls and the deterministic qp-parking config
+
+
+def test_qp_oracle_wrappers_match_the_raw_calls(lib):
+    """``ora_qp_cost_grad`` and ``ora_qp_solve_box`` against the calls
+    ``tests/test_native_oracle.py:746-766, 791`` make on the same library."""
+    rng = np.random.default_rng(59)
+    for _ in range(4):
+        x = rng.uniform(-1.0, 1.0, 4) * np.array([2.0, 1.0, 0.3, 1.0])
+        u = rng.uniform(-20.0, 20.0, 8)
+        c_o, g_o = np.empty(1), np.empty(8)
+        lib.oracle_qp_cost_grad(jora._dp(np.ascontiguousarray(x)), jora._dp(np.ascontiguousarray(u)),
+                                jora._dp(c_o), jora._dp(g_o))
+        c, g = ora.ora_qp_cost_grad(lib, x, u)
+        assert c == c_o[0]
+        np.testing.assert_array_equal(g, g_o)
+        u_o = np.empty(8)
+        assert lib.oracle_qp_solve_box(jora._dp(np.ascontiguousarray(8.0 * x)), -30.0, 30.0, jora._dp(u_o)) == 0
+        np.testing.assert_array_equal(ora.ora_qp_solve_box(lib, 8.0 * x, -30.0, 30.0), u_o)
+
+
+def test_qp_parking_small_n():
+    """``tests/test_parity_dist.py:62-66``'s 8 episodes and gates: every
+    parked flag agrees, both park, final states within 1e-4 (the 200-episode
+    record: 1.98e-9)."""
+    r = pd.run_qp_parking(8, "cpu")
+    assert r["flag_agreement"] == 1.0 and r["pass"] is True
+    assert r["library_park_rate"] == 1.0 and r["oracle_park_rate"] == 1.0
+    assert r["max_final_state_diff"] < 1e-4
+    # the JAX script's initial states (scripts/parity_dist.py:418-420)
+    ics = np.array([0.5, 0.0, 0.1, 0.0]) + np.random.default_rng(777).uniform(-0.15, 0.15, size=(8, 4))
+    np.testing.assert_array_equal(pd.qp_parking_ics(8), ics)
+
+
+def test_qp_parking_library_side_matches_the_jax_tick():
+    """The port's batched library side against ``scripts/parity_dist.py:422-429``'s
+    jitted tick, episode by episode, for 10 ticks."""
+    import jax
+    import jax.numpy as jnp
+
+    from mpc_rs_tpu.controllers.qp import active_set_inverse_table, box_qp_newton, build_condensed_qp, qp_linear_term
+    from mpc_rs_tpu.models import dynamics, reference
+    from mpc_rs_tpu.models.params import CartPoleParams
+
+    sw = CartPoleParams.single_wheel()
+    a, bm = dynamics.linear_ab(sw, 0.1)
+    qp = build_condensed_qp(a, bm, np.diag([5.0, 5.0, 1.0, 1.0]), 8)
+    gen_ref = reference.make_gen_ref_raised_cosine(8)
+    tbl = active_set_inverse_table(qp.h)
+    plant = dynamics.make_cartpole_nonlinear(sw, 0.1)
+
+    @jax.jit
+    def lib_tick(x):
+        bvec = qp_linear_term(qp, x, gen_ref(x).reshape(-1))
+        u = box_qp_newton(qp.h, bvec, jnp.zeros(8, jnp.float64), -30.0, 30.0, inv_table=tbl)
+        return jnp.stack(jnp.broadcast_arrays(*plant(*(x[i] for i in range(4)), u[0])))
+
+    ics = pd.qp_parking_ics(3)
+    got = pd.run_qp_parking_library(ics, "cpu")
+    assert got.shape == (pd.QP_TICKS + 1, 3, 4)
+    for e in range(3):
+        x = jnp.asarray(ics[e])
+        for t in range(1, 11):
+            x = lib_tick(x)
+            np.testing.assert_allclose(got[t, e], np.asarray(x), rtol=0, atol=1e-12)
+
+
+def test_cli_writes_the_qp_parking_entry(tmp_path, capsys):
+    out = tmp_path / "parity.json"
+    out.write_text(json.dumps({"other": {"kept": True}}))
+    entry = pd.main(["--config", "qp-parking", "--episodes", "2", "--device", "cpu", "--jobs", "1", "--out", str(out)])
+    data = json.loads(out.read_text())
+    assert set(data) == {"other", "qp-parking"} and data["qp-parking"]["episodes"] == 2
+    assert entry["pass"] and entry["oracle_source"] == "fresh" and entry["device"] == "cpu"
+    with pytest.raises(SystemExit):
+        pd.main(["--config", "qp-parking", "--episodes", "2", "--device", "cpu", "--oracle-from-record",
+                 "--out", str(out)])
+    assert '"flag_agreement"' in capsys.readouterr().out
