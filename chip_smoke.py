@@ -6,7 +6,7 @@
 Builds the CUDA kernels from the sources in this checkout (printing ptxas's
 registers and spills and the static SASS counts of the production partials
 instantiations beside the build seconds, and failing on a spill in a
-partials, D1 or estimator chain instantiation, or when a partials
+partials, sweep, D1 or estimator chain instantiation, or when a partials
 instantiation's registers leave ``PARTIALS_PTXAS``), holds each against its plain
 PyTorch version on the card (the fast-math probe also on a misaligned view
 and a ragged count, bit for bit against its vector path), counts by
@@ -68,6 +68,18 @@ and PANOC iterations beside the 0.03 s budget, ``op-mpc-x-calc-nl`` on the
 card against the CPU tick by tick, the QP fleet at B = 1024 on both
 solvers (timed and profiled), and 200 ``qp-parking`` episodes against a
 fresh oracle, written to ``PARITY_DIST_TORCH.json``.
+
+tune's sweep launch (the partials kernel with a per-problem (λ, σ) policy
+that returns the ESS) is held against its float64 plain version at tune's
+default grid (B = 96) at K = 1 024 and 800 000, and ``tune`` runs through
+the CLI entry at its acceptance spec and at the default grid at
+K = 800 000 over 100 ticks, one launch a tick. ``mpc-ukf-commu`` runs at its
+acceptance spec against a fake MCU (at least 100 solves in its 6 s window),
+PANOC's CUDA-graph replay is held to the eager solve on the card
+(op-mpc-x-calc's and mpc-ukf-commu's QPs), and the acceptance harness runs
+the specs of ``tune``, ``mpc-ukf-commu``, ``uart``, ``mppi4-commu``,
+``serve-stream`` and ``op-en2`` at seed 0; every acceptance check comes from
+``mpc_rs_tpu_torch/apps/acceptance.py``.
 
 It prints one JSON line per phase, then the kernels line, the ``nvidia-smi``
 name and power limit, and last the line ``{"ok": true, "device": {...}}``.
@@ -160,6 +172,22 @@ def check_band(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
         i = int(((g - w).abs() / (F32_BAND["atol"] + F32_BAND["rtol"] * w.abs())).flatten().argmax())
         check(False, f"{what}: {int(out.sum())} of {g.numel()} outside rtol 1e-3 / atol 2e-4, worst "
                      f"got {g.flatten()[i].item()} want {w.flatten()[i].item()}")
+    return max_err(g, w)
+
+
+def check_band_or_own(got: torch.Tensor, want: torch.Tensor, want_f32: torch.Tensor, what: str) -> float:
+    """|got − want| within the f32 band, or, where the float32 problem is
+    ill-conditioned (a softmax weighing a few rollouts), within twice the
+    plain float32 version's own distance from ``want`` (float64), element by
+    element; returns the max abs error."""
+    g, w, w32 = got.double().cpu(), want.double().cpu(), want_f32.double().cpu()
+    tol = torch.maximum(F32_BAND["atol"] + F32_BAND["rtol"] * w.abs(), 2.0 * (w32 - w).abs())
+    out = (g - w).abs() > tol
+    if bool(out.any()):
+        i = int(((g - w).abs() / tol).flatten().argmax())
+        check(False, f"{what}: {int(out.sum())} of {g.numel()} outside the f32 band and twice the plain f32 "
+                     f"distance, worst got {g.flatten()[i].item()} want {w.flatten()[i].item()} "
+                     f"(plain f32 {w32.flatten()[i].item()})")
     return max_err(g, w)
 
 
@@ -1495,96 +1523,9 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
 
 
 
-# The estimator ladder's pass criteria, copied from the JAX package's
-# acceptance harness with their thresholds (mpc_rs_tpu/apps/acceptance.py:
-# chk_pid_tips :80, chk_kf1d :85, chk_kf2d :90, chk_est_finite :100,
-# _settled_rmse :115, chk_ukf_one :130, chk_ukf_two :138, chk_ukf_pen :148,
-# chk_ukf_pen2 :159, chk_ukf_pen3 :178).
-# tests/test_torch_estimator_ladder.py holds each to the JAX check's verdict.
-def _finite(x) -> bool:
-    import numpy as np
-
-    return bool(np.all(np.isfinite(np.asarray(x, dtype=np.float64))))
-
-
-def _settled_rmse(a, b, lo=50) -> float:
-    import numpy as np
-
-    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
-    return float(np.sqrt(np.mean(d[lo:] ** 2)))
-
-
-def _enc_k() -> float:
-    from mpc_rs_tpu_torch.models.params import CartPoleParams
-
-    return 60.0 / (2.0 * math.pi * CartPoleParams.single_wheel().r_w)
-
-
-def chk_kf1d(ret, out) -> bool:
-    return abs(float(ret.mean) - 50.0) < 3.0 and float(ret.var) < 2.0
-
-
-def chk_kf2d(ret, out) -> bool:
-    import numpy as np
-
-    x_est, p = ret
-    x = np.asarray(x_est, dtype=np.float64)
-    return _finite(x) and abs(x[0] - 49.5) < 5.0 and abs(x[1] - 100.0) < 10.0 and float(np.trace(np.asarray(p))) < 20.0
-
-
-def chk_est_finite(ret, out) -> bool:
-    return _finite(ret.x) and _finite(ret.p)
-
-
-def chk_ukf_one(ret, out) -> bool:
-    e = _settled_rmse(ret.est[:, 0], ret.act[:, 0])
-    o = _settled_rmse(ret.obs[:, 0], ret.act[:, 0])
-    return chk_est_finite(ret, out) and e < o and e <= 1.0
-
-
-def chk_ukf_two(ret, out) -> bool:
-    e0 = _settled_rmse(ret.est[:, 0], ret.act[:, 0])
-    o0 = _settled_rmse(ret.obs[:, 0], ret.act[:, 0])
-    e1 = _settled_rmse(ret.est[:, 1], ret.act[:, 1])
-    return chk_est_finite(ret, out) and e0 <= 1.2 * o0 and e0 <= 4.0 and e1 <= 5.0
-
-
-def chk_ukf_pen(ret, out) -> bool:
-    e_dx = _settled_rmse(ret.est[:, 1], ret.act[:, 1])
-    o_dx = _settled_rmse(ret.obs[:, 0], ret.act[:, 1])
-    e_th = _settled_rmse(ret.est[:, 3], ret.act[:, 3])
-    o_th = _settled_rmse(ret.obs[:, 1], ret.act[:, 3])
-    return chk_est_finite(ret, out) and e_dx < o_dx and e_th < o_th and e_dx <= 0.75 and e_th <= 0.75
-
-
-def chk_ukf_pen2(ret, out) -> bool:
-    k = _enc_k()
-    dx_o = 0.5 * (ret.obs[:, 0] + ret.obs[:, 1]) / k
-    th_o = ret.obs[:, 2] * math.pi / 180.0
-    e_dx = _settled_rmse(ret.est[:, 1], ret.act[:, 1])
-    o_dx = _settled_rmse(dx_o, ret.act[:, 1])
-    e_th = _settled_rmse(ret.est[:, 3], ret.act[:, 3])
-    o_th = _settled_rmse(th_o, ret.act[:, 3])
-    return (chk_est_finite(ret, out) and e_th <= 1.15 * o_th and e_th <= 0.015
-            and e_dx <= 3.0 * o_dx and e_dx <= 1.2)
-
-
-def chk_ukf_pen3(ret, out) -> bool:
-    k = _enc_k()
-    dx_o = 0.5 * (ret.obs[:, 0] + ret.obs[:, 1]) / k
-    e_dx = _settled_rmse(ret.est[:, 1], ret.act[:, 1])
-    o_dx = _settled_rmse(dx_o, ret.act[:, 1])
-    e_th = _settled_rmse(ret.est[:, 4], ret.act[:, 4])
-    return chk_est_finite(ret, out) and e_dx <= 1.3 * o_dx and e_dx <= 0.6 and e_th <= 0.05
-
-
-def chk_pid_tips(ret, out) -> bool:
-    return "over 60 degrees" in out  # the reference's PID is under-gained and tips by design
-
-
-LADDER_CHECKS = {"one-liner-kf": chk_kf1d, "two-liner-kf": chk_kf2d, "ukf-one": chk_ukf_one,
-                 "ukf-two": chk_ukf_two, "ukf-pen": chk_ukf_pen, "ukf-pen2": chk_ukf_pen2,
-                 "ukf-pen3": chk_ukf_pen3, "pid": chk_pid_tips}
+# The estimator ladder's apps, held to their acceptance checks
+# (mpc_rs_tpu_torch/apps/acceptance.py, the JAX package's SPECS and checks).
+LADDER_APPS = ("one-liner-kf", "two-liner-kf", "ukf-one", "ukf-two", "ukf-pen", "ukf-pen2", "ukf-pen3", "pid")
 
 
 # The smoke run's parity band: it fails on no survival-interval overlap or a
@@ -1604,6 +1545,7 @@ def fleet_finish_phases(dev: torch.device, card: dict) -> None:
     uninterrupted one, bit for bit; the eight ladder apps through the CLI
     entry at their acceptance criteria. Each path runs with the launch
     counts set to 0 just before it and read just after."""
+    from mpc_rs_tpu_torch.apps import acceptance
     from mpc_rs_tpu_torch.apps import run as cli
     from mpc_rs_tpu_torch.apps.fleet import build_fleet, resume_fleet, run_fleet
     from mpc_rs_tpu_torch.ops import estimator_cuda, mppi_cuda
@@ -1713,7 +1655,8 @@ def fleet_finish_phases(dev: torch.device, card: dict) -> None:
 
     # P5. the estimator ladder through the CLI entry, float64 on the card, at
     # its acceptance criteria (seed 0, held); seeds 1-4 reported
-    for app, check_fn in LADDER_CHECKS.items():
+    for app in LADDER_APPS:
+        check_fn = acceptance.SPECS[app][2]
         extra = ["--log-dir", "logs/chip_smoke_ladder"] if app == "pid" else []
         verdicts, secs = [], []
         for seed in range(5):
@@ -1729,43 +1672,15 @@ def fleet_finish_phases(dev: torch.device, card: dict) -> None:
     check(native_digests() == native_before, "native/ changed during the run")
 
 # --------------------------------------------------------------------------
-# gradient MPC: the six mpc_examples apps, the QP fleet and qp-parking.
-# Their acceptance criteria, copied from mpc_rs_tpu/apps/acceptance.py
-# (chk_op_en2 :50-52, chk_parks :55-60, chk_mpc_ukf_x_faithful :63-74,
-# chk_multirate_survives :46-47; SPECS :264-270, fleet-qp :218-226, 318-321),
-# read from the port's results: ``ret.u`` of op-en2, ``ret.x`` of the others.
+# gradient MPC: the six mpc_examples apps, the QP fleet and qp-parking, each
+# app held to its acceptance check (mpc_rs_tpu_torch/apps/acceptance.py).
 
 PANOC_BUDGET_S = 0.03  # the reference's real-time budget a PANOC solve (SURVEY §6)
 OP_MPC_X_TICKS = 10  # op-mpc-x's prefix on the card (of 1 001 ticks, ~0.7 s each)
 NOISE_ITERS = 30  # past this many iterations a condensed-QP PANOC solve is noise-driven
 # how far from the optimum op-mpc-x-calc's tol-1e-6 stop can be: 2·√n·tol/λ_min(2H), λ_min = 0.1254
 CALC_RADIUS = 2.0 * math.sqrt(8) * 1e-6 / 0.1253964616268916
-
-
-def chk_op_en2(ret, out) -> bool:
-    u = ret.u.double().cpu()
-    return abs(float(u[0])) < 1e-3 and abs(float(u[1])) < 1e-3
-
-
-def chk_parks(ret, out) -> bool:
-    x = ret.x
-    return _finite(x) and "over pi/2" not in out and "Error:" not in out and abs(x[0]) < 0.3 and abs(x[2]) < 0.1
-
-
-def chk_mpc_ukf_x_faithful(ret, out) -> bool:
-    # the reference's proven behavior: the cart glides away under the π/2
-    # guard or noise tips it past π/2; stabilizing at the origin would not be it
-    x = ret.x
-    glided = "Error:" not in out and abs(x[2]) < math.pi / 2 and abs(x[0]) > 10.0
-    return glided or "Error:" in out
-
-
-def chk_multirate_survives(ret, out) -> bool:
-    return (not ret.tipped) and ret.t >= 9.5
-
-
-MPC_CHECKS = {"op-en2": chk_op_en2, "op-mpc-x": chk_parks, "op-mpc-x-calc": chk_parks, "op-mpc-x-calc-nl": chk_parks,
-              "mpc-ukf-x": chk_mpc_ukf_x_faithful, "mpc-ukf-s": chk_multirate_survives}
+MPC_APPS = ("op-en2", "op-mpc-x", "op-mpc-x-calc", "op-mpc-x-calc-nl", "mpc-ukf-x", "mpc-ukf-s")
 
 
 def gradient_mpc_phases(dev: torch.device, card: dict) -> None:
@@ -1781,6 +1696,7 @@ def gradient_mpc_phases(dev: torch.device, card: dict) -> None:
 
     import numpy as np
 
+    from mpc_rs_tpu_torch.apps import acceptance
     from mpc_rs_tpu_torch.apps import mpc_examples as me
     from mpc_rs_tpu_torch.apps import run as cli
     from mpc_rs_tpu_torch.apps.fleet import build_qp_fleet
@@ -1824,17 +1740,18 @@ def gradient_mpc_phases(dev: torch.device, card: dict) -> None:
 
     logs = "logs/chip_smoke_mpc"
     # G1. the six apps on the card at their acceptance criteria
-    for app in MPC_CHECKS:
+    for app in MPC_APPS:
         panoc.reset_readbacks()
         if app == "op-mpc-x":
             args = types.SimpleNamespace(device="cuda", max_iter=None, fd=False, log_dir=logs)
             ret, out, secs = counted(lambda: me.run_op_mpc_x(args, max_ticks=OP_MPC_X_TICKS))
-            ok = _finite(ret.x) and "Error:" not in out and ret.ticks == OP_MPC_X_TICKS
+            ok = acceptance._finite(ret.x) and "Error:" not in out and ret.ticks == OP_MPC_X_TICKS
             verdict = f"{OP_MPC_X_TICKS} of 1001 ticks finite, no bail (chk_parks needs all 1001)"
         else:
             argv = [app] + ([] if app == "op-en2" else ["--log-dir", logs])
             ret, out, secs = counted(lambda: cli.main(argv))
-            ok, verdict = bool(MPC_CHECKS[app](ret, out)), MPC_CHECKS[app].__name__
+            chk = acceptance.SPECS[app][2]
+            ok, verdict = bool(chk(ret, out)), chk.__name__
         row = {"phase": "mpc_app", "app": app, "device": str(dev), "passes": bool(ok), "criterion": verdict,
                "seconds": secs, **card}
         if app == "op-en2":
@@ -1843,7 +1760,7 @@ def gradient_mpc_phases(dev: torch.device, card: dict) -> None:
             stats = solve_stats(ret.log)
             per_solve = panoc.readbacks / stats["solves"]
             row.update(ticks=getattr(ret, "ticks", getattr(ret, "n_solves", None)), final_x=list(map(float, ret.x)),
-                       solve=stats, readbacks_per_solve=per_solve,
+                       solve=stats, readbacks_per_solve=per_solve, graph_replays_per_solve=panoc.replays / stats["solves"],
                        readback_share_of_median_solve=per_solve * readback_us / (1e3 * stats["median_ms"]))
         emit(row)
         check(ok, f"{app} on the card fails its acceptance criterion {verdict}")
@@ -1853,7 +1770,7 @@ def gradient_mpc_phases(dev: torch.device, card: dict) -> None:
     runs = {}
     for d in ("cuda", "cpu"):
         ret, out, _ = counted(lambda: cli.main(["op-mpc-x-calc-nl", "--device", d, "--log-dir", f"{logs}/{d}"]))
-        runs[d] = (ret, bool(chk_parks(ret, out)))
+        runs[d] = (ret, bool(acceptance.SPECS["op-mpc-x-calc-nl"][2](ret, out)))
     solve_cpu, _ = me.op_mpc_x_calc_controller("cpu")
     solve_dev, _ = me.op_mpc_x_calc_controller(dev)
     p = CartPoleParams.single_wheel()
@@ -1945,6 +1862,273 @@ def gradient_mpc_phases(dev: torch.device, card: dict) -> None:
     pd.write_entry(str(pd.OUT), pd.QP_PARKING, entry)
 
 
+# --------------------------------------------------------------------------
+# tune's sweep, mpc-ukf-commu, and the acceptance harness
+
+TUNE_GRID = ((0.1, 0.5, 1.4, 2.5), (1.0, 3.0, 10.0), 8)  # tune's default λ, σ and seeds: B = 96
+TUNE_K = 800_000  # the main path's K (mppi4-non-liner, mppi4-commu)
+PACKET_PERIOD_S = 0.01  # the HIL apps' 100 Hz sensor stream
+ACCEPTANCE_SUBSET = "tune,mpc-ukf-commu,uart,mppi4-commu,serve-stream,op-en2"
+
+
+def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
+    """tune's sweep launch (the partials kernel with the sweep's policy,
+    ``mppi_sweep_kernel``): its four instantiations' ptxas registers and no
+    spill; at tune's default grid (B = 96) and K = 1 024 and 800 000, each
+    noise source at R = 1 and 4, against its float64 plain version (in-kernel
+    box-muller against ``sweep_noise``'s words), and the failure probes;
+    then, as main paths through the CLI entry (counts reset before, read
+    after), tune at its acceptance spec and at the default grid at
+    K = 800 000 over 100 ticks, one launch a tick (torch.profiler: one
+    sweep kernel in a tick). Returns the kernels line's entry."""
+    import numpy as np
+
+    from mpc_rs_tpu_torch.apps import acceptance, tune
+    from mpc_rs_tpu_torch.apps import run as cli
+    from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+    from mpc_rs_tpu_torch.ops import mppi_cuda
+    from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4
+    from mpc_rs_tpu_torch.runtime.profile_fleet import ptxas_kernel
+
+    # T1. the sweep's instantiations: box-muller and external noise at R = 1 and 4
+    sweep_ptxas = ptxas_kernel(log, "mppi_sweep_kernel")
+    spills = [ln for ln in sweep_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
+    emit({"phase": "ptxas_sweep", "ptxas": sweep_ptxas})
+    check(sum("registers" in ln for ln in sweep_ptxas) == 4, f"sweep instantiations in the ptxas report: {sweep_ptxas}")
+    check(not spills, f"ptxas spills in the sweep kernel: {spills}")
+
+    model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
+    lams, sigs, n_seeds = TUNE_GRID
+    grid = [(lam, sig, r) for lam in lams for sig in sigs for r in range(n_seeds)]
+    lam = torch.tensor([g[0] for g in grid], dtype=torch.float32, device=dev)
+    sig = torch.tensor([g[1] for g in grid], dtype=torch.float32, device=dev)
+    seeds = torch.tensor([g[2] for g in grid], dtype=torch.int32, device=dev)
+    b = lam.numel()
+
+    def cfg(k):  # the sweep reads N, K and the box; λ and σ are the problems' own
+        return MppiConfig(n_horizon=N, n_rollouts=k, lambda_=1.0, std_dev=1.0, limit=(-20.0, 20.0))
+
+    # T2. the launch against its float64 plain version: in the f32 band, or,
+    # in the grid's cells where the float32 problem is ill-conditioned (λ =
+    # 0.1 at σ = 10 weighs one or two rollouts), within twice the plain
+    # float32 version's own distance
+    gen = torch.Generator(device=dev).manual_seed(1313)
+    err = 0.0
+    for k in (1024, TUNE_K):
+        xs = torch.randn((b, 4), generator=gen, device=dev) * torch.tensor([0.3, 0.1, 0.1, 0.1], device=dev)
+        u_ns = torch.randn((b, N), generator=gen, device=dev)
+        for source in ("external", "box-muller"):
+            if source == "external":
+                noise = torch.randn((b, k, N), generator=gen, device=dev) * sig[:, None, None]
+                kw = dict(noise=noise)
+            else:
+                noise, kw = mppi_cuda.sweep_noise(cfg(k), seeds, 9, sig), dict(seeds=seeds, solve=9)
+            row = {"phase": "sweep_vs_plain", "b": b, "k": k, "noise": source}
+            for rpt in (1, 4):
+                u, st, ess = mppi_cuda.mppi_sweep_batch_fused(cfg(k), model, xs, u_ns, lam, sig,
+                                                              rollouts_per_thread=rpt, **kw)
+                want_u, want_st, want_ess = mppi_cuda.mppi_sweep_batch_plain(
+                    cfg(k), model, xs.double(), u_ns.double(), lam, sig, noise=noise, rollouts_per_thread=rpt)
+                u32, _, ess32 = mppi_cuda.mppi_sweep_batch_plain(cfg(k), model, xs, u_ns, lam, sig, noise=noise,
+                                                                 rollouts_per_thread=rpt)
+                check(torch.equal(st, want_st) and bool((st == MppiStatus.OK).all()),
+                      f"sweep K={k} {source} R={rpt}: statuses {sorted(set(st.tolist()))}, plain {sorted(set(want_st.tolist()))}")
+                e = max(check_band_or_own(u, want_u, u32, f"sweep K={k} {source} R={rpt} u_n'"),
+                        check_band_or_own(ess, want_ess, ess32, f"sweep K={k} {source} R={rpt} ESS"))
+                err = max(err, e)
+                row[f"max_abs_err_r{rpt}"] = e
+                row[f"ess_range_r{rpt}"] = [float(ess.min()), float(ess.max())]
+            emit(row)
+            del noise, kw
+    check(bool((mppi_cuda.merge_tickets(dev, b) == 0).all()), "sweep tickets not zero")
+    xs = torch.tensor(X0, device=dev).repeat(b, 1)
+    xs[0, 0] = float("nan")
+    lam0 = lam.clone()
+    lam0[1] = 0.0
+    u, st, ess = mppi_cuda.mppi_sweep_batch_fused(cfg(512), model, xs, torch.zeros((b, N), device=dev), lam0, sig,
+                                                  seeds=seeds, solve=0)
+    check(st[:3].tolist() == [MppiStatus.NO_FINITE, MppiStatus.INVALID_U, MppiStatus.OK]
+          and bool((u[:2] == 0).all()) and float(ess[0]) == 0.0 and bool(torch.isnan(ess[1])),
+          f"sweep probes: statuses {st[:3].tolist()}, ESS {ess[:3].tolist()}")
+    emit({"phase": "sweep_failure_probes", "statuses": st[:3].tolist(), "ess": [float(v) for v in ess[:3]]})
+
+    # T3. tune through the CLI entry: the acceptance spec, then the default grid at K = 800 000
+    spec_argv = acceptance.SPECS["tune"][1]
+    mppi_cuda.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cells = cli.main(["tune", *spec_argv, "--log-dir", "logs/chip_smoke_tune"])
+    spec_launches = mppi_cuda.launches["mppi_sweep_batch_fused"]
+    check(acceptance.SPECS["tune"][2](cells, buf.getvalue()) and spec_launches == 20,
+          f"tune at its acceptance spec: {cells}, {spec_launches} launches for 20 ticks")
+    mppi_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cells = cli.main(["tune", "--k", str(TUNE_K), "--log-dir", "logs/chip_smoke_tune"])
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    counts = {key: v for key, v in mppi_cuda.launches.items() if v}
+    ticks = 100
+    ref = next(c for c in cells if c["lambda"] == 0.5 and c["sigma"] == 3.0)
+    check(counts == {"mppi_sweep_batch_fused": ticks}, f"tune: launches {counts} for {ticks} ticks")
+    check(ref["survival"] == 1.0, f"tune: the (0.5, 3) cell survived {ref['survival']}")
+    check(all(1.0 <= c["mean_ess"] <= TUNE_K for c in cells if c["mean_ess"] is not None),
+          f"tune: a mean ESS outside [1, K]: {[c['mean_ess'] for c in cells]}")
+    # one tick under torch.profiler: one sweep kernel, the plant step's torch ops
+    one = tune.make_sweep(k=TUNE_K, n_ticks=1, device=dev)
+    events = device_events(lambda: one(lam, sig, seeds))
+    sweeps = [t for name, t in events if "mppi_sweep_kernel" in name]
+    others = [t for name, t in events if "mppi_sweep_kernel" not in name and not name.startswith(("Memcpy", "Memset"))]
+    check(len(sweeps) <= 1 and not any("mppi_partials_kernel" in name for name, _ in events),
+          f"a tune tick launched {[name for name, _ in events]}")
+    emit({"phase": "tune_main_path", "b": b, "k": TUNE_K, "ticks": ticks, "seconds": tune_s,
+          "tick_ms_mean": 1e3 * tune_s / ticks, "cells": cells, "spec_launches": spec_launches, "launches": counts,
+          "tick_sweep_kernels_caught": len(sweeps), "tick_sweep_device_us": sweeps,
+          "tick_other_device_us": sum(others), "tick_other_kernels": len(others), **card})
+
+    # T4. times at the main path's shape: the launch (device, events), its plain version, its bound
+    cfg_k = cfg(TUNE_K)
+    xs = torch.tensor(X0, device=dev).repeat(b, 1)
+    u0 = torch.zeros((b, N), device=dev)
+    call = lambda: mppi_cuda.mppi_sweep_batch_fused(cfg_k, model, xs, u0, lam, sig, seeds=seeds, solve=3)  # noqa: E731
+    plain = lambda: mppi_cuda.mppi_sweep_batch_plain(cfg_k, model, xs, u0, lam, sig, seeds=seeds, solve=3)  # noqa: E731
+    call()
+    dev_us = [t for name, t in device_events(call, reps=5) if "mppi_sweep_kernel" in name]
+    check(bool(dev_us), "torch.profiler caught no sweep kernel")
+    kern_ms = statistics.median(dev_us) / 1e3
+    event_ms = median_ms(call, reps=20)
+    plain_ms = median_ms(plain, reps=3, warmup=1)
+    n_bytes = nbytes(xs, u0, lam, sig, seeds) + nbytes(u0) + 4 * b + 4 * b  # in: x, u_n, λ, σ, seeds; out: u_n', status, ESS
+    bnd = bound(flops_of(plain), n_bytes)
+    emit({"phase": "timing_sweep", "b": b, "k": TUNE_K, "kernel_device_ms": kern_ms, "kernel_event_ms": event_ms,
+          "plain_ms": plain_ms, "rollouts_per_thread": mppi_cuda.rollouts_per_thread(TUNE_K, b), **bnd, **card})
+    return [{"name": "mppi_sweep_kernel: the partials kernel with tune's sweep policy, per-problem lambda and "
+                     "sigma, ESS in the merge (K5/K6 extended; mppi_sweep_batch_fused, B=96, K=800000)",
+             "route": "cuda", "source": COMMON_SOURCE, "replaces": f"{PALLAS}:692",
+             "launches": counts["mppi_sweep_batch_fused"], "max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
+             "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"], "library_ms": None}]
+
+
+def mpc_commu_phase(dev: torch.device, card: dict) -> None:
+    """mpc-ukf-commu through the CLI entry at its acceptance spec's argv
+    (``--sim-mcu --t-end 3 --time-scale 0.5``): at least 100 solves in the
+    6 s window, its solve median and p99 against the 10 ms packet period,
+    PANOC's iterations, read-backs and graph replays a solve."""
+    from mpc_rs_tpu_torch.apps import acceptance
+    from mpc_rs_tpu_torch.apps import run as cli
+    from mpc_rs_tpu_torch.controllers import panoc
+    from mpc_rs_tpu_torch.ops import estimator_cuda, mppi_cuda
+
+    argv = acceptance.SPECS["mpc-ukf-commu"][1]
+    mppi_cuda.reset_launches()
+    estimator_cuda.reset_launches()
+    panoc.reset_readbacks()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = cli.main(["mpc-ukf-commu", *argv])
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in {**mppi_cuda.launches, **estimator_cuda.launches}.items() if v}
+    passes = bool(acceptance.SPECS["mpc-ukf-commu"][2](res, buf.getvalue()))
+    solves = res.solves + 1  # and the one before traffic
+    it = sorted(res.iterations)
+    emit({"phase": "hil_mpc_ukf_commu", "argv": argv, "solves": res.solves, "packets": res.packets,
+          "passes_chk_packets_100": passes, "upright": res.upright, "finite": res.finite,
+          "max_abs_theta": res.max_abs_theta, "plant_max_abs_theta": res.plant_max_abs_theta,
+          "solve": ms_quantiles(res.solve_seconds), "est_step": ms_quantiles(res.est_seconds),
+          "packet_period_ms": 1e3 * PACKET_PERIOD_S,
+          "solves_within_packet_period": sum(t <= PACKET_PERIOD_S for t in res.solve_seconds) / len(res.solve_seconds),
+          "iterations_median": statistics.median(it), "iterations_max": it[-1],
+          "readbacks_per_solve": panoc.readbacks / solves, "graph_replays_per_solve": panoc.replays / solves,
+          "launches": counts, "wall_s": secs, **card})
+    check(passes, f"mpc-ukf-commu: {res.solves} solves, the spec's chk_packets(100) fails (upright {res.upright})")
+    check(not counts, f"mpc-ukf-commu launched the port's MPPI kernels: {counts}")
+
+
+def panoc_graph_phase(dev: torch.device, card: dict) -> None:
+    """PANOC replayed from CUDA graphs against the eager solve, on the card:
+    op-mpc-x-calc's and mpc-ukf-commu's condensed QPs, 12 warm-started
+    solves from seeded states, the graph solve (the QP's closure) and the
+    eager one (the same closure behind a lambda): iterations and read-backs
+    equal, u within 1e-12; each one's ms, device kernels (torch.profiler)
+    and graph replays an iteration."""
+    import numpy as np
+
+    from mpc_rs_tpu_torch.controllers import panoc
+    from mpc_rs_tpu_torch.controllers.qp import build_condensed_qp, make_qp_value_and_grad
+    from mpc_rs_tpu_torch.models import dynamics, reference
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+
+    rng = np.random.default_rng(13)
+    a, b = dynamics.linear_ab(CartPoleParams.single_wheel(), 0.1)
+    a40, b40 = dynamics.linear_ab(CartPoleParams.two_wheel(), 1.2 / 40, two_wheel=True)
+    setups = {
+        "op-mpc-x-calc": (build_condensed_qp(a, b, np.diag([5.0, 5.0, 1.0, 1.0]), 8, device=dev),
+                          reference.make_gen_ref_raised_cosine(8), panoc.PanocConfig(tol=1e-6, max_iter=80, lbfgs_mem=20),
+                          panoc.box_projection(-30.0, 30.0), 8, [0.5, 0.2, 0.1, 0.2]),
+        "mpc-ukf-commu": (build_condensed_qp(a40, b40, np.diag([0.0, 0.0, 10.0, 3.0]), 40, device=dev),
+                          reference.make_gen_ref_raised_cosine(40, velocity_gain=-0.75),
+                          panoc.PanocConfig(tol=1e-6, max_iter=60, lbfgs_mem=20), panoc.box_projection(-10.0, 10.0),
+                          40, [0.3, 0.2, 0.05, 0.2]),
+    }
+    for app, (qp, gen_ref, cfg, proj, n, scale) in setups.items():
+        vg_factory = make_qp_value_and_grad(qp, gen_ref)
+        u = torch.zeros(n, dtype=torch.float64, device=dev)
+        worst, t_graph, t_eager, iters, per_it = 0.0, [], [], [], {}
+        for i, x in enumerate(rng.normal(size=(12, 4)) * scale):
+            vg = vg_factory(torch.tensor(x, dtype=torch.float64, device=dev))
+            runs = {}
+            for mode, oracle in (("graph", vg), ("eager", lambda v, vg=vg: vg(v))):
+                panoc.reset_readbacks()
+                t0 = time.perf_counter()
+                res = panoc.panoc_solve(cfg, None, proj, u, value_and_grad=oracle)
+                res.u.cpu()
+                (t_graph if mode == "graph" else t_eager).append(time.perf_counter() - t0)
+                runs[mode] = (res, panoc.readbacks, panoc.replays)
+            (g, rb_g, rp_g), (e, rb_e, _) = runs["graph"], runs["eager"]
+            check(int(g.iterations) == int(e.iterations) and rb_g == rb_e,
+                  f"{app} solve {i}: graph {int(g.iterations)} iterations, {rb_g} read-backs; eager "
+                  f"{int(e.iterations)}, {rb_e}")
+            worst = max(worst, float((g.u - e.u).abs().max()))
+            iters.append(int(g.iterations))
+            if i == 11:  # the last solve's device kernels an iteration, each way
+                for mode, oracle in (("graph", vg), ("eager", lambda v, vg=vg: vg(v))):
+                    events = device_events(lambda: panoc.panoc_solve(cfg, None, proj, u, value_and_grad=oracle).u.cpu())
+                    per_it[f"{mode}_device_kernels_per_iteration"] = (
+                        len(events) / max(1, int(g.iterations)) if events else "not measured")
+                per_it["readbacks_per_iteration"] = rb_g / max(1, int(g.iterations))
+                per_it["graph_replays_per_iteration"] = rp_g / max(1, int(g.iterations))
+            u = g.u
+        check(worst <= 1e-12, f"{app}: graph and eager solves {worst} apart (1e-12)")
+        emit({"phase": "panoc_graph_vs_eager", "app": app, "solves": 12, "max_abs_u_diff": worst,
+              "iterations_equal": True, "readbacks_equal": True, "iterations_median": statistics.median(iters),
+              "graph_solve": ms_quantiles(t_graph[1:]), "eager_solve": ms_quantiles(t_eager[1:]),
+              "first_graph_solve_ms_with_capture": 1e3 * t_graph[0], **per_it, **card})
+
+
+def acceptance_phase(dev: torch.device, card: dict) -> None:
+    """The acceptance harness on the card (``apps/acceptance.py``), seed 0,
+    the specs of this slice's paths and the HIL ones: every one passes."""
+    from mpc_rs_tpu_torch.apps import acceptance
+    from mpc_rs_tpu_torch.ops import estimator_cuda, mppi_cuda
+
+    Path("logs").mkdir(exist_ok=True)
+    out = Path("logs/chip_smoke_acceptance.json")
+    out.unlink(missing_ok=True)
+    mppi_cuda.reset_launches()
+    estimator_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        payload = acceptance.main(["--only", ACCEPTANCE_SUBSET, "--seeds", "1", "--out", str(out)])
+    counts = {k: v for k, v in {**mppi_cuda.launches, **estimator_cuda.launches}.items() if v}
+    rates = {name: r["rate"] for name, r in payload["results"].items()}
+    emit({"phase": "acceptance", "specs": ACCEPTANCE_SUBSET.split(","), "seed": 0, "rates": rates,
+          "fails": {name: r["fails"] for name, r in payload["results"].items() if r["fails"]},
+          "device": payload["device"], "launches": counts, "seconds": time.perf_counter() - t0, **card})
+    check(all(r == 1.0 for r in rates.values()), f"acceptance on the card: {rates}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU")
@@ -2010,14 +2194,20 @@ def main() -> None:
     check(not d1_spills, f"ptxas spills in the D1 kernel: {d1_spills}")
     check(not any("mppi_finalize_kernel" in r["kernel"] for r in sass), "mppi_finalize_kernel is still built")
     production = [r for r in sass if "finalize_kernel" not in r["kernel"]]
-    check(len(production) == 6 and all(r["ATOM"] >= 1 for r in production),
-          f"the production partials instantiations (3 solves x R = 1, 4) and their tickets: {sass}")
+    check(len(production) == 6 + 4 and all(r["ATOM"] >= 1 for r in production),
+          f"the production partials instantiations (3 solves x R = 1, 4), the sweep's (2 noise sources x R = 1, "
+          f"4) and their tickets: {sass}")
     # the estimator chain's two instantiations (K7): registers, no spill
     k7_ptxas = ptxas_kernel(log, "estimator_chain_kernel")
     k7_spills = [ln for ln in k7_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
     emit({"phase": "ptxas_estimator_chain", "ptxas": k7_ptxas})
     check(sum("registers" in ln for ln in k7_ptxas) == 2, f"K7 instantiations in the ptxas report: {k7_ptxas}")
     check(not k7_spills, f"ptxas spills in the estimator chain: {k7_spills}")
+
+    # 2b. the HIL apps of this slice at their acceptance specs, on the host's
+    # clock, before any torch.profiler session of the run
+    mpc_commu_phase(dev, card)
+    acceptance_phase(dev, card)
 
     # 3. K2 with external noise against the plain version in float64
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -2245,8 +2435,10 @@ def main() -> None:
     ukf_fidelity_phase(dev, card)
     family = family_phases(dev, card)
     hil = hil_phases(dev, card, log)
+    sweep = tune_phases(dev, card, log)
     fleet_finish_phases(dev, card)
     gradient_mpc_phases(dev, card)
+    panoc_graph_phase(dev, card)
 
     emit({"kernels": [
         {"name": "mppi_partials_kernel, merged in the launch (K2, mppi_solve_fused)", "route": "cuda",
@@ -2266,6 +2458,7 @@ def main() -> None:
         *diag,
         *family,
         *hil,
+        *sweep,
     ]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Hardware-in-the-loop example runners — port of
-``mpc_rs_tpu/apps/commu_examples.py:32-309`` (examples/uart.rs,
-mppi4-commu.rs, mppi4-ukf-commu.rs).
+``mpc_rs_tpu/apps/commu_examples.py`` (examples/uart.rs, mppi4-commu.rs,
+mppi4-ukf-commu.rs, mpc-ukf-commu.rs).
 
 The robot is a serial link (``--serial``, default /dev/ttyUSB0 at 115200
 baud, COBS frames). ``--sim-mcu`` replaces it with a fake MCU thread behind
@@ -8,9 +8,10 @@ a PTY that integrates the plant at 1 kHz and streams sensor packets: the
 reference's sim↔HW twin (SURVEY §4.3) without hardware. Every MPPI solve
 runs on the device the caller names (``--device``, default cuda): the fused
 kernel on the card, raising when there is none, or its plain version with
-``--device cpu``.
+``--device cpu``; mpc-ukf-commu's PANOC solve runs in float64 on it
+(``controllers/panoc.py``, its segments replayed from CUDA graphs on a card).
 
-mppi4-ukf-commu's 6-state UKF runs on the host CPU in float32, as the port's
+The HW apps' 6-state UKF runs on the host CPU in float32, as the port's
 ``mppi4-non-liner-ukf`` runs its filter: the JAX app jits its estimator
 step onto its default device (``commu_examples.py:226-237``), no Pallas
 kernel is involved, and a 6-state filter is a few hundred scalar operations
@@ -30,10 +31,12 @@ import torch
 
 from mpc_rs_tpu_torch.apps.common import DEG60, PI_2, Elapsed, make_mppi_solver, resolve_device
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
+from mpc_rs_tpu_torch.controllers.panoc import PanocConfig, box_projection, panoc_solve
+from mpc_rs_tpu_torch.controllers.qp import build_condensed_qp, make_qp_value_and_grad
 from mpc_rs_tpu_torch.estimators import ukf
 from mpc_rs_tpu_torch.io.packets import Control, Sensor3, State
 from mpc_rs_tpu_torch.io.serial import PtyPair, SerialPort
-from mpc_rs_tpu_torch.models import dynamics, noise, observation
+from mpc_rs_tpu_torch.models import dynamics, noise, observation, reference
 from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Commu4Cost4
 from mpc_rs_tpu_torch.runtime.console import print_con, print_rcv
@@ -208,6 +211,9 @@ class CommuResult(NamedTuple):
     finite_solves: int  # the solves made before the estimate went non-finite (all, if it never did)
     plant_max_abs_theta: float | None  # the fake MCU's plant's largest |θ| (None on a serial link)
 
+    def __int__(self) -> int:  # the solve count, what the JAX apps return (chk_packets reads it)
+        return self.solves
+
 
 def mppi4_commu(args) -> CommuResult:
     """HW-in-loop MPPI — examples/mppi4-commu.rs: the MCU streams State, the
@@ -262,13 +268,16 @@ PHY_COMMU = (50.0, 50.0, 10.0)  # mppi4-ukf-commu.rs:28
 
 
 def commu_estimator(p: CartPoleParams, dt: float, dtype=torch.float32, *, alpha: float = 1e-3,
-                    sqrt_method: str = "eigh"):
-    """(params, state0, est_step) of mppi4-ukf-commu's UKF2(6,5)
-    (``commu_examples.py:213-237``): the app's own ``make_accel6`` with its
-    cos(ẍ) denominator quirk, the IMU sensor, Merwe α=1e-3 and the eigh
-    root (the JAX package's ``ukf_init`` defaults; ``alpha`` and
-    ``sqrt_method`` override them), P0 = 10·I. ``est_step(state, u, z, dt_est, enable_mask)`` rebuilds
-    Q = gen_q6(dt_est, PHY = (50, 50, 10)) and the dropout R =
+                    sqrt_method: str = "eigh", quirk_denominator: bool = True, phy=PHY_COMMU):
+    """(params, state0, est_step) of the HW apps' UKF2(6,5) on Sensor3
+    (``commu_examples.py:213-237``, ``:355-377``): ``make_accel6`` without
+    the force, the IMU sensor, Merwe α=1e-3 and the eigh root (the JAX
+    package's ``ukf_init`` defaults; ``alpha`` and ``sqrt_method`` override
+    them), P0 = 10·I. mppi4-ukf-commu's plant has its own cos(ẍ) denominator
+    quirk and Q's PHY = (50, 50, 10) (the defaults here); mpc-ukf-commu's
+    the cos θ denominator (``quirk_denominator=False``) and gen_q6's default
+    PHY (``phy=(100, 70, 20)``). ``est_step(state, u, z, dt_est,
+    enable_mask)`` rebuilds Q = gen_q6(dt_est, PHY) and the dropout R =
     gen_r_mask(R_DIAG, mask) for each packet, predicts with dt_est, and
     updates with the masked hx; dt_est and the mask are taken in the
     filter's dtype (the JAX app's float32 on the card's host). A step whose
@@ -283,13 +292,13 @@ def commu_estimator(p: CartPoleParams, dt: float, dtype=torch.float32, *, alpha:
     (``tests/test_torch_commu.py``), though two evaluations of one step in
     another operation order (the JAX package jitted and eager) differ past
     the float64 band."""
-    plant6 = dynamics.make_accel6(p, with_force=False, quirk_denominator=True)
+    plant6 = dynamics.make_accel6(p, with_force=False, quirk_denominator=quirk_denominator)
     hx = observation.make_hx_imu6(p)
     r_diag = torch.tensor(R_DIAG_COMMU, dtype=torch.float32)
     params, state0 = ukf.ukf_init(
         torch.zeros(6, dtype=dtype),
         10.0 * torch.eye(6, dtype=dtype),
-        noise.gen_q6(torch.tensor(dt, dtype=torch.float32), phy=PHY_COMMU).to(dtype),
+        noise.gen_q6(torch.tensor(dt, dtype=torch.float32), phy=phy).to(dtype),
         torch.diag(r_diag).to(dtype),
         alpha=alpha,
         sqrt_method=sqrt_method,
@@ -303,7 +312,7 @@ def commu_estimator(p: CartPoleParams, dt: float, dtype=torch.float32, *, alpha:
             out = plant6(*(xv[..., i] for i in range(6)), uu, dt_e, 0.0)
             return torch.stack(torch.broadcast_tensors(*out), dim=-1)
 
-        state = state._replace(q=noise.gen_q6(dt_e, phy=PHY_COMMU).to(state.q.dtype),
+        state = state._replace(q=noise.gen_q6(dt_e, phy=phy).to(state.q.dtype),
                                r=noise.gen_r_mask(r_diag, mask).to(state.r.dtype))
         if torch.isfinite(state.x).all() and torch.isfinite(state.p).all():
             try:
@@ -418,3 +427,130 @@ def mppi4_ukf_commu(args) -> CommuResult:
     print(f"{len(statuses)} solves")
     return CommuResult(len(statuses), packets, statuses, solve_s, est_s, max_th, upright, finite, finite_solves,
                        mcu.max_abs_theta if mcu else None)
+
+
+class MpcCommuResult(NamedTuple):
+    """mpc-ukf-commu's run: ``int()`` of it is the solve count the JAX app
+    returns."""
+
+    solves: int  # PANOC solves in the traffic loop (the pre-solve not counted)
+    packets: int  # sensor packets read
+    iterations: list[int]  # PANOC iterations of every solve
+    solve_seconds: list[float]  # host clock of each solve, its u0 read back
+    est_seconds: list[float]  # host clock of each estimator step
+    max_abs_theta: float  # the estimate's largest |θ|
+    upright: bool  # the π/2 guard did not fire
+    finite: bool  # every estimate finite
+    plant_max_abs_theta: float | None  # the fake MCU's plant's largest |θ| (None on a serial link)
+
+    def __int__(self) -> int:
+        return self.solves
+
+
+MPC_COMMU_N = 40  # mpc-ukf-commu.rs: T = 1.2 s over N = 40 steps
+
+
+def mpc_ukf_commu_parts(device, *, max_iter: int | None = None, est_dtype=torch.float32):
+    """(solve(x4, u) -> PanocResult, est0, est_step) of mpc-ukf-commu
+    (``commu_examples.py:312-364``): the two-wheel condensed QP at N=40,
+    dt = 1.2/40, C = diag(0, 0, 10, 3), the raised-cosine reference with the
+    −0.75 velocity gain, PANOC (tol 1e-6, memory 20, budget 60) in float64
+    on ``device``, bounds ±10; the Sensor3 UKF2(6,5) of ``commu_estimator``
+    with the cos θ plant and gen_q6's default PHY, in ``est_dtype`` (the
+    app's float32) on the host."""
+    p = CartPoleParams.two_wheel()
+    n = MPC_COMMU_N
+    dt = 1.2 / n
+    a, b = dynamics.linear_ab(p, dt, two_wheel=True)
+    qp = build_condensed_qp(a, b, np.diag([0.0, 0.0, 10.0, 3.0]), n, device=device)
+    vg_factory = make_qp_value_and_grad(qp, reference.make_gen_ref_raised_cosine(n, velocity_gain=-0.75))
+    cfg = PanocConfig(tol=1e-6, max_iter=max_iter or 60, lbfgs_mem=20)
+    proj = box_projection(-10.0, 10.0)
+
+    def solve(x, u):
+        return panoc_solve(cfg, None, proj, u, value_and_grad=vg_factory(x))
+
+    _, est0, est_step = commu_estimator(p, dt, est_dtype, quirk_denominator=False, phy=(100.0, 70.0, 20.0))
+    return solve, est0, est_step
+
+
+def mpc_ukf_commu(args) -> MpcCommuResult:
+    """HW gradient-MPC flagship — examples/mpc-ukf-commu.rs
+    (``commu_examples.py:312-421``): the MCU streams Sensor3, the host
+    filters it (``mpc_ukf_commu_parts``) and solves the N=40 condensed QP by
+    PANOC on ``--device``, warm-started from the last solution. As the JAX
+    app: one solve and one filter step before traffic (on a card the solve
+    captures PANOC's CUDA graphs), the first frame awaited and filtered at
+    dt 1/100, dt_est = clip((now − last_rx)·time_scale, 1e-4, 0.1), a solve
+    every pass of the loop, the π/2 guard armed after 10 solves, and a
+    control sent only when it moved by 1e-2 or more. ``--console`` prints
+    the Con: lines and, in the traffic loop, the Rcv: lines."""
+    device = resolve_device(args.device)
+    n = MPC_COMMU_N
+    solve, est, est_step = mpc_ukf_commu_parts(device, max_iter=args.max_iter, est_dtype=getattr(torch, args.ukf_dtype))
+    f64 = dict(dtype=torch.float64, device=device)
+    # pre-compile both hot paths before real-time traffic starts
+    solve(torch.zeros(4, **f64), torch.zeros(n, **f64)).u.cpu()
+    est_step(est, 0.0, torch.zeros(5), 1.2 / n, torch.ones(5))
+    scale = args.time_scale or 1.0
+    el0 = time.time()
+    port, mcu = _open_port(args, "sensor3")
+    u_n, pre_u, i = torch.zeros(n, **f64), 0.0, 0
+    iterations, solve_s, est_s = [], [], []
+    packets, max_th, upright, finite = 0, 0.0, True, True
+
+    def estimate(est, u, pkt, dt_est):
+        nonlocal packets, finite
+        enable, z = pkt.parse()
+        t0 = time.perf_counter()
+        est = est_step(est, u, z, dt_est, noise.enable_bits_to_mask(enable))
+        est_s.append(time.perf_counter() - t0)
+        packets += 1
+        finite = finite and bool(torch.isfinite(est.x).all())
+        return est, z
+
+    last_rx = time.time()
+    try:
+        # wait for the first frame (see mppi4_ukf_commu)
+        first_deadline = time.time() + 5.0
+        while time.time() < first_deadline:
+            s0 = port.read_latest_packet(Sensor3)
+            if s0 is not None:
+                est, _ = estimate(est, 0.0, s0, 1.0 / 100.0)
+                last_rx = time.time()
+                break
+        deadline = time.time() + args.t_end / scale
+        while time.time() < deadline:
+            s = port.read_latest_packet(Sensor3)
+            if s is not None:
+                dt_est = min(max((time.time() - last_rx) * scale, 1e-4), 0.1)
+                last_rx = time.time()
+                est, z = estimate(est, pre_u, s, dt_est)
+                if args.console:
+                    print_rcv(time.time() - el0, pre_u, est.x.numpy(), z, p_diag=torch.diagonal(est.p).numpy())
+            xh = est.x.double().numpy()
+            max_th = max(max_th, abs(float(xh[3])))
+            if i > 10 and abs(xh[3]) > PI_2:  # the guard armed after warm-up (see mppi4_ukf_commu)
+                print("θ is over pi/2")
+                upright = False
+                break
+            x4 = torch.tensor([xh[0], xh[1], xh[3], xh[4]], **f64)
+            t0 = time.perf_counter()
+            res = solve(x4, u_n)
+            u_n = res.u
+            u0, it = torch.stack([u_n[0], res.iterations.to(torch.float64)]).tolist()  # waits for the solve
+            solve_s.append(time.perf_counter() - t0)
+            iterations.append(int(it))
+            i += 1
+            u0 = float(np.clip(u0, -10.0, 10.0))
+            if abs(u0 - pre_u) < 1e-2:
+                continue
+            pre_u = u0
+            port.write_packet(Control.from_current(u0))
+            if args.console:
+                print_con(time.time() - el0, u0, [xh[0], xh[1], xh[3], xh[4]])
+    finally:
+        _close(port, mcu)
+    print(f"{i} solves")
+    return MpcCommuResult(i, packets, iterations, solve_s, est_s, max_th, upright, finite,
+                          mcu.max_abs_theta if mcu else None)

@@ -71,6 +71,11 @@ class MpcRun(NamedTuple):
     ticks: int
     log: SolveLog
 
+    def __array__(self, dtype=None, copy=None):
+        """The final state, which the JAX runner returns: the acceptance
+        checks read the result as that array (``apps/acceptance.py``)."""
+        return np.asarray(self.x, dtype=dtype)
+
 
 class MultiRateRun(NamedTuple):
     """mpc-ukf-s's result: the JAX runner's ``LoopResult`` fields that its

@@ -46,6 +46,11 @@ class LoopResult(NamedTuple):
     tick_seconds: list[float]  # host wall time of each tick (solve + plant step)
     tipped: bool  # |theta| passed 60 degrees and the loop stopped
 
+    def __array__(self, dtype=None, copy=None):
+        """The final state, which the JAX runner returns: the acceptance
+        checks read the result as that array (``apps/acceptance.py``)."""
+        return np.asarray(self.x, dtype=dtype)
+
 
 def _tick(solve, seed, x, u_n, plant_step):
     t0 = time.perf_counter()

@@ -96,6 +96,13 @@ def build_parser() -> argparse.ArgumentParser:
     panoc = argparse.ArgumentParser(add_help=False)
     panoc.add_argument("--max-iter", type=int, default=None, help="PANOC iteration budget (default: the app's)")
 
+    mpc_commu = sub.add_parser("mpc-ukf-commu", parents=[common, hil, panoc],
+                               help="HW gradient MPC: Sensor3, UKF2(6,5), condensed-QP PANOC at N=40 (float64)")
+    mpc_commu.add_argument("--console", action="store_true",
+                           help="ANSI Con:/Rcv: console streams (mppi4-non-liner-ukf.rs:291-349)")
+    mpc_commu.add_argument("--ukf-dtype", choices=["float32", "float64"], default="float32",
+                           help="the UKF's precision on the host (default float32, the JAX app's)")
+
     fleet = sub.add_parser("fleet", parents=[common, log_dir, panoc], help="scenario fleet: B closed loops per tick")
     fleet.add_argument("--model", choices=["cartpole4", "flagship6"], default="cartpole4",
                        help="fleet plant/estimator stack")
@@ -120,6 +127,12 @@ def build_parser() -> argparse.ArgumentParser:
                        help="fleet controller: sampling MPPI or batched gradient MPC (condensed QP)")
     fleet.add_argument("--qp-solver", choices=["newton", "panoc"], default="newton",
                        help="the QP fleet's solver: batched projected Newton (default) or batched PANOC")
+
+    tune = sub.add_parser("tune", parents=[common, log_dir],
+                          help="batched (lambda, sigma) sweep of the mppi4-non-liner loop, one launch a tick")
+    tune.add_argument("--lambdas", default="0.1,0.5,1.4,2.5", help="comma-separated MPPI lambda grid")
+    tune.add_argument("--sigmas", default="1,3,10", help="comma-separated MPPI sigma grid")
+    tune.add_argument("--tune-seeds", type=int, default=8, help="episodes (seeds) per grid cell")
 
     # gradient MPC (float64 solves on --device)
     sub.add_parser("op-en2", parents=[common], help="PANOC smoke test: min |u|^2 on a unit ball")

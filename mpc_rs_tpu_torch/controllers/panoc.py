@@ -15,6 +15,12 @@ holds and update only those lanes. Here each loop is a Python loop that
 reads back one ``.any()`` an iteration and masks every carry field with
 ``torch.where``, so a batch equals a loop over its lanes: a lane that
 finished does not move, and ``iterations`` is a lane's own.
+
+The operations between two read-backs are straight-line segments
+(``_Segments``). On a card a solve whose value-and-grad is a closure over
+static tensors (the condensed QP's, ``controllers/qp.py``) replays each
+segment from a CUDA graph captured on its first solve (``_GraphSolve``):
+the same operations in the same order, the same read-backs.
 """
 
 from __future__ import annotations
@@ -26,13 +32,16 @@ import torch
 
 # host read-backs of the loops' conditions since the last reset (one each
 # time a loop asks whether any lane goes on): on a card each waits for the
-# device, which is what a solve's host syncs cost
+# device, which is what a solve's host syncs cost; and the CUDA-graph
+# replays of the solves' segments (one a segment run on a card)
 readbacks = 0
+replays = 0
 
 
 def reset_readbacks() -> None:
-    global readbacks
-    readbacks = 0
+    """Zero ``readbacks`` and ``replays``."""
+    global readbacks, replays
+    readbacks = replays = 0
 
 
 def _readback(t: torch.Tensor) -> list:
@@ -41,13 +50,21 @@ def _readback(t: torch.Tensor) -> list:
     return t.tolist()
 
 
-def _any(mask: torch.Tensor) -> bool:
-    return bool(_readback(mask.any()))
+@dataclasses.dataclass(frozen=True)
+class BoxProjection:
+    """constraints::Rectangle — op-mpc-x.rs:188: clamp to [lo, hi]. A value
+    (hashable), so a solve's CUDA graphs can be keyed by it."""
+
+    lo: float
+    hi: float
+
+    def __call__(self, u):
+        return torch.clamp(u, self.lo, self.hi)
 
 
-def box_projection(lo, hi):
+def box_projection(lo, hi) -> BoxProjection:
     """constraints::Rectangle — op-mpc-x.rs:188."""
-    return lambda u: torch.clamp(u, lo, hi)
+    return BoxProjection(lo, hi)
 
 
 def ball2_projection(radius: float, center=None):
@@ -184,122 +201,301 @@ def autograd_value_and_grad(f: Callable) -> Callable:
     return vg
 
 
+class _Segments:
+    """The straight-line stretches of a PANOC solve (``panoc.py:141-296``)
+    between its host read-backs, each a function of the solve's state (a
+    dict of tensors) that returns the tensors it sets, the flag the next
+    read-back takes among them:
+
+    - ``init``: the first oracle call, γ₀, the empty memory;
+    - ``bt_start``: an iteration's γ to try, its first projected step and
+      the backtrack's ``violated`` check (read back: any lane violated);
+    - ``bt_step``: one backtrack halving, its step and ``violated``;
+    - ``post``: the fixed-point residual, the memory flush, the L-BFGS
+      direction over the filled slots (``n_used``) and the line search's
+      start (read back: any lane searching);
+    - ``ls_trial``: one line-search trial (read back: any lane searching);
+    - ``update``: the accepted point, its oracle call, the memory push, the
+      masked carry (read back: any lane active, and the memory's fill).
+
+    The eager solve runs them in this order on a dict; on a card
+    ``_GraphSolve`` replays each from a CUDA graph captured on static
+    buffers: the same operations in the same order."""
+
+    def __init__(self, cfg: PanocConfig, vg: Callable, f_eval: Callable, proj: Callable, u0: torch.Tensor):
+        self.cfg, self.vg, self.f_eval, self.proj = cfg, vg, f_eval, proj
+        self.dtype, self.dev = u0.dtype, u0.device
+        self.n, self.batch, self.m = u0.shape[-1], u0.shape[:-1], cfg.lbfgs_mem
+        # a lane moves only under its loop's mask; one problem (no batch axis)
+        # is inside a loop only while its condition holds, so it needs no mask
+        self.batched = len(self.batch) > 0
+
+    def sel(self, mask, new, old):
+        return _where(mask, new, old) if self.batched else new
+
+    def step_to(self, u, g_u, gamma):
+        return self.proj(u - gamma[..., None] * g_u)
+
+    def violated(self, st, gamma, z, k):
+        """The local descent (Lipschitz) condition fails, in the active lanes,
+        at most 40 halvings (``panoc.py:175-196``)."""
+        u, f_u, g_u = st["u"], st["f_u"], st["g_u"]
+        d = z - u
+        rhs = f_u + _dot(g_u, d) + _dot(d, d) / (2 * gamma) + 1e-10 * torch.abs(f_u)
+        more = (self.f_eval(z) > rhs) & (k < 40)
+        return more & st["active"] if self.batched else more
+
+    def init(self, st):
+        cfg, batch, dtype, dev = self.cfg, self.batch, self.dtype, self.dev
+        u0 = st["u0"]
+        f0, g0 = self.vg(u0)
+        if cfg.gamma_init is None:
+            # conservative local Lipschitz estimate from the first gradient
+            gnorm = torch.sqrt(_dot(g0, g0))
+            gamma0 = torch.where(gnorm > 0, 0.95 / torch.clamp(gnorm, min=1e-10), 1.0)
+            gamma0 = torch.clamp(gamma0, max=1.0).to(dtype)
+        else:
+            gamma0 = torch.full(batch, cfg.gamma_init, dtype=dtype, device=dev)
+        mem = _lbfgs_init(self.n, self.m, dtype, batch, dev)
+        it = torch.zeros(batch, dtype=torch.int32, device=dev)
+        converged = torch.zeros(batch, dtype=torch.bool, device=dev)
+        fpr = torch.full(batch, float("inf"), dtype=dtype, device=dev)
+        active = (it < cfg.max_iter) & ~converged
+        return dict(u=u0, f_u=f0, g_u=g0, gamma=gamma0, gamma0=gamma0, s=mem.s, y=mem.y, rho=mem.rho, idx=mem.idx,
+                    it=it, converged=converged, fpr=fpr, active=active)
+
+    def bt_start(self, st):
+        gamma_try = st["gamma"]
+        if self.cfg.gamma_recovery_period > 0:
+            period = self.cfg.gamma_recovery_period
+            recover = (st["it"] % period) == (period - 1)
+            gamma_try = torch.where(recover, torch.minimum(2.0 * st["gamma"], st["gamma0"]), st["gamma"])
+        z = self.step_to(st["u"], st["g_u"], gamma_try)
+        k = torch.zeros(self.batch, dtype=torch.int32, device=self.dev)
+        more = self.violated(st, gamma_try, z, k)
+        return dict(bt_gamma=gamma_try, z=z, bt_k=k, more=more, more_any=more.any())
+
+    def bt_step(self, st):
+        more = st["more"]
+        gamma = self.sel(more, st["bt_gamma"] * 0.5, st["bt_gamma"])
+        z = self.sel(more, self.step_to(st["u"], st["g_u"], gamma), st["z"])
+        k = self.sel(more, st["bt_k"] + 1, st["bt_k"])
+        more = self.violated(st, gamma, z, k)
+        return dict(bt_gamma=gamma, z=z, bt_k=k, more=more, more_any=more.any())
+
+    def post(self, st, n_used: int):
+        cfg, batch, dtype, dev = self.cfg, self.batch, self.dtype, self.dev
+        u, f_u, g_u, gamma_n, z = st["u"], st["f_u"], st["g_u"], st["bt_gamma"], st["z"]
+        r = u - z  # γ·R(u)
+        fpr_n = torch.abs(r).amax(dim=-1) / gamma_n
+        conv_n = fpr_n <= cfg.tol
+        # γ changed ⇒ flush the L-BFGS memory (panoc.py:224-236)
+        changed = gamma_n != st["gamma"]
+        mem_n = LbfgsMem(*(_where(changed, 0, st[k]) for k in ("s", "y", "rho", "idx")))
+        rr = _dot(r, r)
+        phi_u = f_u + _dot(g_u, z - u) + rr / (2 * gamma_n)
+        d = _lbfgs_direction(mem_n, r, n_used)
+        # τ line search: u⁺ = u − (1−τ)r + τd, τ ∈ {1, ½, …}; fallback τ=0 ⇒ z
+        tau = torch.ones(batch, dtype=dtype, device=dev)
+        accepted = torch.zeros(batch, dtype=torch.bool, device=dev)
+        k = torch.zeros(batch, dtype=torch.int32, device=dev)
+        bar = phi_u - cfg.sigma * rr / gamma_n
+        searching = st["active"] & (k < cfg.max_ls)
+        return dict(gamma_n=gamma_n, r=r, fpr_n=fpr_n, conv_n=conv_n, mn_s=mem_n.s, mn_y=mem_n.y, mn_rho=mem_n.rho,
+                    mn_idx=mem_n.idx, d=d, tau=tau, best_u=z, accepted=accepted, ls_k=k, bar=bar,
+                    searching=searching, searching_any=searching.any())
+
+    def ls_trial(self, st):
+        u, r, d, tau, gamma_n = st["u"], st["r"], st["d"], st["tau"], st["gamma_n"]
+        searching, accepted, k = st["searching"], st["accepted"], st["ls_k"]
+        u_try = u - (1.0 - tau)[..., None] * r + tau[..., None] * d
+        f_try, g_try = self.vg(u_try)
+        d_try = self.step_to(u_try, g_try, gamma_n) - u_try
+        phi_try = f_try + _dot(g_try, d_try) + _dot(d_try, d_try) / (2 * gamma_n)
+        ok = phi_try <= st["bar"]
+        best_u = _where(searching & ok & ~accepted if self.batched else ok, u_try, st["best_u"])
+        accepted = self.sel(searching, accepted | ok, accepted)
+        tau = self.sel(searching, tau * 0.5, tau)
+        k = self.sel(searching, k + 1, k)
+        searching = ~accepted & (k < self.cfg.max_ls)
+        searching = searching & st["active"] if self.batched else searching
+        return dict(best_u=best_u, accepted=accepted, tau=tau, ls_k=k, searching=searching,
+                    searching_any=searching.any())
+
+    def update(self, st):
+        sel, active, u, gamma_n, r = self.sel, st["active"], st["u"], st["gamma_n"], st["r"]
+        u_new = _where(st["accepted"], st["best_u"], st["z"])  # the prox fallback always decreases
+        u_new = _where(st["conv_n"], u, u_new)
+        f_new, g_new = self.vg(u_new)
+        r_new = u_new - self.step_to(u_new, g_new, gamma_n)
+        mem_n = _lbfgs_push(LbfgsMem(st["mn_s"], st["mn_y"], st["mn_rho"], st["mn_idx"]), u_new - u, r_new - r)
+        mem = LbfgsMem(*(sel(active, a, st[k]) for a, k in zip(mem_n, ("s", "y", "rho", "idx"))))
+        it = sel(active, st["it"] + 1, st["it"])
+        converged = sel(active, st["conv_n"], st["converged"])
+        new_active = (it < self.cfg.max_iter) & ~converged
+        # one read-back: whether a lane goes on, and its memory's fill
+        stop = torch.stack([new_active.any().to(torch.int64), torch.where(new_active, mem.idx, 0).amax()])
+        return dict(u=sel(active, u_new, u), f_u=sel(active, f_new, st["f_u"]), g_u=sel(active, g_new, st["g_u"]),
+                    gamma=sel(active, gamma_n, st["gamma"]), s=mem.s, y=mem.y, rho=mem.rho, idx=mem.idx, it=it,
+                    converged=converged, fpr=sel(active, st["fpr_n"], st["fpr"]), active=new_active, stop=stop)
+
+
+def _drive(run: Callable, cfg: PanocConfig) -> None:
+    """The loops of a solve on a segment runner: ``run(name, n_used=None)``
+    runs segment ``name`` and returns the flag it sets (for ``post``, the
+    L-BFGS slots known to be filled)."""
+    run("init")
+    any_active, n_used = cfg.max_iter > 0, 0
+    while any_active:
+        more = run("bt_start")
+        while bool(_readback(more)):
+            more = run("bt_step")
+        searching = run("post", min(cfg.lbfgs_mem, n_used))
+        while bool(_readback(searching)):
+            searching = run("ls_trial")
+        any_active, n_used = _readback(run("update"))
+
+
+_FLAGS = {"bt_start": "more_any", "bt_step": "more_any", "post": "searching_any", "ls_trial": "searching_any",
+          "update": "stop"}
+_RESULT = ("u", "it", "converged", "fpr", "f_u", "gamma")
+
+
+def _result(st) -> PanocResult:
+    return PanocResult(*(st[k] for k in _RESULT))
+
+
+def _capture(fn: Callable, pool) -> "torch.cuda.CUDAGraph":
+    """``fn``'s operations as a CUDA graph (allocations from ``pool``)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        fn()
+    return graph
+
+
+def _on_side_stream(device, fn: Callable) -> None:
+    """Run ``fn`` on a side stream of ``device``, ordered after the work
+    queued so far and before the work queued after it (the warm-up before a
+    capture)."""
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
+class _GraphSolve:
+    """A solve's segments, each captured once as a ``torch.cuda.CUDAGraph``
+    on static buffers and replayed (``post`` once for each number of filled
+    L-BFGS slots, 0 … min(m, max_iter)). Every buffer a segment reads is
+    one that an earlier segment of the same solve wrote, except u0 and the
+    value-and-grad closure's tensors, which a solve copies in first. A
+    capture or a replay that fails raises: there is no eager fallback on a
+    card."""
+
+    def __init__(self, cfg: PanocConfig, vg, f_eval_of, proj, u0: torch.Tensor):
+        self.cfg = cfg
+        self.inputs = [torch.empty_like(t) for t in vg.graph_tensors]
+        self.vg = vg.rebind(self.inputs)
+        self.seg = _Segments(cfg, self.vg, f_eval_of(self.vg), proj, u0)
+        self.state = {"u0": torch.empty_like(u0)}
+        m = min(cfg.lbfgs_mem, cfg.max_iter)
+        names = [("init", None), ("bt_start", None), ("bt_step", None), *(("post", k) for k in range(m + 1)),
+                 ("ls_trial", None), ("update", None)]
+
+        def warm_up():
+            # one eager pass of each kind of segment: lazy initialisation
+            # before the captures, and the static buffers' shapes and dtypes
+            self._fill(u0, vg)
+            found = dict(self.state)
+            for name, k in names[:4] + names[-2:]:
+                found.update(self._segment(found, name, k))
+            for key, val in found.items():
+                self.state.setdefault(key, torch.empty_like(val))
+
+        _on_side_stream(u0.device, warm_up)
+        pool = torch.cuda.graph_pool_handle() if u0.device.type == "cuda" else None
+        self.graphs = {(name, k): _capture(lambda name=name, k=k: self._body(name, k), pool) for name, k in names}
+
+    def _segment(self, st, name, k):
+        return getattr(self.seg, name)(st) if k is None else self.seg.post(st, k)
+
+    def _body(self, name, k) -> None:
+        """Segment ``name`` on the static buffers, its results copied into
+        theirs (a result that is another static buffer is cloned first, so
+        no copy overwrites what a later one reads)."""
+        st = self.state
+        out = self._segment(st, name, k)
+        static = {t.data_ptr() for t in st.values()}
+        out = {key: v.clone() if v is not st[key] and v.data_ptr() in static else v for key, v in out.items()}
+        for key, v in out.items():
+            if v is not st[key]:
+                st[key].copy_(v)
+
+    def _fill(self, u0, vg) -> None:
+        self.state["u0"].copy_(u0)
+        for dst, src in zip(self.inputs, vg.graph_tensors):
+            dst.copy_(src)
+
+    def solve(self, u0, vg) -> PanocResult:
+        self._fill(u0, vg)
+
+        def run(name, n_used=None):
+            global replays
+            self.graphs[(name, n_used)].replay()
+            replays += 1
+            return self.state.get(_FLAGS.get(name))
+
+        _drive(run, self.cfg)
+        return PanocResult(*(self.state[k].clone() for k in _RESULT))
+
+
+_GRAPHS: dict = {}
+MAX_GRAPH_SOLVES = 8  # captured solves kept, the oldest dropped first
+
+
+def _graph_solve(cfg, vg, f_eval_of, proj, u0) -> _GraphSolve:
+    """The captured solve of (config, box, closure kind, shapes, dtype,
+    device), captured on its first use."""
+    key = (cfg, proj, vg.graph_key, tuple(u0.shape), u0.dtype, u0.device,
+           tuple((tuple(t.shape), t.dtype) for t in vg.graph_tensors))
+    if key not in _GRAPHS:
+        if len(_GRAPHS) >= MAX_GRAPH_SOLVES:
+            del _GRAPHS[next(iter(_GRAPHS))]
+        _GRAPHS[key] = _GraphSolve(cfg, vg, f_eval_of, proj, u0)
+    return _GRAPHS[key]
+
+
 def panoc_solve(cfg: PanocConfig, f: Callable | None, proj: Callable, u0: torch.Tensor,
                 value_and_grad: Callable | None = None) -> PanocResult:
     """Minimize f(u) s.t. u ∈ C (by ``proj``) from the warm start u0 (..., n)
     (``panoc.py:141-296``). ``f`` must be differentiable by torch.autograd
     unless ``value_and_grad`` is given (e.g. a finite-difference oracle, or
     the condensed QP's), in which case ``f`` may be None and cost values
-    come from the oracle."""
+    come from the oracle.
+
+    On a CUDA u0 with a box projection and a value-and-grad closure over
+    static tensors (``graph_tensors``, ``rebind``, ``graph_key``: the
+    condensed QP's, ``controllers/qp.py``), each straight-line segment is
+    replayed from a CUDA graph captured on the first solve of its (config,
+    box, closure kind, shapes, dtype, device): the eager operations in the
+    eager order, the same read-backs. Otherwise the segments run eagerly."""
     if value_and_grad is None:
-        vg, f_eval = autograd_value_and_grad(f), f
+        vg, f_eval_of = autograd_value_and_grad(f), (lambda _vg: f)
     else:
         vg = value_and_grad
-        f_eval = f if f is not None else (lambda u: vg(u)[0])
-    dtype, dev = u0.dtype, u0.device
-    n, batch, m = u0.shape[-1], u0.shape[:-1], cfg.lbfgs_mem
+        f_eval_of = (lambda v: f) if f is not None else (lambda v: (lambda u: v(u)[0]))
+    if u0.device.type == "cuda" and isinstance(proj, BoxProjection) and hasattr(vg, "rebind"):
+        return _graph_solve(cfg, vg, f_eval_of, proj, u0).solve(u0, vg)
+    seg = _Segments(cfg, vg, f_eval_of(vg), proj, u0)
+    st = {"u0": u0}
 
-    f0, g0 = vg(u0)
-    if cfg.gamma_init is None:
-        # conservative local Lipschitz estimate from the first gradient
-        gnorm = torch.sqrt(_dot(g0, g0))
-        gamma0 = torch.where(gnorm > 0, 0.95 / torch.clamp(gnorm, min=1e-10), 1.0)
-        gamma0 = torch.clamp(gamma0, max=1.0).to(dtype)
-    else:
-        gamma0 = torch.full(batch, cfg.gamma_init, dtype=dtype, device=dev)
+    def run(name, n_used=None):
+        st.update(getattr(seg, name)(st) if n_used is None else seg.post(st, n_used))
+        return st.get(_FLAGS.get(name))
 
-    # a lane moves only under its loop's mask; one problem (no batch axis)
-    # is inside a loop only while its condition holds, so it needs no mask
-    batched = len(batch) > 0
-
-    def sel(mask, new, old):
-        return _where(mask, new, old) if batched else new
-
-    def step_to(u, g_u, gamma):
-        return proj(u - gamma[..., None] * g_u)
-
-    def backtrack_gamma(u, f_u, g_u, gamma, lanes):
-        """Halve γ, in ``lanes``, until the local descent (Lipschitz)
-        condition holds, at most 40 times (``panoc.py:175-196``)."""
-        z = step_to(u, g_u, gamma)
-        k = torch.zeros(batch, dtype=torch.int32, device=dev)
-
-        def violated(gamma, z, k):
-            d = z - u
-            rhs = f_u + _dot(g_u, d) + _dot(d, d) / (2 * gamma) + 1e-10 * torch.abs(f_u)
-            more = (f_eval(z) > rhs) & (k < 40)
-            return more & lanes if batched else more
-
-        more = violated(gamma, z, k)
-        while _any(more):
-            gamma = sel(more, gamma * 0.5, gamma)
-            z = sel(more, step_to(u, g_u, gamma), z)
-            k = sel(more, k + 1, k)
-            more = violated(gamma, z, k)
-        return gamma, z
-
-    u, f_u, g_u, gamma = u0, f0, g0, gamma0
-    mem = _lbfgs_init(n, m, dtype, batch, dev)
-    it = torch.zeros(batch, dtype=torch.int32, device=dev)
-    converged = torch.zeros(batch, dtype=torch.bool, device=dev)
-    fpr = torch.full(batch, float("inf"), dtype=dtype, device=dev)
-    active = (it < cfg.max_iter) & ~converged
-    any_active, n_used = cfg.max_iter > 0, 0
-    while any_active:
-        gamma_try = gamma
-        if cfg.gamma_recovery_period > 0:
-            period = cfg.gamma_recovery_period
-            recover = (it % period) == (period - 1)
-            gamma_try = torch.where(recover, torch.minimum(2.0 * gamma, gamma0), gamma)
-        gamma_n, z = backtrack_gamma(u, f_u, g_u, gamma_try, active)
-        r = u - z  # γ·R(u)
-        fpr_n = torch.abs(r).amax(dim=-1) / gamma_n
-        conv_n = fpr_n <= cfg.tol
-
-        # γ changed ⇒ flush the L-BFGS memory (panoc.py:224-236)
-        changed = gamma_n != gamma
-        mem_n = LbfgsMem(*(_where(changed, 0, v) for v in mem))
-
-        rr = _dot(r, r)
-        phi_u = f_u + _dot(g_u, z - u) + rr / (2 * gamma_n)
-        d = _lbfgs_direction(mem_n, r, n_used)
-
-        # τ line search: u⁺ = u − (1−τ)r + τd, τ ∈ {1, ½, …}; fallback τ=0 ⇒ z
-        tau = torch.ones(batch, dtype=dtype, device=dev)
-        best_u, accepted = z, torch.zeros(batch, dtype=torch.bool, device=dev)
-        k = torch.zeros(batch, dtype=torch.int32, device=dev)
-        bar = phi_u - cfg.sigma * rr / gamma_n
-        searching = active & (k < cfg.max_ls)
-        while _any(searching):
-            u_try = u - (1.0 - tau)[..., None] * r + tau[..., None] * d
-            f_try, g_try = vg(u_try)
-            d_try = step_to(u_try, g_try, gamma_n) - u_try
-            phi_try = f_try + _dot(g_try, d_try) + _dot(d_try, d_try) / (2 * gamma_n)
-            ok = phi_try <= bar
-            best_u = _where(searching & ok & ~accepted if batched else ok, u_try, best_u)
-            accepted = sel(searching, accepted | ok, accepted)
-            tau = sel(searching, tau * 0.5, tau)
-            k = sel(searching, k + 1, k)
-            searching = ~accepted & (k < cfg.max_ls)
-            searching = searching & active if batched else searching
-        u_new = _where(accepted, best_u, z)  # the prox fallback always decreases
-        u_new = _where(conv_n, u, u_new)
-
-        f_new, g_new = vg(u_new)
-        r_new = u_new - step_to(u_new, g_new, gamma_n)
-        mem_n = _lbfgs_push(mem_n, u_new - u, r_new - r)
-
-        u, f_u, g_u = sel(active, u_new, u), sel(active, f_new, f_u), sel(active, g_new, g_u)
-        gamma = sel(active, gamma_n, gamma)
-        mem = LbfgsMem(*(sel(active, a, b) for a, b in zip(mem_n, mem)))
-        it = sel(active, it + 1, it)
-        converged = sel(active, conv_n, converged)
-        fpr = sel(active, fpr_n, fpr)
-        active = (it < cfg.max_iter) & ~converged
-        # one read-back: whether a lane goes on, and its memory's fill
-        any_active, n_used = _readback(torch.stack([active.any().to(torch.int64),
-                                                    torch.where(active, mem.idx, 0).amax()]))
-    return PanocResult(u=u, iterations=it, converged=converged, fpr_norm=fpr, cost=f_u, gamma=gamma)
+    _drive(run, cfg)
+    return _result(st)
 
 
 def make_fd_value_and_grad(f: Callable, eps: float = 1e-3):

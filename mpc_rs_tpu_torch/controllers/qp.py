@@ -213,23 +213,46 @@ def box_qp_newton(h, b, u0, lo, hi, *, iters: int = 16, inv_table=None, safeguar
     return carry[1]
 
 
-def make_qp_value_and_grad(qp: CondensedQp, gen_ref):
-    """(x0) → value_and_grad(u) for ``panoc_solve``: ``gen_ref(x0) -> (..., N, s)``
-    time-major references, flattened step-major (op-mpc-x-calc.rs:80).
+class QpValueAndGrad:
+    """value_and_grad(u) of the condensed QP at one state: ``qp_cost`` and
+    ``qp_grad``'s values, operation for operation, with Fx₀ and the
+    residual Fx₀ − x_ref taken once a state and Gu once a call.
 
-    The value and gradient are ``qp_cost`` and ``qp_grad``'s, operation for
-    operation, with Fx₀ taken once a state and Gu once a call."""
+    A closure over static tensors: ``graph_tensors`` are the per-state
+    tensors (Fx₀, x_ref, Fx₀ − x_ref), ``rebind(tensors)`` the same oracle
+    over other tensors of their shapes, and ``graph_key`` names the QP, so
+    ``panoc_solve`` on a card replays its segments from CUDA graphs
+    captured once over static copies of them."""
+
+    def __init__(self, qp: CondensedQp, fx: torch.Tensor, x_ref_flat: torch.Tensor, res0: torch.Tensor):
+        self.qp, self.fx, self.x_ref_flat, self.res0 = qp, fx, x_ref_flat, res0
+
+    @property
+    def graph_tensors(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return self.fx, self.x_ref_flat, self.res0
+
+    @property
+    def graph_key(self) -> int:
+        return id(self.qp)  # the cached graphs hold the QP, so its id is not reused while they live
+
+    def rebind(self, tensors) -> "QpValueAndGrad":
+        return QpValueAndGrad(self.qp, *tensors)
+
+    def __call__(self, u):
+        qp = self.qp
+        gu = u @ qp.g.T
+        cost = (u * (u @ qp.h.T)).sum(dim=-1) + 2.0 * (self.res0 * (gu @ qp.q.T)).sum(dim=-1)
+        return cost, 2.0 * ((gu + self.fx - self.x_ref_flat) @ qp.gq.T)
+
+
+def make_qp_value_and_grad(qp: CondensedQp, gen_ref):
+    """(x0) → value_and_grad(u) for ``panoc_solve`` (a ``QpValueAndGrad``):
+    ``gen_ref(x0) -> (..., N, s)`` time-major references, flattened
+    step-major (op-mpc-x-calc.rs:80)."""
 
     def for_state(x0):
         x_ref_flat = gen_ref(x0).flatten(-2)
         fx = x0 @ qp.f.T
-        res0 = fx - x_ref_flat
-
-        def vg(u):
-            gu = u @ qp.g.T
-            cost = (u * (u @ qp.h.T)).sum(dim=-1) + 2.0 * (res0 * (gu @ qp.q.T)).sum(dim=-1)
-            return cost, 2.0 * ((gu + fx - x_ref_flat) @ qp.gq.T)
-
-        return vg
+        return QpValueAndGrad(qp, fx, x_ref_flat, fx - x_ref_flat)
 
     return for_state

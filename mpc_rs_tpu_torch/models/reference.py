@@ -13,13 +13,14 @@ import math
 import torch
 
 
-def make_gen_ref_raised_cosine(n_horizon: int):
+def make_gen_ref_raised_cosine(n_horizon: int, velocity_gain: float = -0.4):
     """Raised-cosine parking reference — examples/op-mpc-x-calc.rs:29-39.
 
     ``gen_ref(x) -> (..., N, 4)`` with rows [x0(1+cosφ)/2,
-    clamp(−0.4x0,±2)sinφ, clamp(−0.5x0,±0.35)cosφ/2, clamp(−0.5x0,±1.5)sinφ],
-    φ = πi/N. The phases' cos and sin are taken in float64 once and meet x
-    in its dtype."""
+    clamp(g·x0,±2)sinφ, clamp(−0.5x0,±0.35)cosφ/2, clamp(−0.5x0,±1.5)sinφ],
+    φ = πi/N, the velocity gain g = −0.4 (mpc-ukf-commu.rs:192-202: −0.75).
+    The phases' cos and sin are taken in float64 once and meet x in its
+    dtype."""
     phases = torch.arange(n_horizon, dtype=torch.float64) * (math.pi / n_horizon)
     cos64, sin64 = torch.cos(phases), torch.sin(phases)
 
@@ -27,7 +28,7 @@ def make_gen_ref_raised_cosine(n_horizon: int):
         cosp, sinp = (v.to(dtype=x.dtype, device=x.device) for v in (cos64, sin64))
         x0 = x[..., 0]
         r0 = x0[..., None] * (1.0 + cosp) / 2.0
-        r1 = torch.clamp(-0.4 * x0, -2.0, 2.0)[..., None] * sinp
+        r1 = torch.clamp(velocity_gain * x0, -2.0, 2.0)[..., None] * sinp
         r2 = torch.clamp(-0.5 * x0, -0.35, 0.35)[..., None] * (1.0 * cosp) / 2.0
         r3 = torch.clamp(-0.5 * x0, -1.5, 1.5)[..., None] * sinp
         return torch.stack([r0, r1, r2, r3], dim=-1)

@@ -25,8 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-# mppi_kernels.cu: the C entries, K1/K2 and the fleet's K5/K6 at N = 8, K7, the
-# fast-math probe, D1/D2; family_*.cu: K1/K2 of the MPPI application family,
+# mppi_kernels.cu: the C entries, K1/K2 and the fleet's K5/K6 at N = 8, tune's
+# sweep, K7, the fast-math probe, D1/D2; family_*.cu: K1/K2 of the MPPI application family,
 # one model each, and the cart-pole at serve's plan-streaming N = 40
 # (mppi_launch.cuh)
 SOURCES = ("mppi_kernels.cu", "family_mppi2.cu", "family_mppi4.cu", "family_commu4.cu", "family_serve.cu")
@@ -142,6 +142,13 @@ def load_library() -> ctypes.CDLL:
         _P, _P, _P, _P,  # tickets, u_out, status, stream
     ]
     lib.mpc_fleet_partials.restype = _I
+    lib.mpc_mppi_sweep.argtypes = [
+        _P, _I, _I, _I, _I, _F, _F, _I,  # model consts, sampler, n, b, k, lo, hi, rollouts a thread
+        _P, _P, _P, _P, _U,  # x, u_n, noise, seeds, tick
+        _P, _P, _P,  # f32(1/lambda), sigma, f32(sigma^-2), each (B)
+        _P, _P, _P, _P, _P, _P,  # partials, tickets, u_out, status, ess, stream
+    ]
+    lib.mpc_mppi_sweep.restype = _I
     lib.mpc_estimator_chain.argtypes = [
         _I, _I, _P, _P, _P, _I,  # model, n_sub, plant, obs and chain consts, b
         _P, _P, _P, _P, _I, _P, _P,  # x, ex, p, u0, u_stride, t, noise

@@ -583,8 +583,10 @@ __device__ __forceinline__ void sample(float (&e)[N], uint32_t k, uint32_t key, 
 // (m, acc), with one exp: the first entry (m = neg_big, acc = 0) is taken
 // as it is; a new maximum rescales acc by exp((m - m_e) f32(1/lambda)) and
 // adds vals; otherwise vals is added with weight exp((m_e - m) f32(1/lambda)).
-// The roundings are those of a rescale followed by a weighted add.
-template <int L>
+// The roundings are those of a rescale followed by a weighted add. The last
+// Q entries are sums of squared weights (the sweep's sum of w^2): they take
+// the square of each factor, keep*keep and w*w (Q = 0 for every solve).
+template <int L, int Q = 0>
 __device__ __forceinline__ void lse_fold(float& m, float (&acc)[L], float m_e,
                                          const float (&vals)[L], float inv_lambda) {
   if (m == kNegBig) {
@@ -598,63 +600,75 @@ __device__ __forceinline__ void lse_fold(float& m, float (&acc)[L], float m_e,
   const float e = expf(-fabsf(d) * inv_lambda);
   const float keep = new_max ? e : 1.0f, w = new_max ? 1.0f : e;  // a product by 1 is exact
 #pragma unroll
-  for (int i = 0; i < L; ++i) acc[i] = acc[i] * keep + vals[i] * w;
+  for (int i = 0; i < L - Q; ++i) acc[i] = acc[i] * keep + vals[i] * w;
+  if constexpr (Q > 0) {
+    const float keep2 = keep * keep, w2 = w * w;
+#pragma unroll
+    for (int i = L - Q; i < L; ++i) acc[i] = acc[i] * keep2 + vals[i] * w2;
+  }
   if (new_max) m = m_e;
 }
 
 // The thread's share of a merge: rows first, first + stride, ... < nb of
-// (m_b, s_b, uw_b[0..N-1]), each read once, folded into (returned m, tot).
-// The rows were written by other blocks of the launch (or an earlier
-// launch): read them from L2 (__ldcg), past this SM's L1. An all-masked row
-// (m_b = neg_big, s_b = 0) contributes exactly 0.
-template <int N>
+// (m_b, s_b, uw_b[0..N-1], and Q sums of squares), each read once, folded
+// into (returned m, tot). The rows were written by other blocks of the
+// launch (or an earlier launch): read them from L2 (__ldcg), past this SM's
+// L1. An all-masked row (m_b = neg_big, s_b = 0) contributes exactly 0.
+template <int N, int Q = 0>
 __device__ __forceinline__ float fold_rows(const float* rows, int nb, int first, int stride,
-                                           float inv_lambda, float (&tot)[N + 1]) {
+                                           float inv_lambda, float (&tot)[N + 1 + Q]) {
+  constexpr int L = N + 1 + Q;
   float m = kNegBig;
 #pragma unroll
-  for (int i = 0; i <= N; ++i) tot[i] = 0.0f;
+  for (int i = 0; i < L; ++i) tot[i] = 0.0f;
   for (int r = first; r < nb; r += stride) {
-    const float* row = rows + (size_t)r * (N + 2);
+    const float* row = rows + (size_t)r * (L + 1);
     const float m_r = __ldcg(row);
-    float vals[N + 1];
+    float vals[L];
 #pragma unroll
-    for (int i = 0; i <= N; ++i) vals[i] = __ldcg(row + 1 + i);
-    if (m_r > kNoFiniteBelow) lse_fold(m, tot, m_r, vals, inv_lambda);
+    for (int i = 0; i < L; ++i) vals[i] = __ldcg(row + 1 + i);
+    if (m_r > kNoFiniteBelow) lse_fold<L, Q>(m, tot, m_r, vals, inv_lambda);
   }
   return m;
 }
 
 // Merge the nb rows of one problem by log-sum-exp in one warp (the rows of
 // a few blocks; fleet_finalize_kernel's merge): every lane gets m_all and
-// tot[0..N] = (s, uw[0..N-1]). Up to 32 rows a lane holds one, and the
+// tot[0..N] = (s, uw[0..N-1]) (then the Q sums of squares, each scaled by
+// the square of its row's factor). Up to 32 rows a lane holds one, and the
 // result is the bits of the two-pass merge (each row scaled by
 // exp((m_b - m_all) f32(1/lambda)), then summed).
-template <int N>
+template <int N, int Q = 0>
 __device__ __forceinline__ float merge_rows_warp(const float* rows, int nb, float inv_lambda,
-                                                 float (&tot)[N + 1]) {
-  const float m = fold_rows<N>(rows, nb, threadIdx.x & 31, 32, inv_lambda, tot);
+                                                 float (&tot)[N + 1 + Q]) {
+  const float m = fold_rows<N, Q>(rows, nb, threadIdx.x & 31, 32, inv_lambda, tot);
   const float m_all = warp_max(m);
   const float scale = m > kNoFiniteBelow ? expf((m - m_all) * inv_lambda) : 0.0f;
 #pragma unroll
   for (int i = 0; i <= N; ++i) tot[i] = warp_sum(tot[i] * scale);
+#pragma unroll
+  for (int i = N + 1; i < N + 1 + Q; ++i) tot[i] = warp_sum(tot[i] * (scale * scale));
   return m_all;
 }
 
 // The same merge by the whole block, for the rows of many blocks (K1/K2 at
-// large K): every thread gets m_all; tot[0..N] (shared) is filled after the
+// large K): every thread gets m_all; tot[0..N+Q] (shared) is filled after the
 // final barrier.
-template <int N>
+template <int N, int Q = 0>
 __device__ __forceinline__ float merge_rows_block(const float* rows, int nb, float inv_lambda,
-                                                  float* red_max, float (*red_sum)[N + 1],
+                                                  float* red_max, float (*red_sum)[N + 1 + Q],
                                                   float* tot) {
-  float acc[N + 1];
-  const float m = fold_rows<N>(rows, nb, threadIdx.x, kThreads, inv_lambda, acc);
+  constexpr int L = N + 1 + Q;
+  float acc[L];
+  const float m = fold_rows<N, Q>(rows, nb, threadIdx.x, kThreads, inv_lambda, acc);
   const float m_all = block_max(m, red_max);
   const float scale = m > kNoFiniteBelow ? expf((m - m_all) * inv_lambda) : 0.0f;
 #pragma unroll
   for (int i = 0; i <= N; ++i) acc[i] *= scale;
-  const float s = block_sums<N + 1>(acc, red_sum);
-  if (threadIdx.x < N + 1) tot[threadIdx.x] = s;
+#pragma unroll
+  for (int i = N + 1; i < L; ++i) acc[i] *= scale * scale;
+  const float s = block_sums<L>(acc, red_sum);
+  if (threadIdx.x < L) tot[threadIdx.x] = s;
   __syncthreads();
   return m_all;
 }
@@ -815,9 +829,64 @@ __device__ __forceinline__ void partials_end_wide(const Model& model, const Part
 // rolls out and scores with rollout_score on its Model and Cost.
 struct MppiSolve {};
 
+// The policy of tune's sweep (mpc_rs_tpu/apps/tune.py:40-80, a vmap of
+// mppi_solve over per-episode (lambda, sigma)): B episodes of the exact
+// cart-pole with shaped4 at N = kN, problem b at its own lambda_b and
+// sigma_b. mppi_sweep_kernel puts problem b's f32(1/lambda_b), sigma_b and
+// f32(sigma_b^-2) from these device arrays into its PartialsArgs, so the
+// rollout, the control term and every log-sum-exp take them. The controls:
+// box-muller (S = kBoxMuller) keyed seeds[b] with counter word `tick` for
+// every problem, so the cells of one seed draw the same standard normals at
+// a tick (the common random numbers of the JAX grid, tune.py:87-90), scaled
+// by sigma_b; or the external (B, K, N) noise (S = kExternal). Its rows carry
+// the sum of squared weights after (s, uw) (kSquares), and its end of a
+// solve writes u_n', the status ladder with the zero fallback, and
+// ESS_b = s^2 / max(sum w^2, 1e-30) (mpc_rs_tpu/controllers/mppi.py:145).
+template <int S>
+struct MppiSweep {
+  const float* inv_lambdas;  // (B) f32(1/lambda_b), folded in double (+inf for lambda_b = 0)
+  const float* sigmas;       // (B) sigma_b
+  const float* invs;         // (B) f32(sigma_b^-2), the control-term coefficient
+  const float* noise;        // (B, K, N) external noise, already scaled (S = kExternal), else null
+  float* ess;                // (B) out
+  uint32_t tick;             // the Philox counter word of every problem
+
+  __device__ __forceinline__ void controls(float (&v)[kN], const float (&un)[kN], uint32_t k,
+                                           uint32_t key, uint32_t, const PartialsArgs& a) const {
+    float e[kN];
+#pragma unroll
+    for (int t = 0; t < kN; ++t) e[t] = 0.0f;
+    if constexpr (S == kExternal) {
+      if (k < (uint32_t)a.k) {
+#pragma unroll
+        for (int t = 0; t < kN; ++t) e[t] = noise[((size_t)blockIdx.y * a.k + k) * kN + t];
+      }
+    } else {
+      static_assert(S == kBoxMuller, "the sweep samples box-muller or reads external noise");
+      sample<kN, false, kBoxMuller>(e, k, key, tick, a);
+    }
+#pragma unroll
+    for (int t = 0; t < kN; ++t) v[t] = clampf(un[t] + e[t], a.lo, a.hi);
+  }
+
+  __device__ __forceinline__ void finish(float m_all, const float* tot, const PartialsIO& io,
+                                         int b) const {
+    io.status[b] = status_ladder<kN>(m_all, tot, io.u_out + (size_t)b * kN);
+    const float s = tot[0], q = tot[kN + 1];
+    ess[b] = s * s / (q < 1e-30f ? 1e-30f : q);  // a NaN q stays NaN, as jnp.maximum
+  }
+};
+
+// Trailing sums of squared weights a policy's rows carry: the sweep's one.
+template <class Pol>
+constexpr int kSquares = 0;
+template <int S>
+constexpr int kSquares<MppiSweep<S>> = 1;
+
 // One block of one problem's rollouts: sample (or read) and clamp (or Pol's
 // controls), roll out N steps, score, and reduce to the row (m_b, s_b,
-// uw_b[0..N-1]) of that problem's partials; then, with io.u_out, the merge.
+// uw_b[0..N-1], then Pol's kSquares sums of squared weights: the sweep's
+// sum of w^2) of that problem's partials; then, with io.u_out, the merge.
 // Grid (ceil(K/(256 R)),
 // P): thread i of block g runs rollouts k = (g R + r) 256 + i, r < R, one
 // after another, so each group of 256 rollouts is one warp-aligned range as
@@ -842,8 +911,10 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
                                               const PartialsArgs& a, const PartialsIO& io,
                                               const Pol& pol = Pol{}) {
   constexpr bool kSolve = std::is_same_v<Pol, MppiSolve>;
+  constexpr int Q = kSquares<Pol>;  // sums of squared weights after (s, uw): the sweep's
+  constexpr int L = N + 1 + Q;      // sums a row carries after m_b
   __shared__ float red_max[kWarps];
-  __shared__ float red_sum[kWarps][N + 1];
+  __shared__ float red_sum[kWarps][L];
 
   const int b = blockIdx.y;
   const uint32_t key = io.seeds != nullptr ? (uint32_t)io.seeds[b] : io.base_seed;
@@ -858,9 +929,9 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   // (the code of one rollout, not R), each folded into the thread's running
   // log-sum-exp (m_t, acc)
   float m_t = kNegBig;
-  float acc[N + 1];
+  float acc[L];
 #pragma unroll
-  for (int i = 0; i <= N; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < L; ++i) acc[i] = 0.0f;
 #pragma unroll 1
   for (int r = 0; r < R; ++r) {
     const uint32_t k = ((uint32_t)blockIdx.x * R + r) * kThreads + threadIdx.x;
@@ -890,11 +961,13 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
     }
     const float score = rollout_score<N>(model, cost, a, xb, un, v);
     if (!isfinite(score)) continue;
-    float vals[N + 1];
+    float vals[L];
     vals[0] = 1.0f;
 #pragma unroll
     for (int t = 0; t < N; ++t) vals[t + 1] = v[t];
-    lse_fold(m_t, acc, score, vals, a.inv_lambda);
+#pragma unroll
+    for (int i = N + 1; i < L; ++i) vals[i] = 1.0f;  // w^2 of the rollout's own weight
+    lse_fold<L, Q>(m_t, acc, score, vals, a.inv_lambda);
   }
 
   // one block_max and one block_sums per 256 R rollouts; at R = 1 these are
@@ -903,17 +976,19 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   const float scale = m_t > kNoFiniteBelow ? expf((m_t - m_b) * a.inv_lambda) : 0.0f;
 #pragma unroll
   for (int i = 0; i <= N; ++i) acc[i] *= scale;
-  const float s = block_sums<N + 1>(acc, red_sum);  // sum i in thread i <= N (warp 0)
+#pragma unroll
+  for (int i = N + 1; i < L; ++i) acc[i] *= scale * scale;
+  const float s = block_sums<L>(acc, red_sum);  // sum i in thread i < L (warp 0)
 
   const int nb = gridDim.x;
-  __shared__ float tot[N + 1];
+  __shared__ float tot[L];
   if constexpr (N >= 32) {
     static_assert(kSolve, "a policy other than MppiSolve runs at N = kN only");
     partials_end_wide<N>(model, a, io, nb, m_b, s, xb, red_max, red_sum, tot);
     return;
   }
   if (io.u_out != nullptr && nb == 1) {  // the problem's only block: no row, no ticket
-    if (threadIdx.x <= N) tot[threadIdx.x] = s;
+    if (threadIdx.x < L) tot[threadIdx.x] = s;
     __syncwarp();
     if (threadIdx.x == 0) {
       if constexpr (!kSolve) {
@@ -926,11 +1001,11 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   }
   const bool block_merge = io.u_out != nullptr && nb > kWarpMergeRows;
   if (threadIdx.x >= 32 && !block_merge) return;
-  float* rows = io.partials + (size_t)b * nb * (N + 2);
-  float* row = rows + (size_t)blockIdx.x * (N + 2);
+  float* rows = io.partials + (size_t)b * nb * (L + 1);
+  float* row = rows + (size_t)blockIdx.x * (L + 1);
   if (io.u_out == nullptr) {
     if (threadIdx.x == 0) row[0] = m_b;
-    if (threadIdx.x <= N) row[1 + threadIdx.x] = s;
+    if (threadIdx.x < L) row[1 + threadIdx.x] = s;
     return;
   }
 
@@ -939,13 +1014,13 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   // draws nb - 1 sees every row of the problem
   __shared__ int ticket;
   if (threadIdx.x < 32) {
-    float sums[N + 1];
+    float sums[L];
 #pragma unroll
-    for (int i = 0; i <= N; ++i) sums[i] = __shfl_sync(kFullMask, s, i);
+    for (int i = 0; i < L; ++i) sums[i] = __shfl_sync(kFullMask, s, i);
     if (threadIdx.x == 0) {
       row[0] = m_b;
 #pragma unroll
-      for (int i = 0; i <= N; ++i) row[1 + i] = sums[i];
+      for (int i = 0; i < L; ++i) row[1 + i] = sums[i];
       ticket = cuda::atomic_ref<int, cuda::thread_scope_device>(io.tickets[b])
                    .fetch_add(1, cuda::memory_order_acq_rel);
     }
@@ -953,7 +1028,7 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   if (block_merge) {
     __syncthreads();
     if (ticket != nb - 1) return;
-    const float m_all = merge_rows_block<N>(rows, nb, a.inv_lambda, red_max, red_sum, tot);
+    const float m_all = merge_rows_block<N, Q>(rows, nb, a.inv_lambda, red_max, red_sum, tot);
     if (threadIdx.x == 0) {
       if constexpr (!kSolve) {
         pol.finish(m_all, tot, io, b);
@@ -966,8 +1041,8 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   }
   __syncwarp();
   if (ticket != nb - 1) return;
-  float wtot[N + 1];
-  const float m_all = merge_rows_warp<N>(rows, nb, a.inv_lambda, wtot);
+  float wtot[L];
+  const float m_all = merge_rows_warp<N, Q>(rows, nb, a.inv_lambda, wtot);
   if (threadIdx.x == 0) {
     if constexpr (!kSolve) {
       pol.finish(m_all, wtot, io, b);
@@ -1018,6 +1093,34 @@ template <int N, class Model, class Cost, bool Fast, int S, int R,
 __global__ void __launch_bounds__(kThreads, kMinBlocksWide<N>)
 mppi_partials_kernel(Model model, Cost cost, PartialsArgs a, PartialsIO io) {
   partials_body<N, Model, Cost, Fast, S, R>(model, cost, a, io);
+}
+
+// The sweep's kernel (tune): partials_body with MppiSweep<S> on the exact
+// cart-pole with shaped4 at N = kN, problem b's f32(1/lambda_b), sigma_b and
+// f32(sigma_b^-2) put into its PartialsArgs first; the launch bounds of
+// mppi_partials_kernel at the same R. Four instantiations: box-muller and
+// external noise, R = 1 and 4.
+template <int S>
+__device__ __forceinline__ PartialsArgs sweep_args(PartialsArgs a, const MppiSweep<S>& pol) {
+  const int b = blockIdx.y;
+  a.inv_lambda = pol.inv_lambdas[b];
+  a.std_dev = pol.sigmas[b];
+  a.inv = pol.invs[b];
+  return a;
+}
+
+template <int S, int R, std::enable_if_t<R == 1, int> = 0>
+__global__ void __launch_bounds__(kThreads, kMinBlocksR1<kN>)
+mppi_sweep_kernel(CartPoleNonlinearT<false> model, PartialsArgs a, PartialsIO io, MppiSweep<S> pol) {
+  partials_body<kN, CartPoleNonlinearT<false>, Shaped4, false, kBoxMuller, R>(model, Shaped4{},
+                                                                              sweep_args(a, pol), io, pol);
+}
+
+template <int S, int R, std::enable_if_t<(R > 1), int> = 0>
+__global__ void __launch_bounds__(kThreads)
+mppi_sweep_kernel(CartPoleNonlinearT<false> model, PartialsArgs a, PartialsIO io, MppiSweep<S> pol) {
+  partials_body<kN, CartPoleNonlinearT<false>, Shaped4, false, kBoxMuller, R>(model, Shaped4{},
+                                                                              sweep_args(a, pol), io, pol);
 }
 
 }  // namespace mpc

@@ -16,6 +16,10 @@
 //   - K1 (mppi_pallas_chain / _make_chain_kernel): J such launches issued
 //     from a C loop on one stream, the merging block also writing u0 and,
 //     optionally, stepping the plant on the device;
+//   - the sweep of tune (mpc_rs_tpu/apps/tune.py's vmap of mppi_solve over
+//     per-episode lambda and sigma): P = B episodes, each at its own
+//     lambda and sigma, the rows carrying the sum of squared weights, the
+//     merge writing each problem's ESS (mppi_sweep_kernel, MppiSweep);
 //   - K5 and K6 (mppi_pallas_batch_partials: _make_fleet_kernel, one
 //     (bs, 128) block per scenario with 8 scenarios unrolled per grid step,
 //     and _make_batched_kernel, a scenario's K-blocks streamed through
@@ -102,7 +106,9 @@
 // commu4 at N = 20 (the HW flagship); and serve's plan-streaming horizon,
 // the cart-pole + shaped4 at N = 40 (family_serve.cu). The estimator chain is instantiated
 // once per fleet model; K4's probe once per function at 4 and at 1 elements
-// a thread (14); D1's kernel (partials_body with D1's policy) once per
+// a thread (14); the sweep's kernel (partials_body with MppiSweep) for the
+// exact cart-pole with shaped4 at N = 8, box-muller and external noise at
+// R = 1 and 4 (4); D1's kernel (partials_body with D1's policy) once per
 // MixMode at R = 1 and 4 (16), D2's chain for float and bf16 pairs at 16 and
 // 32 values a thread.
 //
@@ -241,6 +247,21 @@ PartialsArgs partials_args(int k, float inv_lambda, float inv, float lo, float h
   return PartialsArgs{k, inv_lambda, inv, lo, hi, std_dev, sc[0], sc[1], sc[2], sc[3], sc[4], sc[5]};
 }
 
+// tune's sweep (MppiSweep): the launch of B problems at R rollouts a thread.
+template <int S>
+int launch_sweep(const CartPoleNonlinearT<false>& model, const PartialsArgs& a, const PartialsIO& io,
+                 const MppiSweep<S>& pol, int rpt, int n_scen, cudaStream_t stream) {
+  const dim3 grid((a.k + kThreads * rpt - 1) / (kThreads * rpt), n_scen);
+  if (rpt == 1) {
+    mppi_sweep_kernel<S, 1><<<grid, kThreads, 0, stream>>>(model, a, io, pol);
+  } else if (rpt == 4) {
+    mppi_sweep_kernel<S, 4><<<grid, kThreads, 0, stream>>>(model, a, io, pol);
+  } else {
+    return -3;
+  }
+  return (int)cudaGetLastError();
+}
+
 // The estimator chain of one fleet model: n_sub must be the model's.
 template <int N, int O, int NSUB, class Plant, class Hx>
 int launch_estimator_chain(const Plant& plant, const Hx& hx, const float* cc, int n_scen,
@@ -349,6 +370,36 @@ int mpc_fleet_partials(int model, int fast, int sampler, const float* model_cons
                     partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts), io, n_scen,
                     0, static_cast<cudaStream_t>(stream)};
   return launch_model(model, fast, n, c);
+}
+
+// tune's sweep, B episodes of the exact cart-pole with shaped4 at N = kN in
+// one launch (MppiSweep, mppi_common.cuh): problem b at its own lambda and
+// sigma. model_consts: the 9 CartPoleNonlinearT floats. sampler 0: the
+// external noise (B, K, N), already scaled; 1: box-muller keyed seeds[b]
+// with counter word tick for every problem. Device pointers: x (B, 4), u_n
+// (B, N), inv_lambdas (B) f32(1/lambda_b), sigmas (B), invs (B)
+// f32(sigma_b^-2), partials (B, ceil(K/(256 R)), N+3) scratch, tickets (B);
+// out: u_out (B, N), status (B), ess (B).
+int mpc_mppi_sweep(const float* model_consts, int sampler, int n, int n_scen, int k, float lo, float hi,
+                   int rpt, const float* x, const float* u_n, const float* noise, const int* seeds,
+                   unsigned int tick, const float* inv_lambdas, const float* sigmas, const float* invs,
+                   float* partials, int* tickets, float* u_out, int* status, float* ess, void* stream) {
+  if (n != kN) return -1;
+  if (n_scen < 1 || n_scen > 65535 || k < 1) return -4;
+  const PartialsArgs a{k, 0.0f, 0.0f, lo, hi, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  const PartialsIO io{x, u_n, noise, seeds, 0u, tick, partials, nullptr, u_out, status, tickets,
+                      nullptr, nullptr};
+  const CartPoleNonlinearT<false> model = make_model<false>(model_consts);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sampler == kExternal && noise != nullptr) {
+    return launch_sweep(model, a, io, MppiSweep<kExternal>{inv_lambdas, sigmas, invs, noise, ess, tick},
+                        rpt, n_scen, s);
+  }
+  if (sampler == kBoxMuller && seeds != nullptr) {
+    return launch_sweep(model, a, io, MppiSweep<kBoxMuller>{inv_lambdas, sigmas, invs, nullptr, ess, tick},
+                        rpt, n_scen, s);
+  }
+  return -2;
 }
 
 // The fused estimator chain (K7) of B scenarios, one tick. model: 0

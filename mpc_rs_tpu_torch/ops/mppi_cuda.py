@@ -7,7 +7,9 @@ Replaces ``mpc_rs_tpu/ops/mppi_pallas.py``: ``mppi_solve_fused`` stands for
 ``mppi_batch_partials_fused`` + ``finalize_batch_fused`` for
 ``mppi_pallas_batch_partials`` (both of its kernels) + the vmapped
 ``finalize_partials``, and ``mppi_solve_batch_fused`` for both with the
-vmapped ``finalize_partials``. All of them run one kernel,
+vmapped ``finalize_partials``; ``mppi_sweep_batch_fused`` is the batch of
+``tune``'s sweep, each problem at its own (λ, σ), returning the ESS (the
+JAX ``tune`` runs a vmap of ``mppi_solve``, no Pallas kernel). All of them run one kernel,
 ``mppi_partials_kernel`` (``ops/csrc/mppi_common.cuh``), at R rollouts a
 thread (``rollouts_per_thread``): a solve is one launch, whose last block to
 finish merges the partials rows and finishes the solve; a chain of J solves
@@ -71,7 +73,8 @@ MIN_BLOCKS = 4 * 132  # four blocks on each of an H100's 132 SMs
 # Wrapper calls that launched their kernels since the last reset; CPU calls
 # do not count. "model:<class>" counts the K1/K2/batch calls of each model.
 launches = {"mppi_solve_fused": 0, "mppi_chain_fused": 0, "mppi_solve_batch_fused": 0,
-            "mppi_batch_partials_fused": 0, "finalize_batch_fused": 0, "fastmath_eval": 0,
+            "mppi_batch_partials_fused": 0, "finalize_batch_fused": 0, "mppi_sweep_batch_fused": 0,
+            "fastmath_eval": 0,
             "fast_tier": 0, **{f"sampler:{name}": 0 for name in ("external", *philox.SAMPLERS)}}
 
 
@@ -307,6 +310,32 @@ class ChainResult(NamedTuple):
 # plain versions
 
 
+def _rows_plain(model, xs, u_ns, noise, limit, inv, inv_lam, rows: int, squares: bool = False) -> torch.Tensor:
+    """The (B, nb, N+2) rows (m_b, s_b, uw_b) of blocks of ``rows``
+    rollouts, with the control-term coefficient ``inv`` and f32(1/λ)
+    ``inv_lam`` (numbers, or (B, 1, 1) tensors of one a problem); with
+    ``squares`` a last column, the sum of squared weights: (B, nb, N+3)."""
+    b, k, n = noise.shape
+    v = torch.clamp(u_ns[:, None] + noise, limit[0], limit[1])
+    xs_k = tuple(xs[:, i:i + 1].expand(b, k) for i in range(xs.shape[1]))
+    c = torch.zeros((b, k), dtype=v.dtype, device=v.device)
+    for t in range(n):
+        xs_k = model.step(*xs_k, v[:, :, t])
+        c = c + model.cost(*xs_k)
+    score = -c - torch.sum(u_ns[:, None] * inv * v, dim=-1)
+    nb = -(-k // rows)
+    pad = nb * rows - k  # rollouts past K count as non-finite
+    score = torch.nn.functional.pad(score, (0, pad), value=torch.nan).reshape(b, nb, rows)
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad)).reshape(b, nb, rows, n)
+    finite = torch.isfinite(score)
+    m_b = torch.where(finite, score, NEG_BIG).amax(dim=-1)
+    e = torch.where(finite, torch.exp((score - m_b[..., None]) * inv_lam), 0.0)
+    cols = [m_b[..., None], e.sum(dim=-1)[..., None], (e[..., None] * v).sum(dim=-2)]
+    if squares:
+        cols.append((e * e).sum(dim=-1)[..., None])
+    return torch.cat(cols, dim=-1)
+
+
 def mppi_batch_partials_plain(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor,
                               noise: torch.Tensor, *, rollouts_per_thread: int | None = None
                               ) -> torch.Tensor:
@@ -316,24 +345,10 @@ def mppi_batch_partials_plain(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: to
     unless given), in the dtype of ``u_ns``. xs (B, S), u_ns (B, N), noise
     (B, K, N) already scaled by σ. A block without a finite rollout has
     m_b = NEG_BIG and zeros."""
-    b, k, n = noise.shape
-    rows = BLOCK * _rpt(k, b, rollouts_per_thread)
-    v = torch.clamp(u_ns[:, None] + noise, cfg.limit[0], cfg.limit[1])
-    xs_k = tuple(xs[:, i:i + 1].expand(b, k) for i in range(xs.shape[1]))
-    c = torch.zeros((b, k), dtype=v.dtype, device=v.device)
-    for t in range(n):
-        xs_k = model.step(*xs_k, v[:, :, t])
-        c = c + model.cost(*xs_k)
+    b, k, _ = noise.shape
     inv = cfg.std_dev ** -2.0 if cfg.control_inv is None else cfg.control_inv
-    score = -c - torch.sum(u_ns[:, None] * inv * v, dim=-1)
-    nb = -(-k // rows)
-    pad = nb * rows - k  # rollouts past K count as non-finite
-    score = torch.nn.functional.pad(score, (0, pad), value=torch.nan).reshape(b, nb, rows)
-    v = torch.nn.functional.pad(v, (0, 0, 0, pad)).reshape(b, nb, rows, n)
-    finite = torch.isfinite(score)
-    m_b = torch.where(finite, score, NEG_BIG).amax(dim=-1)
-    e = torch.where(finite, torch.exp((score - m_b[..., None]) * inv_lambda(cfg.lambda_)), 0.0)
-    return torch.cat([m_b[..., None], e.sum(dim=-1)[..., None], (e[..., None] * v).sum(dim=-2)], dim=-1)
+    return _rows_plain(model, xs, u_ns, noise, cfg.limit, inv, inv_lambda(cfg.lambda_),
+                       BLOCK * _rpt(k, b, rollouts_per_thread))
 
 
 def mppi_partials_plain(cfg: MppiConfig, model, x: torch.Tensor, u_n: torch.Tensor,
@@ -342,6 +357,25 @@ def mppi_partials_plain(cfg: MppiConfig, model, x: torch.Tensor, u_n: torch.Tens
     ``mppi_partials_kernel`` writes on a grid of one problem."""
     return mppi_batch_partials_plain(cfg, model, x[None], u_n[None], noise[None],
                                      rollouts_per_thread=rollouts_per_thread)[0]
+
+
+def _ladder_plain(m: torch.Tensor, s: torch.Tensor, uw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The status ladder and zero fallback of ``finalize_partials``
+    (mppi_pallas.py:1021-1036) on merged totals: the largest score m (...),
+    the weight sum s (...) and the weighted controls uw (..., N)."""
+    no_finite = m <= NO_FINITE_BELOW
+    sum_zero = s == 0.0
+    u_new = uw / torch.where(sum_zero, 1.0, s)[..., None]
+    status = torch.where(
+        no_finite,
+        MppiStatus.NO_FINITE,
+        torch.where(
+            sum_zero,
+            MppiStatus.SUM_ZERO,
+            torch.where(torch.isfinite(u_new[..., 0]), MppiStatus.OK, MppiStatus.INVALID_U),
+        ),
+    ).to(torch.int32)
+    return torch.where((status == MppiStatus.OK)[..., None], u_new, 0.0), status
 
 
 def finalize_batch_plain(cfg: MppiConfig, partials: torch.Tensor
@@ -356,19 +390,7 @@ def finalize_batch_plain(cfg: MppiConfig, partials: torch.Tensor
     scale = torch.where(m_b > NO_FINITE_BELOW, torch.exp((m_b - m) * inv_lambda(cfg.lambda_)), 0.0)
     s = (s_b * scale).sum(dim=-1)
     uw = (uw_b * scale[..., None]).sum(dim=-2)
-    no_finite = m[..., 0] <= NO_FINITE_BELOW
-    sum_zero = s == 0.0
-    u_new = uw / torch.where(sum_zero, 1.0, s)[..., None]
-    status = torch.where(
-        no_finite,
-        MppiStatus.NO_FINITE,
-        torch.where(
-            sum_zero,
-            MppiStatus.SUM_ZERO,
-            torch.where(torch.isfinite(u_new[..., 0]), MppiStatus.OK, MppiStatus.INVALID_U),
-        ),
-    ).to(torch.int32)
-    return torch.where((status == MppiStatus.OK)[..., None], u_new, 0.0), status
+    return _ladder_plain(m[..., 0], s, uw)
 
 
 def solve_noise(cfg: MppiConfig, model, seed: int, solve: int,
@@ -732,6 +754,126 @@ def mppi_solve_batch_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch
     _, u_out, status = _batch(cfg, model, xs, u_ns, seeds, sampler, noise, noise_out,
                               rollouts_per_thread, True, "mppi_solve_batch_fused")
     return u_out, status
+
+
+# --------------------------------------------------------------------------
+# tune's sweep: B problems, each at its own (λ, σ), with the ESS
+
+
+def sweep_coefficients(lambdas: torch.Tensor, sigmas: torch.Tensor, dtype=torch.float32
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(1/λ_b, σ_b, σ_b⁻²) (B,) in ``dtype``: 1/λ and σ⁻² folded in double
+    and rounded once, as ``inv_lambda`` and the C entries' σ⁻² (+inf for
+    λ = 0, whose best rollout then weighs 0·inf = NaN: INVALID_U)."""
+    sig = sigmas.to(torch.float64)
+    return _inv_lambdas(lambdas, dtype), sig.to(dtype), (sig ** -2.0).to(dtype)
+
+
+def _inv_lambdas(lambdas: torch.Tensor, dtype) -> torch.Tensor:
+    lam = lambdas.to(torch.float64)
+    return torch.where(lam == 0.0, math.inf, 1.0 / lam).to(dtype)
+
+
+def sweep_noise(cfg: MppiConfig, seeds: torch.Tensor, solve: int, sigmas: torch.Tensor) -> torch.Tensor:
+    """(B, K, N) float32 noise that the sweep's kernel samples: box-muller,
+    problem b keyed ``seeds[b]`` with counter word ``solve`` (the tick) for
+    every problem, scaled by σ_b. Problems of one seed draw the same
+    standard normals (``ops/philox.py``)."""
+    sig = sigmas.to(device=seeds.device, dtype=torch.float32)[:, None, None]
+    return philox.sample_noise("box-muller", seeds, solve, cfg.n_rollouts, cfg.n_horizon, sig)
+
+
+def sweep_partials_plain(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, noise: torch.Tensor,
+                         lambdas: torch.Tensor, sigmas: torch.Tensor, *,
+                         rollouts_per_thread: int | None = None) -> torch.Tensor:
+    """The sweep's (B, nb, N+3) rows (m_b, s_b, uw_b, Σw²_b) in the dtype
+    of ``u_ns``, each problem at its own 1/λ_b and σ_b⁻²
+    (``sweep_coefficients`` in that dtype). noise (B, K, N) already scaled."""
+    b, k, _ = noise.shape
+    inv_l, _, inv = sweep_coefficients(lambdas, sigmas, u_ns.dtype)
+    return _rows_plain(model, xs, u_ns, noise.to(u_ns.dtype), cfg.limit, inv.to(xs.device)[:, None, None],
+                       inv_l.to(xs.device)[:, None, None], BLOCK * _rpt(k, b, rollouts_per_thread), squares=True)
+
+
+def finalize_sweep_plain(partials: torch.Tensor, lambdas: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge each problem's (nb, N+3) rows by log-sum-exp at its own 1/λ,
+    Σw² scaled by the square of each row's factor, then the status ladder
+    and zero fallback; ESS = s² / max(Σw², 1e-30)
+    (``mpc_rs_tpu/controllers/mppi.py:145``). Returns (u_n' (B, N),
+    status (B,) int32, ess (B,))."""
+    inv_l = _inv_lambdas(lambdas, partials.dtype).to(partials.device)
+    m_b, s_b, uw_b, q_b = partials[..., 0], partials[..., 1], partials[..., 2:-1], partials[..., -1]
+    m = m_b.amax(dim=-1, keepdim=True)
+    scale = torch.where(m_b > NO_FINITE_BELOW, torch.exp((m_b - m) * inv_l[:, None]), 0.0)
+    s = (s_b * scale).sum(dim=-1)
+    uw = (uw_b * scale[..., None]).sum(dim=-2)
+    q = (q_b * (scale * scale)).sum(dim=-1)
+    u, status = _ladder_plain(m[..., 0], s, uw)
+    return u, status, s * s / torch.clamp(q, min=1e-30)
+
+
+def mppi_sweep_batch_plain(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, lambdas: torch.Tensor,
+                           sigmas: torch.Tensor, *, seeds: torch.Tensor | None = None, solve: int = 0,
+                           noise: torch.Tensor | None = None, rollouts_per_thread: int | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``mppi_sweep_batch_fused``, in the dtype of ``u_ns``:
+    the sweep's noise (``sweep_noise``) or ``noise``, then
+    ``sweep_partials_plain`` and ``finalize_sweep_plain``."""
+    if noise is None:
+        noise = sweep_noise(cfg, seeds, solve, sigmas)
+    rows = sweep_partials_plain(cfg, model, xs, u_ns, noise, lambdas, sigmas,
+                                rollouts_per_thread=rollouts_per_thread)
+    return finalize_sweep_plain(rows, lambdas)
+
+
+def mppi_sweep_batch_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, lambdas: torch.Tensor,
+                           sigmas: torch.Tensor, *, seeds: torch.Tensor | None = None, solve: int = 0,
+                           noise: torch.Tensor | None = None, rollouts_per_thread: int | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B MPPI solves of ``tune``'s sweep in one launch (``mppi_sweep_kernel``,
+    the partials kernel with the sweep's policy): problem b solves from
+    xs[b] (B, 4) with nominal u_ns[b] (B, N) at its own λ = lambdas[b] and
+    σ = sigmas[b] (B,), for the exact cart-pole with ``shaped4`` at N = 8
+    (``CartPoleShaped4``, exact tier); ``cfg`` gives N, K and the control
+    box (its λ and σ are not read). Pass ``seeds`` (B,) int32 with the tick
+    ``solve`` (box-muller, problem b keyed seeds[b] with counter word
+    ``solve``: cells of one seed draw the same normals, ``sweep_noise``) or
+    ``noise`` (B, K, N) already scaled. Returns (u_n' (B, N), status (B,)
+    int32, ess (B,)) with the zero fallback on failure; ``rollouts_per_thread``
+    forces R. CUDA tensors must be float32."""
+    if (noise is None) == (seeds is None):
+        raise ValueError("pass exactly one of noise (B, K, N) or seeds (B,) with the tick `solve`")
+    rpt = _rpt(cfg.n_rollouts, xs.shape[0], rollouts_per_thread)
+    if xs.device.type == "cpu":
+        return mppi_sweep_batch_plain(cfg, model, xs, u_ns, lambdas, sigmas, seeds=seeds, solve=solve,
+                                      noise=noise, rollouts_per_thread=rpt)
+    if not isinstance(model, CartPoleShaped4) or model.fast or cfg.n_horizon != FLEET_HORIZON:
+        raise ValueError(f"the sweep's kernel is built for the exact CartPoleShaped4 at N={FLEET_HORIZON}, "
+                         f"got {model} at N={cfg.n_horizon}")
+    b, n, k = _batch_kernel_args(cfg, model, xs, u_ns)
+    dev = xs.device
+    _check("lambdas", lambdas, (b,), torch.float32, dev)
+    _check("sigmas", sigmas, (b,), torch.float32, dev)
+    if noise is not None:
+        _check("noise", noise, (b, k, n), torch.float32, dev)
+    else:
+        _check("seeds", seeds, (b,), torch.int32, dev)
+    inv_l, sig, inv = sweep_coefficients(lambdas, sigmas)
+    partials = torch.empty((b, -(-k // (BLOCK * rpt)), n + 3), dtype=torch.float32, device=dev)
+    u_out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    status = torch.empty(b, dtype=torch.int32, device=dev)
+    ess = torch.empty(b, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        tickets = merge_tickets(dev, b)
+        _launch(_library().mpc_mppi_sweep,
+                (model.c_constants[0], _SAMPLER_IDS["external" if noise is not None else "box-muller"], n, b, k,
+                 cfg.limit[0], cfg.limit[1], rpt, _ptr(xs), _ptr(u_ns), _ptr(noise), _ptr(seeds),
+                 solve & 0xFFFFFFFF, _ptr(inv_l), _ptr(sig), _ptr(inv), _ptr(partials), _ptr(tickets),
+                 _ptr(u_out), _ptr(status), _ptr(ess)),
+                "mppi_sweep_batch_fused", tickets)
+    launches["mppi_sweep_batch_fused"] += 1
+    return u_out, status, ess
 
 
 # --------------------------------------------------------------------------

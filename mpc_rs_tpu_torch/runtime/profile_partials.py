@@ -70,6 +70,8 @@ KERNELS = ("mppi_partials_kernel", "mppi_finalize_kernel", "fleet_finalize_kerne
 PARTIALS_RE = re.compile(r"mppi_partials_kernelILi(\d+)ENS_\d+"
                          r"(CartPoleNonlinearT|Flagship4|DoubleIntegrator|CartPoleLinear|Commu4)(?:ILb([01])EE)?ENS_\d+"
                          r"(Shaped4|Diag4|Quad2|Commu4Cost)ELb([01])ELi(\d+)E(?:Li(\d+)E)?")
+# tune's sweep (mppi_sweep_kernel<S, R>): noise source, rollouts per thread
+SWEEP_RE = re.compile(r"mppi_sweep_kernelILi(\d+)ELi(\d+)E")
 HW_BUDGET_S = 0.06  # the HW flagship's control budget a solve (SURVEY §6)
 PRODUCTION = {("CartPoleNonlinearT", False, 1): "cartpole_exact_box-muller (mppi4-non-liner)",
               ("CartPoleNonlinearT", True, 2): "cartpole_fast_clt4 (cartpole4)",
@@ -84,19 +86,22 @@ def nvidia_smi_line() -> str:
 
 
 def sass_counts(so: Path, cuobjdump: Path) -> list[dict]:
-    """Static SASS counts of the production partials instantiations and of
-    the finalize kernels in library ``so``."""
+    """Static SASS counts of the production partials instantiations, of the
+    sweep's (tune) and of the finalize kernels in library ``so``."""
     sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
                           timeout=600, check=True).stdout
     rows = []
     for func in sass.split("Function : ")[1:]:
         name = func.split()[0]
         m = PARTIALS_RE.search(name)
+        sweep = SWEEP_RE.search(name)
         if m:
             key = (m.group(2), m.group(5) == "1", int(m.group(6)))
             if m.group(1) != str(N) or key not in PRODUCTION:
                 continue
             what = PRODUCTION[key] + (f" R={m.group(7)}" if m.group(7) else "")
+        elif sweep:
+            what = f"sweep_{'box-muller' if sweep.group(1) == '1' else 'external'} (tune) R={sweep.group(2)}"
         elif "finalize_kernel" in name:
             what = name
         else:

@@ -501,9 +501,11 @@ def _run(argv):
 def test_registry_lists_the_ported_examples():
     assert set(registry.EXAMPLES) == {"mppi2", "mppi4", "mppi4-non-liner", "mppi4-non-liner-s",
                                       "mppi4-non-liner-ukf", "fleet", "uart", "mppi4-commu",
-                                      "mppi4-ukf-commu", "serve", "one-liner-kf", "two-liner-kf",
-                                      "ukf-one", "ukf-two", "ukf-pen", "ukf-pen2", "ukf-pen3", "pid", "op-en2",
-                                      "op-mpc-x", "op-mpc-x-calc", "op-mpc-x-calc-nl", "mpc-ukf-x", "mpc-ukf-s"}
+                                      "mppi4-ukf-commu", "mpc-ukf-commu", "serve", "tune", "one-liner-kf",
+                                      "two-liner-kf", "ukf-one", "ukf-two", "ukf-pen", "ukf-pen2", "ukf-pen3",
+                                      "pid", "op-en2", "op-mpc-x", "op-mpc-x-calc", "op-mpc-x-calc-nl",
+                                      "mpc-ukf-x", "mpc-ukf-s"}
+    assert len(registry.EXAMPLES) == 26
     args = cli.build_parser().parse_args(["serve", "--serial", "/dev/ttyUSB0,/dev/ttyUSB1", "--robots", "2",
                                           "--device", "cpu"])
     assert args.serial == "/dev/ttyUSB0,/dev/ttyUSB1" and args.device == "cpu" and args.robots == 2

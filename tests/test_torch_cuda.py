@@ -748,3 +748,158 @@ def test_cuda_serve_batch_solver_matches_its_plain_path(card, n):
         assert np.all(got[3] == 0.0) and np.all(want[3] == 0.0)
         keep = [b for b in range(8) if b != 3]
         np.testing.assert_allclose(got[keep], want[keep], **F32_BAND)
+
+
+# --------------------------------------------------------------------------
+# tune's sweep launch, PANOC's graph replay, and the apps on the card
+
+
+def _sweep_grid(card, lams=(0.1, 0.5, 1.4, 2.5), sigs=(1.0, 3.0, 10.0), seeds=8):
+    """tune's default grid, B = 96: (λ, σ, seed) per episode, float32 on the card."""
+    cells = [(lam, sig, s) for lam in lams for sig in sigs for s in range(seeds)]
+    return tuple(torch.tensor([c[i] for c in cells], dtype=dt, device=card)
+                 for i, dt in ((0, torch.float32), (1, torch.float32), (2, torch.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1024, 800_000])
+@pytest.mark.parametrize("source", ["external", "box-muller"])
+def test_cuda_sweep_matches_plain(card, k, source):
+    """The sweep launch (the partials kernel with the sweep's policy) at
+    B = 96 against its float64 plain version: the statuses equal, u_n' and
+    the ESS in the f32 band, or, in the cells where the float32 problem is
+    ill-conditioned (tune's λ = 0.1 weighs one or two rollouts), within twice
+    the plain float32 version's own distance; in-kernel box-muller against
+    ``sweep_noise``'s words (each problem keyed by its seed, the tick in the
+    counter)."""
+    lam, sig, seeds = _sweep_grid(card)
+    b = lam.numel()
+    gen = torch.Generator(device=card).manual_seed(k)
+    xs = (torch.randn((b, 4), generator=gen, device=card) * torch.tensor([0.3, 0.1, 0.1, 0.1], device=card))
+    u_ns = torch.randn((b, N), generator=gen, device=card)
+    cfg = _cfg(k)
+    if source == "external":
+        noise = torch.randn((b, k, N), generator=gen, device=card) * sig[:, None, None]
+        kw = dict(noise=noise)
+    else:
+        kw = dict(seeds=seeds, solve=7)
+        noise = mppi_cuda.sweep_noise(cfg, seeds, 7, sig)
+    for rpt in (1, 4):
+        u, st, ess = mppi_cuda.mppi_sweep_batch_fused(cfg, MODEL, xs, u_ns, lam, sig, rollouts_per_thread=rpt, **kw)
+        want_u, want_st, want_ess = mppi_cuda.mppi_sweep_batch_plain(cfg, MODEL, xs.double(), u_ns.double(), lam, sig,
+                                                                      noise=noise, rollouts_per_thread=rpt)
+        u32, _, ess32 = mppi_cuda.mppi_sweep_batch_plain(cfg, MODEL, xs, u_ns, lam, sig, noise=noise,
+                                                         rollouts_per_thread=rpt)
+        torch.cuda.synchronize()
+        assert torch.equal(st, want_st) and bool((st == 0).all())
+        for got, want, f32 in ((u, want_u, u32), (ess, want_ess, ess32)):
+            got, want, f32 = (t.double().cpu() for t in (got, want, f32))
+            tol = torch.maximum(F32_BAND["atol"] + F32_BAND["rtol"] * want.abs(), 2.0 * (f32 - want).abs())
+            assert bool(((got - want).abs() <= tol).all()), float(((got - want).abs() / tol).max())
+        assert bool(((ess >= 1.0 - 1e-4) & (ess <= k)).all())
+    assert bool((mppi_cuda.merge_tickets(card, b) == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_failure_probes(card):
+    lam, sig, seeds = _sweep_grid(card, seeds=1)
+    xs = torch.tensor(X0, device=card).repeat(lam.numel(), 1)
+    xs[0, 0] = float("nan")
+    lam[1] = 0.0
+    u, st, ess = mppi_cuda.mppi_sweep_batch_fused(_cfg(512), MODEL, xs, torch.zeros((lam.numel(), N), device=card),
+                                                  lam, sig, seeds=seeds, solve=0)
+    assert st[:3].tolist() == [MppiStatus.NO_FINITE, MppiStatus.INVALID_U, MppiStatus.OK]
+    assert bool((u[:2] == 0).all()) and float(ess[0]) == 0.0 and bool(torch.isnan(ess[1]))
+
+
+@pytest.mark.cuda
+def test_cuda_tune_tick_is_one_launch(card):
+    """A tune tick launches one sweep kernel (torch.profiler), and the
+    wrapper counts one launch a tick."""
+    from mpc_rs_tpu_torch.apps import tune
+
+    lam, sig, seeds = _sweep_grid(card)
+    run = tune.make_sweep(k=8192, n_ticks=3, device=card)
+    run(lam, sig, seeds)  # built and warm
+    mppi_cuda.reset_launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(lam, sig, seeds)
+        torch.cuda.synchronize()
+    assert mppi_cuda.launches["mppi_sweep_batch_fused"] == 3
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    sweeps = [n for n in names if "mppi_sweep_kernel" in n]
+    assert len(sweeps) <= 3 and not any("mppi_partials_kernel" in n for n in names)
+
+
+@pytest.mark.cuda
+def test_cuda_tune_default_grid_at_the_main_paths_k(card):
+    """The default 4×3×8 grid at K = 800 000 over 100 ticks: the reference
+    operating point (0.5, 3) survives every seed, every surviving cell's
+    mean ESS lies in [1, K]."""
+    from mpc_rs_tpu_torch.apps import tune
+
+    cells = tune.sweep_grid([0.1, 0.5, 1.4, 2.5], [1.0, 3.0, 10.0], seeds=8, k=800_000, n_ticks=100, device=card)
+    ref = next(c for c in cells if c["lambda"] == 0.5 and c["sigma"] == 3.0)
+    assert ref["survival"] == 1.0
+    assert all(1.0 <= c["mean_ess"] <= 800_000 for c in cells if c["mean_ess"] is not None)
+
+
+def _qp_solves(card, app):
+    """(value-and-grad factory, config, box, n, states) of a condensed-QP app."""
+    from mpc_rs_tpu_torch.controllers import panoc
+    from mpc_rs_tpu_torch.controllers.qp import build_condensed_qp, make_qp_value_and_grad
+    from mpc_rs_tpu_torch.models import dynamics, reference
+
+    rng = np.random.default_rng(1)
+    if app == "op-mpc-x-calc":
+        a, b = dynamics.linear_ab(CartPoleParams.single_wheel(), 0.1)
+        qp = build_condensed_qp(a, b, np.diag([5.0, 5.0, 1.0, 1.0]), 8, device=card)
+        return (make_qp_value_and_grad(qp, reference.make_gen_ref_raised_cosine(8)),
+                panoc.PanocConfig(tol=1e-6, max_iter=80, lbfgs_mem=20), panoc.box_projection(-30.0, 30.0), 8,
+                rng.normal(size=(20, 4)) * [0.5, 0.2, 0.1, 0.2])
+    a, b = dynamics.linear_ab(CartPoleParams.two_wheel(), 1.2 / 40, two_wheel=True)
+    qp = build_condensed_qp(a, b, np.diag([0.0, 0.0, 10.0, 3.0]), 40, device=card)
+    return (make_qp_value_and_grad(qp, reference.make_gen_ref_raised_cosine(40, velocity_gain=-0.75)),
+            panoc.PanocConfig(tol=1e-6, max_iter=60, lbfgs_mem=20), panoc.box_projection(-10.0, 10.0), 40,
+            rng.normal(size=(20, 4)) * [0.3, 0.2, 0.05, 0.2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["op-mpc-x-calc", "mpc-ukf-commu"])
+def test_cuda_panoc_graph_solve_equals_the_eager_solve(card, app):
+    """Warm-started solves from 20 states: the graph-replayed solve (the
+    QP's closure) and the eager one (the same closure behind a lambda) give
+    the same iterations and read-backs, and u within 1e-12."""
+    from mpc_rs_tpu_torch.controllers import panoc
+
+    vg_factory, cfg, proj, n, states = _qp_solves(card, app)
+    u = torch.zeros(n, dtype=torch.float64, device=card)
+    for x in states:
+        vg = vg_factory(torch.tensor(x, dtype=torch.float64, device=card))
+        panoc.reset_readbacks()
+        graph = panoc.panoc_solve(cfg, None, proj, u, value_and_grad=vg)
+        n_graph = panoc.readbacks
+        panoc.reset_readbacks()
+        eager = panoc.panoc_solve(cfg, None, proj, u, value_and_grad=lambda v: vg(v))
+        assert panoc.readbacks == n_graph and int(graph.iterations) == int(eager.iterations)
+        assert float((graph.u - eager.u).abs().max()) <= 1e-12
+        u = graph.u
+
+
+@pytest.mark.cuda
+def test_cuda_mpc_ukf_commu_meets_its_acceptance_spec(card):
+    """The JAX spec's argv (``--sim-mcu --t-end 3 --time-scale 0.5``):
+    at least 100 solves in the 6 s window."""
+    from mpc_rs_tpu_torch.apps import run as cli
+
+    res = cli.main(["mpc-ukf-commu", "--sim-mcu", "--t-end", "3", "--time-scale", "0.5"])
+    assert int(res) >= 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tune", "uart", "op-en2", "mpc-ukf-commu"])
+def test_cuda_acceptance_specs_pass(card, name):
+    from mpc_rs_tpu_torch.apps import acceptance
+
+    ok, detail, _ = acceptance.run_one(name, 0, device="cuda")
+    assert ok, detail

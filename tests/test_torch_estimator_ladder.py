@@ -6,8 +6,9 @@ seeded numpy inputs in both packages. Each app runs at the same seed in
 both packages (float64; the JAX package runs with x64, as its acceptance
 does) and draws the same numpy noise: the truth and the observations are
 equal bit for bit, and the app passes the JAX package's own acceptance
-check (``mpc_rs_tpu/apps/acceptance.py:80-192``) and ``chip_smoke.py``'s
-copy of it, with the same verdict.
+check (``mpc_rs_tpu/apps/acceptance.py:80-192``) and the port's copy of it
+(``mpc_rs_tpu_torch/apps/acceptance.py``, which ``chip_smoke.py`` holds
+its ladder apps to), with the same verdict.
 
 Tolerances (measured over seeds 0-5 on the CPU):
 - the KFs, ``ukf-one`` and ``pid``: F64_BAND (1e-9); the same operations.
@@ -47,6 +48,7 @@ from mpc_rs_tpu.estimators import kf as jkf
 from mpc_rs_tpu.models import dynamics as jdyn
 from mpc_rs_tpu.models import observation as jobs
 from mpc_rs_tpu.models.params import CartPoleParams as JParams
+from mpc_rs_tpu_torch.apps import acceptance as tacc
 from mpc_rs_tpu_torch.apps import estimator_examples as tladder
 from mpc_rs_tpu_torch.apps import run as cli
 from mpc_rs_tpu_torch.controllers import pid as tpid
@@ -170,6 +172,8 @@ JAX_APPS = {"one-liner-kf": jest.one_liner_kf, "two-liner-kf": jest.two_liner_kf
 JAX_CHECKS = {"one-liner-kf": jacc.chk_kf1d, "two-liner-kf": jacc.chk_kf2d, "ukf-one": jacc.chk_ukf_one,
               "ukf-two": jacc.chk_ukf_two, "ukf-pen": jacc.chk_ukf_pen, "ukf-pen2": jacc.chk_ukf_pen2,
               "ukf-pen3": jacc.chk_ukf_pen3, "pid": jacc.chk_pid_tips}
+# the port's checks of the apps chip_smoke.py runs on the card
+TORCH_CHECKS = {app: tacc.SPECS[app][2] for app in chip_smoke.LADDER_APPS}
 
 
 def _replay_steps(app, run):
@@ -231,7 +235,7 @@ def test_ladder_app_matches_jax_and_passes_its_acceptance(app, seed, tmp_path):
     assert tout.count("\n") == jout.count("\n")
     want = JAX_CHECKS[app](jret, jout)
     assert want and JAX_CHECKS[app](tret, tout) == want
-    assert chip_smoke.LADDER_CHECKS[app](tret, tout) == want
+    assert TORCH_CHECKS[app](tret, tout) == want
 
 
 def test_ladder_checks_reject_what_the_jax_checks_reject():
@@ -240,10 +244,10 @@ def test_ladder_checks_reject_what_the_jax_checks_reject():
     ret, _ = _quiet(tladder.ukf_pen2, SimpleNamespace(seed=0, device="cpu"))
     bad = ret._replace(est=ret.est + 1.0)
     for app in ("ukf-pen", "ukf-pen2"):
-        assert not JAX_CHECKS[app](bad, "") and not chip_smoke.LADDER_CHECKS[app](bad, "")
-    assert not chip_smoke.LADDER_CHECKS["pid"](np.zeros(4), "no tip")
+        assert not JAX_CHECKS[app](bad, "") and not TORCH_CHECKS[app](bad, "")
+    assert not TORCH_CHECKS["pid"](np.zeros(4), "no tip")
     g = tgauss.Gaussian(torch.tensor(40.0, **T64), torch.tensor(1.0, **T64))
-    assert not jacc.chk_kf1d(g, "") and not chip_smoke.LADDER_CHECKS["one-liner-kf"](g, "")
+    assert not jacc.chk_kf1d(g, "") and not TORCH_CHECKS["one-liner-kf"](g, "")
 
 
 def test_ladder_apps_take_the_card_by_default(tmp_path):
