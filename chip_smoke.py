@@ -90,6 +90,7 @@ directory without the ``mpc_rs_tpu_torch`` package. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import io
 import json
 import math
@@ -125,8 +126,11 @@ CLT_FAMILY_SPREAD = 0.02  # cltone/cltbig/cltreg launch clt's kernel: their D1 t
 # the H100 machine (runtime/profile_partials.py's build report): the main
 # paths' 56 at N = 8 before D1 shared their body, and the MPPI application
 # family's 42 (linear cart-pole at N = 8, commu4 at N = 20, the double
-# integrator at N = 40) as they were built first, and serve's cart-pole at
-# N = 40 (family_serve.cu) as it was built first. The build must keep them.
+# integrator at N = 40) as they were built first (the linear cart-pole's
+# three at R = 4 clt4, clt4a and R = 1 clt2q as they were rebuilt with the
+# merge's merged-row output: 58, 57 and 45 registers, from 56, 59 and 44),
+# and serve's cart-pole at N = 40 (family_serve.cu) as it was built first.
+# The build must keep them.
 PARTIALS_PTXAS = {
     ("CartPoleNonlinearT", 8, 0, 1): (44, 46, 46, 44, 45, 45, 45),
     ("CartPoleNonlinearT", 8, 0, 4): (64, 64, 64, 64, 64, 64, 64),
@@ -136,8 +140,8 @@ PARTIALS_PTXAS = {
     ("Flagship4", 8, 0, 4): (64, 64, 64, 64, 64, 64, 64),
     ("Flagship4", 8, 1, 1): (48, 48, 48, 48, 48, 48, 48),
     ("Flagship4", 8, 1, 4): (64, 64, 64, 64, 64, 64, 64),
-    ("CartPoleLinear", 8, 0, 1): (47, 48, 45, 48, 48, 44, 48),
-    ("CartPoleLinear", 8, 0, 4): (58, 64, 56, 59, 60, 56, 64),
+    ("CartPoleLinear", 8, 0, 1): (47, 48, 45, 48, 48, 45, 48),
+    ("CartPoleLinear", 8, 0, 4): (58, 64, 58, 57, 60, 56, 64),
     ("Commu4", 20, 0, 1): (71, 80, 72, 80, 72, 72, 80),
     ("Commu4", 20, 0, 4): (123, 128, 128, 127, 128, 128, 127),
     ("DoubleIntegrator", 40, 0, 1): (127, 135, 134, 141, 130, 134, 167),
@@ -2129,6 +2133,353 @@ def acceptance_phase(dev: torch.device, card: dict) -> None:
     check(all(r == 1.0 for r in rates.values()), f"acceptance on the card: {rates}")
 
 
+MULTIGPU_JOIN_S = 240  # each rank process's join timeout
+
+
+def merged_row_phase(dev: torch.device, card: dict) -> list[dict]:
+    """The partials launch's merged-row output (the rank's share of a
+    multi-GPU solve): at P = 1 on the cart-pole with ``shaped4`` at
+    K = 800 000, and the batch on cartpole4 (B = 1024, K = 1024) and
+    flagship6 (B = 1024, K = 8192), each noise source at R = 1 and 4. Each
+    merged row is held against its float64 plain version on the kernel's
+    own noise (the f32 band, or twice the plain f32 version's distance where
+    the f32 problem is ill-conditioned), against the rows-only launch's row
+    bit for bit where a problem is one block (the same sums), and finished
+    by ``finalize_batch_fused`` it must give the merged-in-launch solve bit
+    for bit (the same merge order). A problem with no finite rollout writes
+    NEG_BIG and zeros. Returns the timings of both wrappers."""
+    from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+    from mpc_rs_tpu_torch.ops import mppi_cuda, philox
+    from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Flagship4Diag4
+
+    gen = torch.Generator(device=dev).manual_seed(1414)
+    worst, rows = 0.0, []
+    cases = (("cartpole-shaped4", 1, 800_000, CartPoleShaped4(CartPoleParams.single_wheel(), 0.1), 3.0, 20.0,
+              (-20.0, 20.0)),
+             ("cartpole4", 1024, 1024, CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=True), 10.0, 20.0,
+              (-10.0, 10.0)),
+             ("flagship6", 1024, 8192, Flagship4Diag4(CartPoleParams.two_wheel(), 0.15, fast=True), 4.0, 50.0,
+              (-10.0, 10.0)))
+    for label, b, k, m, sd, lam, limit in cases:
+        cfg = MppiConfig(n_horizon=N, n_rollouts=k, lambda_=lam, std_dev=sd, limit=limit)
+        xs = 0.2 * torch.randn((b, 4), generator=gen, device=dev)
+        if label != "flagship6":
+            xs = xs + torch.tensor(X0, device=dev)
+        u_ns = 0.5 * torch.randn((b, N), generator=gen, device=dev)
+        seeds = torch.randint(-2**31, 2**31 - 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+        for source in ("external", *philox.SAMPLERS):
+            for rpt in (1, 4):
+                noise = (sd * torch.randn((b, k, N), generator=gen, device=dev) if source == "external"
+                         else torch.empty((b, k, N), device=dev))
+                kw = (dict(noise=noise) if source == "external" else
+                      dict(seeds=seeds, sampler=source, noise_out=noise))
+                if b == 1:
+                    one = (dict(noise=noise[0]) if source == "external" else
+                           dict(seed=int(seeds[0]), sampler=source, noise_out=noise[0]))
+                    got = mppi_cuda.mppi_partials_merged_fused(cfg, m, xs[0], u_ns[0], rollouts_per_thread=rpt,
+                                                               **one)[None]
+                    solve_u, solve_st = mppi_cuda.mppi_solve_fused(
+                        cfg, m, xs[0], u_ns[0], rollouts_per_thread=rpt,
+                        **{a: v for a, v in one.items() if a != "noise_out"})
+                    solve_u, solve_st = solve_u[None], solve_st[None]
+                    rows_only = mppi_cuda.mppi_batch_partials_fused(
+                        cfg, m, xs[:1], u_ns[:1], rollouts_per_thread=rpt,
+                        **(dict(noise=noise) if source == "external" else
+                           dict(seeds=seeds[:1], sampler=source)))
+                else:
+                    got = mppi_cuda.mppi_batch_partials_merged_fused(cfg, m, xs, u_ns, rollouts_per_thread=rpt, **kw)
+                    solve_u, solve_st = mppi_cuda.mppi_solve_batch_fused(
+                        cfg, m, xs, u_ns, rollouts_per_thread=rpt, **{a: v for a, v in kw.items() if a != "noise_out"})
+                    rows_only = mppi_cuda.mppi_batch_partials_fused(
+                        cfg, m, xs, u_ns, rollouts_per_thread=rpt, **{a: v for a, v in kw.items() if a != "noise_out"})
+                fin_u, fin_st = mppi_cuda.finalize_batch_fused(cfg, got[:, None].contiguous())
+                check(torch.equal(fin_u, solve_u) and torch.equal(fin_st, solve_st),
+                      f"merged row {label} {source} R={rpt}: finished, it is not the merged-in-launch solve")
+                if rows_only.shape[1] == 1:
+                    check(torch.equal(got, rows_only[:, 0]),
+                          f"merged row {label} {source} R={rpt}: one block, yet not the rows-only row")
+                want = mppi_cuda.mppi_batch_partials_merged_plain(cfg, m, xs.double(), u_ns.double(), noise.double(),
+                                                                  rollouts_per_thread=rpt)
+                want32 = mppi_cuda.mppi_batch_partials_merged_plain(cfg, m, xs, u_ns, noise, rollouts_per_thread=rpt)
+                err = check_band_or_own(got, want, want32, f"merged row {label} {source} R={rpt}")
+                worst = max(worst, err)
+                rows.append({"case": label, "source": source, "rollouts_per_thread": rpt, "max_abs_err": err,
+                             "blocks": int(rows_only.shape[1])})
+                del noise
+        # a problem with no finite rollout: NEG_BIG and zeros
+        bad = xs.clone()
+        bad[0, 0] = float("nan")
+        got = (mppi_cuda.mppi_partials_merged_fused(cfg, m, bad[0], u_ns[0], seed=3)[None] if b == 1 else
+               mppi_cuda.mppi_batch_partials_merged_fused(cfg, m, bad, u_ns, seeds=seeds, sampler="box-muller"))
+        check(float(got[0, 0]) == float(torch.tensor(mppi_cuda.NEG_BIG, dtype=torch.float32))
+              and bool((got[0, 1:] == 0).all()), f"merged row {label}: a problem with no finite rollout {got[0]}")
+    check(bool((mppi_cuda.merge_tickets(dev, 1) == 0).all()) and bool((mppi_cuda.merge_tickets(dev, 1024) == 0).all()),
+          "merged row: merge tickets not zero after the calls")
+    emit({"phase": "merged_row", "rows": rows, "max_abs_err": worst, **card})
+
+    # timings at the sharded paths' shapes: the K-sharded solve's rank at
+    # K = 800 000 and the fleet tick's rank at cartpole4's B = 1024, K = 1024
+    out = {}
+    m = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
+    cfg = MppiConfig(n_horizon=N, n_rollouts=800_000, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+    x, u0 = torch.tensor(X0, device=dev), torch.zeros(N, device=dev)
+    one = lambda: mppi_cuda.mppi_partials_merged_fused(cfg, m, x, u0, seed=3)  # noqa: E731
+    plain = lambda: mppi_cuda.mppi_partials_merged_plain(  # noqa: E731
+        cfg, m, x, u0, mppi_cuda.solve_noise(cfg, m, 3, 0, device=dev))
+    out["mppi_partials_merged_fused"] = dict(
+        ms=device_ms(one), event_ms=median_ms(one, reps=20), plain_ms=median_ms(plain, reps=5, warmup=1),
+        max_abs_err=worst, **bound(flops_of(plain), nbytes(x, u0) + 4 * (N + 2)))
+    mf = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=True)
+    cfgf = MppiConfig(n_horizon=N, n_rollouts=1024, lambda_=0.5, std_dev=10.0, limit=(-10.0, 10.0))
+    xs = torch.tensor(X0, device=dev) + 0.2 * torch.randn((1024, 4), generator=gen, device=dev)
+    u_ns = 0.5 * torch.randn((1024, N), generator=gen, device=dev)
+    seeds = torch.arange(1024, dtype=torch.int32, device=dev)
+    batch = lambda: mppi_cuda.mppi_batch_partials_merged_fused(cfgf, mf, xs, u_ns, seeds=seeds,  # noqa: E731
+                                                               sampler="clt4")
+    bplain = lambda: mppi_cuda.mppi_batch_partials_merged_plain(  # noqa: E731
+        cfgf, mf, xs, u_ns, mppi_cuda.batch_noise(cfgf, mf, seeds, "clt4"))
+    out["mppi_batch_partials_merged_fused"] = dict(
+        ms=device_ms(batch), event_ms=median_ms(batch, reps=20), plain_ms=median_ms(bplain, reps=5, warmup=1),
+        max_abs_err=worst, **bound(flops_of(bplain), nbytes(xs, u_ns, seeds) + 4 * 1024 * (N + 2)))
+    for name, t in out.items():
+        emit({"phase": "timing_merged_row", "wrapper": name, **t, **card})
+    return out
+
+
+def spawn_ranks(world: int, backend: str, tag: str, root: Path) -> list[dict]:
+    """``world`` rank processes of this script (``--rank``), one store file,
+    each joined within ``MULTIGPU_JOIN_S``; a rank that fails or times out
+    fails the smoke. Returns each rank's result."""
+    root = root.resolve()  # the file:// store takes an absolute path
+    root.mkdir(parents=True, exist_ok=True)
+    store = root / f"{tag}.store"
+    store.unlink(missing_ok=True)
+    logs = [root / f"{tag}.rank{r}.log" for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank", str(r),
+                                           str(world), str(store), backend, str(root / f"{tag}.rank{r}.json")],
+                                          stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MULTIGPU_JOIN_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"{tag}: rank {r} of {world} failed ({p.returncode}):\n"
+                                 f"{logs[r].read_text()[-4000:]}")
+    return [json.loads((root / f"{tag}.rank{r}.json").read_text()) for r in range(world)]
+
+
+def multigpu_phases(dev: torch.device, card: dict) -> list[dict]:
+    """The multi-GPU slice on the card (``parallel/``): the merged-row
+    output against its plain version (``merged_row_phase``); NCCL at world
+    size 1 on cuda:0 (a real process group): the K-sharded mppi4-non-liner
+    solve at K = 800 000 against ``mppi_solve_fused`` bit for bit, a
+    50-tick closed loop on it, and the cartpole4 fleet at B = 1024 through
+    ``python -m torch.distributed.run ... -m mpc_rs_tpu_torch.apps.run
+    fleet`` over 10 s at its survival gate; gloo with two ranks on the one
+    card (CUDA tensors): the K-sharded solve with external noise against the
+    one-rank solve in the f32 band, with in-kernel sampling every status 0
+    and u0 of the one-rank solve's sign, the cartpole4 fleet at B = 1024 as
+    1×2 (rollouts: the two ranks' carries the same bits, by digest) and 2×1
+    (scenarios: the one-rank fleet's bits, R pinned) over 1 s, its tick
+    median and the two all-reduces' share of it; and, with two cards or
+    more, the same at NCCL world min(count, 4). Every sharded call on the
+    card is one merged-row launch and one finalize launch. Returns the
+    kernels line's entries."""
+    from mpc_rs_tpu_torch.ops.mppi_cuda import FLEET_HORIZON
+
+    t_phase = time.perf_counter()
+    timing = merged_row_phase(dev, card)
+    root = Path("logs") / "chip_smoke_multigpu"
+    runs = {"nccl1": spawn_ranks(1, "nccl", "nccl1", root), "gloo2": spawn_ranks(2, "gloo", "gloo2", root)}
+    count = torch.cuda.device_count()
+    if count >= 2:
+        runs["nccl_multi"] = spawn_ranks(min(count, 4), "nccl", "nccl_multi", root)
+    else:
+        emit({"phase": "multigpu_nccl_multi", "skipped": f"torch.cuda.device_count() = {count}: NCCL takes one "
+                                                          "card a rank, so a multi-card world needs two cards"})
+    for tag, ranks in runs.items():
+        check(all(r["ok"] for r in ranks), f"{tag}: {ranks}")
+        emit({"phase": f"multigpu_{tag}", "ranks": ranks, **card})
+    nccl1 = runs["nccl1"][0]
+    check(nccl1["solve_bit_equal"], f"NCCL world 1: the sharded solve is not mppi_solve_fused's: {nccl1}")
+    gloo = runs["gloo2"]
+    check(gloo[0]["fleet_1x2_digest"] == gloo[1]["fleet_1x2_digest"], "gloo 1x2: the rollouts replicas differ")
+    check(gloo[0]["fleet_2x1_equals_one_rank"], "gloo 2x1: the fleet is not the one-rank fleet's bits")
+
+    # the fleet through torch.distributed.run at NCCL world 1, at its gate
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1", "-m",
+           "mpc_rs_tpu_torch.apps.run", "fleet", "--model", "cartpole4", "--t-end", "10",
+           "--log-dir", "logs/chip_smoke_dist"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MULTIGPU_JOIN_S)
+    check(proc.returncode == 0, f"fleet under torch.distributed.run: {proc.returncode}\n{proc.stdout[-2000:]}"
+                                f"\n{proc.stderr[-3000:]}")
+    got = re.search(r"survived (\d+)/(\d+) over (\d+) ticks; median tick ([\d.]+) ms; all statuses 0: (\w+)",
+                    proc.stdout)
+    check(got is not None and "ranks=1 backend=nccl" in proc.stdout, f"fleet under torchrun: {proc.stdout[-2000:]}")
+    survived, b_fleet = int(got.group(1)), int(got.group(2))
+    check(survived / b_fleet >= 0.99 and got.group(5) == "True", f"fleet under torchrun: {got.group(0)}")
+    emit({"phase": "multigpu_torchrun_fleet", "backend": "nccl", "world": 1, "scenarios": b_fleet,
+          "survival": survived / b_fleet, "ticks": int(got.group(3)), "tick_ms_median": float(got.group(4)),
+          "wall_s": time.perf_counter() - t0, **card})
+    emit({"phase": "multigpu_total", "seconds": time.perf_counter() - t_phase, "finalize_horizon": FLEET_HORIZON})
+
+    launches = {name: sum(r["launches"].get(name, 0) for rs in runs.values() for r in rs)
+                for name in ("mppi_partials_merged_fused", "mppi_batch_partials_merged_fused", "finalize_batch_fused")}
+    check(all(launches.values()), f"the multi-GPU main paths launched {launches}")
+    return [
+        {"name": f"mppi_partials_kernel, merged-row output (K2 rank of the K-sharded solve, {name})",
+         "route": "cuda", "source": COMMON_SOURCE, "replaces": f"{PALLAS}:{line}",
+         "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
+        for (name, line), t in ((("mppi_partials_merged_fused", 438), timing["mppi_partials_merged_fused"]),
+                                (("mppi_batch_partials_merged_fused", 739),
+                                 timing["mppi_batch_partials_merged_fused"]))
+    ]
+
+
+def rank_main(argv: list[str]) -> None:
+    """One rank of ``multigpu_phases`` (``chip_smoke.py --rank R W STORE
+    BACKEND OUT``): joins the world on cuda:LOCAL (R wrapped onto the
+    cards), runs the K-sharded solve and the sharded fleet, and writes its
+    result to OUT. Every check that fails raises, and the rank exits
+    non-zero."""
+    import hashlib
+
+    from mpc_rs_tpu_torch.apps.fleet import build_fleet, run_fleet
+    from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+    from mpc_rs_tpu_torch.ops import mppi_cuda
+    from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, mppi_solve_fused
+    from mpc_rs_tpu_torch.parallel.distributed import init_distributed
+    from mpc_rs_tpu_torch.parallel.mesh import make_mesh
+    from mpc_rs_tpu_torch.parallel.scenario import gather_carry
+    from mpc_rs_tpu_torch.parallel.sharded_mppi import make_sharded_mppi, merge_rows
+    from mpc_rs_tpu_torch.runtime.checkpoint import carry_fields
+
+    rank, world, store, backend, out = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    faulthandler.dump_traceback_later(MULTIGPU_JOIN_S - 20, exit=True)  # a hang shows where, in the log
+    dev = init_distributed(f"file://{store}", world, rank, backend=backend, device="cuda",
+                           timeout_s=MULTIGPU_JOIN_S / 2)
+    torch.cuda.set_device(dev)
+    res = {"rank": rank, "world": world, "backend": backend, "device": str(dev), "ok": False}
+    mesh = make_mesh({"rollouts": world})
+    model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
+    cfg = MppiConfig(n_horizon=N, n_rollouts=800_000, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+    x, u0 = torch.tensor(X0, device=dev), torch.zeros(N, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(77)  # the same noise on every rank
+    noise = 3.0 * torch.randn((cfg.n_rollouts, N), generator=gen, device=dev)
+
+    # the K-sharded solve: external noise against the one-rank solve
+    mppi_cuda.reset_launches()
+    solve = make_sharded_mppi(cfg, model, mesh, external_noise=True)
+    u, st = solve(noise, x, u0)
+    torch.cuda.synchronize(dev)
+    per_solve = dict(mppi_cuda.launches)
+    check(per_solve["mppi_partials_merged_fused"] == 1 and per_solve["finalize_batch_fused"] == 1
+          and per_solve["mppi_solve_fused"] == 0, f"a sharded solve's launches {per_solve}")
+    one_u, one_st = mppi_solve_fused(cfg, model, x, u0, noise=noise)
+    check(int(st) == int(one_st) == 0, f"sharded solve status {int(st)} / one-rank {int(one_st)}")
+    res["solve_bit_equal"] = bool(torch.equal(u, one_u))
+    res["solve_max_abs_err_vs_one_rank"] = check_band(u, one_u, "sharded solve vs the one-rank solve")
+    # in-kernel sampling: rank r keys seed + r·7919
+    u_s, st_s = make_sharded_mppi(cfg, model, mesh)(3, x, u0)
+    one_s, _ = mppi_solve_fused(cfg, model, x, u0, seed=3)
+    check(int(st_s) == 0 and math.copysign(1, float(u_s[0])) == math.copysign(1, float(one_s[0])),
+          f"sampled sharded solve: status {int(st_s)}, u0 {float(u_s[0])} against the one-rank {float(one_s[0])}")
+    res["sampled_u0"], res["one_rank_sampled_u0"] = float(u_s[0]), float(one_s[0])
+
+    # the main path: the mppi4-non-liner closed loop on the K-sharded solve,
+    # 50 ticks with the plant stepped, counts reset before and read after
+    solve = make_sharded_mppi(cfg, model, mesh)
+    mppi_cuda.reset_launches()
+    xs, u_n, statuses, tick_s = x.clone(), u0, [], []
+    for i in range(50):
+        t0 = time.perf_counter()
+        u_n, st = solve(1000 + i, xs, u_n)
+        xs = torch.stack(model.step(*xs.unbind(), u_n[0]))
+        torch.cuda.synchronize(dev)
+        tick_s.append(time.perf_counter() - t0)
+        statuses.append(int(st))
+    res["loop_launches"] = dict(mppi_cuda.launches)
+    check(statuses == [0] * 50 and abs(float(xs[2])) < 0.2,
+          f"sharded closed loop: statuses {sorted(set(statuses))}, final x {xs.tolist()}")
+    check(res["loop_launches"]["mppi_partials_merged_fused"] == 50
+          and res["loop_launches"]["finalize_batch_fused"] == 50, f"closed loop launches {res['loop_launches']}")
+    res["loop_tick_ms_median"] = 1e3 * statistics.median(tick_s)
+    launches = Counter(res["loop_launches"])
+
+    # the sharded fleet: 1×world (rollouts) and, with more than one rank,
+    # world×1 (scenarios) against the one-rank fleet, R pinned to its choice
+    b = 1024
+    rpt = mppi_cuda.rollouts_per_thread(1024, b)
+    shapes = [(1, world)] + ([(world, 1)] if world > 1 else [])
+    for s, r in shapes:
+        fmesh = make_mesh({"scenario": s, "rollouts": r})
+        fl = build_fleet("cartpole4", None, dev, scenarios=b, mesh=fmesh, seed=5,
+                         rollouts_per_thread=rpt if r == 1 else None)
+        mppi_cuda.reset_launches()
+        fres = run_fleet(fl, t_end=1.0, report_every=1.0)
+        counts = dict(mppi_cuda.launches)
+        ticks = fres.ticks
+        check(counts["mppi_batch_partials_merged_fused"] == ticks and counts["finalize_batch_fused"] == ticks
+              and counts["mppi_solve_batch_fused"] == 0, f"fleet {s}x{r}: launches {counts} over {ticks} ticks")
+        check(fres.survival == 1.0 and fres.statuses_ok, f"fleet {s}x{r}: survival {fres.survival}")
+        launches.update(counts)
+        local = carry_fields(fres.carry)
+        digest = hashlib.sha256(b"".join(v.cpu().numpy().tobytes() for v in local.values())).hexdigest()
+        res[f"fleet_{s}x{r}_digest"] = digest
+        res[f"fleet_{s}x{r}_tick_ms_median"] = 1e3 * statistics.median(fres.tick_seconds)
+        whole = gather_carry(fres.carry, fmesh)
+        if s > 1 and rank == 0:
+            one = run_fleet(build_fleet("cartpole4", None, dev, scenarios=b, seed=5), t_end=1.0, report_every=1.0)
+            a, c = carry_fields(whole), carry_fields(one.carry)
+            res["fleet_2x1_equals_one_rank"] = all(torch.equal(a[f], c[f].cpu()) for f in c)
+            res["one_rank_fleet_tick_ms_median"] = 1e3 * statistics.median(one.tick_seconds)
+        if r > 1:
+            # the same mesh with the estimator on K7 (the tick whose host
+            # time the merge competes with), then the two all-reduces of a
+            # tick alone: their share of each tick
+            chain = run_fleet(build_fleet("cartpole4", None, dev, scenarios=b, mesh=fmesh, seed=5,
+                                          estimator_chain=True), t_end=1.0, report_every=1.0)
+            check(chain.survival == 1.0 and chain.statuses_ok, f"chain fleet {s}x{r}: survival {chain.survival}")
+            res[f"fleet_{s}x{r}_chain_tick_ms_median"] = 1e3 * statistics.median(chain.tick_seconds)
+            rows = torch.randn((b, N + 2), generator=gen, device=dev)
+            mcfg = fl.cfg
+
+            def merge():
+                merge_rows(mcfg, rows, fmesh, "rollouts")
+                torch.cuda.synchronize(dev)
+
+            for _ in range(3):
+                merge()
+            times = []
+            for _ in range(50):
+                t0 = time.perf_counter()
+                merge()
+                times.append(time.perf_counter() - t0)
+            res["allreduce_ms_median"] = 1e3 * statistics.median(times)
+            res["allreduce_share_of_tick"] = res["allreduce_ms_median"] / res[f"fleet_{s}x{r}_tick_ms_median"]
+            res["allreduce_share_of_chain_tick"] = (res["allreduce_ms_median"]
+                                                    / res[f"fleet_{s}x{r}_chain_tick_ms_median"])
+    res["launches"] = dict(launches)
+    res["ok"] = True
+    Path(out).write_text(json.dumps(res))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU")
@@ -2435,6 +2786,7 @@ def main() -> None:
     ukf_fidelity_phase(dev, card)
     family = family_phases(dev, card)
     hil = hil_phases(dev, card, log)
+    multigpu = multigpu_phases(dev, card)
     sweep = tune_phases(dev, card, log)
     fleet_finish_phases(dev, card)
     gradient_mpc_phases(dev, card)
@@ -2459,6 +2811,7 @@ def main() -> None:
         *family,
         *hil,
         *sweep,
+        *multigpu,
     ]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2466,4 +2819,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

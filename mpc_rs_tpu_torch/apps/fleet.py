@@ -36,6 +36,17 @@ The CLI saves the fleet's carry and generator after every report chunk to
 condensed QP solved by batched projected Newton (``--qp-solver newton``,
 the default) or by batched PANOC (``--qp-solver panoc``), the nonlinear
 plant stepped on the device.
+
+Under ``python -m torch.distributed.run`` (one process a rank) the CLI joins
+the ranks (``parallel/distributed.py``; ``--dist-backend``) and runs the
+MPPI fleet on the mesh ``{"scenario": 1, "rollouts": world}``, each
+scenario's K split over the ranks (``fleet.py:372-373``), and the QP fleet
+split over ``{"scenario": world}``. ``build_fleet(..., mesh=)`` and
+``build_qp_fleet(..., mesh=)`` take any mesh: each rank builds the whole
+fleet from the seed and keeps its scenarios. The reports' survival and
+medians, the QP fleet's counts and the checkpoint (the whole fleet's
+carry, gathered; the file a one-rank fleet writes at the same tick) are
+collective, and only rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -64,7 +75,9 @@ from mpc_rs_tpu_torch.models import dynamics, noise, reference
 from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops.estimator_cuda import CartPole4Rpm, Flagship6Imu
 from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Flagship4Diag4
-from mpc_rs_tpu_torch.parallel.scenario import init_scenario_carry, make_scenario_step
+from mpc_rs_tpu_torch.parallel.mesh import Mesh, all_reduce, make_mesh, world
+from mpc_rs_tpu_torch.parallel.scenario import (gather_carry, init_scenario_carry, make_scenario_step,
+                                                shard_carry)
 from mpc_rs_tpu_torch.runtime.checkpoint import load_fleet, load_jax_fleet_npz, save_fleet
 from mpc_rs_tpu_torch.runtime.loop import pulse_disturbance
 
@@ -82,16 +95,23 @@ class Fleet(NamedTuple):
     sampler: str
     ukf_layout: str = "soa"  # "soa" or "aos"
     sqrt_method: str = "jacobi"  # the AoS filter's sigma root (the SoA layout takes Jacobi)
+    mesh: Mesh | None = None  # the (scenario × rollouts) mesh; the carry holds this rank's scenarios
 
 
 def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: int = 1024,
                 feed_true_state: bool = False, fast_math: bool | None = None,
                 sampler: str | None = None, ukf_alpha: float | None = None,
                 estimator_chain: bool = False, ukf_layout: str = "soa", sqrt_method: str | None = None,
-                obs_normalize: bool | None = None) -> Fleet:
+                obs_normalize: bool | None = None, mesh: Mesh | None = None,
+                rollouts_per_thread: int | None = None) -> Fleet:
     """The tick, the initial float32 carry and a seeded generator of a fleet
-    model on ``device``. ``estimator_chain``: the tick runs the fused
-    estimator chain (K7) in place of the torch-op estimator.
+    model on ``device``. ``mesh``: the tick of this rank of a (scenario ×
+    rollouts) mesh, its carry this rank's B/S scenarios of the whole
+    fleet's; K is rounded as the JAX package rounds it, k·R when R ranks of
+    the rollouts axis do not divide k (``fleet.py:158,213``).
+    ``rollouts_per_thread`` pins the kernel's R. ``estimator_chain``: the
+    tick runs the fused estimator chain (K7) in place of the torch-op
+    estimator.
     ``ukf_layout``/``sqrt_method``: the estimator's layout and, for the AoS
     one, its sigma root (None: the model's default). ``obs_normalize``
     (flagship6; None is off): the filter on observations scaled by 1/σ. K7
@@ -105,9 +125,11 @@ def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: 
     if obs_normalize and (estimator_chain or model != "flagship6"):
         raise ValueError("obs_normalize is the flagship6 fleet's torch-op estimator's option: "
                          "K7 compiles the raw hx in")
+    n_dev = 1 if mesh is None else mesh.size("rollouts")
     if model == "flagship6":
         dt = 0.01  # 100 Hz control+sensor
         k = k or 8192
+        k = k * n_dev if k % n_dev else k
         p = CartPoleParams.two_wheel()
         est = Flagship6Imu(p, dt)  # plant, UKF process model and sensor
         ctrl = Flagship4Diag4(p, 1.2 / 8, (0.1, 0.1, 1.0, 0.5), fast=fast)
@@ -131,6 +153,7 @@ def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: 
         dt = 0.05  # 20 Hz control; the model step stays T/N = 0.1
         n_sub = 5  # 100 Hz plant/sensor/UKF
         k = k or 1024
+        k = k * n_dev if k % n_dev else k
         p = CartPoleParams.single_wheel()
         ctrl = CartPoleShaped4(p, 0.1, fast=fast)
         est = CartPole4Rpm(p, dt / n_sub)
@@ -152,10 +175,12 @@ def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: 
     tick = make_scenario_step(cfg, ctrl, plant_fx, params, est.fx, hx, sens, dt_tick=dt,
                               ukf_p_reset=p0, feed_true_state=feed_true_state, sampler=sampler,
                               estimator_chain=estimator_chain, chain_model=est, ukf_q_const=q,
-                              ukf_r_const=r, ukf_layout=ukf_layout, **kw)
-    carry = init_scenario_carry(scenarios, x0, torch.zeros(8, **f32), ukf0, ukf_layout=ukf_layout)
+                              ukf_r_const=r, ukf_layout=ukf_layout, mesh=mesh,
+                              rollouts_per_thread=rollouts_per_thread, **kw)
+    carry = shard_carry(init_scenario_carry(scenarios, x0, torch.zeros(8, **f32), ukf0, ukf_layout=ukf_layout),
+                        mesh)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return Fleet(tick, carry, gen, dt, theta_idx, guard, cfg, sampler, ukf_layout, sqrt_method)
+    return Fleet(tick, carry, gen, dt, theta_idx, guard, cfg, sampler, ukf_layout, sqrt_method, mesh)
 
 
 def tipped(th_max: np.ndarray, guard: float) -> np.ndarray:
@@ -177,6 +202,36 @@ class FleetResult(NamedTuple):
     scenario_ticks_per_s: float  # over the whole run, host clock
 
 
+def _whole(values: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The whole fleet's (B,) values from this rank's scenarios, by one
+    ``all_reduce`` SUM over the scenario axis of a zero-padded vector (every
+    rank of the axis gets every scenario's value, bit for bit)."""
+    if mesh is None or mesh.group("scenario") is None:
+        return values
+    b, n_s = values.shape[0], mesh.size("scenario")
+    full = torch.zeros((b * n_s,) + tuple(values.shape[1:]), dtype=values.dtype, device=values.device)
+    full[mesh.coord("scenario") * b:(mesh.coord("scenario") + 1) * b] = values
+    return all_reduce(full, torch.distributed.ReduceOp.SUM, mesh, "scenario")
+
+
+def _say(mesh: Mesh | None, line: str) -> None:
+    """Print on rank 0 only."""
+    if mesh is None or mesh.rank == 0:
+        print(line, flush=True)
+
+
+def checkpoint_fleet(path: str, fl: Fleet, carry) -> None:
+    """Save the whole fleet's carry and the generator to ``path``: on a
+    mesh every rank gathers the carry (a collective) and rank 0 writes the
+    file, the one a one-rank fleet writes at the same tick, then every rank
+    waits at a barrier."""
+    whole = gather_carry(carry, fl.mesh)
+    if fl.mesh is None or fl.mesh.rank == 0:
+        save_fleet(path, whole, fl.generator)
+    if fl.mesh is not None and fl.mesh.group("scenario") is not None:
+        torch.distributed.barrier()
+
+
 def run_fleet(fl: Fleet, *, t_end: float, report_every: float, checkpoint: str | None = None) -> FleetResult:
     """Run whole report chunks until ``t_end`` and print one line per chunk
     (survival, median max |θ|, scenario-ticks/s), as ``fleet.py:391-418``.
@@ -184,18 +239,21 @@ def run_fleet(fl: Fleet, *, t_end: float, report_every: float, checkpoint: str |
     there after every chunk (``fleet.py:418``), outside the chunk's clock.
     A scenario is tipped once its max |θ| over a chunk passes the guard, by
     the reference's ``th_max > guard`` (``mpc_rs_tpu/apps/fleet.py:412``;
-    ``tipped``): a NaN θ counts as survived, as it does there."""
-    carry, b = fl.carry, fl.carry.x.shape[0]
+    ``tipped``): a NaN θ counts as survived, as it does there. On a mesh the
+    survival, the medians and the statuses are the whole fleet's (an
+    all-reduce over the scenario axis a chunk), and rank 0 prints."""
+    carry, b_local = fl.carry, fl.carry.x.shape[0]
+    b = b_local * (1 if fl.mesh is None else fl.mesh.size("scenario"))
     dev = carry.x.device
     chunk = max(1, min(int(round(report_every / fl.dt)), int(t_end / fl.dt)))
     n_ticks = int(t_end / fl.dt)
     done, ticks, wall_total = 0, [], 0.0
     ever_tipped = np.zeros(b, bool)
-    bad_status = torch.zeros(b, dtype=torch.bool, device=dev)
+    bad_status = torch.zeros(b_local, dtype=torch.bool, device=dev)
     med = float("nan")
     while done < n_ticks:
         t0 = time.perf_counter()
-        th_max = torch.zeros(b, dtype=carry.x.dtype, device=dev)
+        th_max = torch.zeros(b_local, dtype=carry.x.dtype, device=dev)
         for _ in range(chunk):
             t1 = time.perf_counter()
             carry = fl.tick(carry, fl.generator)
@@ -204,19 +262,20 @@ def run_fleet(fl: Fleet, *, t_end: float, report_every: float, checkpoint: str |
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             ticks.append(time.perf_counter() - t1)
-        th = th_max.cpu().numpy()  # readback = sync
+        th = _whole(th_max, fl.mesh).cpu().numpy()  # readback = sync
         wall = time.perf_counter() - t0
         wall_total += wall
         done += chunk
         ever_tipped |= tipped(th, fl.guard)
         surv = 1.0 - ever_tipped.mean()
         med = float(np.median(th))
-        print(f"t={done * fl.dt:6.1f}s  survival={surv:6.3f}  median max|θ|={med:.4f}  "
-              f"{b * chunk / wall:,.0f} scenario-ticks/s", flush=True)
+        _say(fl.mesh, f"t={done * fl.dt:6.1f}s  survival={surv:6.3f}  median max|θ|={med:.4f}  "
+                      f"{b * chunk / wall:,.0f} scenario-ticks/s")
         if checkpoint is not None:
-            save_fleet(checkpoint, carry, fl.generator)
+            checkpoint_fleet(checkpoint, fl, carry)
     n_tipped = int(ever_tipped.sum())
-    return FleetResult(carry, b, done, n_tipped, 1.0 - n_tipped / b, not bool(bad_status.any()),
+    statuses_ok = not bool(_whole(bad_status.to(torch.int32), fl.mesh).any())
+    return FleetResult(carry, b, done, n_tipped, 1.0 - n_tipped / b, statuses_ok,
                        med, ticks, b * done / wall_total)
 
 
@@ -224,30 +283,35 @@ def resume_fleet(fl: Fleet, path: str, seed: int) -> Fleet:
     """``fl`` with the carry and generator of the checkpoint at ``path``: a
     port ``fleet.pt`` (``load_fleet``), or a JAX ``fleet.npz``
     (``load_jax_fleet_npz``), whose per-scenario PRNG keys have no
-    counterpart: the generator is then seeded from ``seed``."""
+    counterpart: the generator is then seeded from ``seed``. The file holds
+    the whole fleet, whatever world wrote it: on a mesh every rank loads it
+    and keeps its scenarios (the template's gather is a collective)."""
     dev = fl.carry.x.device
+    template = gather_carry(fl.carry, fl.mesh)
     if path.endswith(".npz"):
-        carry = load_jax_fleet_npz(path, fl.ukf_layout, template=fl.carry, device=dev)
-        print(f"resumed fleet from {path} (a JAX fleet.npz: its PRNG keys are dropped; "
-              f"the generator is seeded from --seed {seed})", flush=True)
-        return fl._replace(carry=carry, generator=torch.Generator(device=dev).manual_seed(seed))
-    carry, gen = load_fleet(path, fl.carry, dev)
-    print(f"resumed fleet from {path}", flush=True)
-    return fl._replace(carry=carry, generator=gen)
+        carry = load_jax_fleet_npz(path, fl.ukf_layout, template=template, device=dev)
+        _say(fl.mesh, f"resumed fleet from {path} (a JAX fleet.npz: its PRNG keys are dropped; "
+                      f"the generator is seeded from --seed {seed})")
+        return fl._replace(carry=shard_carry(carry, fl.mesh),
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    carry, gen = load_fleet(path, template, dev)
+    _say(fl.mesh, f"resumed fleet from {path}")
+    return fl._replace(carry=shard_carry(carry, fl.mesh), generator=gen)
 
 
 class QpFleet(NamedTuple):
     tick: object  # tick((x, u_n)) -> (x, u_n)
-    carry: tuple  # (x (B, 4), u_n (B, N))
+    carry: tuple  # (x (B, 4), u_n (B, N)): this rank's scenarios on a mesh
     dt: float  # control tick [s]
     solver: str
+    mesh: Mesh | None = None  # the scenario axis splits the fleet; the tick has no collective
 
 
 QP_PARK_X, QP_UPRIGHT = 0.3, math.pi / 2  # parked |x| and upright |θ| (fleet.py:345-346)
 
 
 def build_qp_fleet(scenarios: int, device, *, seed: int = 0, max_iter: int = 60, solver: str = "newton",
-                   x0=None, dtype=torch.float32) -> QpFleet:
+                   x0=None, dtype=torch.float32, mesh: Mesh | None = None) -> QpFleet:
     """Batched gradient-MPC fleet (``fleet.py:251-330``): B independent
     op-mpc-x-calc-nl parking problems (the condensed QP of the linear model,
     the nonlinear plant: examples/op-mpc-x-calc.rs:73-98), float32.
@@ -259,7 +323,11 @@ def build_qp_fleet(scenarios: int, device, *, seed: int = 0, max_iter: int = 60,
     ``solver="panoc"``: one batched ``panoc_solve`` (tol 1e-5, memory 10,
     ``max_iter``), each lane its own loop. x0: B draws of (0.5, 0, 0.1, 0) +
     0.2·N(0, 1) from a torch generator seeded ``seed``, or the (B, 4) numpy
-    array given. ``dtype`` float64 builds the same fleet in float64."""
+    array given. ``dtype`` float64 builds the same fleet in float64.
+    ``mesh``: this rank's B/S scenarios of the whole fleet (the ``scenario``
+    axis; ``tests/test_distributed.py:113-124`` splits the JAX one so),
+    each solved as on one device; the active-set table follows the whole
+    fleet's B."""
     device = resolve_device(device)
     if solver not in ("newton", "panoc"):
         raise ValueError(f"unknown QP solver {solver!r}; choose newton or panoc")
@@ -297,7 +365,14 @@ def build_qp_fleet(scenarios: int, device, *, seed: int = 0, max_iter: int = 60,
         x = torch.tensor([0.5, 0.0, 0.1, 0.0], dtype=dtype, device=device) + 0.2 * z
     else:
         x = torch.tensor(np.asarray(x0), dtype=dtype, device=device).reshape(scenarios, 4)
-    return QpFleet(tick, (x, torch.zeros((scenarios, n), dtype=dtype, device=device)), dt, solver)
+    u_n = torch.zeros((scenarios, n), dtype=dtype, device=device)
+    if mesh is not None:
+        n_s, sc = mesh.size("scenario"), mesh.coord("scenario")
+        if scenarios % n_s:
+            raise ValueError(f"B={scenarios} scenarios not divisible by the scenario axis' {n_s} ranks")
+        b = scenarios // n_s
+        x, u_n = x[sc * b:(sc + 1) * b].contiguous(), u_n[sc * b:(sc + 1) * b].contiguous()
+    return QpFleet(tick, (x, u_n), dt, solver, mesh)
 
 
 class QpFleetResult(NamedTuple):
@@ -312,9 +387,11 @@ class QpFleetResult(NamedTuple):
 
 def run_qp_fleet(fl: QpFleet, *, t_end: float, report_every: float) -> QpFleetResult:
     """Whole report chunks until ``t_end``, the carry read back once a chunk
-    (``fleet.py:335-356``), one line a chunk with the JAX line's fields."""
+    (``fleet.py:335-356``), one line a chunk with the JAX line's fields. On a
+    mesh the shares and the median are the whole fleet's (an all-reduce over
+    the scenario axis a chunk), and rank 0 prints."""
     carry = fl.carry
-    b = carry[0].shape[0]
+    b = carry[0].shape[0] * (1 if fl.mesh is None else fl.mesh.size("scenario"))
     chunk = max(1, min(int(round(report_every / fl.dt)), int(t_end / fl.dt)))
     n_ticks = int(t_end / fl.dt)
     done, wall_total = 0, 0.0
@@ -323,48 +400,67 @@ def run_qp_fleet(fl: QpFleet, *, t_end: float, report_every: float) -> QpFleetRe
         t0 = time.perf_counter()
         for _ in range(chunk):
             carry = fl.tick(carry)
-        x = carry[0].cpu().numpy()  # readback = sync
+        x = _whole(carry[0], fl.mesh).cpu().numpy()  # readback = sync
         wall = time.perf_counter() - t0
         wall_total += wall
         done += chunk
         parked = float((np.abs(x[:, 0]) < QP_PARK_X).mean())
         upright = float((np.abs(x[:, 2]) < QP_UPRIGHT).mean())
         med = float(np.median(np.abs(x[:, 0])))
-        print(f"t={done * fl.dt:6.1f}s  parked={parked:6.3f}  upright={upright:6.3f}  "
-              f"median|x|={med:.3f}  {b * chunk / wall:,.0f} scenario-ticks/s", flush=True)
+        _say(fl.mesh, f"t={done * fl.dt:6.1f}s  parked={parked:6.3f}  upright={upright:6.3f}  "
+                      f"median|x|={med:.3f}  {b * chunk / wall:,.0f} scenario-ticks/s")
     return QpFleetResult(carry, b, done, parked, upright, med, b * done / wall_total)
 
 
+def _cli_mesh(args, axes) -> Mesh | None:
+    """Under ``torch.distributed.run``: join the ranks (``--dist-backend``)
+    and lay them out as ``axes(world)``; else None (one device)."""
+    from mpc_rs_tpu_torch.parallel.distributed import init_distributed, launched
+
+    if not launched():
+        return None
+    args.device = init_distributed(backend=args.dist_backend, device=args.device)
+    return make_mesh(axes(world()[1]))
+
+
 def _run_qp_fleet(args) -> QpFleetResult:
+    mesh = _cli_mesh(args, lambda w: {"scenario": w})
     fl = build_qp_fleet(args.scenarios, args.device, seed=args.seed, max_iter=args.max_iter or 60,
-                        solver=args.qp_solver)
-    print(f"fleet qp: B={args.scenarios} solver={fl.solver} device={fl.carry[0].device}", flush=True)
+                        solver=args.qp_solver, mesh=mesh)
+    _say(mesh, f"fleet qp: B={args.scenarios} solver={fl.solver} device={fl.carry[0].device}"
+               + ("" if mesh is None else f" ranks={mesh.world}"))
     el = Elapsed()
     res = run_qp_fleet(fl, t_end=args.t_end, report_every=args.report_every)
-    el.print()
+    if mesh is None or mesh.rank == 0:
+        el.print()
     return res
 
 
 def fleet(args):
     """The ``fleet`` CLI entry: the QP fleet with ``--controller qp``; else
     build (or resume) the MPPI fleet, run it with a checkpoint after every
-    chunk, and print a summary."""
+    chunk, and print a summary. Under ``torch.distributed.run`` each rank
+    runs its share of the mesh ``{"scenario": 1, "rollouts": world}``
+    (``mpc_rs_tpu/apps/fleet.py:372-373``)."""
     if args.controller == "qp":
         return _run_qp_fleet(args)
+    mesh = _cli_mesh(args, lambda w: {"scenario": 1, "rollouts": w})
     fl = build_fleet(args.model, args.k, args.device, seed=args.seed, scenarios=args.scenarios,
                      fast_math=args.fast_math, sampler=args.sampler, ukf_alpha=args.ukf_alpha,
-                     ukf_layout=args.ukf_layout or "soa", sqrt_method=args.sqrt_method)
+                     ukf_layout=args.ukf_layout or "soa", sqrt_method=args.sqrt_method, mesh=mesh)
     if args.resume:
         fl = resume_fleet(fl, args.resume, args.seed)
     root = "aos, " + fl.sqrt_method if fl.ukf_layout == "aos" else "soa, jacobi"
-    print(f"fleet {args.model}: B={args.scenarios} K={fl.cfg.n_rollouts} sampler={fl.sampler} "
-          f"fast_math={args.fast_math is not False} ukf=({root}) device={fl.carry.x.device}", flush=True)
+    _say(mesh, f"fleet {args.model}: B={args.scenarios} K={fl.cfg.n_rollouts} sampler={fl.sampler} "
+               f"fast_math={args.fast_math is not False} ukf=({root}) device={fl.carry.x.device}"
+               + ("" if mesh is None else f" ranks={mesh.world} backend={torch.distributed.get_backend()}"))
     ckpt = os.path.join(args.log_dir, "fleet", "fleet.pt")
     el = Elapsed()
     res = run_fleet(fl, t_end=args.t_end, report_every=args.report_every, checkpoint=ckpt)
-    el.print()
-    print(f"checkpoint: {ckpt}")
-    print(f"survived {res.scenarios - res.tipped}/{res.scenarios} over {res.ticks} ticks; "
-          f"median tick {1e3 * statistics.median(res.tick_seconds):.3f} ms; "
-          f"all statuses 0: {res.statuses_ok}")
+    if mesh is None or mesh.rank == 0:
+        el.print()
+    _say(mesh, f"checkpoint: {ckpt}")
+    _say(mesh, f"survived {res.scenarios - res.tipped}/{res.scenarios} over {res.ticks} ticks; "
+               f"median tick {1e3 * statistics.median(res.tick_seconds):.3f} ms; "
+               f"all statuses 0: {res.statuses_ok}")
     return res

@@ -127,6 +127,9 @@ def build_parser() -> argparse.ArgumentParser:
                        help="fleet controller: sampling MPPI or batched gradient MPC (condensed QP)")
     fleet.add_argument("--qp-solver", choices=["newton", "panoc"], default="newton",
                        help="the QP fleet's solver: batched projected Newton (default) or batched PANOC")
+    fleet.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                       help="under torch.distributed.run: the collectives' backend (default NCCL on the "
+                            "card, gloo on the CPU; gloo runs two ranks on one card)")
 
     tune = sub.add_parser("tune", parents=[common, log_dir],
                           help="batched (lambda, sigma) sweep of the mppi4-non-liner loop, one launch a tick")

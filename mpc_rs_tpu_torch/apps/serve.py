@@ -28,6 +28,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -44,14 +45,25 @@ from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, check_built, mppi_so
 class Dispatch:
     """One batched solve in flight: the next warm start (B, N) on the
     device, and the host copy of what the tick reads (u0 (B,), or the
-    (B, N) plan) with the event that says when it has landed."""
+    (B, N) plan) with the event that says when it has landed. On the CPU
+    the solve runs on the solver's worker thread, and ``future`` yields
+    (the warm start, the host copy) once it has."""
 
-    def __init__(self, u_n: torch.Tensor, host: torch.Tensor, done: torch.cuda.Event | None):
-        self.u_n, self.host, self.done = u_n, host, done
+    def __init__(self, u_n: torch.Tensor | None, host: torch.Tensor | None, done: torch.cuda.Event | None,
+                 future: Future | None = None):
+        self._u_n, self.host, self.done, self.future = u_n, host, done, future
+
+    @property
+    def u_n(self) -> torch.Tensor:
+        """The next warm start (on the CPU, once this solve has run)."""
+        return self.future.result()[0] if self.future is not None else self._u_n
 
     def result(self) -> np.ndarray:
         """The host copy, once the solve and its copy have landed (this
-        dispatch's event only: solves queued after it are not waited for)."""
+        dispatch's event or solve only: solves queued after it are not
+        waited for)."""
+        if self.future is not None:
+            return self.future.result()[1].numpy()
         if self.done is not None:
             self.done.synchronize()
         return self.host.numpy()
@@ -59,13 +71,18 @@ class Dispatch:
 
 def make_batch_solver(cfg: MppiConfig, model, device: str | torch.device, sampler: str = "box-muller",
                       plan: bool = False):
-    """``solve(seeds (B,) int32, xs (B, S), u_ns (B, N)) -> Dispatch``, which
-    returns without waiting for the device, so the caller can pipeline
-    dispatches (``serve.py:53-99``).
+    """``solve(seeds (B,) int32, xs (B, S), u_ns) -> Dispatch``, which
+    returns without waiting for the solve, so the caller can pipeline
+    dispatches (``serve.py:53-99``). ``u_ns`` is the (B, N) warm start, or
+    the ``Dispatch`` whose sequence is the warm start.
 
     On a CUDA device one launch of ``mppi_solve_batch_fused`` (K5/K6), robot
-    b keyed by Philox seed ``seeds[b]`` with ``sampler``; on the CPU its
-    plain version. The zero fallback (examples/mppi4-ukf-commu.rs:76-81)
+    b keyed by Philox seed ``seeds[b]`` with ``sampler``. On the CPU its
+    plain version runs on one worker thread of the solver's own, so that
+    the caller's tick goes on while it runs (a synchronous plain solve
+    delays every plan by the solve's time); solves run in dispatch order,
+    each taking the warm start of the one before. ``solve.close()`` stops
+    the thread (it also ends when the solver is dropped). The zero fallback (examples/mppi4-ukf-commu.rs:76-81)
     is applied per robot on the device, with ``torch.where`` on status != 0,
     before the sequence becomes the next warm start, so the warm-start chain
     never leaves the device: the host reads back only the (B,) u0 column,
@@ -83,20 +100,31 @@ def make_batch_solver(cfg: MppiConfig, model, device: str | torch.device, sample
         t = torch.from_numpy(a)  # a fresh copy, never the caller's array
         return t.pin_memory().to(device, non_blocking=True) if cuda else t
 
-    def solve(seeds, xs, u_ns: torch.Tensor) -> Dispatch:
-        seeds_d = to_device(np.array(seeds, np.int32))
-        xs_d = to_device(np.array(xs, np.float32))
+    def run(seeds_d, xs_d, u_ns):
+        if isinstance(u_ns, Dispatch):
+            u_ns = u_ns.u_n  # on the CPU the worker has run that solve: it was queued first
         u, st = mppi_solve_batch_fused(cfg, model, xs_d, u_ns, seeds=seeds_d, sampler=sampler)
         u = torch.where((st != 0)[:, None], 0.0, u)  # zero fallback, per robot
-        out = u if plan else u[:, 0]
+        return u, u if plan else u[:, 0]
+
+    def run_on_cpu(seeds_d, xs_d, u_ns):
+        u, out = run(seeds_d, xs_d, u_ns)
+        return u, out.clone()
+
+    def solve(seeds, xs, u_ns: torch.Tensor | Dispatch) -> Dispatch:
+        seeds_d = to_device(np.array(seeds, np.int32))
+        xs_d = to_device(np.array(xs, np.float32))
         if not cuda:
-            return Dispatch(u, out.clone(), None)
+            return Dispatch(None, None, None, worker.submit(run_on_cpu, seeds_d, xs_d, u_ns))
+        u, out = run(seeds_d, xs_d, u_ns)
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         return Dispatch(u, host, done)
 
+    worker = None if cuda else ThreadPoolExecutor(max_workers=1, thread_name_prefix="serve-solve")
+    solve.close = (lambda: None) if cuda else worker.shutdown
     return solve
 
 
@@ -249,7 +277,7 @@ def serve(args) -> dict:
         d0 = time.time()
         d = solve(seeds, xs, u_dev)
         s0 = time.time()  # the JAX runner's clock starts after its async dispatch returns (serve.py:255-258)
-        u_dev = d.u_n
+        u_dev = d  # the next solve's warm start: this one's sequence
         dispatched += 1
         pending.append((d0, s0, d, fresh.copy()))
         return True

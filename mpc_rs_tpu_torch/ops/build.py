@@ -142,6 +142,13 @@ def load_library() -> ctypes.CDLL:
         _P, _P, _P, _P,  # tickets, u_out, status, stream
     ]
     lib.mpc_fleet_partials.restype = _I
+    lib.mpc_partials_merged.argtypes = [
+        _I, _I, _I, _P, _P, _P,  # model, fast, sampler, model, cost and sampler consts
+        _I, _I, _I, _F, _F, _F, _F, _F, _I,  # n, p, k, 1/lambda, inv, lo, hi, std_dev, rollouts a thread
+        _P, _P, _P, _P, _U, _U,  # x, u_n, noise, seeds, base_seed, word0
+        _P, _P, _P, _P, _P,  # partials, noise_out, tickets, row_out, stream
+    ]
+    lib.mpc_partials_merged.restype = _I
     lib.mpc_mppi_sweep.argtypes = [
         _P, _I, _I, _I, _I, _F, _F, _I,  # model consts, sampler, n, b, k, lo, hi, rollouts a thread
         _P, _P, _P, _P, _U,  # x, u_n, noise, seeds, tick

@@ -712,6 +712,11 @@ __device__ __forceinline__ float rollout_score(const Model& model, const Cost& c
 // word0 + b, and writes its rows to partials[b]. With u_out, the launch also
 // merges each problem's rows (the last of its blocks to finish does) and
 // writes u_out[b], status[b] and, for K1, u0 and the stepped plant x_plant.
+// With row_out instead, the merge writes the problem's merged row
+// (m_all, s, uw) to row_out[b] and applies no ladder: the rank's partials of
+// a multi-GPU solve, which the collectives merge across ranks
+// (mpc_rs_tpu/parallel/sharded_mppi.py:73-80). A problem with no finite
+// rollout writes m_all = kNegBig and zeros, as its rows.
 // u_out may alias u_n, and x_plant is x (K1 updates both in place): every
 // block reads them before it draws its ticket, and the merge writes them
 // after the last ticket.
@@ -729,16 +734,28 @@ struct PartialsIO {
   int* tickets;          // (P) zeros; the merging block resets its problem's to 0
   float* u0;             // (1) or null: u_out[0][0], K1's u0 of the solve
   float* x_plant;        // (S) or null: x itself (P = 1), K1's plant, stepped with u0
+  float* row_out = nullptr;  // (P, N+2), or null: the merged rows, in place of u_out's solve
+
+  // whether the last block of a problem merges its rows (into u_out or row_out)
+  __device__ __forceinline__ bool merges() const { return u_out != nullptr || row_out != nullptr; }
 };
 
 // The end of problem b's solve, by one thread, on the merged totals: the
 // status ladder and zero fallback (mppi_pallas.py:1021-1036) into u_out[b]
 // and status[b]; for K1, u0 and one plant step with it from the solve's
-// start state xb (x_plant is x: the step needs no second read of it).
+// start state xb (x_plant is x: the step needs no second read of it). With
+// row_out, the merged row (m_all, tot[0..N]) goes there instead.
 template <int N, class Model>
 __device__ __forceinline__ void finish_solve(const Model& model, float m_all, const float* tot,
                                              const float (&xb)[kStates<Model>],
                                              const PartialsIO& io, int b) {
+  if (io.row_out != nullptr) {
+    float* row = io.row_out + (size_t)b * (N + 2);
+    row[0] = m_all;
+#pragma unroll
+    for (int i = 0; i <= N; ++i) row[1 + i] = tot[i];
+    return;
+  }
   float* u = io.u_out + (size_t)b * N;
   io.status[b] = status_ladder<N>(m_all, tot, u);
   if (io.u0 != nullptr) *io.u0 = u[0];
@@ -781,11 +798,11 @@ __device__ __forceinline__ void partials_end_wide(const Model& model, const Part
   const int b = blockIdx.y;
   if (threadIdx.x <= N) tot[threadIdx.x] = s;
   __syncthreads();
-  if (io.u_out != nullptr && nb == 1) {  // the problem's only block: no row, no ticket
+  if (io.merges() && nb == 1) {  // the problem's only block: no row, no ticket
     if (threadIdx.x == 0) finish_solve<N>(model, m_b, tot, xb, io, b);
     return;
   }
-  const bool block_merge = io.u_out != nullptr && nb > kWarpMergeRows;
+  const bool block_merge = io.merges() && nb > kWarpMergeRows;
   if (threadIdx.x >= 32 && !block_merge) return;
   float* rows = io.partials + (size_t)b * nb * (N + 2);
   __shared__ int ticket;
@@ -793,12 +810,12 @@ __device__ __forceinline__ void partials_end_wide(const Model& model, const Part
     float* row = rows + (size_t)blockIdx.x * (N + 2);
     row[0] = m_b;
     for (int i = 0; i <= N; ++i) row[1 + i] = tot[i];
-    if (io.u_out != nullptr) {
+    if (io.merges()) {
       ticket = cuda::atomic_ref<int, cuda::thread_scope_device>(io.tickets[b])
                    .fetch_add(1, cuda::memory_order_acq_rel);
     }
   }
-  if (io.u_out == nullptr) return;
+  if (!io.merges()) return;
   if (block_merge) {
     __syncthreads();
     if (ticket != nb - 1) return;
@@ -904,8 +921,9 @@ constexpr int kSquares<MppiSweep<S>> = 1;
 // lane 0 writes the block's row and draws the problem's ticket (an
 // acquire-release atomic add); the block that draws nb - 1 has every row of
 // the problem in L2. It merges them (one warp for up to kWarpMergeRows
-// rows, else the block), finishes the solve (finish_solve, or Pol's finish)
-// and resets the ticket for the next launch.
+// rows, else the block), finishes the solve (finish_solve, or Pol's finish;
+// with io.row_out, finish_solve writes the merged row instead) and resets
+// the ticket for the next launch.
 template <int N, class Model, class Cost, bool Fast, int S, int R, class Pol = MppiSolve>
 __device__ __forceinline__ void partials_body(const Model& model, const Cost& cost,
                                               const PartialsArgs& a, const PartialsIO& io,
@@ -987,7 +1005,7 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
     partials_end_wide<N>(model, a, io, nb, m_b, s, xb, red_max, red_sum, tot);
     return;
   }
-  if (io.u_out != nullptr && nb == 1) {  // the problem's only block: no row, no ticket
+  if (io.merges() && nb == 1) {  // the problem's only block: no row, no ticket
     if (threadIdx.x < L) tot[threadIdx.x] = s;
     __syncwarp();
     if (threadIdx.x == 0) {
@@ -999,11 +1017,11 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
     }
     return;
   }
-  const bool block_merge = io.u_out != nullptr && nb > kWarpMergeRows;
+  const bool block_merge = io.merges() && nb > kWarpMergeRows;
   if (threadIdx.x >= 32 && !block_merge) return;
   float* rows = io.partials + (size_t)b * nb * (L + 1);
   float* row = rows + (size_t)blockIdx.x * (L + 1);
-  if (io.u_out == nullptr) {
+  if (!io.merges()) {
     if (threadIdx.x == 0) row[0] = m_b;
     if (threadIdx.x < L) row[1 + threadIdx.x] = s;
     return;

@@ -32,8 +32,14 @@
 //     merges (at K = 1 024 and R = 4 a scenario is one block, which
 //     finishes from its own sums). fleet_finalize_kernel (one warp a
 //     scenario, the same merge) is kept for rows merged outside the launch:
-//     the rows-only entry (mppi_batch_partials_fused) and, later, the
-//     multi-GPU merge.
+//     the rows-only entry (mppi_batch_partials_fused) and the multi-GPU
+//     merge, where it finishes the all-reduced row of each problem (nb = 1);
+//   - the rank's share of a multi-GPU solve (mpc_rs_tpu/parallel/
+//     sharded_mppi.py and scenario.py's rollouts axis, whose Pallas kernel
+//     returns the device's (m, s, uw)): P problems as above, the merging
+//     block writing each problem's merged row (m_all, s, uw) in place of
+//     the solve (mpc_partials_merged); the collectives merge those rows
+//     across ranks.
 //
 // What bounds it on the card: the FP32 issue rate and the transcendentals,
 // not bytes (48 bytes of state and nominals a problem; the rows stay in
@@ -143,8 +149,8 @@ enum ModelId : int {
   kCommu4Cost4 = 4
 };
 
-// Rows merged outside the partials launch (off the main paths: the tests,
-// and later the multi-GPU merge): one warp per scenario merges its nb rows
+// Rows merged outside the partials launch (the rows-only entry, and the
+// multi-GPU merge's all-reduced rows at nb = 1): one warp per scenario merges its nb rows
 // by log-sum-exp (merge_rows_warp, as the partials launch's last block does
 // for a few rows), then the status ladder and zero fallback
 // (mppi_pallas.py:1021-1036).
@@ -366,6 +372,30 @@ int mpc_fleet_partials(int model, int fast, int sampler, const float* model_cons
   if (n_scen < 1 || n_scen > 65535) return -4;
   const PartialsIO io{x, u_n, noise, seeds, 0u, 0u, partials, noise_out, u_out, status, tickets,
                       nullptr, nullptr};
+  const SolveCall c{model_consts, cost_consts, sampler, rpt,
+                    partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts), io, n_scen,
+                    0, static_cast<cudaStream_t>(stream)};
+  return launch_model(model, fast, n, c);
+}
+
+// The partials of P problems merged per problem inside the launch, with no
+// ladder: row_out (P, N+2) receives each problem's (m_all, s, uw), the
+// rank's share of a multi-GPU solve. Problem b samples with key seeds[b]
+// (base_seed when seeds is null) and counter word word0 + b: a K2 solve's
+// draw is P = 1, base_seed = its seed, word0 = its solve index; a fleet
+// tick's is seeds (B) with word0 = 0. Device pointers as mpc_fleet_partials;
+// tickets (P).
+int mpc_partials_merged(int model, int fast, int sampler, const float* model_consts,
+                        const float* cost_consts, const float* sampler_consts, int n, int n_scen,
+                        int k, float inv_lambda, float inv, float lo, float hi, float std_dev,
+                        int rpt, const float* x, const float* u_n, const float* noise,
+                        const int* seeds, unsigned int base_seed, unsigned int word0,
+                        float* partials, float* noise_out, int* tickets, float* row_out,
+                        void* stream) {
+  if (n_scen < 1 || n_scen > 65535) return -4;
+  PartialsIO io{x, u_n, noise, seeds, base_seed, word0, partials, noise_out, nullptr, nullptr,
+                tickets, nullptr, nullptr};
+  io.row_out = row_out;
   const SolveCall c{model_consts, cost_consts, sampler, rpt,
                     partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts), io, n_scen,
                     0, static_cast<cudaStream_t>(stream)};

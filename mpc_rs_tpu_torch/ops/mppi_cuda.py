@@ -15,8 +15,13 @@ thread (``rollouts_per_thread``): a solve is one launch, whose last block to
 finish merges the partials rows and finishes the solve; a chain of J solves
 is J launches, a fleet tick's B solves one. ``mppi_batch_partials_fused``
 returns the rows instead, for ``finalize_batch_fused`` (one block a
-scenario). The launchers are in ``ops/csrc/mppi_kernels.cu``, whose design
-notes say what bounds the kernel.
+scenario). ``mppi_partials_merged_fused`` (one solve) and
+``mppi_batch_partials_merged_fused`` (B) return each problem's merged row
+(m, s, uw), the merge done in the launch and no ladder applied: a rank's
+share of a multi-GPU solve (``parallel/sharded_mppi.py``), which
+``finalize_batch_fused`` finishes after the all-reduces. The launchers are
+in ``ops/csrc/mppi_kernels.cu``, whose design notes say what bounds the
+kernel.
 
 Each wrapper takes tensors on one device. On CPU tensors it runs the plain
 version beside it (the CPU tests use it); on CUDA tensors it launches the
@@ -74,6 +79,7 @@ MIN_BLOCKS = 4 * 132  # four blocks on each of an H100's 132 SMs
 # do not count. "model:<class>" counts the K1/K2/batch calls of each model.
 launches = {"mppi_solve_fused": 0, "mppi_chain_fused": 0, "mppi_solve_batch_fused": 0,
             "mppi_batch_partials_fused": 0, "finalize_batch_fused": 0, "mppi_sweep_batch_fused": 0,
+            "mppi_partials_merged_fused": 0, "mppi_batch_partials_merged_fused": 0,
             "fastmath_eval": 0,
             "fast_tier": 0, **{f"sampler:{name}": 0 for name in ("external", *philox.SAMPLERS)}}
 
@@ -378,19 +384,48 @@ def _ladder_plain(m: torch.Tensor, s: torch.Tensor, uw: torch.Tensor) -> tuple[t
     return torch.where((status == MppiStatus.OK)[..., None], u_new, 0.0), status
 
 
-def finalize_batch_plain(cfg: MppiConfig, partials: torch.Tensor
-                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Merge each problem's partials rows (..., nb, N+2) by log-sum-exp and
-    apply the status ladder and zero fallback of ``finalize_partials``
-    (mppi_pallas.py:1021-1036), what the merging block of
-    ``mppi_partials_kernel`` and ``fleet_finalize_kernel`` do. Returns
-    (u_n' (..., N), status (...,) int32)."""
+def merge_rows_plain(cfg: MppiConfig, partials: torch.Tensor) -> torch.Tensor:
+    """Merge each problem's partials rows (..., nb, N+2) by log-sum-exp at
+    f32(1/λ), each row scaled by exp((m_b − m) f32(1/λ)) (0 for a row with
+    no finite rollout), then summed: the merged row (..., N+2) = (m, s, uw),
+    with no ladder. A problem with no finite rollout gives m = NEG_BIG and
+    zeros."""
     m_b, s_b, uw_b = partials[..., 0], partials[..., 1], partials[..., 2:]
     m = m_b.amax(dim=-1, keepdim=True)
     scale = torch.where(m_b > NO_FINITE_BELOW, torch.exp((m_b - m) * inv_lambda(cfg.lambda_)), 0.0)
     s = (s_b * scale).sum(dim=-1)
     uw = (uw_b * scale[..., None]).sum(dim=-2)
-    return _ladder_plain(m[..., 0], s, uw)
+    return torch.cat([m, s[..., None], uw], dim=-1)
+
+
+def finalize_batch_plain(cfg: MppiConfig, partials: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge each problem's partials rows (..., nb, N+2) by log-sum-exp
+    (``merge_rows_plain``) and apply the status ladder and zero fallback of
+    ``finalize_partials`` (mppi_pallas.py:1021-1036), what the merging block
+    of ``mppi_partials_kernel`` and ``fleet_finalize_kernel`` do. Returns
+    (u_n' (..., N), status (...,) int32)."""
+    row = merge_rows_plain(cfg, partials)
+    return _ladder_plain(row[..., 0], row[..., 1], row[..., 2:])
+
+
+def mppi_batch_partials_merged_plain(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor,
+                                     noise: torch.Tensor, *, rollouts_per_thread: int | None = None
+                                     ) -> torch.Tensor:
+    """Plain version of ``mppi_batch_partials_merged_fused``: each problem's
+    ``mppi_batch_partials_plain`` rows merged by ``merge_rows_plain``, (B,
+    N+2) in the dtype of ``u_ns``. It stands for the JAX package's
+    ``_jnp_partials`` (``mpc_rs_tpu/parallel/sharded_mppi.py:32-46``, one
+    pass over the device's rollouts) in the kernel's order of blocks."""
+    return merge_rows_plain(cfg, mppi_batch_partials_plain(cfg, model, xs, u_ns, noise,
+                                                           rollouts_per_thread=rollouts_per_thread))
+
+
+def mppi_partials_merged_plain(cfg: MppiConfig, model, x: torch.Tensor, u_n: torch.Tensor,
+                               noise: torch.Tensor, *, rollouts_per_thread: int | None = None) -> torch.Tensor:
+    """``mppi_batch_partials_merged_plain`` of one solve: the (N+2,) row."""
+    return mppi_batch_partials_merged_plain(cfg, model, x[None], u_n[None], noise[None],
+                                            rollouts_per_thread=rollouts_per_thread)[0]
 
 
 def solve_noise(cfg: MppiConfig, model, seed: int, solve: int,
@@ -627,12 +662,12 @@ _SAMPLER_IDS = {"external": 0, "box-muller": 1, "clt4": 2, "clt4a": 3, "wallace"
 MAX_SCENARIOS = 65535  # the grid's y dimension
 
 
-def batch_noise(cfg: MppiConfig, model, seeds: torch.Tensor, sampler: str) -> torch.Tensor:
+def batch_noise(cfg: MppiConfig, model, seeds: torch.Tensor, sampler: str, first: int = 0) -> torch.Tensor:
     """(B, K, N) float32 noise that the batched kernel samples in-kernel:
-    scenario b keyed ``seeds[b]`` with stream b (``ops/philox.py``), the
-    transcendentals of the model's tier."""
+    scenario b keyed ``seeds[b]`` with stream ``first`` + b
+    (``ops/philox.py``), the transcendentals of the model's tier."""
     b = seeds.shape[0]
-    return philox.sample_noise(sampler, seeds, torch.arange(b, device=seeds.device),
+    return philox.sample_noise(sampler, seeds, first + torch.arange(b, device=seeds.device),
                                cfg.n_rollouts, cfg.n_horizon, cfg.std_dev, fast=model.fast)
 
 
@@ -754,6 +789,98 @@ def mppi_solve_batch_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch
     _, u_out, status = _batch(cfg, model, xs, u_ns, seeds, sampler, noise, noise_out,
                               rollouts_per_thread, True, "mppi_solve_batch_fused")
     return u_out, status
+
+
+# --------------------------------------------------------------------------
+# the rank's merged row of a multi-GPU solve (K2 at P = 1, K5/K6 at P = B)
+
+
+def _merged(cfg: MppiConfig, model, xs, u_ns, *, seeds, base_seed, word0, sampler, noise, noise_out,
+            rollouts_per_thread, what: str) -> torch.Tensor:
+    """One partials launch of P problems whose merging blocks write the
+    merged rows (P, N+2), with no ladder. Problem b samples with key
+    seeds[b], or ``base_seed`` when ``seeds`` is None (P = 1), with counter
+    word ``word0`` + b; or reads ``noise`` (P, K, N)."""
+    if sampler is not None and sampler not in philox.SAMPLERS:
+        raise ValueError(f"sampler must be one of {philox.SAMPLERS}, got {sampler!r}")
+    rpt = _rpt(cfg.n_rollouts, xs.shape[0], rollouts_per_thread)
+    if xs.device.type == "cpu":
+        if noise is None:
+            noise = (batch_noise(cfg, model, seeds, sampler, word0) if seeds is not None else
+                     solve_noise(cfg, model, base_seed, word0, sampler, device=xs.device)[None])
+        if noise_out is not None:
+            noise_out.copy_(noise)
+        return mppi_batch_partials_merged_plain(cfg, model, xs, u_ns, noise.to(u_ns.dtype),
+                                                rollouts_per_thread=rpt)
+    b, n, k = _batch_kernel_args(cfg, model, xs, u_ns)
+    if noise is not None:
+        _check("noise", noise, (b, k, n), torch.float32, xs.device)
+    elif seeds is not None:
+        _check("seeds", seeds, (b,), torch.int32, xs.device)
+    if noise_out is not None:
+        _check("noise_out", noise_out, (b, k, n), torch.float32, xs.device)
+    name = "external" if noise is not None else sampler
+    mc, cc = model.c_constants
+    partials = torch.empty((b, -(-k // (BLOCK * rpt)), n + 2), dtype=torch.float32, device=xs.device)
+    rows = torch.empty((b, n + 2), dtype=torch.float32, device=xs.device)
+    sd = cfg.std_dev
+    with torch.cuda.device(xs.device):
+        tickets = merge_tickets(xs.device, b)
+        _launch(_library().mpc_partials_merged,
+                (model.model_id, int(model.fast), _SAMPLER_IDS[name], mc, cc, _sampler_consts(sd),
+                 n, b, k, inv_lambda(cfg.lambda_), sd ** -2.0 if cfg.control_inv is None else cfg.control_inv,
+                 cfg.limit[0], cfg.limit[1], sd, rpt, _ptr(xs), _ptr(u_ns), _ptr(noise), _ptr(seeds),
+                 base_seed & 0xFFFFFFFF, word0 & 0xFFFFFFFF, _ptr(partials), _ptr(noise_out), _ptr(tickets),
+                 _ptr(rows)),
+                what, tickets)
+    launches[what] += 1
+    launches[f"model:{type(model).__name__}"] += 1
+    launches[f"sampler:{name}"] += 1
+    launches["fast_tier"] += int(model.fast)
+    return rows
+
+
+def mppi_batch_partials_merged_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, *,
+                                     seeds: torch.Tensor | None = None, sampler: str | None = None,
+                                     noise: torch.Tensor | None = None, noise_out: torch.Tensor | None = None,
+                                     rollouts_per_thread: int | None = None, first_scenario: int = 0
+                                     ) -> torch.Tensor:
+    """Each of B problems' partials merged in the launch, with no ladder:
+    (B, N+2) rows (m, s, uw), what a rank of a multi-GPU fleet tick
+    contributes to the rollouts axis' collectives (the device's partials of
+    ``mppi_pallas_batch_partials``). The arguments are those of
+    ``mppi_batch_partials_fused``, and ``first_scenario``: scenario b draws
+    stream ``first_scenario`` + b, the draw of scenario ``first_scenario`` + b
+    of a whole batch (a rank's sub-batch of a fleet split over the scenario
+    axis). One launch of ``mppi_partials_kernel``,
+    whose last block of each problem merges its rows (the same merge as
+    ``mppi_solve_batch_fused``). A problem with no finite rollout gives
+    m = NEG_BIG and zeros. ``finalize_batch_fused`` on the rows (B, 1, N+2)
+    finishes the solves."""
+    if (noise is None) == (sampler is None):
+        raise ValueError("pass exactly one of noise (B, K, N) or seeds with a sampler")
+    if sampler is not None and seeds is None:
+        raise ValueError(f"sampler must be one of {philox.SAMPLERS}, with seeds (B,) int32")
+    return _merged(cfg, model, xs, u_ns, seeds=seeds, base_seed=0, word0=first_scenario, sampler=sampler, noise=noise,
+                   noise_out=noise_out, rollouts_per_thread=rollouts_per_thread,
+                   what="mppi_batch_partials_merged_fused")
+
+
+def mppi_partials_merged_fused(cfg: MppiConfig, model, x: torch.Tensor, u_n: torch.Tensor, *, seed: int = 0,
+                               solve: int = 0, noise: torch.Tensor | None = None, sampler: str = "box-muller",
+                               noise_out: torch.Tensor | None = None,
+                               rollouts_per_thread: int | None = None) -> torch.Tensor:
+    """One solve's partials merged in the launch (K2 at P = 1), with no
+    ladder: the (N+2,) row (m, s, uw), what a rank of the K-sharded solve
+    contributes (``mppi_pallas_partials``, ``sharded_mppi.py:110-118``).
+    The draw is ``mppi_solve_fused``'s (key ``seed``, stream ``solve``),
+    or ``noise`` (K, N); ``noise_out`` (K, N) receives the noise used."""
+    k, n = cfg.n_rollouts, cfg.n_horizon
+    return _merged(cfg, model, x[None], u_n[None], seeds=None, base_seed=seed, word0=solve,
+                   sampler=None if noise is not None else sampler,
+                   noise=None if noise is None else noise.reshape(1, k, n),
+                   noise_out=None if noise_out is None else noise_out.view(1, k, n),
+                   rollouts_per_thread=rollouts_per_thread, what="mppi_partials_merged_fused")[0]
 
 
 # --------------------------------------------------------------------------

@@ -17,20 +17,33 @@ UKF predict/update/guard. The estimator runs in one of three forms:
   K7 runs the SoA filter only: ``estimator_chain=True`` with ``"aos"``
   raises, where the JAX step quietly runs without the chain.
 
-What is not ported: the ``shard_map`` over a (scenario × rollouts) mesh
-(on one device the rollout merge, ``scenario.py:150-158``, is the
-identity).
+With ``mesh=`` (``parallel/mesh.py``) the tick runs on one rank of a
+(scenario × rollouts) mesh, the ``shard_map`` of ``scenario.py:339-357``:
+the rank holds its scenario sub-batch of B/S (scenario axis), and samples
+K/R of each scenario's rollouts (rollouts axis). Its MPPI is one launch
+whose merging blocks write each scenario's merged row
+(``mppi_batch_partials_merged_fused``), the rows of the rollouts axis are
+merged by ``all_reduce`` MAX and SUM (``parallel/sharded_mppi.py::
+merge_rows``, ``scenario.py:150-158``), and ``finalize_batch_fused``
+finishes the solves. The plant, sensor and UKF then run on the sub-batch
+alone, the same bits on every rank of a rollouts line (the all-reduces give
+every rank the same bits), so those ranks' carries stay equal.
 
 Randomness comes from an explicit ``torch.Generator`` on the carry's
 device: per tick one (B,) int32 draw of kernel seeds (scenario b keys its
 Philox stream with seeds[b]) and the standard normals of sensor noise:
 per substep one (B, o) draw, or with the chain one (n_substeps, B, o)
 draw. ``step(..., mppi_noise=, sensor_noise=)`` replaces both, so a test can
-feed the JAX package and the port the same numbers.
+feed the JAX package and the port the same numbers. On a mesh every rank
+draws the whole fleet's numbers (B = B/S · S) and keeps its sub-batch's, so
+scenario b draws what it draws on one device whatever S is; a rollouts
+rank r keys its streams with seeds[b] + r·7919 (int32), and the noise seams
+take the whole fleet's tensors, of which a rank takes its share.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
@@ -40,7 +53,10 @@ from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
 from mpc_rs_tpu_torch.estimators import ukf_soa
 from mpc_rs_tpu_torch.estimators.ukf import UkfParams, UkfState, ukf_guard, ukf_predict, ukf_update
 from mpc_rs_tpu_torch.ops.estimator_cuda import EstimatorChain, estimator_chain_fused
-from mpc_rs_tpu_torch.ops.mppi_cuda import mppi_solve_batch_fused
+from mpc_rs_tpu_torch.ops.mppi_cuda import (finalize_batch_fused, mppi_batch_partials_merged_fused,
+                                            mppi_solve_batch_fused)
+from mpc_rs_tpu_torch.parallel.mesh import Mesh, all_gather_host
+from mpc_rs_tpu_torch.parallel.sharded_mppi import check_sharded, merge_rows, rank_seed
 
 
 class ScenarioCarry(NamedTuple):
@@ -75,6 +91,8 @@ def make_scenario_step(
     ukf_q_const=None,  # (n, n) static process noise — required for the chain
     ukf_r_const=None,  # (o, o) static measurement noise — required for the chain
     ukf_layout: str = "soa",  # the estimator's layout: "soa" or "aos"
+    mesh: Mesh | None = None,  # a (scenario × rollouts) mesh; None: one device
+    rollouts_per_thread: int | None = None,  # the kernel's R (default its rule at the rank's K and B)
 ):
     """Returns ``step(carry, generator, *, mppi_noise=None, sensor_noise=None)
     -> carry`` advancing every scenario one control tick: MPPI → plant →
@@ -101,6 +119,13 @@ def make_scenario_step(
     ``ukf_layout="aos"``: the AoS filter on the carry of
     ``init_scenario_carry(..., ukf_layout="aos")``; it draws the same sensor
     noise as the SoA path.
+
+    ``mesh``: the tick of one rank of a mesh with axes ``scenario`` (S) and
+    ``rollouts`` (R); its carry holds the rank's B/S scenarios
+    (``shard_carry``), R must divide K, and the noise seams take the whole
+    fleet's (B, K, N) and (n_substeps, B, o). ``rollouts_per_thread`` pins
+    the kernel's R, so that a tick on a mesh can repeat the bits of a tick
+    on one device.
     """
     if ukf_layout not in ("soa", "aos"):
         raise ValueError(f"ukf_layout must be 'soa' or 'aos', got {ukf_layout!r}")
@@ -117,26 +142,51 @@ def make_scenario_step(
                                torch.as_tensor(ukf_r_const), sig, p_reset, n_substeps, dt_sub,
                                disturbance, control_start)
 
+    n_scen = 1 if mesh is None else mesh.size("scenario")
+    sc = 0 if mesh is None else mesh.coord("scenario")
+    r = 0 if mesh is None else mesh.coord("rollouts")
+    if mesh is not None:
+        k_local = check_sharded(cfg, model, mesh.size("rollouts"))
+        cfg_local = dataclasses.replace(cfg, n_rollouts=k_local)
+
+    def mppi(x_hats, u_n, lo, seeds, mppi_noise):
+        """The tick's solves of the scenarios [lo, lo + b) of the fleet."""
+        rpt = rollouts_per_thread
+        if mesh is None:
+            if mppi_noise is None:
+                return mppi_solve_batch_fused(cfg, model, x_hats, u_n, seeds=seeds, sampler=sampler,
+                                              rollouts_per_thread=rpt)
+            return mppi_solve_batch_fused(cfg, model, x_hats, u_n, noise=mppi_noise, rollouts_per_thread=rpt)
+        b = x_hats.shape[0]
+        if mppi_noise is None:
+            rows = mppi_batch_partials_merged_fused(cfg_local, model, x_hats, u_n, seeds=rank_seed(seeds, r),
+                                                    sampler=sampler, first_scenario=lo, rollouts_per_thread=rpt)
+        else:
+            noise = mppi_noise[lo:lo + b, r * k_local:(r + 1) * k_local].contiguous()
+            rows = mppi_batch_partials_merged_fused(cfg_local, model, x_hats, u_n, noise=noise,
+                                                    rollouts_per_thread=rpt)
+        return finalize_batch_fused(cfg, merge_rows(cfg, rows, mesh, "rollouts")[:, None])
+
     def step(carry: ScenarioCarry, generator: torch.Generator, *,
              mppi_noise: torch.Tensor | None = None,
              sensor_noise: torch.Tensor | None = None) -> ScenarioCarry:
         b = carry.x.shape[0]
+        b_all, lo = b * n_scen, b * sc  # the fleet, and this rank's first scenario in it
         dev, dtype = carry.x.device, carry.x.dtype
         x_ctrl = carry.x if feed_true_state else carry.ukf.x
         x_hats = x_ctrl if state_slice is None else x_ctrl[:, list(state_slice)]
+        seeds = None
         if mppi_noise is None:
-            seeds = torch.randint(0, 2**31 - 1, (b,), generator=generator, device=dev,
-                                  dtype=torch.int32)
-            u_new, status = mppi_solve_batch_fused(cfg, model, x_hats.contiguous(), carry.u_n,
-                                                   seeds=seeds, sampler=sampler)
-        else:
-            u_new, status = mppi_solve_batch_fused(cfg, model, x_hats.contiguous(), carry.u_n,
-                                                   noise=mppi_noise)
+            seeds = torch.randint(0, 2**31 - 1, (b_all,), generator=generator, device=dev,
+                                  dtype=torch.int32)[lo:lo + b]
+        u_new, status = mppi(x_hats.contiguous(), carry.u_n, lo, seeds, mppi_noise)
+        if sensor_noise is not None:
+            sensor_noise = sensor_noise[:, lo:lo + b]
 
         if chain is not None:
             o = sig.shape[0]
             eps = (sensor_noise if sensor_noise is not None else
-                   torch.randn((n_substeps, b, o), generator=generator, device=dev, dtype=dtype))
+                   torch.randn((n_substeps, b_all, o), generator=generator, device=dev, dtype=dtype)[:, lo:lo + b])
             rows = eps.permute(0, 2, 1).reshape(n_substeps * o, b).contiguous()  # (n_sub·o, B)
             x, ukf_x, ukf_p = estimator_chain_fused(chain, carry.x, carry.ukf.x, carry.ukf.p,
                                                     u_new[:, 0], carry.t, rows)
@@ -152,7 +202,7 @@ def make_scenario_step(
 
         def sense(x, i):
             eps = (sensor_noise[i] if sensor_noise is not None else
-                   torch.randn((b, s_dev.shape[0]), generator=generator, device=dev, dtype=dtype))
+                   torch.randn((b_all, s_dev.shape[0]), generator=generator, device=dev, dtype=dtype)[lo:lo + b])
             return ukf_hx(x) + s_dev * eps
 
         def plant(x, i):
@@ -231,3 +281,41 @@ def carry_from_numpy(arrays: Mapping[str, Any], device=None) -> ScenarioCarry:
                      sigma_f=None if u.get("sigma_f") is None else t(u["sigma_f"])),
         status=t(arrays["status"]).to(torch.int32), t=t(arrays["t"]),
     )
+
+
+def _map_batch(carry: ScenarioCarry, fn) -> ScenarioCarry:
+    """``fn(tensor, batch_dim)`` on every tensor of the carry: the batch is
+    dim 0 but for the SoA layout's packed covariance (n², B)."""
+    u = carry.ukf
+    soa = u.p.ndim == 2
+    ukf = UkfState(x=fn(u.x, 0), p=fn(u.p, 1 if soa else 0), q=fn(u.q, 0), r=fn(u.r, 0),
+                   sigma_f=None if u.sigma_f is None else fn(u.sigma_f, 0))
+    return ScenarioCarry(x=fn(carry.x, 0), u_n=fn(carry.u_n, 0), ukf=ukf, status=fn(carry.status, 0),
+                         t=fn(carry.t, 0))
+
+
+def shard_carry(carry: ScenarioCarry, mesh: Mesh | None) -> ScenarioCarry:
+    """This rank's scenarios of a whole fleet's carry: the B/S scenarios at
+    its coordinate on the ``scenario`` axis (the whole carry without a
+    mesh). Raises unless S divides B."""
+    if mesh is None:
+        return carry
+    n_s, sc, b = mesh.size("scenario"), mesh.coord("scenario"), carry.x.shape[0]
+    if b % n_s:
+        raise ValueError(f"B={b} scenarios not divisible by the scenario axis' {n_s} ranks")
+    lo, hi = sc * (b // n_s), (sc + 1) * (b // n_s)
+    return _map_batch(carry, lambda a, d: a.narrow(d, lo, hi - lo).contiguous())
+
+
+def gather_carry(carry: ScenarioCarry, mesh: Mesh | None) -> ScenarioCarry:
+    """The whole fleet's carry on the host, gathered over the ``scenario``
+    axis from every rank's sub-batch (``all_gather_host``: a collective,
+    which every rank of the mesh calls at the same tick); without a mesh,
+    the carry itself."""
+    if mesh is None:
+        return carry
+
+    def gather(a, d):
+        return all_gather_host(a.movedim(d, 0), mesh, "scenario").movedim(0, d).contiguous()
+
+    return _map_batch(carry, gather)

@@ -630,3 +630,43 @@ def test_serve_solve_clock_starts_after_the_dispatch_returns(monkeypatch):
     assert summary["dispatches"] >= 2
     assert summary["dispatch_ms_p50"] >= 50.0, summary
     assert summary["solve_ms_p50"] < 25.0, summary
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_serve_stream_plain_path_meets_its_spec_on_the_cpu(seed):
+    """``serve-stream``'s acceptance spec (8 robots, K=128, N=40, time-scale
+    0.2, ``--ticks-per-dispatch 2 --pipeline-depth 1``) on the plain path:
+    its plain solve runs off the dispatching thread, so the plans reach the
+    robots within the tick and every robot stays upright."""
+    from mpc_rs_tpu_torch.apps.acceptance import run_one
+
+    ok, detail, _ = run_one("serve-stream", seed, "cpu")
+    assert ok, detail
+
+
+def test_serve_plain_dispatch_returns_before_the_solve(monkeypatch):
+    """On the CPU ``solve()`` queues the plain solve on the solver's worker
+    and returns at once: with a model stubbed to take 1 s, a dispatch
+    returns in under a tenth of that; the next dispatch, warm-started from
+    the first's Dispatch, runs after it in order."""
+    from mpc_rs_tpu_torch.apps import serve as serve_mod
+
+    stub_s, calls = 1.0, []
+
+    def slow(cfg, model, xs, u_ns, **kw):
+        time.sleep(stub_s)
+        calls.append(u_ns.clone())
+        return u_ns + 1.0, torch.zeros(xs.shape[0], dtype=torch.int32)
+
+    monkeypatch.setattr(serve_mod, "mppi_solve_batch_fused", slow)
+    cfg = MppiConfig(n_horizon=8, n_rollouts=64, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+    solve = make_batch_solver(cfg, CartPoleShaped4(SW, 0.1), "cpu", plan=True)
+    xs, seeds = np.zeros((2, 4), np.float32), np.arange(2, dtype=np.int32)
+    t0 = time.perf_counter()
+    first = solve(seeds, xs, torch.zeros(2, 8))
+    assert time.perf_counter() - t0 < stub_s / 10
+    second = solve(seeds, xs, first)
+    np.testing.assert_array_equal(second.result(), np.full((2, 8), 2.0, np.float32))
+    np.testing.assert_array_equal(first.result(), np.full((2, 8), 1.0, np.float32))
+    assert [float(c[0, 0]) for c in calls] == [0.0, 1.0]
+    solve.close()

@@ -903,3 +903,47 @@ def test_cuda_acceptance_specs_pass(card, name):
 
     ok, detail, _ = acceptance.run_one(name, 0, device="cuda")
     assert ok, detail
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpt", [1, 4])
+@pytest.mark.parametrize("source", ["external", "box-muller", "clt4a"])
+@pytest.mark.parametrize("b, k", [(1, 800_000), (64, 1024), (16, 8192)])
+def test_cuda_merged_row_matches_plain(card, b, k, source, rpt):
+    """The partials launch's merged-row output (``row_out``) against its
+    plain version on the kernel's own noise, in the f32 band at λ = 20;
+    finished by ``finalize_batch_fused`` it is the merged-in-launch solve,
+    bit for bit; a problem with no finite rollout writes NEG_BIG and zeros.
+    Two launches a sharded call: the merged rows and the finalize."""
+    cfg = _cfg(k, lam=20.0)
+    gen = torch.Generator(device=card).manual_seed(b + k)
+    xs = torch.tensor(X0, device=card) + 0.1 * torch.randn((b, 4), generator=gen, device=card)
+    xs[-1, 0] = float("nan") if b > 1 else xs[-1, 0]
+    u_ns = 0.3 * torch.randn((b, N), generator=gen, device=card)
+    seeds = torch.arange(b, dtype=torch.int32, device=card) * 17 + 3
+    noise = (3.0 * torch.randn((b, k, N), generator=gen, device=card) if source == "external"
+             else torch.empty((b, k, N), device=card))
+    kw = dict(noise=noise) if source == "external" else dict(seeds=seeds, sampler=source, noise_out=noise)
+    mppi_cuda.reset_launches()
+    if b == 1:
+        one = dict(noise=noise[0]) if source == "external" else dict(seed=3, sampler=source, noise_out=noise[0])
+        rows = mppi_cuda.mppi_partials_merged_fused(cfg, MODEL, xs[0], u_ns[0], rollouts_per_thread=rpt, **one)[None]
+        one.pop("noise_out", None)
+        want_u, want_st = mppi_solve_fused(cfg, MODEL, xs[0], u_ns[0], rollouts_per_thread=rpt, **one)
+        want_u, want_st = want_u[None], want_st[None]
+    else:
+        rows = mppi_cuda.mppi_batch_partials_merged_fused(cfg, MODEL, xs, u_ns, rollouts_per_thread=rpt, **kw)
+        kw.pop("noise_out", None)
+        want_u, want_st = mppi_cuda.mppi_solve_batch_fused(cfg, MODEL, xs, u_ns, rollouts_per_thread=rpt, **kw)
+    u, st = mppi_cuda.finalize_batch_fused(cfg, rows[:, None].contiguous())
+    torch.cuda.synchronize()
+    merged = "mppi_partials_merged_fused" if b == 1 else "mppi_batch_partials_merged_fused"
+    assert mppi_cuda.launches[merged] == 1 and mppi_cuda.launches["finalize_batch_fused"] == 1
+    assert torch.equal(u, want_u) and torch.equal(st, want_st)
+    plain = mppi_cuda.mppi_batch_partials_merged_plain(cfg, MODEL, xs.double(), u_ns.double(), noise.double(),
+                                                       rollouts_per_thread=rpt)
+    ok = slice(None, -1) if b > 1 else slice(None)
+    np.testing.assert_allclose(rows[ok].double().cpu().numpy(), plain[ok].cpu().numpy(), **F32_BAND)
+    if b > 1:
+        assert float(rows[-1, 0]) == float(torch.tensor(mppi_cuda.NEG_BIG)) and bool((rows[-1, 1:] == 0).all())
+        assert int(st[-1]) == MppiStatus.NO_FINITE

@@ -718,3 +718,71 @@ def test_k1_plain_bench_configs_match_sequential_jax(sampler, fast):
     assert got.statuses.tolist() == [0] * j
     np.testing.assert_allclose(got.u0s.numpy(), u0s, **F32_BAND)
     np.testing.assert_allclose(got.x.numpy(), np.asarray(x), **F32_BAND)
+
+
+# --------------------------------------------------------------------------
+# the merged row of a rank (the multi-GPU solve's partials)
+
+
+@pytest.mark.parametrize("rpt", [1, 4])
+@pytest.mark.parametrize("lam", [0.5, 0.0])
+def test_merged_row_plain_is_the_rows_log_sum_exp(lam, rpt):
+    """The merged row's plain version is ``finalize_batch_plain``'s
+    log-sum-exp over the blocks' rows (m = max m_b, each row scaled by
+    exp((m_b − m) f32(1/λ)), summed), with no ladder: finishing it as one
+    row gives the solve. A scenario with no finite rollout writes NEG_BIG
+    and zeros, and its solve is NO_FINITE; at λ = 0 the solve is INVALID_U."""
+    b, k = 3, 4 * 256 * 3 + 17
+    cfg = _cfg(k, lam)
+    rng = np.random.default_rng(4)
+    xs = torch.tensor(np.tile(X0, (b, 1)) + 0.05 * rng.normal(size=(b, 4)))
+    xs[1, 0] = float("nan")
+    u_ns = torch.tensor(0.3 * rng.normal(size=(b, N)))
+    noise = torch.tensor(3.0 * rng.normal(size=(b, k, N)))
+    rows = mppi_cuda.mppi_batch_partials_plain(cfg, MODEL, xs, u_ns, noise, rollouts_per_thread=rpt)
+    merged = mppi_cuda.mppi_batch_partials_merged_plain(cfg, MODEL, xs, u_ns, noise, rollouts_per_thread=rpt)
+    m_b = rows[..., 0]
+    m = m_b.amax(-1)
+    scale = torch.where(m_b > mppi_cuda.NO_FINITE_BELOW, torch.exp((m_b - m[:, None]) * mppi_cuda.inv_lambda(lam)),
+                        0.0)
+    want = torch.cat([m[:, None], (rows[..., 1:] * scale[..., None]).sum(1)], -1)
+    assert torch.equal(merged, want) or (lam == 0.0 and torch.equal(merged.isnan(), want.isnan()))
+    assert merged[1, 0] == torch.tensor(mppi_cuda.NEG_BIG, dtype=torch.float64) and bool((merged[1, 1:] == 0).all())
+    u, st = finalize_batch_fused(cfg, merged[:, None])
+    want_u, want_st = mppi_cuda.finalize_batch_plain(cfg, rows)
+    assert st.tolist() == want_st.tolist()
+    assert st[1] == MppiStatus.NO_FINITE and (st[0] == (MppiStatus.INVALID_U if lam == 0.0 else MppiStatus.OK))
+    np.testing.assert_allclose(u.numpy(), want_u.numpy(), **F64_BAND)
+
+
+@pytest.mark.parametrize("sampler", ["box-muller", "clt4a"])
+def test_merged_row_wrappers_on_the_cpu(sampler):
+    """On CPU tensors the merged-row wrappers run their plain version on
+    the noise the kernel samples (``solve_noise`` at P = 1, ``batch_noise``
+    from ``first_scenario`` in the batch), count no launch, and finishing
+    the row gives ``mppi_solve_fused``'s solve, bit for bit in float32."""
+    k = 2000
+    cfg = _cfg(k)
+    x, u_n = torch.tensor(X0, dtype=torch.float32), torch.zeros(N)
+    mppi_cuda.reset_launches()
+    row = mppi_cuda.mppi_partials_merged_fused(cfg, MODEL, x, u_n, seed=9, solve=3, sampler=sampler)
+    noise = mppi_cuda.solve_noise(cfg, MODEL, 9, 3, sampler)
+    assert torch.equal(row, mppi_cuda.mppi_partials_merged_plain(cfg, MODEL, x, u_n, noise))
+    u, st = mppi_solve_fused(cfg, MODEL, x, u_n, seed=9, solve=3, sampler=sampler)
+    fu, fst = finalize_batch_fused(cfg, row[None, None])
+    assert torch.equal(fu[0], u) and int(fst[0]) == int(st) == MppiStatus.OK
+    seeds = torch.tensor([5, 6, 7], dtype=torch.int32)
+    xs, u_ns = x.expand(3, 4).contiguous(), torch.zeros(3, N)
+    rows = mppi_cuda.mppi_batch_partials_merged_fused(cfg, MODEL, xs, u_ns, seeds=seeds, sampler=sampler,
+                                                      first_scenario=4)
+    want = mppi_cuda.mppi_batch_partials_merged_plain(cfg, MODEL, xs, u_ns,
+                                                      mppi_cuda.batch_noise(cfg, MODEL, seeds, sampler, 4))
+    assert torch.equal(rows, want)
+    whole = mppi_cuda.mppi_solve_batch_fused(cfg, MODEL, x.expand(7, 4).contiguous(), torch.zeros(7, N),
+                                             seeds=torch.tensor([0, 0, 0, 0, 5, 6, 7], dtype=torch.int32),
+                                             sampler=sampler)
+    assert torch.equal(finalize_batch_fused(cfg, rows[:, None])[0], whole[0][4:])
+    assert mppi_cuda.launches["mppi_partials_merged_fused"] == mppi_cuda.launches[
+        "mppi_batch_partials_merged_fused"] == 0
+    with pytest.raises(ValueError, match="exactly one"):
+        mppi_cuda.mppi_batch_partials_merged_fused(cfg, MODEL, xs, u_ns)
