@@ -81,6 +81,17 @@ the specs of ``tune``, ``mpc-ukf-commu``, ``uart``, ``mppi4-commu``,
 ``serve-stream`` and ``op-en2`` at seed 0; every acceptance check comes from
 ``mpc_rs_tpu_torch/apps/acceptance.py``.
 
+The multi-GPU phases hold ``fleet_finalize_kernel`` at each built horizon
+(N = 8, 20 and 40) against its plain version and the merged-in-launch
+solve, run the K-sharded solve at the family's pairs past N = 8 (the HW
+flagship at N = 20, K = 800 000, bit for bit ``mppi_solve_fused`` at NCCL
+world 1, in the band on two gloo ranks sharing the card; mppi2 and serve's
+cart-pole at N = 40) and time the HW flagship's solves/s at 1 → W ranks
+(``parallel/scaling.py::measure_scaling``) beside its 0.06 s budget. K7 is
+also held on flagship6's scaled sensor (``obs_normalize``) at every B and
+as a main path at its survival gate, and its raw instantiations' outputs
+against the parent's digest.
+
 It prints one JSON line per phase, then the kernels line, the ``nvidia-smi``
 name and power limit, and last the line ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; so does a machine without CUDA, or a
@@ -639,37 +650,59 @@ def fleet_phases(dev: torch.device, card: dict) -> list[dict]:
     ]
 
 
+# the raw K7 instantiations' outputs on runtime/profile_fleet.py's inputs
+# (``k7_digest``): the parent's bits, which adding the scaled sensor's
+# instantiation must keep (its ``--k7-out`` digest on the H100 machine)
+K7_RAW_DIGEST = "e5148abfc940cc91609dc12a315ac4c84e1bea859a805d9e4a3212ec09ec01ae"
+K7_VARIANTS = (("cartpole4", False), ("flagship6", False), ("flagship6", True))  # (model, obs_normalize)
+
+
+def k7_label(model: str, norm: bool) -> str:
+    return f"{model}-obs-normalize" if norm else model
+
+
 def estimator_phases(dev: torch.device, card: dict) -> list[dict]:
-    """The fused estimator chain (K7): each fleet model's kernel against its
-    plain version at B = 1024, 1000, 100, 3 and 1 (at 3 and 1 a group of a
+    """The fused estimator chain (K7): each fleet model's kernel, and
+    flagship6's on the scaled sensor (``obs_normalize``), against its plain
+    version at B = 1024, 1000, 100, 3 and 1 (at 3 and 1 a group of a
     half-filled warp has no scenario) with a NaN estimate in scenario
-    min(5, B − 1), the timings, then both fleets on the chain as a main
-    path. Returns the kernels line's entries."""
+    min(5, B − 1); the raw instantiations' outputs against the digest of
+    the parent's (``K7_RAW_DIGEST``); the timings; then both fleets on the
+    chain as a main path, and flagship6 on the normalised chain. Returns the
+    kernels line's entries."""
     from mpc_rs_tpu_torch.apps.fleet import build_fleet, run_fleet
     from mpc_rs_tpu_torch.ops import estimator_cuda, mppi_cuda
+    from mpc_rs_tpu_torch.runtime.profile_fleet import k7_digest
 
     # E1. the kernel against the plain version: in float32 within the band
     # (flagship6 at B >= 1 000: all but at most K7_ILL_MAX entries, listed
     # with the plain version's float32 value on the CPU and the float64
     # value), and in float64 within twice the plain float32 version's own
-    # distance + 2e-4
-    err, timing = {}, {}
-    for model in ("cartpole4", "flagship6"):
+    # distance + 2e-4; on the scaled sensor, twice the larger of that
+    # distance on the card and on the CPU (there the JAX package's float32
+    # chain and the plain one both sit 4.2e-4 from float64 in x̂[:, 5] at
+    # B = 3, and the card's plain version 0.9e-4)
+    err, timing, raw = {}, {}, {}
+    for model, norm in K7_VARIANTS:
+        label = k7_label(model, norm)
         for b in (1024, 1000, 100, 3, 1):
             nan_b = min(5, b - 1)
-            fl = build_fleet(model, None, dev, scenarios=b, estimator_chain=True)
+            fl = build_fleet(model, None, dev, scenarios=b, estimator_chain=True, obs_normalize=norm)
             chain = fl.tick.chain
             args = estimator_cuda.chain_inputs(chain, fl.carry.x, fl.carry.ukf.x)
             got = estimator_cuda.estimator_chain_fused(chain, *args)
+            if not norm:
+                raw.update({f"{model}/B={b}/{name}": v.cpu() for name, v in zip(("x", "ukf_x", "p"), got)})
             want = estimator_cuda.estimator_chain_plain(chain, *args)
             f64 = estimator_cuda.estimator_chain_plain(chain, *(a_.double() for a_ in args))
             ill = model == "flagship6" and b >= 1000
-            if ill:  # the plain version in float32 on the CPU, the filter's constants there too
-                cpu_chain = build_fleet(model, None, "cpu", scenarios=b, estimator_chain=True).tick.chain
+            if ill or norm:  # the plain version in float32 on the CPU, the filter's constants there too
+                cpu_chain = build_fleet(model, None, "cpu", scenarios=b, estimator_chain=True,
+                                        obs_normalize=norm).tick.chain
                 cpu32 = estimator_cuda.estimator_chain_plain(cpu_chain, *(a_.cpu() for a_ in args))
             else:
                 cpu32 = want
-            row = {"phase": "estimator_chain", "model": model, "b": b, "n_substeps": chain.n_substeps,
+            row = {"phase": "estimator_chain", "model": label, "b": b, "n_substeps": chain.n_substeps,
                    "outside_band": []}
             for name, *vals in zip(("x", "ukf_x", "p"), got, want, f64, cpu32):
                 g, w32, w64, c32 = (v.double().cpu() for v in vals)
@@ -680,17 +713,20 @@ def estimator_phases(dev: torch.device, card: dict) -> list[dict]:
                          "plain_f32_cpu": c32[idx].item(), "plain_f64": w64[idx].item()}
                         for idx in map(tuple, torch.nonzero(out).tolist())]
                 keep = ~out if ill else torch.ones_like(out)
-                check_band(g[keep], w32[keep], f"K7 {model} B={b} {name} vs plain")
+                check_band(g[keep], w32[keep], f"K7 {label} B={b} {name} vs plain")
                 row[f"{name}_max_abs_err"] = max_err(g, w32)  # over every entry
                 row[f"{name}_f64_err"], row[f"{name}_plain_f64_err"] = max_err(g, w64), max_err(w32, w64)
-                check(row[f"{name}_f64_err"] <= 2.0 * row[f"{name}_plain_f64_err"] + 2e-4,
-                      f"K7 {model} B={b} {name}: {row}")
-                err[model] = max(err.get(model, 0.0), row[f"{name}_max_abs_err"])
-            check(len(row["outside_band"]) <= K7_ILL_MAX, f"K7 {model} B={b}: outside the band {row['outside_band']}")
+                yardstick = row[f"{name}_plain_f64_err"]
+                if norm:
+                    row[f"{name}_plain_cpu_f64_err"] = max_err(c32, w64)
+                    yardstick = max(yardstick, row[f"{name}_plain_cpu_f64_err"])
+                check(row[f"{name}_f64_err"] <= 2.0 * yardstick + 2e-4, f"K7 {label} B={b} {name}: {row}")
+                err[label] = max(err.get(label, 0.0), row[f"{name}_max_abs_err"])
+            check(len(row["outside_band"]) <= K7_ILL_MAX, f"K7 {label} B={b}: outside the band {row['outside_band']}")
             check(bool(torch.isfinite(got[1]).all()) and bool(torch.isfinite(got[2]).all()),
-                  f"K7 {model} B={b}: the NaN estimate did not come back finite")
+                  f"K7 {label} B={b}: the NaN estimate did not come back finite")
             if chain.n_substeps == 1:  # the guard fired in the last substep
-                check(torch.equal(got[2][:, nan_b], chain.p_reset.flatten()), f"K7 {model} B={b}: P is not p_reset")
+                check(torch.equal(got[2][:, nan_b], chain.p_reset.flatten()), f"K7 {label} B={b}: P is not p_reset")
             row["nan_scenario"] = nan_b
             row["nan_scenario_p_diag"] = got[2][:, nan_b].reshape(chain.params.n, -1).diagonal().tolist()
             emit(row)
@@ -701,14 +737,22 @@ def estimator_phases(dev: torch.device, card: dict) -> list[dict]:
                 dev_ms = device_ms(lambda: estimator_cuda.estimator_chain_fused(chain, *args))
                 bnd = bound(flops_of(lambda: estimator_cuda.estimator_chain_plain(chain, *args)),
                             nbytes(*args) + nbytes(*got))
-                timing[model] = (min(kern, kern2), plain_t, bnd)
-                emit({"phase": "timing_estimator_chain", "model": model, "b": b, "kernel_us": [1e3 * kern, 1e3 * kern2],
-                      "device_us": 1e3 * dev_ms, "plain_us": 1e3 * plain_t, **bnd, **card})
+                timing[label] = (min(kern, kern2), plain_t, bnd, dev_ms)
+                emit({"phase": "timing_estimator_chain", "model": label, "b": b,
+                      "kernel_us": [1e3 * kern, 1e3 * kern2], "device_us": 1e3 * dev_ms, "plain_us": 1e3 * plain_t,
+                      **bnd, **card})
+    digest = k7_digest(raw)
+    emit({"phase": "estimator_chain_raw_bits", "digest": digest, "parent_digest": K7_RAW_DIGEST,
+          "device_us_b1024": {k: 1e3 * t[3] for k, t in timing.items()}})
+    check(digest == K7_RAW_DIGEST, f"the raw K7 instantiations' outputs are not the parent's: {digest}")
 
-    # E2. the main path: both fleets on the chain, B = 1024
+    # E2. the main path: both fleets on the chain, B = 1024, and flagship6 on
+    # the normalised chain (obs_normalize) at its survival gate
     launches = {}
-    for model, t_end, min_survival in (("cartpole4", 10.0, 0.99), ("flagship6", 3.0, 0.95)):
-        fl = build_fleet(model, None, dev, scenarios=1024, estimator_chain=True)
+    for model, norm, t_end, min_survival in (("cartpole4", False, 10.0, 0.99), ("flagship6", False, 3.0, 0.95),
+                                             ("flagship6", True, 3.0, 0.95)):
+        label = k7_label(model, norm)
+        fl = build_fleet(model, None, dev, scenarios=1024, estimator_chain=True, obs_normalize=norm)
         torch.cuda.synchronize()
         mppi_cuda.reset_launches()
         estimator_cuda.reset_launches()
@@ -716,14 +760,14 @@ def estimator_phases(dev: torch.device, card: dict) -> list[dict]:
         res = run_fleet(fl, t_end=t_end, report_every=1.0)
         run_s = time.perf_counter() - t0
         counts = {**mppi_cuda.launches, **estimator_cuda.launches}
-        launches[model] = counts["estimator_chain_fused"]
-        check(res.survival >= min_survival, f"chain fleet {model}: survival {res.survival} < {min_survival}")
-        check(res.statuses_ok, f"chain fleet {model}: a status was not 0")
+        launches[label] = counts["estimator_chain_fused"]
+        check(res.survival >= min_survival, f"chain fleet {label}: survival {res.survival} < {min_survival}")
+        check(res.statuses_ok, f"chain fleet {label}: a status was not 0")
         check(bool(torch.isfinite(res.carry.x).all()) and bool(torch.isfinite(res.carry.ukf.x).all()),
-              f"chain fleet {model}: non-finite states")
+              f"chain fleet {label}: non-finite states")
         check(counts["estimator_chain_fused"] >= res.ticks and counts["mppi_solve_batch_fused"] >= res.ticks
               and counts["finalize_batch_fused"] == 0,
-              f"chain fleet {model}: launches {counts}: want >= ticks {res.ticks}, and no finalize launch")
+              f"chain fleet {label}: launches {counts}: want >= ticks {res.ticks}, and no finalize launch")
         # the device launches of one tick, from the profiler
         carry = res.carry
         torch.cuda.synchronize()
@@ -733,7 +777,7 @@ def estimator_phases(dev: torch.device, card: dict) -> list[dict]:
         per_tick = [e.name.split("<")[0].split("(")[0][:60] for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA]
         tick_ms = [1e3 * t_ for t_ in res.tick_seconds]
-        emit({"phase": "chain_fleet_main_path", "model": model, "scenarios": res.scenarios,
+        emit({"phase": "chain_fleet_main_path", "model": label, "scenarios": res.scenarios,
               "survived": res.scenarios - res.tipped, "ticks": res.ticks, "survival": res.survival,
               "statuses_ok": res.statuses_ok, "median_max_theta": res.median_max_theta,
               "tick_ms_median": statistics.median(tick_ms), "tick_ms_p99": sorted(tick_ms)[int(0.99 * len(tick_ms))],
@@ -741,12 +785,12 @@ def estimator_phases(dev: torch.device, card: dict) -> list[dict]:
               "device_launches_per_tick": len(per_tick), "device_kernels_of_a_tick": per_tick, **card})
 
     return [
-        {"name": f"estimator_chain_kernel {model} (K7, estimator_chain_fused)", "route": "cuda",
+        {"name": f"estimator_chain_kernel {label} (K7, estimator_chain_fused)", "route": "cuda",
          "source": ESTIMATOR_SOURCE, "replaces": "mpc_rs_tpu/ops/estimator_pallas.py:211",
-         "launches": launches[model], "max_abs_err": err[model], "ms": timing[model][0],
-         "plain_ms": timing[model][1], "bound_ms": timing[model][2]["bound_ms"],
-         "bound_by": timing[model][2]["bound_by"], "library_ms": None}
-        for model in ("cartpole4", "flagship6")
+         "launches": launches[label], "max_abs_err": err[label], "ms": timing[label][0],
+         "plain_ms": timing[label][1], "bound_ms": timing[label][2]["bound_ms"],
+         "bound_by": timing[label][2]["bound_by"], "library_ms": None}
+        for label in (k7_label(m, norm) for m, norm in K7_VARIANTS)
     ]
 
 
@@ -2136,6 +2180,95 @@ def acceptance_phase(dev: torch.device, card: dict) -> None:
 MULTIGPU_JOIN_S = 240  # each rank process's join timeout
 
 
+def sharded_family() -> list[tuple]:
+    """The K-sharded solve past N = 8, one case a (model, N) pair of the
+    family: (label, model, MppiConfig, x0). The HW flagship at N = 20 at its
+    K = 800 000 (bench.py:230-288), mppi2's double integrator at N = 40 at
+    its app's K = 8 000, and serve's cart-pole at N = 40 at serve's default
+    K = 8 192, each at its app's λ, σ and limits."""
+    from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+    from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Commu4Cost4, DoubleIntegratorQuad2
+
+    return [
+        ("hw_flagship", Commu4Cost4(CartPoleParams.two_wheel(), 0.05),
+         MppiConfig(n_horizon=20, n_rollouts=800_000, lambda_=2.0, std_dev=2.0, limit=(-10.0, 10.0)),
+         (0.0, 0.0, 0.1, 0.0)),
+        ("mppi2", DoubleIntegratorQuad2(0.05),
+         MppiConfig(n_horizon=40, n_rollouts=8000, lambda_=2.5, std_dev=1.0, limit=(-3.0, 3.0), control_inv=2.5),
+         (1.0, 0.0)),
+        ("serve_n40", CartPoleShaped4(CartPoleParams.single_wheel(), 0.02),
+         MppiConfig(n_horizon=40, n_rollouts=8192, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0)), X0),
+    ]
+
+
+def finalize_phase(dev: torch.device, card: dict) -> dict:
+    """``fleet_finalize_kernel`` at every built horizon, N = 8, 20 and 40
+    (``sharded_family``'s cases for 20 and 40, the cart-pole's K2 at
+    K = 800 000 for 8), each with box-muller and external noise at R = 1
+    and 4: the merged rows of B problems (the rank's row; B = 1, and B = 8
+    where K is small) finished by ``finalize_batch_fused`` are the
+    merged-in-launch solve bit for bit; the rows-only launch's (B, nb, N+2)
+    rows finished by it match ``finalize_batch_plain`` in float64 on the
+    same rows (the f32 band, the same statuses), and are the merged solve's
+    bits where that solve merges with one warp too (nb ≤ 128, the same
+    merge_rows_warp); a problem with no finite rollout is NO_FINITE with
+    zeros. Returns the timings a horizon at the K-sharded solve's shape
+    (one problem, one row)."""
+    from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
+    from mpc_rs_tpu_torch.models.params import CartPoleParams
+    from mpc_rs_tpu_torch.ops import mppi_cuda
+    from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4
+
+    gen = torch.Generator(device=dev).manual_seed(2020)
+    cases = [("cartpole_n8", CartPoleShaped4(CartPoleParams.single_wheel(), 0.1),
+              MppiConfig(n_horizon=N, n_rollouts=800_000, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0)), X0),
+             *sharded_family()]
+    rows_out, worst, timing = [], {}, {}
+    for label, m, cfg, x0 in cases:
+        n, k = cfg.n_horizon, cfg.n_rollouts
+        b = 1 if k > 100_000 else 8
+        xs = torch.tensor(x0, device=dev) + 0.05 * torch.randn((b, len(x0)), generator=gen, device=dev)
+        u_ns = 0.3 * torch.randn((b, n), generator=gen, device=dev)
+        seeds = torch.arange(b, dtype=torch.int32, device=dev) * 31 + 7
+        for source in ("external", "box-muller"):
+            for rpt in (1, 4):
+                kw = (dict(noise=cfg.std_dev * torch.randn((b, k, n), generator=gen, device=dev))
+                      if source == "external" else dict(seeds=seeds, sampler=source))
+                merged = mppi_cuda.mppi_batch_partials_merged_fused(cfg, m, xs, u_ns, rollouts_per_thread=rpt, **kw)
+                solve_u, solve_st = mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, rollouts_per_thread=rpt, **kw)
+                fin_u, fin_st = mppi_cuda.finalize_batch_fused(cfg, merged[:, None].contiguous())
+                check(torch.equal(fin_u, solve_u) and torch.equal(fin_st, solve_st),
+                      f"finalize N={n} {label} {source} R={rpt}: the merged rows finished are not the solve's bits")
+                parts = mppi_cuda.mppi_batch_partials_fused(cfg, m, xs, u_ns, rollouts_per_thread=rpt, **kw)
+                got_u, got_st = mppi_cuda.finalize_batch_fused(cfg, parts)
+                want_u, want_st = mppi_cuda.finalize_batch_plain(cfg, parts.double())
+                check(torch.equal(got_st, want_st) and bool((got_st == MppiStatus.OK).all()),
+                      f"finalize N={n} {label} {source} R={rpt}: statuses {got_st.tolist()} / {want_st.tolist()}")
+                err = check_band(got_u, want_u, f"finalize N={n} {label} {source} R={rpt} vs plain")
+                nb = int(parts.shape[1])
+                if nb <= 128:
+                    check(torch.equal(got_u, solve_u), f"finalize N={n} {label} {source} R={rpt}: nb = {nb}, "
+                                                       "not the warp-merged solve's bits")
+                worst[n] = max(worst.get(n, 0.0), err)
+                rows_out.append({"case": label, "n": n, "b": b, "k": k, "source": source, "rollouts_per_thread": rpt,
+                                 "blocks": nb, "max_abs_err": err, "bits_of_the_merged_solve": nb <= 128})
+        bad = torch.full((1, 1, n + 2), 0.0, device=dev)
+        bad[0, 0, 0] = mppi_cuda.NEG_BIG
+        u_bad, st_bad = mppi_cuda.finalize_batch_fused(cfg, bad)
+        check(int(st_bad[0]) == MppiStatus.NO_FINITE and bool((u_bad == 0).all()),
+              f"finalize N={n}: a row with no finite rollout gave {int(st_bad[0])}")
+        # the K-sharded solve's shape: one problem, one (all-reduced) row
+        row = mppi_cuda.mppi_partials_merged_fused(cfg, m, xs[0], u_ns[0], seed=5)[None, None].contiguous()
+        fin = lambda: mppi_cuda.finalize_batch_fused(cfg, row)  # noqa: E731
+        plain = lambda: mppi_cuda.finalize_batch_plain(cfg, row)  # noqa: E731
+        timing[n] = dict(ms=device_ms(fin), event_ms=median_ms(fin, reps=50), plain_ms=median_ms(plain, reps=20),
+                         max_abs_err=worst[n], **bound(flops_of(plain), nbytes(row) + 4 * (n + 1)))
+        emit({"phase": "timing_finalize", "n": n, "case": label, **timing[n], **card})
+    emit({"phase": "finalize", "rows": rows_out, "max_abs_err": worst, **card})
+    return timing
+
+
 def merged_row_phase(dev: torch.device, card: dict) -> list[dict]:
     """The partials launch's merged-row output (the rank's share of a
     multi-GPU solve): at P = 1 on the cart-pole with ``shaped4`` at
@@ -2296,10 +2429,11 @@ def multigpu_phases(dev: torch.device, card: dict) -> list[dict]:
     more, the same at NCCL world min(count, 4). Every sharded call on the
     card is one merged-row launch and one finalize launch. Returns the
     kernels line's entries."""
-    from mpc_rs_tpu_torch.ops.mppi_cuda import FLEET_HORIZON
+    from mpc_rs_tpu_torch.ops.mppi_cuda import FINALIZE_HORIZONS
 
     t_phase = time.perf_counter()
     timing = merged_row_phase(dev, card)
+    fin_timing = finalize_phase(dev, card)
     root = Path("logs") / "chip_smoke_multigpu"
     runs = {"nccl1": spawn_ranks(1, "nccl", "nccl1", root), "gloo2": spawn_ranks(2, "gloo", "gloo2", root)}
     count = torch.cuda.device_count()
@@ -2313,6 +2447,20 @@ def multigpu_phases(dev: torch.device, card: dict) -> list[dict]:
         emit({"phase": f"multigpu_{tag}", "ranks": ranks, **card})
     nccl1 = runs["nccl1"][0]
     check(nccl1["solve_bit_equal"], f"NCCL world 1: the sharded solve is not mppi_solve_fused's: {nccl1}")
+    for label, _, fcfg, _ in sharded_family():
+        check(nccl1[f"{label}_bit_equal"],
+              f"NCCL world 1: the sharded {label} solve (N={fcfg.n_horizon}) is not mppi_solve_fused's: {nccl1}")
+    # the HW flagship's K-sharded solves/s beside its 0.06 s budget: NCCL at
+    # world 1, and the two gloo ranks sharing the card at W = 1 and 2
+    hw = {tag: runs[tag][0]["hw_flagship_scaling"] for tag in runs}
+    emit({"phase": "multigpu_hw_flagship", "n": 20, "k": 800_000, "budget_s": HW_BUDGET_S,
+          "scaling": {tag: [dict(r, s_per_solve=1.0 / r["solves_per_s"],
+                                 within_budget=1.0 / r["solves_per_s"] <= HW_BUDGET_S) for r in rows]
+                      for tag, rows in hw.items()},
+          "n8_scaling_same_ranks": {tag: runs[tag][0]["n8_scaling"] for tag in runs},
+          "max_abs_err_vs_one_rank": {tag: max(r[f"{label}_max_abs_err_vs_one_rank"] for r in ranks
+                                               for label, *_ in sharded_family()) for tag, ranks in runs.items()},
+          **card})
     gloo = runs["gloo2"]
     check(gloo[0]["fleet_1x2_digest"] == gloo[1]["fleet_1x2_digest"], "gloo 1x2: the rollouts replicas differ")
     check(gloo[0]["fleet_2x1_equals_one_rank"], "gloo 2x1: the fleet is not the one-rank fleet's bits")
@@ -2333,12 +2481,20 @@ def multigpu_phases(dev: torch.device, card: dict) -> list[dict]:
     emit({"phase": "multigpu_torchrun_fleet", "backend": "nccl", "world": 1, "scenarios": b_fleet,
           "survival": survived / b_fleet, "ticks": int(got.group(3)), "tick_ms_median": float(got.group(4)),
           "wall_s": time.perf_counter() - t0, **card})
-    emit({"phase": "multigpu_total", "seconds": time.perf_counter() - t_phase, "finalize_horizon": FLEET_HORIZON})
+    emit({"phase": "multigpu_total", "seconds": time.perf_counter() - t_phase,
+          "finalize_horizons": sorted(FINALIZE_HORIZONS)})
 
     launches = {name: sum(r["launches"].get(name, 0) for rs in runs.values() for r in rs)
-                for name in ("mppi_partials_merged_fused", "mppi_batch_partials_merged_fused", "finalize_batch_fused")}
+                for name in ("mppi_partials_merged_fused", "mppi_batch_partials_merged_fused", "finalize_batch_fused",
+                             *(f"finalize:N={n}" for n in sorted(FINALIZE_HORIZONS)))}
     check(all(launches.values()), f"the multi-GPU main paths launched {launches}")
     return [
+        {"name": f"fleet_finalize_kernel<{n}> (the K-sharded solve's finalize, finalize_batch_fused at N={n})",
+         "route": "cuda", "source": SOURCE, "replaces": f"{PALLAS}:1019", "launches": launches[f"finalize:N={n}"],
+         "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+         "bound_by": t["bound_by"], "library_ms": None}
+        for n, t in sorted(fin_timing.items())
+    ] + [
         {"name": f"mppi_partials_kernel, merged-row output (K2 rank of the K-sharded solve, {name})",
          "route": "cuda", "source": COMMON_SOURCE, "replaces": f"{PALLAS}:{line}",
          "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -2364,6 +2520,7 @@ def rank_main(argv: list[str]) -> None:
     from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, mppi_solve_fused
     from mpc_rs_tpu_torch.parallel.distributed import init_distributed
     from mpc_rs_tpu_torch.parallel.mesh import make_mesh
+    from mpc_rs_tpu_torch.parallel.scaling import measure_scaling
     from mpc_rs_tpu_torch.parallel.scenario import gather_carry
     from mpc_rs_tpu_torch.parallel.sharded_mppi import make_sharded_mppi, merge_rows
     from mpc_rs_tpu_torch.runtime.checkpoint import carry_fields
@@ -2400,6 +2557,34 @@ def rank_main(argv: list[str]) -> None:
           f"sampled sharded solve: status {int(st_s)}, u0 {float(u_s[0])} against the one-rank {float(one_s[0])}")
     res["sampled_u0"], res["one_rank_sampled_u0"] = float(u_s[0]), float(one_s[0])
 
+    # the K-sharded solve past N = 8 (sharded_family): the HW flagship at
+    # N = 20, K = 800 000 and the N = 40 pairs, external noise against the
+    # one-rank solve (bit for bit at world 1, checked by the caller; the band
+    # at any world), each one merged-row and one finalize launch; then the
+    # HW flagship's solves/s at 1 → W ranks (parallel/scaling.py), in
+    # sampling mode
+    family = Counter()
+    for label, m, fcfg, fx0 in sharded_family():
+        xf, uf = torch.tensor(fx0, device=dev), torch.zeros(fcfg.n_horizon, device=dev)
+        fgen = torch.Generator(device=dev).manual_seed(78)
+        fnoise = fcfg.std_dev * torch.randn((fcfg.n_rollouts, fcfg.n_horizon), generator=fgen, device=dev)
+        mppi_cuda.reset_launches()
+        u_f, st_f = make_sharded_mppi(fcfg, m, mesh, external_noise=True)(fnoise, xf, uf)
+        torch.cuda.synchronize(dev)
+        counts = dict(mppi_cuda.launches)
+        check(counts["mppi_partials_merged_fused"] == 1 and counts[f"finalize:N={fcfg.n_horizon}"] == 1
+              and counts["mppi_solve_fused"] == 0, f"a sharded {label} solve's launches {counts}")
+        family.update(counts)
+        one_u, one_st = mppi_solve_fused(fcfg, m, xf, uf, noise=fnoise)
+        check(int(st_f) == int(one_st) == 0, f"sharded {label} status {int(st_f)} / one-rank {int(one_st)}")
+        res[f"{label}_bit_equal"] = bool(torch.equal(u_f, one_u))
+        res[f"{label}_max_abs_err_vs_one_rank"] = check_band(u_f, one_u, f"sharded {label} vs the one-rank solve")
+        if label == "hw_flagship":  # beside the N = 8 solve at the same K, in this process
+            mppi_cuda.reset_launches()
+            res["hw_flagship_scaling"] = measure_scaling(fcfg, m, iters=50, device=dev)
+            res["n8_scaling"] = measure_scaling(cfg, model, iters=50, device=dev)
+            family.update(dict(mppi_cuda.launches))
+
     # the main path: the mppi4-non-liner closed loop on the K-sharded solve,
     # 50 ticks with the plant stepped, counts reset before and read after
     solve = make_sharded_mppi(cfg, model, mesh)
@@ -2418,7 +2603,7 @@ def rank_main(argv: list[str]) -> None:
     check(res["loop_launches"]["mppi_partials_merged_fused"] == 50
           and res["loop_launches"]["finalize_batch_fused"] == 50, f"closed loop launches {res['loop_launches']}")
     res["loop_tick_ms_median"] = 1e3 * statistics.median(tick_s)
-    launches = Counter(res["loop_launches"])
+    launches = Counter(res["loop_launches"]) + family
 
     # the sharded fleet: 1×world (rollouts) and, with more than one rank,
     # world×1 (scenarios) against the one-rank fleet, R pinned to its choice
@@ -2548,12 +2733,21 @@ def main() -> None:
     check(len(production) == 6 + 4 and all(r["ATOM"] >= 1 for r in production),
           f"the production partials instantiations (3 solves x R = 1, 4), the sweep's (2 noise sources x R = 1, "
           f"4) and their tickets: {sass}")
-    # the estimator chain's two instantiations (K7): registers, no spill
+    # the estimator chain's three instantiations (K7: cartpole4, flagship6 and
+    # flagship6 on the scaled sensor): registers, no spill
     k7_ptxas = ptxas_kernel(log, "estimator_chain_kernel")
     k7_spills = [ln for ln in k7_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
     emit({"phase": "ptxas_estimator_chain", "ptxas": k7_ptxas})
-    check(sum("registers" in ln for ln in k7_ptxas) == 2, f"K7 instantiations in the ptxas report: {k7_ptxas}")
+    check(sum("registers" in ln for ln in k7_ptxas) == 3, f"K7 instantiations in the ptxas report: {k7_ptxas}")
     check(not k7_spills, f"ptxas spills in the estimator chain: {k7_spills}")
+    # the rows' finalize at each built horizon (N = 8, 20, 40; at 40 a lane
+    # holds 41 sums): registers, no spill
+    fin_ptxas = ptxas_kernel(log, "fleet_finalize_kernel")
+    fin_spills = [ln for ln in fin_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
+    emit({"phase": "ptxas_finalize", "ptxas": fin_ptxas})
+    check(sum("registers" in ln for ln in fin_ptxas) == len(mppi_cuda.FINALIZE_HORIZONS),
+          f"finalize instantiations in the ptxas report: {fin_ptxas}")
+    check(not fin_spills, f"ptxas spills in the finalize kernel: {fin_spills}")
 
     # 2b. the HIL apps of this slice at their acceptance specs, on the host's
     # clock, before any torch.profiler session of the run

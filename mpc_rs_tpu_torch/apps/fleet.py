@@ -25,7 +25,8 @@ plant, sensor and UKF as the fused estimator chain (K7, SoA only); it is
 off by default and has no CLI flag, as in the JAX package.
 ``build_fleet(..., obs_normalize=True)`` rescales the flagship's z, hx and R
 by 1/σ a channel (``fleet.py:137-146``), a filter that is the same in exact
-arithmetic; it has no CLI flag either, as there.
+arithmetic, on the torch-op estimator or on K7 (its instantiation on the
+scaled sensor); it has no CLI flag either, as there.
 
 The CLI saves the fleet's carry and generator after every report chunk to
 ``<--log-dir>/fleet/fleet.pt`` (``runtime/checkpoint.py``), and
@@ -114,29 +115,29 @@ def build_fleet(model: str, k: int | None, device, *, seed: int = 0, scenarios: 
     estimator.
     ``ukf_layout``/``sqrt_method``: the estimator's layout and, for the AoS
     one, its sigma root (None: the model's default). ``obs_normalize``
-    (flagship6; None is off): the filter on observations scaled by 1/σ. K7
-    compiles the raw hx in, so ``estimator_chain`` with ``obs_normalize``
-    raises, as does ``obs_normalize`` on cartpole4, which has no such
-    option in the JAX package."""
+    (flagship6; None is off): the filter on observations scaled by 1/σ, also
+    on K7 (``Flagship6Imu(..., obs_sigma=σ)``, as the JAX fleet passes the
+    scaled hx and R into its chain, ``fleet.py:185-191``); on cartpole4,
+    which has no such option in the JAX package, it raises."""
     device = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     fast = True if fast_math is None else fast_math
     alpha = 1.0 if ukf_alpha is None else ukf_alpha
-    if obs_normalize and (estimator_chain or model != "flagship6"):
-        raise ValueError("obs_normalize is the flagship6 fleet's torch-op estimator's option: "
-                         "K7 compiles the raw hx in")
+    if obs_normalize and model != "flagship6":
+        raise ValueError("obs_normalize is the flagship6 fleet's option, as in the JAX package")
     n_dev = 1 if mesh is None else mesh.size("rollouts")
     if model == "flagship6":
         dt = 0.01  # 100 Hz control+sensor
         k = k or 8192
         k = k * n_dev if k % n_dev else k
         p = CartPoleParams.two_wheel()
-        est = Flagship6Imu(p, dt)  # plant, UKF process model and sensor
+        sigma = (200.0, 200.0, 10.0, 0.05, 0.05)
+        # plant, UKF process model and sensor (hx / σ with obs_normalize)
+        est = Flagship6Imu(p, dt, obs_sigma=sigma if obs_normalize else None)
         ctrl = Flagship4Diag4(p, 1.2 / 8, (0.1, 0.1, 1.0, 0.5), fast=fast)
-        sens_raw = torch.tensor([200.0, 200.0, 10.0, 0.05, 0.05], **f32)
+        sens_raw = torch.tensor(sigma, **f32)
         hx = est.hx
         if obs_normalize:
-            hx = lambda x: est.hx(x) / sens_raw  # noqa: E731
             sens, r = torch.ones(5, **f32), torch.diag(1.0 / sens_raw)  # diag(σ)/σ²: σ-as-R kept
         else:
             sens, r = sens_raw, torch.diag(sens_raw)

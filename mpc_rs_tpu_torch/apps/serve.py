@@ -25,8 +25,11 @@ not ported).
 
 from __future__ import annotations
 
+import dataclasses
+import multiprocessing
 import threading
 import time
+import weakref
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 
@@ -46,8 +49,8 @@ class Dispatch:
     """One batched solve in flight: the next warm start (B, N) on the
     device, and the host copy of what the tick reads (u0 (B,), or the
     (B, N) plan) with the event that says when it has landed. On the CPU
-    the solve runs on the solver's worker thread, and ``future`` yields
-    (the warm start, the host copy) once it has."""
+    the solve runs in the solver's own process, through its worker thread,
+    and ``future`` yields (the warm start, the host copy) once it has."""
 
     def __init__(self, u_n: torch.Tensor | None, host: torch.Tensor | None, done: torch.cuda.Event | None,
                  future: Future | None = None):
@@ -69,62 +72,133 @@ class Dispatch:
         return self.host.numpy()
 
 
+def _solve(cfg: MppiConfig, model, sampler: str, plan: bool, seeds: torch.Tensor, xs: torch.Tensor,
+           u_ns: torch.Tensor, advance: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """One batched solve with the zero fallback (examples/mppi4-ukf-commu.rs:
+    76-81) applied per robot, with ``torch.where`` on status != 0, before the
+    sequence becomes the next warm start: (that warm start (B, N), what the
+    tick reads: the (B,) u0 column, or the (B, N) plan with ``plan``). The
+    warm start ``u_ns`` is first advanced by ``advance`` steps (its last
+    entry repeated at the end): the steps of the plan that have gone by
+    since the state it was solved from."""
+    if advance > 0:
+        k = min(advance, u_ns.shape[1] - 1)
+        u_ns = torch.cat([u_ns[:, k:], u_ns[:, -1:].expand(-1, k)], dim=1)
+    u, st = mppi_solve_batch_fused(cfg, model, xs, u_ns, seeds=seeds, sampler=sampler)
+    u = torch.where((st != 0)[:, None], 0.0, u)
+    return u, u if plan else u[:, 0]
+
+
+def _solver_process(conn, cfg: MppiConfig, model, sampler: str, plan: bool) -> None:
+    """The CPU solver's own process: announces its intra-op thread count,
+    then answers each (seeds, xs, u_ns, advance) request with ``_solve``'s pair as
+    numpy arrays (or the exception it raised), until a None. Its torch ops
+    run on one intra-op thread, which ``torch.set_num_threads`` sets for
+    this process alone."""
+    torch.set_num_threads(1)
+    conn.send(torch.get_num_threads())
+    while (request := conn.recv()) is not None:
+        try:
+            *arrays, advance = request
+            u, out = _solve(cfg, model, sampler, plan, *(torch.from_numpy(a) for a in arrays), advance)
+            reply = (u.numpy(), out.numpy())
+        except Exception as err:  # raised again by the caller's Dispatch
+            reply = err
+        conn.send(reply)
+
+
+def _stop_solver_process(worker: ThreadPoolExecutor, conn, process) -> None:
+    """Let the queued solves finish, then end the solver's process."""
+    worker.shutdown(wait=True)
+    if process.is_alive():
+        conn.send(None)
+        process.join()
+    conn.close()
+
+
 def make_batch_solver(cfg: MppiConfig, model, device: str | torch.device, sampler: str = "box-muller",
                       plan: bool = False):
-    """``solve(seeds (B,) int32, xs (B, S), u_ns) -> Dispatch``, which
-    returns without waiting for the solve, so the caller can pipeline
+    """``solve(seeds (B,) int32, xs (B, S), u_ns, advance=0) -> Dispatch``,
+    which returns without waiting for the solve, so the caller can pipeline
     dispatches (``serve.py:53-99``). ``u_ns`` is the (B, N) warm start, or
-    the ``Dispatch`` whose sequence is the warm start.
+    the ``Dispatch`` whose sequence is the warm start; ``advance`` steps of
+    it are dropped first (``_solve``).
 
     On a CUDA device one launch of ``mppi_solve_batch_fused`` (K5/K6), robot
-    b keyed by Philox seed ``seeds[b]`` with ``sampler``. On the CPU its
-    plain version runs on one worker thread of the solver's own, so that
-    the caller's tick goes on while it runs (a synchronous plain solve
-    delays every plan by the solve's time); solves run in dispatch order,
-    each taking the warm start of the one before. ``solve.close()`` stops
-    the thread (it also ends when the solver is dropped). The zero fallback (examples/mppi4-ukf-commu.rs:76-81)
-    is applied per robot on the device, with ``torch.where`` on status != 0,
-    before the sequence becomes the next warm start, so the warm-start chain
-    never leaves the device: the host reads back only the (B,) u0 column,
-    or the (B, N) plan with ``plan``. The states and seeds are copied out of
-    the caller's arrays before the call returns (the caller rewrites its
-    state table every tick while a solve may still be queued), through
-    pinned buffers of their own, and the read-back goes into a pinned
-    buffer of its own with an event recorded after it. Raises unless the
-    kernel is built for ``model`` at ``cfg.n_horizon``, on every device."""
+    b keyed by Philox seed ``seeds[b]`` with ``sampler``, and the zero
+    fallback on the device (``_solve``), so the warm-start chain never
+    leaves it: the host reads back only what the tick reads, into a pinned
+    buffer of its own with an event recorded after it. The states and seeds
+    are copied out of the caller's arrays before the call returns (the
+    caller rewrites its state table every tick while a solve may still be
+    queued), through pinned buffers of their own.
+
+    On the CPU the plain version runs in a process of the solver's own
+    (``_solver_process``, started with ``spawn``), on one intra-op thread,
+    fed by one worker thread of the caller's, so that the caller's tick
+    goes on while it runs; solves run in dispatch order, each taking the
+    warm start of the one before. In the caller's process the solve would
+    share the interpreter lock with the robot links' and fake MCUs' threads
+    (``serve --sim-mcu``: 17 of them), and its thousands of torch calls
+    would each wait for it: there the plain solve at serve-stream's shape
+    (8 robots, K = 128, N = 40) took two to three times its 20 ms alone,
+    and its intra-op pool's OpenMP team stalled it again on a host whose
+    cores other processes held. ``solve.close()`` waits for the queued
+    solves and ends the process; dropping the solver does too. Raises unless
+    the kernel is built for ``model`` at ``cfg.n_horizon``, on every device.
+    A script that makes a CPU solver guards its own body with
+    ``if __name__ == "__main__":``, as ``spawn`` imports it again."""
     device = resolve_device(device)
     check_built(model, cfg.n_horizon)
-    cuda = device.type == "cuda"
+    if device.type == "cuda":
+        return _cuda_batch_solver(cfg, model, device, sampler, plan)
+    context = multiprocessing.get_context("spawn")
+    conn, child = context.Pipe()
+    # a fresh copy of the model: its cached closures are not sent to the process
+    process = context.Process(target=_solver_process, args=(child, cfg, dataclasses.replace(model), sampler, plan),
+                              name="serve-solve", daemon=True)
+    process.start()
+    child.close()
+    intraop_threads = []
+    worker = ThreadPoolExecutor(max_workers=1, thread_name_prefix="serve-solve",
+                                initializer=lambda: intraop_threads.append(conn.recv()))
+
+    def run(seeds: np.ndarray, xs: np.ndarray, u_ns: torch.Tensor | Dispatch, advance: int):
+        if isinstance(u_ns, Dispatch):
+            u_ns = u_ns.u_n  # the worker has run that solve: it was queued first
+        conn.send((seeds, xs, np.asarray(u_ns), int(advance)))
+        reply = conn.recv()
+        if isinstance(reply, Exception):
+            raise reply
+        return tuple(torch.from_numpy(a) for a in reply)
+
+    def solve(seeds, xs, u_ns: torch.Tensor | Dispatch, advance: int = 0) -> Dispatch:
+        return Dispatch(None, None, None, worker.submit(run, np.array(seeds, np.int32), np.array(xs, np.float32),
+                                                        u_ns, advance))
+
+    solve.close = weakref.finalize(solve, _stop_solver_process, worker, conn, process)
+    solve.process, solve.intraop_threads = process, intraop_threads
+    return solve
+
+
+def _cuda_batch_solver(cfg: MppiConfig, model, device: torch.device, sampler: str, plan: bool):
+    """``make_batch_solver`` on a CUDA device."""
 
     def to_device(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)  # a fresh copy, never the caller's array
-        return t.pin_memory().to(device, non_blocking=True) if cuda else t
+        return torch.from_numpy(a).pin_memory().to(device, non_blocking=True)  # a copy, never the caller's
 
-    def run(seeds_d, xs_d, u_ns):
+    def solve(seeds, xs, u_ns: torch.Tensor | Dispatch, advance: int = 0) -> Dispatch:
         if isinstance(u_ns, Dispatch):
-            u_ns = u_ns.u_n  # on the CPU the worker has run that solve: it was queued first
-        u, st = mppi_solve_batch_fused(cfg, model, xs_d, u_ns, seeds=seeds_d, sampler=sampler)
-        u = torch.where((st != 0)[:, None], 0.0, u)  # zero fallback, per robot
-        return u, u if plan else u[:, 0]
-
-    def run_on_cpu(seeds_d, xs_d, u_ns):
-        u, out = run(seeds_d, xs_d, u_ns)
-        return u, out.clone()
-
-    def solve(seeds, xs, u_ns: torch.Tensor | Dispatch) -> Dispatch:
-        seeds_d = to_device(np.array(seeds, np.int32))
-        xs_d = to_device(np.array(xs, np.float32))
-        if not cuda:
-            return Dispatch(None, None, None, worker.submit(run_on_cpu, seeds_d, xs_d, u_ns))
-        u, out = run(seeds_d, xs_d, u_ns)
+            u_ns = u_ns.u_n
+        u, out = _solve(cfg, model, sampler, plan, to_device(np.array(seeds, np.int32)),
+                        to_device(np.array(xs, np.float32)), u_ns, advance)
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         return Dispatch(u, host, done)
 
-    worker = None if cuda else ThreadPoolExecutor(max_workers=1, thread_name_prefix="serve-solve")
-    solve.close = (lambda: None) if cuda else worker.shutdown
+    solve.close = lambda: None
     return solve
 
 
@@ -223,7 +297,13 @@ def serve(args) -> dict:
     entries of each returned plan at successive ticks, its steps
     re-discretised to the tick period: N = clip(round(0.8 / period), 8, 40),
     40 at the default 0.01 s (the kernel is built for N = 8 and 40; any other
-    N raises). Returns the JAX runner's summary."""
+    N raises). Each dispatch's warm start is the previous dispatch's
+    sequence advanced by the plan steps that went by between their state
+    snapshots (rounded; 0 while they are under half a step apart, as at
+    N = 8 with its 0.1 s steps): with plan streaming a dispatch comes M
+    steps after the one before, and a sequence left M steps behind the
+    state makes the fake MCUs' robots swing, and now and then fall, at
+    K = 128. Returns the JAX runner's summary."""
     b = args.robots
     p = CartPoleParams.single_wheel()
     t_hor, n = 0.8, 8
@@ -260,10 +340,12 @@ def serve(args) -> dict:
     deadline = t0 + args.t_end / scale
     dispatched = 0
     last_fresh = np.zeros(b, bool)
+    step_s = dt / scale  # a plan step on the wall clock
+    last_snap = None  # the wall time of the state snapshot u_dev was solved from
 
     def dispatch() -> bool:
         """Snapshot the freshest states and queue one batched solve."""
-        nonlocal u_dev, dispatched
+        nonlocal u_dev, dispatched, last_snap
         snap_t = time.time()
         fresh = np.zeros(b, bool)
         for ln in links:
@@ -274,8 +356,10 @@ def serve(args) -> dict:
         if not fresh.any():
             return False
         seeds = np.int32(args.seed) + np.int32(dispatched) * np.int32(b) + seeds0
+        advance = 0 if last_snap is None else int(round((snap_t - last_snap) / step_s))
+        last_snap = snap_t
         d0 = time.time()
-        d = solve(seeds, xs, u_dev)
+        d = solve(seeds, xs, u_dev, advance)
         s0 = time.time()  # the JAX runner's clock starts after its async dispatch returns (serve.py:255-258)
         u_dev = d  # the next solve's warm start: this one's sequence
         dispatched += 1

@@ -157,7 +157,7 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.mpc_mppi_sweep.restype = _I
     lib.mpc_estimator_chain.argtypes = [
-        _I, _I, _P, _P, _P, _I,  # model, n_sub, plant, obs and chain consts, b
+        _I, _I, _I, _P, _P, _P, _I,  # model, n_sub, obs_scaled, plant, obs and chain consts, b
         _P, _P, _P, _P, _I, _P, _P,  # x, ex, p, u0, u_stride, t, noise
         _P, _P, _P, _P,  # x_out, ex_out, p_out, stream
     ]

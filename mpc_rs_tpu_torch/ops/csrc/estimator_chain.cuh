@@ -176,6 +176,25 @@ struct HxImu6 {
   }
 };
 
+// An observation model divided channel by channel by the sensor's standard
+// deviations: the flagship6 fleet's obs_normalize (mpc_rs_tpu/apps/fleet.py:
+// 139-146, hx(x) / σ with z's injected noise and R scaled to match, which the
+// chain's runtime constants carry). IEEE divisions, as the plain version's
+// hx(x) / σ; the raw model's instantiation is left as it was.
+template <class Hx>
+struct HxScaled {
+  static constexpr int kO = Hx::kO;
+  Hx hx;
+  float sig[kO];  // σ, the raw channels' standard deviations
+
+  template <int S>
+  __device__ __forceinline__ void operator()(const float (&x)[S], float (&z)[kO]) const {
+    hx(x, z);
+#pragma unroll
+    for (int j = 0; j < kO; ++j) z[j] = z[j] / sig[j];
+  }
+};
+
 // One scenario's shared working set, in floats from the group's base.
 template <int N, int O>
 struct ChainLayout {

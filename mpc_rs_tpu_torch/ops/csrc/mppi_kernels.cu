@@ -111,17 +111,20 @@
 // N = 40 (mppi2), the linear cart-pole + shaped4 at N = 8 (mppi4), commu4 +
 // commu4 at N = 20 (the HW flagship); and serve's plan-streaming horizon,
 // the cart-pole + shaped4 at N = 40 (family_serve.cu). The estimator chain is instantiated
-// once per fleet model; K4's probe once per function at 4 and at 1 elements
+// once per fleet model, and for flagship6 once more on the observations
+// scaled by 1/σ (obs_normalize, HxScaled); K4's probe once per function at 4 and at 1 elements
 // a thread (14); the sweep's kernel (partials_body with MppiSweep) for the
 // exact cart-pole with shaped4 at N = 8, box-muller and external noise at
 // R = 1 and 4 (4); D1's kernel (partials_body with D1's policy) once per
 // MixMode at R = 1 and 4 (16), D2's chain for float and bf16 pairs at 16 and
-// 32 values a thread.
+// 32 values a thread; fleet_finalize_kernel at each horizon of launch_model's
+// pairs, N = 8, 20 and 40 (3).
 //
 // C interface (loaded with ctypes): every function returns the
 // cudaGetLastError() value after its last launch (0 on success), -1 when no
 // kernel is built for the (model, N, tier) asked for (the pairs in
-// launch_model; D1 and the rows' merge: N = kN only), -2 for an unknown
+// launch_model; D1 and the sweep: N = kN only; the rows' merge: the
+// horizons of those pairs, N = 8, 20, 40), -2 for an unknown
 // sampler, -3 for an unknown model or function or an R other than 1 or 4,
 // -4 for a batch the grid cannot hold.
 
@@ -153,7 +156,13 @@ enum ModelId : int {
 // multi-GPU merge's all-reduced rows at nb = 1): one warp per scenario merges its nb rows
 // by log-sum-exp (merge_rows_warp, as the partials launch's last block does
 // for a few rows), then the status ladder and zero fallback
-// (mppi_pallas.py:1021-1036).
+// (mppi_pallas.py:1021-1036). Instantiated at every horizon of launch_model's
+// pairs: the fleets' N = kN, the HW flagship's N = 20 and N = 40 (mppi2,
+// serve's cart-pole), so the K-sharded solve finishes any built pair. A lane
+// folds its rows one after another (fold_rows) and keeps the N + 1 sums
+// (s, uw) in registers; the warp's shuffles then add them sum by sum. So at
+// N = 40 the 41 sums need no lane per sum, unlike partials_end_wide, whose
+// block_sums leave sum i in thread i and gather them in shared memory.
 template <int N>
 __global__ void __launch_bounds__(kThreads)
 fleet_finalize_kernel(float inv_lambda, int n_scen, int nb, const float* __restrict__ partials,
@@ -436,14 +445,17 @@ int mpc_mppi_sweep(const float* model_consts, int sampler, int n, int n_scen, in
 // cartpole4 (S = n = 4, o = 3, 5 substeps; plant_consts: 9 floats,
 // CartPoleNonlinearT order at the substep dt; obs_consts: k, 180/π),
 // 1 flagship6 (6, 6, 5, 1 substep; plant_consts: 17 Flagship4Consts floats
-// and mll_j2; obs_consts: k, −k, 180/π, g, l). chain_consts: hc, wm1, wc1,
+// and mll_j2; obs_consts: k, −k, 180/π, g, l, then with obs_scaled the five
+// channels' σ, by which the sensor model is divided: HxScaled, the fleet's
+// obs_normalize; cartpole4 has no such instantiation). chain_consts: hc, wm1, wc1,
 // sum_wc, dt_sub, control_start, pulse t0, t1, f, has_pulse, has_guard, then
 // q (n²), r (o²), sig (o), p_reset (n²), row-major. n_sub must be the
 // model's. Device pointers: x (B, S), ex (B, n), p (n², B), u0 (B, strided
 // by u_stride floats), t (B), noise (n_sub·o, B), and the outputs x_out,
 // ex_out, p_out in the same layouts.
-int mpc_estimator_chain(int model, int n_sub, const float* plant_consts, const float* obs_consts,
-                        const float* chain_consts, int n_scen, const float* x, const float* ex,
+int mpc_estimator_chain(int model, int n_sub, int obs_scaled, const float* plant_consts,
+                        const float* obs_consts, const float* chain_consts, int n_scen,
+                        const float* x, const float* ex,
                         const float* p, const float* u0, int u_stride, const float* t,
                         const float* noise, float* x_out, float* ex_out, float* p_out,
                         void* stream) {
@@ -451,7 +463,7 @@ int mpc_estimator_chain(int model, int n_sub, const float* plant_consts, const f
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* pc = plant_consts;
   const float* oc = obs_consts;
-  if (model == kCartPoleShaped4 && n_sub == 5) {
+  if (model == kCartPoleShaped4 && n_sub == 5 && !obs_scaled) {
     const CartPole4Plant plant{make_model<false>(pc)};
     const HxRpmGyro4 hx{oc[0], oc[1]};
     return launch_estimator_chain<4, 3, 5>(plant, hx, chain_consts, n_scen, x, ex, p, u0,
@@ -460,6 +472,11 @@ int mpc_estimator_chain(int model, int n_sub, const float* plant_consts, const f
   if (model == kFlagship4Diag4 && n_sub == 1) {
     const Flagship6Plant plant{flagship_consts(pc), pc[17]};
     const HxImu6 hx{oc[0], oc[1], oc[2], oc[3], oc[4]};
+    if (obs_scaled) {
+      const HxScaled<HxImu6> scaled{hx, {oc[5], oc[6], oc[7], oc[8], oc[9]}};
+      return launch_estimator_chain<6, 5, 1>(plant, scaled, chain_consts, n_scen, x, ex, p, u0,
+                                             u_stride, t, noise, x_out, ex_out, p_out, s);
+    }
     return launch_estimator_chain<6, 5, 1>(plant, hx, chain_consts, n_scen, x, ex, p, u0,
                                            u_stride, t, noise, x_out, ex_out, p_out, s);
   }
@@ -467,13 +484,20 @@ int mpc_estimator_chain(int model, int n_sub, const float* plant_consts, const f
 }
 
 // Merge (B, nb, N+2) partials per scenario; writes u_out (B, N), status (B).
+// N: a horizon of launch_model's pairs, 8, 20 or 40.
 int mpc_fleet_finalize(int n, int n_scen, int nb, float inv_lambda, const float* partials,
                        float* u_out, int* status, void* stream) {
-  if (n != kN) return -1;
+  if (n != kN && n != 20 && n != 40) return -1;
   if (n_scen < 1 || nb < 1) return -4;
   const int blocks = (n_scen + kWarps - 1) / kWarps;
-  fleet_finalize_kernel<kN><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      inv_lambda, n_scen, nb, partials, u_out, status);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == kN) {
+    fleet_finalize_kernel<kN><<<blocks, kThreads, 0, s>>>(inv_lambda, n_scen, nb, partials, u_out, status);
+  } else if (n == 20) {
+    fleet_finalize_kernel<20><<<blocks, kThreads, 0, s>>>(inv_lambda, n_scen, nb, partials, u_out, status);
+  } else {
+    fleet_finalize_kernel<40><<<blocks, kThreads, 0, s>>>(inv_lambda, n_scen, nb, partials, u_out, status);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,9 @@ standard normals), the SoA UKF predict and update and the guard. The kernel
 (``ops/csrc/estimator_chain.cuh``, a group of 16 lanes per scenario that
 splits its sigma points, sums and gain rows) is instantiated for the two
 fleet models, ``CartPole4Rpm`` (cartpole4) and ``Flagship6Imu``
-(flagship6); its design notes say what bounds it.
+(flagship6), and once more for flagship6 on observations scaled by 1/σ a
+channel (``Flagship6Imu(..., obs_sigma=σ)``: the fleet's ``obs_normalize``);
+its design notes say what bounds it.
 
 ``estimator_chain_plain`` is the same computation in torch ops on the
 batch-minor estimator of ``estimators/ukf_soa.py``, with the mean's pair
@@ -67,6 +69,7 @@ class CartPole4Rpm:
     n_state = 4
     n_obs = 3
     model_id = 0  # kCartPoleShaped4 in mppi_kernels.cu
+    obs_sigma = None  # no scaled sensor: the JAX package has no obs_normalize for cartpole4
 
     @functools.cached_property
     def fx(self):
@@ -90,10 +93,13 @@ class CartPole4Rpm:
 class Flagship6Imu:
     """flagship6's models (``apps/fleet.py:100-194``): ``make_flagship6`` at
     ``dt`` as the plant (with the disturbance force) and as the UKF process
-    model (f ≡ 0), ``make_hx_imu6`` as the sensor."""
+    model (f ≡ 0), ``make_hx_imu6`` as the sensor; with ``obs_sigma`` the
+    sensor divided by those standard deviations a channel, taken in float32
+    (``obs_normalize``, ``fleet.py:139-146``: hx / σ)."""
 
     params: CartPoleParams
     dt: float
+    obs_sigma: tuple[float, ...] | None = None
     n_state = 6
     n_obs = 5
     model_id = 1  # kFlagship4Diag4 in mppi_kernels.cu: the flagship's estimator
@@ -117,7 +123,19 @@ class Flagship6Imu:
 
     @functools.cached_property
     def hx(self):
-        return observation.make_hx_imu6(self.params)
+        raw = observation.make_hx_imu6(self.params)
+        if self.obs_sigma is None:
+            return raw
+        sigma = torch.tensor(self.obs_sigma, dtype=torch.float32)
+        on = {}  # σ on each (device, dtype) it has been asked for, copied once
+
+        def hx(x):
+            key = (x.device, x.dtype)
+            if key not in on:
+                on[key] = sigma.to(x.device, x.dtype)
+            return raw(x) / on[key]
+
+        return hx
 
     def constants(self) -> list[float]:
         """``Flagship4Consts`` at ``dt``, then mll_j2 = m2·l² + j2."""
@@ -125,9 +143,10 @@ class Flagship6Imu:
         return Flagship4Diag4(p, self.dt).constants() + [p.m2 * p.l * p.l + p.j2]
 
     def obs_constants(self) -> list[float]:
+        """``HxImu6``'s k, −k, 180/π, g, l, then σ with ``obs_sigma``."""
         p = self.params
         k = 36.0 * 60.0 / (2.0 * math.pi * p.r_w)
-        return [k, -k, 180.0 / math.pi, p.g, p.l]
+        return [k, -k, 180.0 / math.pi, p.g, p.l, *(self.obs_sigma or ())]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,12 +263,13 @@ def estimator_chain_fused(chain: EstimatorChain, x: torch.Tensor, ukf_x: torch.T
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().mpc_estimator_chain(
-            m.model_id, chain.n_substeps, plant_c, obs_c, chain_c, b,
+            m.model_id, chain.n_substeps, int(m.obs_sigma is not None), plant_c, obs_c, chain_c, b,
             _ptr(x), _ptr(ukf_x), _ptr(p), _ptr(u0), u0.stride(0), _ptr(t), _ptr(noise),
             _ptr(x_out), _ptr(ex_out), _ptr(p_out), ctypes.c_void_p(stream),
         )
     if err == -3:
-        raise ValueError(f"no K7 kernel for {type(m).__name__} with {chain.n_substeps} substeps")
+        scaled = "" if m.obs_sigma is None else " on scaled observations"
+        raise ValueError(f"no K7 kernel for {type(m).__name__}{scaled} with {chain.n_substeps} substeps")
     _raise_on(err, "estimator_chain_fused")
     launches["estimator_chain_fused"] += 1
     return x_out, ex_out, p_out

@@ -63,12 +63,14 @@ from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops import fastmath, philox
 
 BLOCK = 256  # threads per block: each group of 256 rollouts of a block
-FLEET_HORIZON = 8  # kN in the source: the fleets' and the rows' merge's N (D1's too)
+FLEET_HORIZON = 8  # kN in the source: the fleets' N (the sweep's and D1's too)
 # (model_id, N) pairs mppi_partials_kernel is built for (launch_model in
 # ops/csrc/mppi_kernels.cu): the cart-pole and the flagship at N = 8 in both
 # tiers (FAST_BUILT), the family's models in the exact tier at their apps' N,
 # and the cart-pole in the exact tier at serve's plan-streaming N = 40
 BUILT = frozenset({(0, 8), (1, 8), (2, 40), (3, 8), (4, 20), (0, 40)})
+# the horizons fleet_finalize_kernel is built for: those of BUILT's pairs
+FINALIZE_HORIZONS = frozenset(n for _, n in BUILT)
 FAST_BUILT = frozenset({(0, 8), (1, 8)})
 NEG_BIG = -3.4e38  # score of a block with no finite rollout (mppi_pallas.py:302)
 NO_FINITE_BELOW = -3.3e38  # mppi_pallas.py:898,1022
@@ -290,6 +292,7 @@ class Commu4Cost4:
 
 MODELS = (CartPoleShaped4, Flagship4Diag4, DoubleIntegratorQuad2, CartPoleLinearShaped4, Commu4Cost4)
 launches.update({f"model:{m.__name__}": 0 for m in MODELS})
+launches.update({f"finalize:N={n}": 0 for n in sorted(FINALIZE_HORIZONS)})
 
 
 def check_built(model, n: int) -> None:
@@ -760,13 +763,17 @@ def finalize_batch_fused(cfg: MppiConfig, partials: torch.Tensor
     """Merge each scenario's (nb, N+2) rows and apply the status ladder
     (``fleet_finalize_kernel``, one warp a scenario): returns
     (u_n' (B, N), status (B,) int32). For rows merged outside the partials
-    launch; ``mppi_solve_batch_fused`` merges inside it."""
+    launch; ``mppi_solve_batch_fused`` merges inside it. Built at every
+    horizon of ``BUILT`` (``FINALIZE_HORIZONS``); ``launches`` also counts
+    its calls a horizon (``finalize:N=<n>``)."""
     if partials.device.type == "cpu":
         return finalize_batch_plain(cfg, partials)
     b, nb, width = partials.shape
     n = cfg.n_horizon
-    if n != FLEET_HORIZON or width != n + 2:
-        raise ValueError(f"partials rows must be N+2 = {FLEET_HORIZON + 2} wide, got {width} for N={n}")
+    if n not in FINALIZE_HORIZONS:
+        raise ValueError(f"no finalize kernel for horizon N={n}; it is built for N={sorted(FINALIZE_HORIZONS)}")
+    if width != n + 2:
+        raise ValueError(f"partials rows must be N+2 = {n + 2} wide, got {width}")
     _check("partials", partials, (b, nb, width), torch.float32, partials.device)
     u_out = torch.empty((b, n), dtype=torch.float32, device=partials.device)
     status = torch.empty(b, dtype=torch.int32, device=partials.device)
@@ -775,6 +782,7 @@ def finalize_batch_fused(cfg: MppiConfig, partials: torch.Tensor
                 (n, b, nb, inv_lambda(cfg.lambda_), _ptr(partials), _ptr(u_out), _ptr(status)),
                 "finalize_batch_fused")
     launches["finalize_batch_fused"] += 1
+    launches[f"finalize:N={n}"] += 1
     return u_out, status
 
 

@@ -25,8 +25,8 @@ import torch
 import torch.distributed as dist
 
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
-from mpc_rs_tpu_torch.ops.mppi_cuda import (FLEET_HORIZON, NO_FINITE_BELOW, check_built, finalize_batch_fused,
-                                            inv_lambda, mppi_partials_merged_fused)
+from mpc_rs_tpu_torch.ops.mppi_cuda import (NO_FINITE_BELOW, check_built, finalize_batch_fused, inv_lambda,
+                                            mppi_partials_merged_fused)
 from mpc_rs_tpu_torch.parallel.mesh import Mesh, all_reduce
 
 SEED_STRIDE = 7919  # rank r of an axis samples with key seed + r·7919 (sharded_mppi.py:110-118)
@@ -59,12 +59,10 @@ def merge_rows(cfg: MppiConfig, rows: torch.Tensor, mesh: Mesh, axis: str) -> to
 
 
 def check_sharded(cfg: MppiConfig, model, n_ranks: int) -> int:
-    """K's share a rank, K/n; raises unless n divides K and the finalize
-    kernel is built for the model's horizon (N = 8)."""
+    """K's share a rank, K/n; raises unless n divides K and the partials
+    kernel is built for the model at its horizon (``check_built``: a pair of
+    ``BUILT``, whose horizons the finalize kernel is built for)."""
     check_built(model, cfg.n_horizon)
-    if cfg.n_horizon != FLEET_HORIZON:
-        raise ValueError(f"no kernel for horizon N={cfg.n_horizon} with the sharded merge: the all-reduced rows' "
-                         f"finalize is built for N={FLEET_HORIZON}")
     if cfg.n_rollouts % n_ranks:
         raise ValueError(f"K={cfg.n_rollouts} not divisible by {n_ranks} ranks")
     return cfg.n_rollouts // n_ranks
@@ -75,8 +73,10 @@ def make_sharded_mppi(cfg: MppiConfig, model, mesh: Mesh, *, axis: str = "rollou
     """Returns ``solve(seed_or_noise, x, u_n) -> (u_n' (N,), status int32 0-d)``.
 
     K = cfg.n_rollouts is split evenly over ``mesh``'s ``axis``; ``model`` is
-    one of ``ops/mppi_cuda.py``'s at N = 8 (the cart-pole's ``shaped4``, the
-    flagship's ``diag4``). Rank r samples ``sampler``'s noise with key
+    one of ``ops/mppi_cuda.py``'s at a horizon it is built for (``BUILT``:
+    the cart-pole's ``shaped4`` at N = 8 and 40, the flagship's ``diag4`` and
+    the linear cart-pole at 8, the HW flagship's ``commu4`` at 20, mppi2's
+    double integrator at 40). Rank r samples ``sampler``'s noise with key
     seed + r·7919 (int32) and stream 0, an independent stream a rank; with
     ``external_noise`` the first argument is the global (K, N) noise, already
     scaled by σ, of which rank r takes rows [r·K/n, (r+1)·K/n). x, u_n and

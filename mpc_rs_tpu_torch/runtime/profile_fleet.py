@@ -30,8 +30,10 @@ A variant of a kernel is measured the same way: ``--root`` at a copy of
 the checkout with the one source changed.
 
 ``--k7-out`` saves K7's outputs on those inputs at B = 1, 3, 100, 1000 and
-1024 for both models; ``--compare-k7`` prints, for two such files, whether
-each output is the same bits and the largest difference.
+1024 for both models, and prints their digest (``k7_digest``, which
+``chip_smoke.py`` holds the raw instantiations to); ``--compare-k7``
+prints, for two such files, whether each output is the same bits and the
+largest difference.
 
 It prints one JSON line per model, each with ``--label`` and the card's name
 and power limit from ``nvidia-smi``, and writes the lines to ``--out``.
@@ -41,6 +43,7 @@ Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import sys
@@ -169,6 +172,17 @@ def k7_outputs(chain_inputs) -> dict:
     return out
 
 
+def k7_digest(outputs: dict) -> str:
+    """sha256 of ``k7_outputs``' tensors (float32 bytes), in the order of
+    ``MODELS``, ``K7_BATCHES`` and (x, ukf_x, p)."""
+    h = hashlib.sha256()
+    for model in MODELS:
+        for b in K7_BATCHES:
+            for name in ("x", "ukf_x", "p"):
+                h.update(outputs[f"{model}/B={b}/{name}"].cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def own_chain_inputs(root: Path):
     """This checkout's ``ops/estimator_cuda.chain_inputs``, then ``root`` on
     the import path: the K7 inputs stay the same whichever package is
@@ -234,8 +248,10 @@ def main(argv=None) -> list[dict]:
         emit(profile_model(model, args.scenarios, chain_inputs if args.estimator_chain else None))
     if args.k7_out:
         Path(args.k7_out).parent.mkdir(parents=True, exist_ok=True)
-        torch.save(k7_outputs(chain_inputs), args.k7_out)
-        emit({"phase": "k7_outputs", "file": args.k7_out, "batches": list(K7_BATCHES)})
+        outputs = k7_outputs(chain_inputs)
+        torch.save(outputs, args.k7_out)
+        emit({"phase": "k7_outputs", "file": args.k7_out, "batches": list(K7_BATCHES),
+              "digest": k7_digest(outputs)})
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in lines))
     return lines

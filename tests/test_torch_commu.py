@@ -644,29 +644,97 @@ def test_serve_stream_plain_path_meets_its_spec_on_the_cpu(seed):
     assert ok, detail
 
 
-def test_serve_plain_dispatch_returns_before_the_solve(monkeypatch):
-    """On the CPU ``solve()`` queues the plain solve on the solver's worker
-    and returns at once: with a model stubbed to take 1 s, a dispatch
-    returns in under a tenth of that; the next dispatch, warm-started from
-    the first's Dispatch, runs after it in order."""
+def test_serve_plain_solve_runs_in_a_process_of_its_own_on_one_thread():
+    """The CPU solve runs in the solver's own process, on one intra-op
+    thread (that process's count); the caller's count is left as it was,
+    and ``close()`` ends the process."""
+    import os
+
+    before = torch.get_num_threads()
+    cfg = MppiConfig(n_horizon=8, n_rollouts=64, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+    solve = make_batch_solver(cfg, CartPoleShaped4(SW, 0.1), "cpu")
+    solve(np.arange(2, dtype=np.int32), np.zeros((2, 4), np.float32), torch.zeros(2, 8)).result()
+    assert solve.process.pid != os.getpid() and solve.process.is_alive() and solve.intraop_threads == [1]
+    solve.close()
+    assert not solve.process.is_alive() and torch.get_num_threads() == before
+
+
+def test_serve_warm_start_advances_by_the_plan_steps_gone_by(monkeypatch):
+    """``advance`` drops that many steps of the warm start before the solve
+    and repeats its last entry (``_solve``, and the same through the
+    solver's process); ``serve`` advances each dispatch's warm start by the
+    plan steps between the two state snapshots: M = 2 with
+    ``--ticks-per-dispatch 2`` (N = 40, steps of one tick), 0 at N = 8,
+    whose 0.1 s steps are ten ticks long."""
     from mpc_rs_tpu_torch.apps import serve as serve_mod
 
-    stub_s, calls = 1.0, []
+    model = CartPoleShaped4(SW, 0.01)
+    cfg = MppiConfig(n_horizon=40, n_rollouts=256, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+    rng = np.random.default_rng(7)
+    xs = np.zeros((3, 4), np.float32)
+    xs[:, 2] = rng.uniform(-0.1, 0.1, 3)
+    seeds = torch.arange(3, dtype=torch.int32)
+    u = torch.tensor(rng.standard_normal((3, 40)), dtype=torch.float32)
+    moved = torch.cat([u[:, 2:], u[:, -1:], u[:, -1:]], dim=1)
+    want, _ = serve_mod._solve(cfg, model, "box-muller", True, seeds, torch.from_numpy(xs), moved)
+    got, plan = serve_mod._solve(cfg, model, "box-muller", True, seeds, torch.from_numpy(xs), u, 2)
+    assert torch.equal(got, want) and torch.equal(plan, want)
+    solve = serve_mod.make_batch_solver(cfg, model, "cpu", plan=True)
+    np.testing.assert_array_equal(solve(seeds.numpy(), xs, u, 2).result(), want.numpy())
+    solve.close()
 
-    def slow(cfg, model, xs, u_ns, **kw):
-        time.sleep(stub_s)
-        calls.append(u_ns.clone())
-        return u_ns + 1.0, torch.zeros(xs.shape[0], dtype=torch.int32)
+    advances = []
+    real = serve_mod.make_batch_solver
 
-    monkeypatch.setattr(serve_mod, "mppi_solve_batch_fused", slow)
-    cfg = MppiConfig(n_horizon=8, n_rollouts=64, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
-    solve = make_batch_solver(cfg, CartPoleShaped4(SW, 0.1), "cpu", plan=True)
+    def recording_solver(*a, **kw):
+        solve = real(*a, **kw)
+
+        def record(seeds, xs, u_ns, advance=0):
+            advances.append(advance)
+            return solve(seeds, xs, u_ns, advance)
+
+        return record
+
+    monkeypatch.setattr(serve_mod, "make_batch_solver", recording_solver)
+    base = ["serve", "--device", "cpu", "--sim-mcu", "--robots", "2", "--k", "64", "--time-scale", "0.2",
+            "--t-end", "0.3", "--seed", "1"]
+    summary, _ = _run(base + ["--ticks-per-dispatch", "2"])
+    assert summary["horizon"] == 40 and summary["dispatches"] >= 4
+    streamed = advances[2:]  # past the pre-solve and the first dispatch, which have no earlier snapshot
+    assert advances[1] == 0 and np.median(streamed) == 2, advances
+    advances.clear()
+    summary, _ = _run(base)
+    assert summary["horizon"] == 8 and summary["dispatches"] >= 4 and set(advances) == {0}, advances
+
+
+def test_serve_plain_dispatch_returns_before_the_solve():
+    """On the CPU ``solve()`` queues the plain solve for the solver's process
+    and returns at once: at K = 262 144 a dispatch returns in under a tenth
+    of the time to its result. The next dispatch, warm-started from the
+    first's Dispatch, runs after it in order: at K = 1 024 each plan is the
+    solve from the one before, bit for bit (``serve._solve`` in this
+    process)."""
+    from mpc_rs_tpu_torch.apps.serve import _solve
+
+    model = CartPoleShaped4(SW, 0.1)
     xs, seeds = np.zeros((2, 4), np.float32), np.arange(2, dtype=np.int32)
+    xs[:, 2] = 0.1
+    big = MppiConfig(n_horizon=8, n_rollouts=262_144, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+    solve = make_batch_solver(big, model, "cpu", plan=True)
+    solve(seeds, xs, torch.zeros(2, 8)).result()  # the process is up
     t0 = time.perf_counter()
     first = solve(seeds, xs, torch.zeros(2, 8))
-    assert time.perf_counter() - t0 < stub_s / 10
-    second = solve(seeds, xs, first)
-    np.testing.assert_array_equal(second.result(), np.full((2, 8), 2.0, np.float32))
-    np.testing.assert_array_equal(first.result(), np.full((2, 8), 1.0, np.float32))
-    assert [float(c[0, 0]) for c in calls] == [0.0, 1.0]
+    returned = time.perf_counter() - t0
+    first.result()
+    assert returned < (time.perf_counter() - t0) / 10
+    solve.close()
+    cfg = MppiConfig(n_horizon=8, n_rollouts=1024, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+    solve = make_batch_solver(cfg, model, "cpu", plan=True)
+    first = solve(seeds, xs, torch.zeros(2, 8))
+    second = solve(seeds + 2, xs, first)
+    want1, _ = _solve(cfg, model, "box-muller", True, torch.tensor(seeds), torch.tensor(xs), torch.zeros(2, 8))
+    want2, _ = _solve(cfg, model, "box-muller", True, torch.tensor(seeds + 2), torch.tensor(xs), want1)
+    np.testing.assert_array_equal(first.result(), want1.numpy())
+    np.testing.assert_array_equal(second.result(), want2.numpy())
+    assert not np.array_equal(want1.numpy(), want2.numpy())
     solve.close()

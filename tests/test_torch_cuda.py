@@ -487,6 +487,52 @@ def test_cuda_estimator_chain_matches_plain(card, model, b):
         assert torch.equal(got[2][:, min(5, b - 1)].cpu(), chain.p_reset.flatten().cpu())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 1024])
+def test_cuda_estimator_chain_on_scaled_observations_matches_plain(card, b):
+    """K7's instantiation on flagship6's scaled sensor (``obs_normalize``:
+    hx / σ a channel, unit injected noise, R = diag(1/σ)) against its plain
+    version, held as the raw chain is (the same allowance at B ≥ 1 000), but
+    against float64 within twice the larger of the plain float32 version's
+    distance on the card and on the CPU: on the CPU the JAX package's
+    float32 chain and the plain one both sit 4.2e-4 from float64 in
+    x̂[:, 5] at B = 3, the card's plain version 0.9e-4. One launch a call."""
+    fl = build_fleet("flagship6", None, card, scenarios=b, estimator_chain=True, obs_normalize=True)
+    chain = fl.tick.chain
+    assert chain.model.obs_sigma is not None
+    args = estimator_cuda.chain_inputs(chain, fl.carry.x, fl.carry.ukf.x)
+    estimator_cuda.reset_launches()
+    got = estimator_cuda.estimator_chain_fused(chain, *args)
+    want = estimator_cuda.estimator_chain_plain(chain, *args)
+    f64 = estimator_cuda.estimator_chain_plain(chain, *(a.double() for a in args))
+    cpu_chain = build_fleet("flagship6", None, "cpu", scenarios=b, estimator_chain=True, obs_normalize=True).tick.chain
+    cpu32 = estimator_cuda.estimator_chain_plain(cpu_chain, *(a.cpu() for a in args))
+    torch.cuda.synchronize()
+    assert estimator_cuda.launches["estimator_chain_fused"] == 1
+    outside = 0
+    for g32, w32, w64, c32 in zip(got, want, f64, cpu32):
+        g32, w32, w64, c32 = g32.double().cpu(), w32.double().cpu(), w64.cpu(), c32.double()
+        out = (g32 - w32).abs() > F32_BAND["atol"] + F32_BAND["rtol"] * w32.abs()
+        outside += int(out.sum())
+        keep = ~out if b >= 1000 else torch.ones_like(out)
+        np.testing.assert_allclose(g32[keep].numpy(), w32[keep].numpy(), **F32_BAND)
+        yardstick = max(float((w32 - w64).abs().max()), float((c32 - w64).abs().max()))
+        assert float((g32 - w64).abs().max()) <= 2.0 * yardstick + 2e-4
+    assert outside <= K7_ILL_MAX
+    assert torch.isfinite(got[1]).all() and torch.isfinite(got[2]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_raw_estimator_chain_keeps_the_parents_bits(card):
+    """The raw instantiations' outputs on ``runtime/profile_fleet.py``'s
+    inputs are the bits they had before the scaled sensor's instantiation
+    was added (``chip_smoke.K7_RAW_DIGEST``)."""
+    from chip_smoke import K7_RAW_DIGEST
+    from mpc_rs_tpu_torch.runtime.profile_fleet import k7_digest, k7_outputs
+
+    assert k7_digest(k7_outputs(estimator_cuda.chain_inputs)) == K7_RAW_DIGEST
+
+
 # --------------------------------------------------------------------------
 # the diagnostic probes: the op-mix chain (D1) and the mul-add chain (D2)
 
@@ -670,6 +716,77 @@ def test_cuda_family_plant_chain_matches_plain(card, app):
     assert bool((mppi_cuda.merge_tickets(card, 1) == 0).all())
 
 
+def _sharded_case(app, k):
+    """The family's pair past N = 8 at its app's λ, for the finalize and the
+    K-sharded solve; ``serve_n40``: serve's cart-pole at N = 40."""
+    if app == "serve_n40":
+        return CartPoleShaped4(_SW, 0.02), 40, _cfg(k, n=40), X0
+    return _family(app, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpt", [1, 4])
+@pytest.mark.parametrize("source", ["external", "box-muller"])
+@pytest.mark.parametrize("app, k, b", [("hw_flagship", 65_536, 1), ("hw_flagship", 8192, 8), ("mppi2", 8000, 8),
+                                       ("serve_n40", 8192, 8)])
+def test_cuda_finalize_at_n20_and_n40_matches_plain(card, app, k, b, source, rpt):
+    """``fleet_finalize_kernel`` at N = 20 and 40: the merged rows finished
+    are the merged-in-launch solve bit for bit; the rows-only launch's rows
+    finished match ``finalize_batch_plain`` in float64 on the same rows (the
+    f32 band, the same statuses) and, merged by one warp in the launch too
+    (nb ≤ 128), the solve's bits; a row with no finite rollout is NO_FINITE
+    with zeros. One launch a call, counted at its horizon."""
+    m, n, cfg, x0 = _sharded_case(app, k)
+    gen = torch.Generator(device=card).manual_seed(k + b + rpt)
+    xs = torch.tensor(x0, device=card) + 0.05 * torch.randn((b, len(x0)), generator=gen, device=card)
+    u_ns = 0.3 * torch.randn((b, n), generator=gen, device=card)
+    kw = (dict(noise=cfg.std_dev * torch.randn((b, k, n), generator=gen, device=card)) if source == "external"
+          else dict(seeds=torch.arange(b, dtype=torch.int32, device=card) + 5, sampler=source))
+    merged = mppi_cuda.mppi_batch_partials_merged_fused(cfg, m, xs, u_ns, rollouts_per_thread=rpt, **kw)
+    solve_u, solve_st = mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, rollouts_per_thread=rpt, **kw)
+    mppi_cuda.reset_launches()
+    fin_u, fin_st = mppi_cuda.finalize_batch_fused(cfg, merged[:, None].contiguous())
+    assert mppi_cuda.launches["finalize_batch_fused"] == mppi_cuda.launches[f"finalize:N={n}"] == 1
+    assert torch.equal(fin_u, solve_u) and torch.equal(fin_st, solve_st)
+    parts = mppi_cuda.mppi_batch_partials_fused(cfg, m, xs, u_ns, rollouts_per_thread=rpt, **kw)
+    got_u, got_st = mppi_cuda.finalize_batch_fused(cfg, parts)
+    want_u, want_st = mppi_cuda.finalize_batch_plain(cfg, parts.double())
+    torch.cuda.synchronize()
+    assert torch.equal(got_st, want_st) and bool((got_st == MppiStatus.OK).all())
+    np.testing.assert_allclose(got_u.double().cpu().numpy(), want_u.cpu().numpy(), **F32_BAND)
+    if parts.shape[1] <= 128:
+        assert torch.equal(got_u, solve_u)
+    bad = torch.zeros((1, 1, n + 2), device=card)
+    bad[0, 0, 0] = mppi_cuda.NEG_BIG
+    u_bad, st_bad = mppi_cuda.finalize_batch_fused(cfg, bad)
+    assert int(st_bad[0]) == MppiStatus.NO_FINITE and bool((u_bad == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["hw_flagship", "mppi2", "serve_n40"])
+def test_cuda_sharded_solve_at_world_1_is_the_one_rank_solve(card, app):
+    """The K-sharded solve on a world of one rank (no group: no collective)
+    at N = 20 (the HW flagship at K = 800 000) and N = 40: one merged-row
+    launch and one finalize launch at its horizon, and ``mppi_solve_fused``'s
+    bits, with external noise and in-kernel sampling alike."""
+    from mpc_rs_tpu_torch.parallel.mesh import make_mesh
+    from mpc_rs_tpu_torch.parallel.sharded_mppi import make_sharded_mppi
+
+    m, n, cfg, x0 = _sharded_case(app, 800_000 if app == "hw_flagship" else 8192)
+    x, u_n = torch.tensor(x0, device=card), torch.zeros(n, device=card)
+    noise = cfg.std_dev * torch.randn((cfg.n_rollouts, n), generator=torch.Generator(device=card).manual_seed(3),
+                                      device=card)
+    mesh = make_mesh()
+    mppi_cuda.reset_launches()
+    u, st = make_sharded_mppi(cfg, m, mesh, external_noise=True)(noise, x, u_n)
+    assert mppi_cuda.launches["mppi_partials_merged_fused"] == 1 and mppi_cuda.launches[f"finalize:N={n}"] == 1
+    want_u, want_st = mppi_solve_fused(cfg, m, x, u_n, noise=noise)
+    assert int(st) == int(want_st) == 0 and torch.equal(u, want_u)
+    u, st = make_sharded_mppi(cfg, m, mesh)(11, x, u_n)
+    want_u, want_st = mppi_solve_fused(cfg, m, x, u_n, seed=11)
+    assert int(st) == int(want_st) == 0 and torch.equal(u, want_u)
+
+
 @pytest.mark.cuda
 def test_cuda_family_unbuilt_pairs_raise(card):
     m, n, cfg, x0 = _family("mppi2", 256)
@@ -723,7 +840,8 @@ def test_cuda_serve_batch_solver_matches_its_plain_path(card, n):
     zero fallback on the device, the read-back into pinned memory behind an
     event) against the same solver on the CPU: three dispatches queued
     before the first is read, the state table rewritten after each call,
-    robot 3's NaN state zeroed, the others in the f32 band."""
+    the later two warm starts advanced two steps at N = 40, robot 3's NaN
+    state zeroed, the others in the f32 band."""
     from mpc_rs_tpu_torch.apps.serve import make_batch_solver
 
     m = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1 if n == 8 else 0.01)
@@ -737,9 +855,10 @@ def test_cuda_serve_batch_solver_matches_its_plain_path(card, n):
     for d in range(3):
         seeds = np.arange(8, dtype=np.int32) + 8 * d
         x_now = xs.copy()
-        dg = gpu(seeds, xs, u_g)
+        advance = 2 if n == 40 and d else 0
+        dg = gpu(seeds, xs, u_g, advance)
         xs[:, 0] += 0.01  # the table is rewritten while the solve may be queued
-        dc = cpu(seeds, x_now, u_c)
+        dc = cpu(seeds, x_now, u_c, advance)
         u_g, u_c = dg.u_n, dc.u_n
         pending.append((dg, dc))
     assert mppi_cuda.launches["mppi_solve_batch_fused"] == 3

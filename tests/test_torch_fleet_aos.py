@@ -12,6 +12,12 @@ float32 the JAX package's kernel band (rtol 1e-3 / atol 2e-4). The ``eigh``
 root is held in float64 only: two LAPACK builds pick other eigenvectors
 for near-equal eigenvalues in float32 (ROADMAP.md §3); ``cholesky`` and
 ``jacobi`` are held in both precisions.
+
+``obs_normalize`` is held on the torch-op estimator and on the fused
+estimator chain (K7's plain version on the CPU): ticks of the flagship
+fleet on the scaled sensor against the JAX fleet's normalised tick, the
+chain's as the JAX fleet hands the scaled hx and R to its chain
+(``mpc_rs_tpu/apps/fleet.py:139-146,185-191``).
 """
 
 import dataclasses
@@ -188,9 +194,51 @@ def test_obs_normalize_is_the_same_filter_in_float64(layout):
     np.testing.assert_allclose(out[True].ukf.p.numpy(), out[False].ukf.p.numpy(), rtol=1e-9, atol=1e-9)
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_obs_normalize_on_the_chain_matches_the_jax_fleets_normalised_chain(dtype):
+    """``build_fleet("flagship6", estimator_chain=True, obs_normalize=True)``
+    over three ticks on matched noise, against the JAX fleet's normalised
+    chain: hx/σ, unit injected noise and R = diag(1/σ) (``fleet.py:139-146``)
+    handed to its chain (``:185-191``), whose trace (``soa_predict`` /
+    ``soa_update(unroll_sum=True)``, ``ops/estimator_pallas.py:129-152``) is
+    composed from the JAX package's functions, as the JAX fleet runs it on
+    the CPU. Each tick starts both from the port's carry of the tick before
+    (chained float32 flagship ticks part from the JAX ones past the band by
+    themselves, ``tests/test_torch_sharded.py``); the flagship's clock runs
+    through the 2 N pulse. R is the JAX fleet's float32 1/σ, the chain's
+    constant."""
+    b, k, ticks = 8, 256, 3
+    jn, arrays, _, _ = _normalized_case(dtype, b, k)
+    sens = np.asarray([200.0, 200.0, 10.0, 0.05, 0.05], np.float32)
+    r = np.diag(np.float32(1.0) / sens)
+    arrays = dict(arrays, ukf=dict(arrays["ukf"], r=np.broadcast_to(r, (b, 5, 5)).astype(dtype)))
+    fl = build_fleet("flagship6", k, "cpu", scenarios=b, estimator_chain=True, obs_normalize=True)
+    chain = fl.tick.chain
+    assert chain.model.obs_sigma == (200.0, 200.0, 10.0, 0.05, 0.05) and torch.equal(chain.sig, torch.ones(5))
+    np.testing.assert_array_equal(chain.r.numpy(), r)
+    rng = np.random.default_rng(17)
+    for t in range(ticks):
+        mppi_noise = (4.0 * rng.standard_normal((b, k, 8))).astype(dtype)
+        sensor_noise = rng.standard_normal((1, b, 5)).astype(dtype)
+        want = _jax_tick(jn, arrays, mppi_noise, sensor_noise, k, unroll_sum=True)
+        got = fl.tick(carry_from_numpy(arrays), fl.generator, mppi_noise=torch.tensor(mppi_noise),
+                      sensor_noise=torch.tensor(sensor_noise))
+        assert got.status.tolist() == want["status"].tolist() == [0] * b
+        band = BANDS[dtype]
+        for g, w in ((got.u_n, want["u_n"]), (got.x, want["x"]), (got.ukf.x, want["ukf_x"]),
+                     (got.ukf.p, want["ukf_p"])):
+            assert g.dtype == torch.float64 if dtype == np.float64 else g.dtype == torch.float32
+            np.testing.assert_allclose(g.numpy(), w, err_msg=f"tick {t}", **band)
+        arrays = dict(arrays, x=got.x.numpy(), u_n=got.u_n.numpy(), t=got.t.numpy(),
+                      ukf=dict(arrays["ukf"], x=got.ukf.x.numpy(), p=got.ukf.p.numpy()))
+
+
 def test_obs_normalize_with_the_chain_or_on_cartpole4_raises():
-    with pytest.raises(ValueError, match="K7 compiles the raw hx in"):
-        build_fleet("flagship6", 2048, "cpu", scenarios=4, obs_normalize=True, estimator_chain=True)
+    """cartpole4 has no ``obs_normalize`` in the JAX package: it raises on
+    the torch-op estimator and on the chain (the flagship's normalised chain
+    runs: the tests above)."""
+    with pytest.raises(ValueError, match="obs_normalize"):
+        build_fleet("cartpole4", 256, "cpu", scenarios=4, obs_normalize=True, estimator_chain=True)
     with pytest.raises(ValueError, match="obs_normalize"):
         build_fleet("cartpole4", 256, "cpu", scenarios=4, obs_normalize=True)
     assert build_fleet("flagship6", 2048, "cpu", scenarios=4, obs_normalize=False).carry.ukf.r[0, 3, 3] == \

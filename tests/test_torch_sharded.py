@@ -10,6 +10,9 @@ the scaling harness, and write what they got. The tests hold that against:
 - (a) the JAX package's ``make_sharded_mppi(..., backend="jnp",
   external_noise=True)`` on the conftest's virtual CPU devices, on the same
   numpy (K, N) noise: the f32 band (rtol 1e-3 / atol 2e-4) and 1e-9 in f64;
+  at N = 8 on the cart-pole, and at every other horizon the kernels are
+  built for: the HW flagship's N = 20 and mppi2's N = 40 (their JAX models
+  as ``tests/test_torch_mppi_family.py`` builds them);
 - (b) the port's one-rank solve on the same noise, in the same bands;
 - (c) the JAX package's statuses where a shard has no finite rollout, where
   none has (NO_FINITE), and at λ = 0 (INVALID_U);
@@ -47,13 +50,14 @@ from mpc_rs_tpu.parallel.sharded_mppi import make_sharded_mppi as jmake_sharded
 from mpc_rs_tpu_torch.apps.fleet import build_fleet, build_qp_fleet, resume_fleet, run_fleet, run_qp_fleet
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
 from mpc_rs_tpu_torch.models.params import CartPoleParams
-from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, mppi_solve_fused
+from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Commu4Cost4, mppi_solve_fused
 from mpc_rs_tpu_torch.parallel import distributed
 from mpc_rs_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mpc_rs_tpu_torch.parallel.scenario import carry_from_numpy
 from mpc_rs_tpu_torch.parallel.sharded_mppi import make_sharded_mppi, rank_seed
 from mpc_rs_tpu_torch.runtime.checkpoint import carry_fields
 from tests.test_torch_fleet import _jax_tick, _tick_case
+from tests.test_torch_mppi_family import FAMILY
 
 ROOT = Path(__file__).resolve().parents[1]
 K, N, B, K_FLEET, TICKS = 2048, 8, 8, 256, 3
@@ -63,6 +67,9 @@ BANDS = {np.float32: dict(rtol=1e-3, atol=2e-4), np.float64: dict(rtol=1e-9, ato
 TD = {np.float32: torch.float32, np.float64: torch.float64}
 MESHES = {2: [(2, 1), (1, 2)], 4: [(2, 2)]}
 MODELS = ("cartpole4", "flagship6")
+# the K-sharded solve's models: the cart-pole at N = 8, and the family's
+# pairs past N = 8, as tests/test_torch_mppi_family.py runs them
+SOLVE_MODELS = ("cartpole", "hw_flagship", "mppi2")
 PROC_TIMEOUT_S = 150
 
 _WORKER = textwrap.dedent(
@@ -76,7 +83,7 @@ _WORKER = textwrap.dedent(
     from mpc_rs_tpu_torch.apps.fleet import build_fleet, build_qp_fleet, run_fleet, run_qp_fleet
     from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
     from mpc_rs_tpu_torch.models.params import CartPoleParams
-    from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4
+    from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Commu4Cost4, DoubleIntegratorQuad2
     from mpc_rs_tpu_torch.parallel.distributed import init_distributed
     from mpc_rs_tpu_torch.parallel.mesh import make_mesh
     from mpc_rs_tpu_torch.parallel.scaling import measure_scaling
@@ -87,21 +94,23 @@ _WORKER = textwrap.dedent(
     init_distributed(f"file://{out}/store", world, rank, device="cpu", timeout_s=60)
     data = torch.load(f"{out}/../inputs.pt", weights_only=False)
     model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
+    solve_models = {"cartpole": model, "hw_flagship": Commu4Cost4(CartPoleParams.two_wheel(), 0.05),
+                    "mppi2": DoubleIntegratorQuad2(2.0 / 40)}
     res = {}
     mesh = make_mesh({"rollouts": world})
-    for name in ("float32", "float64"):
-        limit = data[f"limit_{name}"]
-        cfg = MppiConfig(n_horizon=8, n_rollouts=data["k"], lambda_=0.5, std_dev=3.0, limit=limit)
-        x, u, noise = data[f"x_{name}"], data[f"u_{name}"], data[f"noise_{name}"]
-        solve = make_sharded_mppi(cfg, model, mesh, external_noise=True)
-        res[f"ext_{name}"] = solve(noise, x, u)
-        res[f"big_shard_{name}"] = solve(data[f"big_{name}"], x, u)
-        res[f"no_finite_{name}"] = solve(noise, torch.full_like(x, float("nan")), u)
-        lam0 = make_sharded_mppi(MppiConfig(n_horizon=8, n_rollouts=data["k"], lambda_=0.0, std_dev=3.0,
-                                            limit=limit), model, mesh, external_noise=True)
-        res[f"lambda0_{name}"] = lam0(noise, x, u)
+    for m_name, m in solve_models.items():
+        for name in ("float32", "float64"):
+            limit = data[f"limit_{name}"]
+            kw = dict(data["cfg"][m_name], n_rollouts=data["k"], limit=limit)
+            x, u, noise = (data[f"{v}_{m_name}_{name}"] for v in ("x", "u", "noise"))
+            solve = make_sharded_mppi(MppiConfig(**kw), m, mesh, external_noise=True)
+            res[f"ext_{m_name}_{name}"] = solve(noise, x, u)
+            res[f"big_shard_{m_name}_{name}"] = solve(data[f"big_{m_name}_{name}"], x, u)
+            res[f"no_finite_{m_name}_{name}"] = solve(noise, torch.full_like(x, float("nan")), u)
+            lam0 = make_sharded_mppi(MppiConfig(**dict(kw, lambda_=0.0)), m, mesh, external_noise=True)
+            res[f"lambda0_{m_name}_{name}"] = lam0(noise, x, u)
     cfg = MppiConfig(n_horizon=8, n_rollouts=data["k"], lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
-    res["sampled"] = make_sharded_mppi(cfg, model, mesh)(7, data["x_float32"], data["u_float32"])
+    res["sampled"] = make_sharded_mppi(cfg, model, mesh)(7, data["x_cartpole_float32"], data["u_cartpole_float32"])
 
     for s, r in data["meshes"][world]:
         fleet_mesh = make_mesh({"scenario": s, "rollouts": r})
@@ -137,14 +146,24 @@ def _limit(dtype):
     return (-1e300, 1e300) if dtype == np.float64 else (-1e35, 1e35)
 
 
-def _solve_inputs(dtype):
+def _solve_kw(model):
+    """A solve model's MppiConfig arguments but K and the limit: the
+    cart-pole's (N = 8, λ = 0.5, σ = 3), the family's at their apps' own."""
+    if model == "cartpole":
+        return dict(n_horizon=N, lambda_=0.5, std_dev=3.0)
+    return {a: v for a, v in FAMILY[model][4].items() if a != "limit"}
+
+
+def _solve_inputs(dtype, model="cartpole"):
     """The solves' numpy inputs: x, u_n, the (K, N) noise, and the noise
     whose first shard's rows overflow every rollout of that shard."""
+    n = _solve_kw(model)["n_horizon"]
+    x0 = X0 if model == "cartpole" else FAMILY[model][5]
     rng = np.random.default_rng(21)
-    noise = (3.0 * rng.standard_normal((K, N))).astype(dtype)
+    noise = (_solve_kw(model)["std_dev"] * rng.standard_normal((K, n))).astype(dtype)
     big = noise.copy()
     big[: K // 2] = BIG[dtype] * np.sign(big[: K // 2])  # rank 0 of 2, ranks 0 and 1 of 4
-    return np.asarray(X0, dtype), (0.3 * rng.standard_normal(N)).astype(dtype), noise, big
+    return np.asarray(x0, dtype), (0.3 * rng.standard_normal(n)).astype(dtype), noise, big
 
 
 def _arrays(fields: dict) -> dict:
@@ -208,12 +227,15 @@ def ranks(tmp_path_factory):
             fleet[(model, np.dtype(dtype).name)] = dict(
                 starts=case["starts"], mppi=[torch.tensor(m) for m in case["mppi"]],
                 sensor=[torch.tensor(s) for s in case["sensor"]])
-    data = dict(k=K, k_fleet=K_FLEET, b=B, meshes=MESHES, models=MODELS, fleet=fleet)
+    data = dict(k=K, k_fleet=K_FLEET, b=B, meshes=MESHES, models=MODELS, fleet=fleet,
+                cfg={m: _solve_kw(m) for m in SOLVE_MODELS})
     for dtype in (np.float32, np.float64):
         name = np.dtype(dtype).name
-        x, u, noise, big = _solve_inputs(dtype)
-        data.update({f"x_{name}": torch.tensor(x), f"u_{name}": torch.tensor(u), f"noise_{name}": torch.tensor(noise),
-                     f"big_{name}": torch.tensor(big), f"limit_{name}": _limit(dtype)})
+        data[f"limit_{name}"] = _limit(dtype)
+        for m in SOLVE_MODELS:
+            x, u, noise, big = _solve_inputs(dtype, m)
+            data.update({f"x_{m}_{name}": torch.tensor(x), f"u_{m}_{name}": torch.tensor(u),
+                         f"noise_{m}_{name}": torch.tensor(noise), f"big_{m}_{name}": torch.tensor(big)})
     torch.save(data, root / "inputs.pt")
     runs = {w: _spawn(w, root) for w in MESHES}
     deadline = time.monotonic() + PROC_TIMEOUT_S
@@ -242,49 +264,64 @@ def ranks(tmp_path_factory):
 # (a)-(c): the K-sharded solve
 
 
-def _jax_solve(world, dtype, noise, x, u, lam=0.5):
-    jcfg = jmppi.MppiConfig(n_horizon=N, n_rollouts=K, lambda_=lam, std_dev=3.0, limit=_limit(dtype))
+@functools.cache
+def _jax_solver(world, dtype, lam, model):
+    """The JAX package's sharded jnp solve, one a (world, dtype, λ, model),
+    so each is compiled once."""
+    kw = dict(_solve_kw(model), n_rollouts=K, limit=_limit(dtype))
+    jcfg = jmppi.MppiConfig(**dict(kw, lambda_=kw["lambda_"] if lam is None else lam))
     mesh = jmake_mesh({"rollouts": world}, devices=jax.devices()[:world])
-    step = jdyn.make_cartpole_nonlinear(JParams.single_wheel(), 0.1)
-    solve = jmake_sharded(jcfg, step, jcosts.shaped4, 4, mesh, backend="jnp", external_noise=True)
-    u_out, st = solve(jnp.asarray(noise), jnp.asarray(x), jnp.asarray(u))
+    if model == "cartpole":
+        step, cost, n_state = jdyn.make_cartpole_nonlinear(JParams.single_wheel(), 0.1), jcosts.shaped4, 4
+    else:
+        _, step, cost, n_state, _, _ = FAMILY[model]
+    return jmake_sharded(jcfg, step, cost, n_state, mesh, backend="jnp", external_noise=True)
+
+
+def _jax_solve(world, dtype, noise, x, u, lam=None, model="cartpole"):
+    u_out, st = _jax_solver(world, dtype, lam, model)(jnp.asarray(noise), jnp.asarray(x), jnp.asarray(u))
     return np.asarray(u_out), int(st)
 
 
 MODEL = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
 
 
+@pytest.mark.parametrize("model", SOLVE_MODELS)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("world", [2, 4])
-def test_sharded_solve_matches_jax_and_the_one_rank_solve(ranks, world, dtype):
+def test_sharded_solve_matches_jax_and_the_one_rank_solve(ranks, world, dtype, model):
     """(a) and (b): every rank's solve, against the JAX package's sharded
-    jnp solve at the same world and against the port's one-rank solve."""
-    x, u, noise, _ = _solve_inputs(dtype)
-    want, want_st = _jax_solve(world, dtype, noise, x, u)
-    one_u, one_st = mppi_solve_fused(_cfg(dtype), MODEL, torch.tensor(x), torch.tensor(u),
-                                     noise=torch.tensor(noise))
+    jnp solve at the same world and against the port's one-rank solve: the
+    cart-pole at N = 8, the HW flagship at N = 20 and mppi2 at N = 40."""
+    key = f"ext_{model}_{np.dtype(dtype).name}"
+    x, u, noise, _ = _solve_inputs(dtype, model)
+    want, want_st = _jax_solve(world, dtype, noise, x, u, model=model)
+    cfg = MppiConfig(**_solve_kw(model), n_rollouts=K, limit=_limit(dtype))
+    one_u, one_st = mppi_solve_fused(cfg, MODEL if model == "cartpole" else FAMILY[model][0], torch.tensor(x),
+                                     torch.tensor(u), noise=torch.tensor(noise))
     for res in ranks[0][world]:
-        got, st = res[f"ext_{np.dtype(dtype).name}"]
-        assert got.dtype == TD[dtype] and int(st) == want_st == int(one_st) == MppiStatus.OK
+        got, st = res[key]
+        assert got.dtype == TD[dtype] and got.shape == (cfg.n_horizon,)
+        assert int(st) == want_st == int(one_st) == MppiStatus.OK
         np.testing.assert_allclose(got.numpy(), want, **BANDS[dtype])
         np.testing.assert_allclose(got.numpy(), one_u.numpy(), **BANDS[dtype])
-    assert all(torch.equal(r[f"ext_{np.dtype(dtype).name}"][0], ranks[0][world][0][f"ext_{np.dtype(dtype).name}"][0])
-               for r in ranks[0][world])
+    assert all(torch.equal(r[key][0], ranks[0][world][0][key][0]) for r in ranks[0][world])
 
 
+@pytest.mark.parametrize("model", SOLVE_MODELS)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("world", [2, 4])
-def test_sharded_solve_failure_statuses_match_jax(ranks, world, dtype):
+def test_sharded_solve_failure_statuses_match_jax(ranks, world, dtype, model):
     """(c): a shard whose rollouts all overflow (its partials NEG_BIG and
     zeros) leaves the others' solve, as in the JAX package; no finite
     rollout on any shard is NO_FINITE and λ = 0 is INVALID_U, both with
-    zeros, as the JAX package's statuses."""
-    name = np.dtype(dtype).name
-    x, u, noise, big = _solve_inputs(dtype)
-    want, want_st = _jax_solve(world, dtype, big, x, u)
+    zeros, as the JAX package's statuses; at each solve model's horizon."""
+    name = f"{model}_{np.dtype(dtype).name}"
+    x, u, noise, big = _solve_inputs(dtype, model)
+    want, want_st = _jax_solve(world, dtype, big, x, u, model=model)
     nan_x = np.full_like(x, np.nan)
-    _, want_nf = _jax_solve(world, dtype, noise, nan_x, u)
-    _, want_l0 = _jax_solve(world, dtype, noise, x, u, lam=0.0)
+    _, want_nf = _jax_solve(world, dtype, noise, nan_x, u, model=model)
+    _, want_l0 = _jax_solve(world, dtype, noise, x, u, lam=0.0, model=model)
     assert (want_st, want_nf, want_l0) == (MppiStatus.OK, MppiStatus.NO_FINITE, MppiStatus.INVALID_U)
     for res in ranks[0][world]:
         got, st = res[f"big_shard_{name}"]
@@ -446,12 +483,17 @@ def test_mesh_needs_the_ranks_it_names():
 
 
 def test_sharded_solve_checks_k_and_the_horizon():
+    """K must split evenly, and a (model, N) pair the kernels are not built
+    for raises, naming the model's built horizons: the cart-pole at N = 12
+    (built at 8 and 40) and the HW flagship at N = 8 (built at 20)."""
     mesh = Mesh({"rollouts": 3}, {"rollouts": 0}, {"rollouts": None}, 0, 3)
     with pytest.raises(ValueError, match="not divisible by 3 ranks"):
         make_sharded_mppi(_cfg(), MODEL, mesh)
-    cfg40 = MppiConfig(n_horizon=40, n_rollouts=K, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
-    with pytest.raises(ValueError, match="N=40 with the sharded merge"):
-        make_sharded_mppi(cfg40, CartPoleShaped4(CartPoleParams.single_wheel(), 0.02), make_mesh())
+    cfg12 = MppiConfig(n_horizon=12, n_rollouts=K, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+    with pytest.raises(ValueError, match=r"N=12 with CartPoleShaped4; it is built for N=\[8, 40\]"):
+        make_sharded_mppi(cfg12, CartPoleShaped4(CartPoleParams.single_wheel(), 0.02), make_mesh())
+    with pytest.raises(ValueError, match=r"N=8 with Commu4Cost4; it is built for N=\[20\]"):
+        make_sharded_mppi(_cfg(), Commu4Cost4(CartPoleParams.two_wheel(), 0.05), make_mesh())
 
 
 def test_init_distributed_refuses_nccl_on_a_shared_card(monkeypatch):
