@@ -52,14 +52,17 @@ the HW chain's µs a solve against its 0.06 s budget are printed.
 
 The hardware-in-the-loop layer runs against fake MCUs behind PTYs: the
 native COBS codec (loaded, never rebuilt in place) against the Python codec
-on 1 000 seeded payloads; the cart-pole's partials kernel at serve's
-plan-streaming N = 40 (single solve and the batch of 8 robots at K = 8192,
-every noise source at R = 1 and 4) against its float64 plain version, with
-its ptxas registers and no spill; and, through the CLI entry, ``uart``,
-``mppi4-commu`` (K = 800 000), ``mppi4-ukf-commu`` (K = 800 000, N = 20,
-the filter in float32 and in float64) and ``serve`` (8 robots, K = 8192:
-M = 1 at depth 0 and 2, M = 4 at depth 1, which is N = 40), each solve or
-dispatch one counted launch.
+on 1 000 seeded payloads; the cart-pole's partials kernel at every
+plan-streaming horizon of serve, N = 9-40 (single solve and the batch of 8
+robots at K = 8192, box-muller alone, serve's only sampler, at R = 1, and
+at N = 40 R = 4) against its float64 plain version, with its noise
+against ``ops/philox.py``'s words, its ptxas registers and no spill; and,
+through the CLI entry, ``uart``, ``mppi4-commu`` (K = 800 000),
+``mppi4-ukf-commu`` (K = 800 000, N = 20, the filter in float32 and in
+float64) and ``serve`` (8 robots, K = 8192: M = 1 at depth 0 and 2, M = 4
+at depth 1, which is N = 40, M = 2 at a 0.05 s tick, N = 16, at depth 1
+and 0, and M = 4 at 0.025 s, N = 32), each solve or dispatch one counted
+launch.
 
 The gradient-MPC slice (float64 batched torch ops, no kernel of its own)
 runs the six ``mpc_examples`` apps on the card at their JAX acceptance
@@ -81,12 +84,13 @@ the specs of ``tune``, ``mpc-ukf-commu``, ``uart``, ``mppi4-commu``,
 ``serve-stream`` and ``op-en2`` at seed 0; every acceptance check comes from
 ``mpc_rs_tpu_torch/apps/acceptance.py``.
 
-The multi-GPU phases hold ``fleet_finalize_kernel`` at each built horizon
-(N = 8, 20 and 40) against its plain version and the merged-in-launch
-solve, run the K-sharded solve at the family's pairs past N = 8 (the HW
-flagship at N = 20, K = 800 000, bit for bit ``mppi_solve_fused`` at NCCL
-world 1, in the band on two gloo ranks sharing the card; mppi2 and serve's
-cart-pole at N = 40) and time the HW flagship's solves/s at 1 → W ranks
+The multi-GPU phases hold ``fleet_finalize_kernel`` at N = 8, 20 and 40
+and at serve's N = 9, 16, 31, 32 and 39 against its plain version and the
+merged-in-launch solve, run the K-sharded solve at the family's pairs past
+N = 8 (the HW flagship at N = 20, K = 800 000, bit for bit
+``mppi_solve_fused`` at NCCL world 1, in the band on two gloo ranks
+sharing the card; mppi2 at N = 40; serve's cart-pole at N = 9, 16, 31, 32,
+39 and 40, sampling box-muller) and time the HW flagship's solves/s at 1 → W ranks
 (``parallel/scaling.py::measure_scaling``) beside its 0.06 s budget. K7 is
 also held on flagship6's scaled sensor (``obs_normalize``) at every B and
 as a main path at its survival gate, and its raw instantiations' outputs
@@ -140,8 +144,10 @@ CLT_FAMILY_SPREAD = 0.02  # cltone/cltbig/cltreg launch clt's kernel: their D1 t
 # integrator at N = 40) as they were built first (the linear cart-pole's
 # three at R = 4 clt4, clt4a and R = 1 clt2q as they were rebuilt with the
 # merge's merged-row output: 58, 57 and 45 registers, from 56, 59 and 44),
-# and serve's cart-pole at N = 40 (family_serve.cu) as it was built first.
-# The build must keep them.
+# and serve's cart-pole at N = 40 (family_serve.cu) as it was built first,
+# now box-muller alone (sampler ID 1: a row of {source ID: registers}), and
+# at N = 9-39, R = 1 (SERVE_R1_PTXAS) as they were built first. The build
+# must keep them.
 PARTIALS_PTXAS = {
     ("CartPoleNonlinearT", 8, 0, 1): (44, 46, 46, 44, 45, 45, 45),
     ("CartPoleNonlinearT", 8, 0, 4): (64, 64, 64, 64, 64, 64, 64),
@@ -157,9 +163,14 @@ PARTIALS_PTXAS = {
     ("Commu4", 20, 0, 4): (123, 128, 128, 127, 128, 128, 127),
     ("DoubleIntegrator", 40, 0, 1): (127, 135, 134, 141, 130, 134, 167),
     ("DoubleIntegrator", 40, 0, 4): (255, 244, 254, 254, 254, 254, 254),
-    ("CartPoleNonlinearT", 40, 0, 1): (108, 148, 127, 156, 141, 127, 143),
-    ("CartPoleNonlinearT", 40, 0, 4): (255, 254, 254, 254, 250, 254, 255),
+    ("CartPoleNonlinearT", 40, 0, 1): {1: 148},
+    ("CartPoleNonlinearT", 40, 0, 4): {1: 254},
 }
+# serve's cart-pole at N = 9-39, box-muller, R = 1: {N: registers}
+SERVE_R1_PTXAS = {9: 48, 10: 48, 11: 52, 12: 54, 13: 56, 14: 60, 15: 64, 16: 64, 17: 67, 18: 70, 19: 72, 20: 80,
+                  21: 79, 22: 88, 23: 95, 24: 96, 25: 95, 26: 96, 27: 95, 28: 99, 29: 112, 30: 120, 31: 121,
+                  32: 122, 33: 127, 34: 127, 35: 127, 36: 128, 37: 128, 38: 133, 39: 145}
+PARTIALS_PTXAS.update({("CartPoleNonlinearT", n, 0, 1): {1: r} for n, r in SERVE_R1_PTXAS.items()})
 # flagship6's float32 filter is ill-conditioned in a few x̂ entries at B >= 1 000:
 # two float32 evaluations in one order of operations differ past the band
 # there (PERF.md §6); at most this many K7 entries may leave it
@@ -1324,6 +1335,9 @@ def family_phases(dev: torch.device, card: dict) -> list[dict]:
 
 
 SERVE_SOURCE = "mpc_rs_tpu_torch/ops/csrc/family_serve.cu"  # the cart-pole at serve's N = 40
+# the cart-pole at serve's N = 9-39 and fleet_finalize_kernel at N = 8-40,
+# instantiated over family_serve*.cu
+SERVE_HORIZONS_SOURCE = "mpc_rs_tpu_torch/ops/csrc/horizons.cuh"
 NATIVE_FILES = ("native/mpcio.cpp", "native/libmpcio.so", "native/libmpcio.so.src.sha256", "native/oracle.cpp",
                 "native/liboracle.so", "native/liboracle.so.src.sha256")
 
@@ -1342,23 +1356,24 @@ def ms_quantiles(seconds) -> dict:
 
 def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     """The hardware-in-the-loop layer and the serve bridge: the native COBS
-    codec against the Python one; the cart-pole's partials kernel at serve's
-    plan-streaming N = 40 (single solve and the B = 8 batch, every noise
-    source at R = 1 and 4) against its float64 plain version, its samplers'
-    words against ``ops/philox.py``, its ptxas registers and spill; and, as
-    main paths through the CLI entry (counts reset before each, read
-    after), ``uart``, ``mppi4-commu`` (K = 800 000), ``mppi4-ukf-commu``
-    (K = 800 000, N = 20) and ``serve`` (8 robots, K = 8192; M = 1 at
-    depth 0 and 2, M = 4 at depth 1, which is N = 40), each against a fake
-    MCU behind a PTY. ``native/`` must be the same bytes after. Returns the
-    kernels line's entries."""
+    codec against the Python one; the cart-pole's partials kernel at every
+    plan-streaming horizon of serve, N = 9-40, box-muller alone (single
+    solve and the B = 8 batch; R = 1, and R = 4 at N = 40) against its
+    float64 plain version, its noise against ``ops/philox.py``'s words, its
+    ptxas registers and spill; and, as main paths through the CLI entry
+    (counts reset before each, read after), ``uart``, ``mppi4-commu``
+    (K = 800 000), ``mppi4-ukf-commu`` (K = 800 000, N = 20) and ``serve``
+    (8 robots, K = 8192; M = 1 at depth 0 and 2, M = 4 at depth 1, which
+    is N = 40, and N = 16 and N = 32 by the tick period), each against a
+    fake MCU behind a PTY, then serve's batch timed at N = 8-40. ``native/``
+    must be the same bytes after. Returns the kernels line's entries."""
     import numpy as np
 
     from mpc_rs_tpu_torch.apps import run as cli
     from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
     from mpc_rs_tpu_torch.io import cobs
     from mpc_rs_tpu_torch.models.params import CartPoleParams
-    from mpc_rs_tpu_torch.ops import mppi_cuda, philox
+    from mpc_rs_tpu_torch.ops import mppi_cuda
     from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4
     from mpc_rs_tpu_torch.runtime.profile_partials import ptxas_partials
 
@@ -1385,19 +1400,34 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     emit({"phase": "hil_io", "library": str(native.path), "built": native.built, "payloads": 1000,
           "payload_bytes": total, "seconds": time.perf_counter() - t0})
 
-    # H2. the partials kernel on the cart-pole at N = 40 (family_serve.cu):
-    # K2 on one problem and the batch of serve's 8 robots at K = 8192, each
-    # noise source at R = 1 and 4, against the float64 plain version at
-    # λ = 20, where the f32 solve is well conditioned; at serve's λ = 0.5
-    # against twice the plain f32 version's own distance from float64
-    n, k, b = 40, 8192, 8
-    m40 = CartPoleShaped4(CartPoleParams.single_wheel(), 0.01)
+    # H2. the partials kernel on the cart-pole at serve's plan-streaming
+    # horizons (horizons.cuh, family_serve*.cu), box-muller alone: K2 on one
+    # problem and the batch of serve's 8 robots at K = 8192 against the
+    # float64 plain version fed the kernel's noise, at λ = 20, where the f32
+    # solve is well conditioned; the kernel's noise against ops/philox.py's
+    # words; the statuses the plain version's; the merge tickets back at
+    # zero; ptxas's registers and no spill. N = 40 at R = 1 and 4, then
+    # N = 9-39 at R = 1 (H2b): N = 31 ends in warp 0, N = 32 spans two warps,
+    # odd N half uses its last box-muller pair. At N = 40 also serve's
+    # λ = 0.5, against twice the plain f32 version's own distance from float64.
+    k, b = 8192, 8
+    serve_ptxas = {}
+    for ln in ptxas_partials(log):
+        tag = ln.split(": ", 1)[0].split("/")
+        if tag[1] == "CartPoleNonlinearT" and int(tag[0]) > N:
+            row = serve_ptxas.setdefault((int(tag[0]), int(tag[6])), {"sampler": int(tag[5])})
+            used, spill = re.search(r"Used (\d+) registers", ln), re.search(r"(\d+) bytes spill stores", ln)
+            row.update({"registers": int(used.group(1))} if used else {})
+            row.update({"spill_store_bytes": int(spill.group(1))} if spill else {})
 
-    def cfg40(lam, kk=k):
+    def serve_model(n):
+        return CartPoleShaped4(CartPoleParams.single_wheel(), 0.01 if n == 40 else 0.8 / n)
+
+    def serve_cfg(n, lam, kk=k):
         return MppiConfig(n_horizon=n, n_rollouts=kk, lambda_=lam, std_dev=3.0, limit=(-20.0, 20.0))
 
-    def batch_plain(cfg, xs, u_ns, noise, dtype, rpt=None):
-        parts = mppi_cuda.mppi_batch_partials_plain(cfg, m40, xs.to(dtype), u_ns.to(dtype), noise.to(dtype),
+    def batch_plain(cfg, m, xs, u_ns, noise, dtype, rpt=None):
+        parts = mppi_cuda.mppi_batch_partials_plain(cfg, m, xs.to(dtype), u_ns.to(dtype), noise.to(dtype),
                                                     rollouts_per_thread=rpt)
         return mppi_cuda.finalize_batch_plain(cfg, parts)
 
@@ -1405,56 +1435,52 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     xs = torch.zeros((b, 4), device=dev)
     xs[:, 2] = 0.2 * torch.rand(b, generator=gen, device=dev) - 0.1
     xs[:, 3] = 0.4 * torch.rand(b, generator=gen, device=dev) - 0.2
-    u_ns = 0.3 * torch.randn((b, n), generator=gen, device=dev)
     seeds = torch.arange(b, dtype=torch.int32, device=dev) * 31 + 5
-    n40_err, rows = 0.0, []
-    for source in ("external", *philox.SAMPLERS):
-        for rpt in (1, 4):
-            cfg = cfg40(20.0)
-            if source == "external":
-                noise = 3.0 * torch.randn((b, k, n), generator=gen, device=dev)
-                got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, m40, xs, u_ns, noise=noise,
-                                                                 rollouts_per_thread=rpt)
-                one_u, one_st = mppi_cuda.mppi_solve_fused(cfg, m40, xs[0], u_ns[0], noise=noise[0],
-                                                           rollouts_per_thread=rpt)
-            else:
-                noise = torch.empty((b, k, n), device=dev)
-                got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, m40, xs, u_ns, seeds=seeds, sampler=source,
-                                                                 noise_out=noise, rollouts_per_thread=rpt)
-                words = mppi_cuda.batch_noise(cfg, m40, seeds, source)
-                noise_err = max_err(noise, words)
-                check(torch.equal(noise, words) if source in ("clt4", "clt4a", "clt2q") else noise_err < 1e-4,
-                      f"N=40 {source} R={rpt}: kernel noise vs ops/philox.py words {noise_err}")
-                one_u, one_st = mppi_cuda.mppi_solve_fused(cfg, m40, xs[0], u_ns[0], seed=int(seeds[0]),
-                                                           sampler=source, rollouts_per_thread=rpt)
-                check(torch.equal(mppi_cuda.solve_noise(cfg, m40, int(seeds[0]), 0, source, device=dev),
-                                  mppi_cuda.batch_noise(cfg, m40, seeds[:1], source)[0]),
-                      f"N=40 {source}: a single solve's words are not robot 0's")
-            want_u, want_st = batch_plain(cfg, xs, u_ns, noise, torch.float64, rpt)
-            check(bool((got_st == 0).all()) and bool((want_st == 0).all()) and int(one_st) == 0,
-                  f"N=40 {source} R={rpt} statuses {got_st.tolist()} / {want_st.tolist()} / {int(one_st)}")
-            e = max(check_band(got_u, want_u, f"N=40 batch {source} R={rpt} vs plain"),
-                    check_band(one_u, want_u[0], f"N=40 K2 {source} R={rpt} vs plain"))
-            n40_err = max(n40_err, e)
-            rows.append({"source": source, "rollouts_per_thread": rpt, "max_abs_err": e})
-    cfg_app = cfg40(0.5)
-    got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg_app, m40, xs, u_ns, seeds=seeds, sampler="box-muller")
+    horizon_err, rows = {}, []
+    for n in (40, *range(9, 40)):
+        m, cfg = serve_model(n), serve_cfg(n, 20.0)
+        sources, rpts = mppi_cuda.built_for(m, n)
+        check(sources == ("box-muller",) and rpts == ((1, 4) if n == 40 else (1,)), f"N={n} built for {sources} {rpts}")
+        u_ns = 0.3 * torch.randn((b, n), generator=gen, device=dev)
+        for rpt in rpts:
+            noise = torch.empty((b, k, n), device=dev)
+            got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, seeds=seeds, sampler="box-muller",
+                                                             noise_out=noise, rollouts_per_thread=rpt)
+            words = mppi_cuda.batch_noise(cfg, m, seeds, "box-muller")
+            noise_err = max_err(noise, words)
+            check(noise_err < 1e-4, f"N={n} R={rpt}: kernel noise vs ops/philox.py words {noise_err}")
+            one_u, one_st = mppi_cuda.mppi_solve_fused(cfg, m, xs[0], u_ns[0], seed=int(seeds[0]),
+                                                       rollouts_per_thread=rpt)
+            check(torch.equal(mppi_cuda.solve_noise(cfg, m, int(seeds[0]), 0, device=dev), words[0]),
+                  f"N={n}: a single solve's words are not robot 0's")
+            want_u, want_st = batch_plain(cfg, m, xs, u_ns, noise, torch.float64, rpt)
+            check(torch.equal(got_st, want_st) and bool((got_st == 0).all()) and int(one_st) == int(want_st[0]),
+                  f"N={n} R={rpt} statuses {got_st.tolist()} / {want_st.tolist()} / {int(one_st)}")
+            e = max(check_band(got_u, want_u, f"N={n} batch R={rpt} vs plain"),
+                    check_band(one_u, want_u[0], f"N={n} K2 R={rpt} vs plain"))
+            horizon_err[n] = max(horizon_err.get(n, 0.0), e)
+            ptx = serve_ptxas.get((n, rpt), {})
+            check(ptx.get("sampler") == 1 and "registers" in ptx and ptx.get("spill_store_bytes") == 0,
+                  f"N={n} R={rpt}: ptxas {ptx}")
+            rows.append({"n": n, "rollouts_per_thread": rpt, "max_abs_err": e, "noise_max_abs_err": noise_err,
+                         "registers": ptx["registers"], "spill_store_bytes": ptx["spill_store_bytes"]})
+        tickets_zero = bool((mppi_cuda.merge_tickets(dev, 1) == 0).all()) and bool(
+            (mppi_cuda.merge_tickets(dev, b) == 0).all())
+        check(tickets_zero, f"N={n}: merge tickets not zero after the calls")
+    check(sorted(serve_ptxas) == sorted((n, r) for n in range(9, 41) for r in mppi_cuda.built_for(serve_model(n), n)[1]),
+          f"the cart-pole past N = 8 is built as {sorted(serve_ptxas)}: N = 40 at R = 1 and 4, N = 9-39 at R = 1")
+    m40, cfg_app = serve_model(40), serve_cfg(40, 0.5)
+    u40 = 0.3 * torch.randn((b, 40), generator=gen, device=dev)
+    got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg_app, m40, xs, u40, seeds=seeds, sampler="box-muller")
     words = mppi_cuda.batch_noise(cfg_app, m40, seeds, "box-muller")
-    want_u, want_st = batch_plain(cfg_app, xs, u_ns, words, torch.float64)
-    own = max_err(batch_plain(cfg_app, xs, u_ns, words, torch.float32)[0], want_u)
+    want_u, want_st = batch_plain(cfg_app, m40, xs, u40, words, torch.float64)
+    own = max_err(batch_plain(cfg_app, m40, xs, u40, words, torch.float32)[0], want_u)
     app_err = max_err(got_u, want_u)
     check(bool((got_st == 0).all()) and app_err <= 2 * own + F32_BAND["atol"],
           f"N=40 at serve's λ=0.5: {app_err} against twice the plain f32 distance {own}")
-    tickets_zero = bool((mppi_cuda.merge_tickets(dev, 1) == 0).all()) and bool(
-        (mppi_cuda.merge_tickets(dev, b) == 0).all())
-    check(tickets_zero, "N=40: merge tickets not zero after the calls")
-    n40_ptxas = [ln for ln in ptxas_partials(log) if ln.startswith("40/CartPoleNonlinearT/")]
-    spills = [ln for ln in n40_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
-    check(sum("registers" in ln for ln in n40_ptxas) == 14, f"N=40 cart-pole instantiations: {n40_ptxas}")
-    check(not spills, f"ptxas spills in the N=40 cart-pole: {spills}")
-    emit({"phase": "family_serve_n40", "n": n, "k": k, "b": b, "lambda": 20.0, "rows": rows,
-          "max_abs_err": n40_err, "app_lambda_max_abs_err": app_err, "app_lambda_plain_f32_vs_f64": own,
-          "tickets_zero": tickets_zero, "ptxas": n40_ptxas})
+    emit({"phase": "family_serve_horizons", "k": k, "b": b, "lambda": 20.0, "rows": rows,
+          "max_abs_err": horizon_err, "n40_app_lambda_max_abs_err": app_err, "n40_app_lambda_plain_f32_vs_f64": own,
+          "instantiations": len(serve_ptxas), "ptxas": {f"{n}/R={r}": v for (n, r), v in sorted(serve_ptxas.items())}})
 
     # H3-H5. the HIL apps through the CLI entry against a fake MCU
     log_dir = ["--log-dir", "logs/chip_smoke_hil"]
@@ -1515,10 +1541,21 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
               "est_step": ms_quantiles(res.est_seconds), "launches": {key: v for key, v in counts.items() if v},
               "wall_s": secs, **card})
 
-    # H6. serve: 8 robots at K = 8192, slow-motion twins at time-scale 0.2
+    # H6. serve: 8 robots at K = 8192, slow-motion twins at time-scale 0.2:
+    # M = 1 (N = 8) at depth 0 and 2, M = 4 at the default 0.01 s tick
+    # (N = 40) at depth 1, and two plan-streaming horizons the JAX serve
+    # picks from the tick period: M = 2 at 0.05 s (N = 16, the row's sums in
+    # warp 0) at depth 1 and at depth 0 (at depth 1 a plan solved from
+    # tick t's state is sent at ticks t + 2 and t + 3, 0.1 s late at that
+    # tick), M = 4 at 0.025 s (N = 32, two warps)
     serve_runs = {}
+    want_horizon = {"m1_d0": 8, "m1_d2": 8, "m4_d1": 40, "m2_p050_d1": 16, "m2_p050_d0": 16, "m4_p025": 32}
     for label, extra in (("m1_d0", []), ("m1_d2", ["--pipeline-depth", "2"]),
-                         ("m4_d1", ["--ticks-per-dispatch", "4", "--pipeline-depth", "1"])):
+                         ("m4_d1", ["--ticks-per-dispatch", "4", "--pipeline-depth", "1"]),
+                         ("m2_p050_d1", ["--ticks-per-dispatch", "2", "--control-period", "0.05",
+                                         "--pipeline-depth", "1"]),
+                         ("m2_p050_d0", ["--ticks-per-dispatch", "2", "--control-period", "0.05"]),
+                         ("m4_p025", ["--ticks-per-dispatch", "4", "--control-period", "0.025"])):
         mppi_cuda.reset_launches()
         t_start = time.perf_counter()
         summary = cli.main(["serve", "--sim-mcu", "--robots", "8", "--k", "8192", "--time-scale", "0.2",
@@ -1533,7 +1570,7 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
         check(all(v > 0 for v in summary["rx"]) and all(v > 0 for v in summary["tx"]),
               f"serve {label}: a link without frames: rx {summary['rx']} tx {summary['tx']}")
         check(summary["bad_frames"] == 0, f"serve {label}: {summary['bad_frames']} bad frames")
-        check(summary["horizon"] == (40 if label == "m4_d1" else 8), f"serve {label}: N={summary['horizon']}")
+        check(summary["horizon"] == want_horizon[label], f"serve {label}: N={summary['horizon']}")
         emit({"phase": "serve", "case": label, "robots": 8, "k": 8192, "time_scale": 0.2,
               "horizon": summary["horizon"], "ticks_per_s": summary["ticks_per_s"],
               "dispatches_per_s": summary["dispatches_per_s"], "solve_ms_p50": summary["solve_ms_p50"],
@@ -1543,30 +1580,46 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
               "launches": {key: v for key, v in counts.items() if v}, "wall_s": time.perf_counter() - t_start,
               **card})
 
-    # timings: one batched launch of serve's shapes at N = 8 and 40 (device
-    # time by torch.profiler, a call by CUDA events), the plain version, the bound
+    # timings: one batched launch of serve's shapes at N = 8 and at every
+    # plan-streaming N = 9-40 (device time by torch.profiler, a call by CUDA
+    # events), the plain version, the bound
     timing = {}
-    for nn, dt in ((8, 0.1), (40, 0.01)):
-        m = CartPoleShaped4(CartPoleParams.single_wheel(), dt)
-        cfg = MppiConfig(n_horizon=nn, n_rollouts=k, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+    for nn in range(8, 41):
+        m = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1) if nn == 8 else serve_model(nn)
+        cfg = serve_cfg(nn, 0.5)
         x8, u8 = xs.clone(), torch.zeros((b, nn), device=dev)
         call = lambda: mppi_cuda.mppi_solve_batch_fused(cfg, m, x8, u8, seeds=seeds, sampler="box-muller")  # noqa: E731
         plain = lambda: mppi_cuda.finalize_batch_plain(cfg, mppi_cuda.mppi_batch_partials_plain(  # noqa: E731
             cfg, m, x8, u8, mppi_cuda.batch_noise(cfg, m, seeds, "box-muller")))
-        kern, dev_us = median_ms(call, reps=50), 1e3 * device_ms(call)
+        dev_us = 1e3 * device_ms(call)
+        kern = median_ms(call, reps=20)
         plain_t = median_ms(plain, reps=5, warmup=1)
-        timing[nn] = (kern, plain_t, bound(flops_of(plain), nbytes(x8, u8, seeds, u8) + 4 * b))
+        timing[nn] = (kern, plain_t, bound(flops_of(plain), nbytes(x8, u8, seeds, u8) + 4 * b), dev_us)
         emit({"phase": "timing_serve_batch", "n": nn, "b": b, "k": k, "rollouts_per_thread":
-              mppi_cuda.rollouts_per_thread(k, b), "device_us": dev_us, "event_us": 1e3 * kern,
+              mppi_cuda.rollouts_per_thread(k, b, m, nn), "device_us": dev_us, "event_us": 1e3 * kern,
               "plain_us": 1e3 * plain_t, **timing[nn][2], **card})
     check(native_digests() == native_before, "native/ changed during the run")
-    kern, plain_t, bnd = timing[40]
+    kern, plain_t, bnd, _ = timing[40]
+    n16 = timing[16]
+    streamed = {16: sum(serve_runs[label][1]["mppi_solve_batch_fused"] for label in ("m2_p050_d1", "m2_p050_d0")),
+                32: serve_runs["m4_p025"][1]["mppi_solve_batch_fused"]}
     return [
         {"name": "mppi_partials_kernel<40, CartPoleNonlinearT, Shaped4> on B problems (K5/K6, serve plan "
-                 "streaming, B=8, K=8192)", "route": "cuda", "source": SERVE_SOURCE, "replaces": f"{PALLAS}:692",
-         "launches": serve_runs["m4_d1"][1]["mppi_solve_batch_fused"], "max_abs_err": n40_err,
-         "ms": kern, "plain_ms": plain_t, "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
-         "library_ms": None},
+                 "streaming, B=8, K=8192, box-muller)", "route": "cuda", "source": SERVE_SOURCE,
+         "replaces": f"{PALLAS}:692", "launches": serve_runs["m4_d1"][1]["mppi_solve_batch_fused"],
+         "max_abs_err": horizon_err[40], "ms": kern, "plain_ms": plain_t, "bound_ms": bnd["bound_ms"],
+         "bound_by": bnd["bound_by"], "library_ms": None},
+        {"name": "mppi_partials_kernel<N, CartPoleNonlinearT, Shaped4> at serve's N = 9-39 on B problems (K5/K6, "
+                 "B=8, K=8192, box-muller, R=1; the top-level numbers at N = 16, every N in per_n)",
+         "route": "cuda", "source": SERVE_HORIZONS_SOURCE, "replaces": f"{PALLAS}:692",
+         "launches": sum(streamed.values()), "launches_by_n": streamed,
+         "max_abs_err": max(horizon_err[n_] for n_ in range(9, 40)),
+         "ms": n16[0], "plain_ms": n16[1], "bound_ms": n16[2]["bound_ms"], "bound_by": n16[2]["bound_by"],
+         "library_ms": None,
+         "per_n": {n_: {"max_abs_err": horizon_err[n_], "device_us": timing[n_][3], "ms": timing[n_][0],
+                        "plain_ms": timing[n_][1], "bound_ms": timing[n_][2]["bound_ms"],
+                        "bound_by": timing[n_][2]["bound_by"], "registers": serve_ptxas[(n_, 1)]["registers"],
+                        "spill_store_bytes": serve_ptxas[(n_, 1)]["spill_store_bytes"]} for n_ in range(9, 40)}},
     ]
 
 
@@ -2180,12 +2233,21 @@ def acceptance_phase(dev: torch.device, card: dict) -> None:
 MULTIGPU_JOIN_S = 240  # each rank process's join timeout
 
 
+# serve's plan-streaming horizons the K-sharded solve and the finalize are
+# held at: each end of the row's sums (31 in warp 0, 32 over two), odd N
+SHARDED_SERVE_HORIZONS = (9, 16, 31, 32, 39, 40)
+
+
 def sharded_family() -> list[tuple]:
     """The K-sharded solve past N = 8, one case a (model, N) pair of the
     family: (label, model, MppiConfig, x0). The HW flagship at N = 20 at its
     K = 800 000 (bench.py:230-288), mppi2's double integrator at N = 40 at
-    its app's K = 8 000, and serve's cart-pole at N = 40 at serve's default
-    K = 8 192, each at its app's λ, σ and limits."""
+    its app's K = 8 000, and serve's cart-pole (``serve_n<N>``, built for
+    box-muller alone) at ``SHARDED_SERVE_HORIZONS`` at serve's default
+    K = 8 192, each at its app's σ and limits and the family's at their
+    apps' λ; serve's at λ = 20, where its f32 solve is well conditioned, as
+    its sampled sharded solve on two ranks is held in the band of the
+    float64 plain solve on the ranks' draws."""
     from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
     from mpc_rs_tpu_torch.models.params import CartPoleParams
     from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Commu4Cost4, DoubleIntegratorQuad2
@@ -2197,16 +2259,18 @@ def sharded_family() -> list[tuple]:
         ("mppi2", DoubleIntegratorQuad2(0.05),
          MppiConfig(n_horizon=40, n_rollouts=8000, lambda_=2.5, std_dev=1.0, limit=(-3.0, 3.0), control_inv=2.5),
          (1.0, 0.0)),
-        ("serve_n40", CartPoleShaped4(CartPoleParams.single_wheel(), 0.02),
-         MppiConfig(n_horizon=40, n_rollouts=8192, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0)), X0),
+        *((f"serve_n{n}", CartPoleShaped4(CartPoleParams.single_wheel(), 0.8 / n),
+           MppiConfig(n_horizon=n, n_rollouts=8192, lambda_=20.0, std_dev=3.0, limit=(-20.0, 20.0)), X0)
+          for n in SHARDED_SERVE_HORIZONS),
     ]
 
 
 def finalize_phase(dev: torch.device, card: dict) -> dict:
-    """``fleet_finalize_kernel`` at every built horizon, N = 8, 20 and 40
-    (``sharded_family``'s cases for 20 and 40, the cart-pole's K2 at
+    """``fleet_finalize_kernel`` at N = 8, 20, 40 and serve's N = 9, 16, 31,
+    32 and 39 (``sharded_family``'s cases past N = 8, the cart-pole's K2 at
     K = 800 000 for 8), each with box-muller and external noise at R = 1
-    and 4: the merged rows of B problems (the rank's row; B = 1, and B = 8
+    and 4 where the pair is built for them (serve's cart-pole: box-muller,
+    R = 1, and R = 4 at N = 40): the merged rows of B problems (the rank's row; B = 1, and B = 8
     where K is small) finished by ``finalize_batch_fused`` are the
     merged-in-launch solve bit for bit; the rows-only launch's (B, nb, N+2)
     rows finished by it match ``finalize_batch_plain`` in float64 on the
@@ -2231,8 +2295,9 @@ def finalize_phase(dev: torch.device, card: dict) -> dict:
         xs = torch.tensor(x0, device=dev) + 0.05 * torch.randn((b, len(x0)), generator=gen, device=dev)
         u_ns = 0.3 * torch.randn((b, n), generator=gen, device=dev)
         seeds = torch.arange(b, dtype=torch.int32, device=dev) * 31 + 7
-        for source in ("external", "box-muller"):
-            for rpt in (1, 4):
+        built_sources, built_rpts = mppi_cuda.built_for(m, n)
+        for source in (s_ for s_ in ("external", "box-muller") if s_ in built_sources):
+            for rpt in built_rpts:
                 kw = (dict(noise=cfg.std_dev * torch.randn((b, k, n), generator=gen, device=dev))
                       if source == "external" else dict(seeds=seeds, sampler=source))
                 merged = mppi_cuda.mppi_batch_partials_merged_fused(cfg, m, xs, u_ns, rollouts_per_thread=rpt, **kw)
@@ -2486,11 +2551,12 @@ def multigpu_phases(dev: torch.device, card: dict) -> list[dict]:
 
     launches = {name: sum(r["launches"].get(name, 0) for rs in runs.values() for r in rs)
                 for name in ("mppi_partials_merged_fused", "mppi_batch_partials_merged_fused", "finalize_batch_fused",
-                             *(f"finalize:N={n}" for n in sorted(FINALIZE_HORIZONS)))}
+                             *(f"finalize:N={n}" for n in sorted(fin_timing)))}
     check(all(launches.values()), f"the multi-GPU main paths launched {launches}")
     return [
         {"name": f"fleet_finalize_kernel<{n}> (the K-sharded solve's finalize, finalize_batch_fused at N={n})",
-         "route": "cuda", "source": SOURCE, "replaces": f"{PALLAS}:1019", "launches": launches[f"finalize:N={n}"],
+         "route": "cuda", "source": SERVE_HORIZONS_SOURCE, "replaces": f"{PALLAS}:1019",
+         "launches": launches[f"finalize:N={n}"],
          "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
          "bound_by": t["bound_by"], "library_ms": None}
         for n, t in sorted(fin_timing.items())
@@ -2511,6 +2577,7 @@ def rank_main(argv: list[str]) -> None:
     cards), runs the K-sharded solve and the sharded fleet, and writes its
     result to OUT. Every check that fails raises, and the rank exits
     non-zero."""
+    import dataclasses
     import hashlib
 
     from mpc_rs_tpu_torch.apps.fleet import build_fleet, run_fleet
@@ -2522,7 +2589,7 @@ def rank_main(argv: list[str]) -> None:
     from mpc_rs_tpu_torch.parallel.mesh import make_mesh
     from mpc_rs_tpu_torch.parallel.scaling import measure_scaling
     from mpc_rs_tpu_torch.parallel.scenario import gather_carry
-    from mpc_rs_tpu_torch.parallel.sharded_mppi import make_sharded_mppi, merge_rows
+    from mpc_rs_tpu_torch.parallel.sharded_mppi import make_sharded_mppi, merge_rows, rank_seed
     from mpc_rs_tpu_torch.runtime.checkpoint import carry_fields
 
     rank, world, store, backend, out = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
@@ -2558,24 +2625,40 @@ def rank_main(argv: list[str]) -> None:
     res["sampled_u0"], res["one_rank_sampled_u0"] = float(u_s[0]), float(one_s[0])
 
     # the K-sharded solve past N = 8 (sharded_family): the HW flagship at
-    # N = 20, K = 800 000 and the N = 40 pairs, external noise against the
-    # one-rank solve (bit for bit at world 1, checked by the caller; the band
-    # at any world), each one merged-row and one finalize launch; then the
-    # HW flagship's solves/s at 1 → W ranks (parallel/scaling.py), in
-    # sampling mode
+    # N = 20, K = 800 000, mppi2 at N = 40, external noise against the
+    # one-rank solve; serve's cart-pole, built for box-muller alone,
+    # sampling (rank r keys seed + r·7919) against the one-rank solve fed
+    # the ranks' noise (the same key at world 1). Bit for bit at world 1,
+    # checked by the caller; the band at any world; each one merged-row and
+    # one finalize launch. Then the HW flagship's solves/s at 1 → W ranks
+    # (parallel/scaling.py), in sampling mode
     family = Counter()
     for label, m, fcfg, fx0 in sharded_family():
-        xf, uf = torch.tensor(fx0, device=dev), torch.zeros(fcfg.n_horizon, device=dev)
-        fgen = torch.Generator(device=dev).manual_seed(78)
-        fnoise = fcfg.std_dev * torch.randn((fcfg.n_rollouts, fcfg.n_horizon), generator=fgen, device=dev)
+        n_f, k_f = fcfg.n_horizon, fcfg.n_rollouts
+        xf, uf = torch.tensor(fx0, device=dev), torch.zeros(n_f, device=dev)
+        sampled = "external" not in mppi_cuda.built_for(m, n_f)[0]
         mppi_cuda.reset_launches()
-        u_f, st_f = make_sharded_mppi(fcfg, m, mesh, external_noise=True)(fnoise, xf, uf)
+        if sampled:
+            u_f, st_f = make_sharded_mppi(fcfg, m, mesh)(21, xf, uf)
+        else:
+            fgen = torch.Generator(device=dev).manual_seed(78)
+            fnoise = fcfg.std_dev * torch.randn((k_f, n_f), generator=fgen, device=dev)
+            u_f, st_f = make_sharded_mppi(fcfg, m, mesh, external_noise=True)(fnoise, xf, uf)
         torch.cuda.synchronize(dev)
         counts = dict(mppi_cuda.launches)
-        check(counts["mppi_partials_merged_fused"] == 1 and counts[f"finalize:N={fcfg.n_horizon}"] == 1
+        check(counts["mppi_partials_merged_fused"] == 1 and counts[f"finalize:N={n_f}"] == 1
               and counts["mppi_solve_fused"] == 0, f"a sharded {label} solve's launches {counts}")
         family.update(counts)
-        one_u, one_st = mppi_solve_fused(fcfg, m, xf, uf, noise=fnoise)
+        if sampled and world == 1:
+            one_u, one_st = mppi_solve_fused(fcfg, m, xf, uf, seed=21)
+        elif sampled:  # the plain solve on the ranks' draws, each K/W rollouts keyed rank_seed(21, r)
+            local = dataclasses.replace(fcfg, n_rollouts=k_f // world)
+            fnoise = torch.cat([mppi_cuda.solve_noise(local, m, rank_seed(21, r), 0, device=dev)
+                                for r in range(world)])
+            one_u, one_st = mppi_cuda.mppi_solve_plain(fcfg, m, xf.double(), uf.double(), noise=fnoise.double())
+            one_u = one_u.float()
+        else:
+            one_u, one_st = mppi_solve_fused(fcfg, m, xf, uf, noise=fnoise)
         check(int(st_f) == int(one_st) == 0, f"sharded {label} status {int(st_f)} / one-rank {int(one_st)}")
         res[f"{label}_bit_equal"] = bool(torch.equal(u_f, one_u))
         res[f"{label}_max_abs_err_vs_one_rank"] = check_band(u_f, one_u, f"sharded {label} vs the one-rank solve")
@@ -2718,7 +2801,8 @@ def main() -> None:
         if used:
             n_steps, model_name, _, _, fast, source, rpt = tag.split("/")
             registers[(model_name, int(n_steps), int(fast), int(rpt), int(source))] = int(used.group(1))
-    want = {(m, n_, f, r, src): n for (m, n_, f, r), row in PARTIALS_PTXAS.items() for src, n in enumerate(row)}
+    want = {(m, n_, f, r, src): n for (m, n_, f, r), row in PARTIALS_PTXAS.items()
+            for src, n in (row.items() if isinstance(row, dict) else enumerate(row))}
     moved = {f"{k}": (want.get(k), registers.get(k)) for k in want.keys() | registers.keys()
              if want.get(k) != registers.get(k)}
     check(not moved, f"partials instantiations' ptxas registers moved (want, got): {moved}")
@@ -2740,7 +2824,7 @@ def main() -> None:
     emit({"phase": "ptxas_estimator_chain", "ptxas": k7_ptxas})
     check(sum("registers" in ln for ln in k7_ptxas) == 3, f"K7 instantiations in the ptxas report: {k7_ptxas}")
     check(not k7_spills, f"ptxas spills in the estimator chain: {k7_spills}")
-    # the rows' finalize at each built horizon (N = 8, 20, 40; at 40 a lane
+    # the rows' finalize at each built horizon (N = 8-40; at 40 a lane
     # holds 41 sums): registers, no spill
     fin_ptxas = ptxas_kernel(log, "fleet_finalize_kernel")
     fin_spills = [ln for ln in fin_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]

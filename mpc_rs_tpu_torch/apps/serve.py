@@ -285,6 +285,18 @@ def _open_links(args, b: int) -> list[RobotLink]:
     return links
 
 
+def plan_horizon(period: float, ticks_per_dispatch: int) -> tuple[int, float]:
+    """(N, plan step dt) of serve's controller, whose horizon is T = 0.8 s
+    (``mpc_rs_tpu/apps/serve.py:185-204``): N = 8 steps of 0.1 s at one tick
+    a dispatch; with plan streaming (``ticks_per_dispatch`` M > 1, entries
+    1..M-1 open-loop, computed from a state j ticks stale) steps of one tick
+    ``period``, N = clip(round(0.8 / period), max(8, M), 40): any N of 8-40."""
+    t_hor = 0.8
+    if ticks_per_dispatch > 1:
+        return int(np.clip(round(t_hor / period), max(8, ticks_per_dispatch), 40)), period
+    return 8, t_hor / 8
+
+
 def serve(args) -> dict:
     """Serve a robot fleet from one device: B links, one batched solve a
     dispatch.
@@ -295,9 +307,9 @@ def serve(args) -> dict:
     than the one the tick consumes: the controls sent at tick t come from
     tick t−D's states. ``--ticks-per-dispatch M`` > 1 streams the first M
     entries of each returned plan at successive ticks, its steps
-    re-discretised to the tick period: N = clip(round(0.8 / period), 8, 40),
-    40 at the default 0.01 s (the kernel is built for N = 8 and 40; any other
-    N raises). Each dispatch's warm start is the previous dispatch's
+    re-discretised to the tick period (``plan_horizon``): N =
+    clip(round(0.8 / period), max(8, M), 40), 40 at the default 0.01 s; the
+    kernel is built at every such N. Each dispatch's warm start is the previous dispatch's
     sequence advanced by the plan steps that went by between their state
     snapshots (rounded; 0 while they are under half a step apart, as at
     N = 8 with its 0.1 s steps): with plan streaming a dispatch comes M
@@ -306,17 +318,10 @@ def serve(args) -> dict:
     K = 128. Returns the JAX runner's summary."""
     b = args.robots
     p = CartPoleParams.single_wheel()
-    t_hor, n = 0.8, 8
     scale = args.time_scale or 1.0
     period_sim = args.control_period if args.control_period else 0.01
     m_stream = max(1, int(args.ticks_per_dispatch or 1))
-    if m_stream > 1:
-        # plan streaming: entries 1..M-1 are open-loop, computed from a state
-        # j ticks stale (serve.py:188-201)
-        dt = period_sim
-        n = int(np.clip(round(t_hor / dt), max(8, m_stream), 40))
-    else:
-        dt = t_hor / n
+    n, dt = plan_horizon(period_sim, m_stream)
     k = args.k or 8192
     cfg = MppiConfig(n_horizon=n, n_rollouts=k, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
     device = resolve_device(args.device)

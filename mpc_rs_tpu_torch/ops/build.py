@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels (the sources of ``ops/csrc/`` and
 the headers they include).
 
-Each source is compiled by its own ``nvcc``, all of them at once, and the
+Each source is compiled by its own ``nvcc``, one a core at a time, and the
 objects are linked into one shared library with a plain C interface,
 loaded through ``ctypes``. The build runs at first use and is keyed by a
 hash of the sources, their headers and the flags, so a fresh checkout
@@ -21,16 +21,26 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # mppi_kernels.cu: the C entries, K1/K2 and the fleet's K5/K6 at N = 8, tune's
-# sweep, K7, the fast-math probe, D1/D2; family_*.cu: K1/K2 of the MPPI application family,
-# one model each, and the cart-pole at serve's plan-streaming N = 40
-# (mppi_launch.cuh)
-SOURCES = ("mppi_kernels.cu", "family_mppi2.cu", "family_mppi4.cu", "family_commu4.cu", "family_serve.cu")
-HEADERS = ("mppi_common.cuh", "mppi_launch.cuh", "fastmath.cuh", "estimator_chain.cuh",
+# sweep, K7, the fast-math probe, D1/D2; family_*.cu: K1/K2 of the MPPI
+# application family, one model each (mppi_launch.cuh); family_serve*.cu: the
+# cart-pole at serve's plan-streaming N = 40 and, a span of horizons each,
+# N = 9-39, with the rows' finalize at N = 8-40 (horizons.cuh). The spans are
+# cut by each horizon's nvcc time on the H100 machine's host
+# (runtime/profile_build.py --per-horizon; PERF.md §6) so that none compiles
+# slower than the N = 40 source. In the order they are started: the longest
+# compiles first.
+SERVE_SPANS = ((9, 15), (16, 18), (19, 21), (22, 23), (24, 25), (26, 27), (28, 29), (30, 31),
+               *((n, n) for n in range(32, 40)))
+SOURCES = ("mppi_kernels.cu", "family_commu4.cu", "family_mppi2.cu", "family_serve.cu",
+           *(f"family_serve_{a}.cu" if a == b else f"family_serve_{a}_{b}.cu" for a, b in SERVE_SPANS[::-1]),
+           "family_mppi4.cu")
+HEADERS = ("mppi_common.cuh", "mppi_launch.cuh", "horizons.cuh", "fastmath.cuh", "estimator_chain.cuh",
            "diag_kernels.cuh")
 
 # No --use_fast_math (sinf/cosf/logf/expf and '/' stay the accurate forms;
@@ -64,9 +74,17 @@ def _source_key() -> str:
     return h.hexdigest()[:16]
 
 
+def compile_width() -> int:
+    """How many ``nvcc`` run at once: one a core, at most one a source. More
+    would share the cores and stretch the longest compile, which sets the
+    wall."""
+    return min(len(SOURCES), os.cpu_count() or 1)
+
+
 def build() -> tuple[Path, float]:
     """Compile the sources if no library for their hash exists: one ``nvcc
-    -c`` a source, all started together, then one link.
+    -c`` a source, ``compile_width()`` at a time in the order of
+    ``SOURCES`` (the longest first), then one link.
 
     Returns (library path, wall seconds spent compiling and linking; 0.0
     when cached). The compilers' output, ptxas register and spill counts
@@ -80,28 +98,26 @@ def build() -> tuple[Path, float]:
     tag = f"{so.stem}.{os.getpid()}"
     nvcc = find_nvcc()
     t0 = time.perf_counter()
-    jobs = []
-    for src in SOURCES:
-        obj = BUILD_DIR / f"{tag}.{Path(src).stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
-        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                                text=True)))
+    jobs = [([nvcc, *NVCC_FLAGS, "-c", "-o", str(BUILD_DIR / f"{tag}.{Path(src).stem}.o"), str(CSRC / src)],
+             BUILD_DIR / f"{tag}.{Path(src).stem}.o") for src in SOURCES]
+    with ThreadPoolExecutor(max_workers=compile_width()) as pool:  # takes the jobs in order
+        done = list(pool.map(lambda job: subprocess.run(job[0], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                        text=True), jobs))
     log, failed = [], []
-    for cmd, _, proc in jobs:
-        out, _ = proc.communicate()
-        log.append(" ".join(cmd) + "\n" + out)
+    for (cmd, _), proc in zip(jobs, done):
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
         if proc.returncode != 0:
-            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{proc.stdout}")
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     if not failed:
-        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(obj) for _, obj in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
             failed.append(f"link ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     seconds = time.perf_counter() - t0
     so.with_suffix(".log").write_text("\n".join(log))
-    for _, obj, _ in jobs:
+    for _, obj in jobs:
         obj.unlink(missing_ok=True)
     if failed:
         tmp.unlink(missing_ok=True)

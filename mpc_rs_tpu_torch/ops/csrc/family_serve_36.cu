@@ -1,0 +1,5 @@
+// serve's cart-pole and the rows' finalize at N = 36 (horizons.cuh).
+
+#include "horizons.cuh"
+
+MPC_SERVE_HORIZON(36)

@@ -101,32 +101,39 @@
 //
 // The partials kernel is instantiated for each (model, N) pair a path
 // runs, each at the seven noise sources (external noise and the six
-// samplers) and R = 1 and 4. Here, at the main paths' N = kN = 8
-// (mpc_rs_tpu/apps/mppi_examples.py:49, apps/fleet.py), for the two models
-// of the fleets and of mppi4-non-liner(-s/-ukf) (cart-pole + shaped4,
-// flagship4 + diag4) in both tiers: 56 instantiations, each model's serving
-// K1/K2 and the fleet alike. The MPPI application family has one source a
-// model, the exact tier only (the JAX apps run no fast tier), 14
-// instantiations each (mppi_launch.cuh): the double integrator + quad2 at
-// N = 40 (mppi2), the linear cart-pole + shaped4 at N = 8 (mppi4), commu4 +
-// commu4 at N = 20 (the HW flagship); and serve's plan-streaming horizon,
-// the cart-pole + shaped4 at N = 40 (family_serve.cu). The estimator chain is instantiated
-// once per fleet model, and for flagship6 once more on the observations
-// scaled by 1/σ (obs_normalize, HxScaled); K4's probe once per function at 4 and at 1 elements
-// a thread (14); the sweep's kernel (partials_body with MppiSweep) for the
-// exact cart-pole with shaped4 at N = 8, box-muller and external noise at
-// R = 1 and 4 (4); D1's kernel (partials_body with D1's policy) once per
-// MixMode at R = 1 and 4 (16), D2's chain for float and bf16 pairs at 16 and
-// 32 values a thread; fleet_finalize_kernel at each horizon of launch_model's
-// pairs, N = 8, 20 and 40 (3).
+// samplers) and R = 1 and 4, but where a path draws fewer. Here, at the main
+// paths' N = kN = 8 (mpc_rs_tpu/apps/mppi_examples.py:49, apps/fleet.py),
+// for the two models of the fleets and of mppi4-non-liner(-s/-ukf)
+// (cart-pole + shaped4, flagship4 + diag4) in both tiers: 56
+// instantiations, each model's serving K1/K2 and the fleet alike. The MPPI
+// application family has one source a model, the exact tier only (the JAX
+// apps run no fast tier), 14 instantiations each (mppi_launch.cuh): the
+// double integrator + quad2 at N = 40 (mppi2), the linear cart-pole +
+// shaped4 at N = 8 (mppi4), commu4 + commu4 at N = 20 (the HW flagship).
+// serve's plan-streaming horizons, the cart-pole + shaped4 at N = 9-40,
+// box-muller alone (serve's only sampler), at R = 1 and, at N = 40 only,
+// R = 4: 33 instantiations over the family_serve*.cu sources
+// (horizons.cuh). The estimator chain is instantiated once per fleet
+// model, and for flagship6 once more on the observations scaled by 1/σ
+// (obs_normalize, HxScaled); K4's probe once per function at 4 and at 1
+// elements a thread (14); the sweep's kernel (partials_body with
+// MppiSweep) for the exact cart-pole with shaped4 at N = 8, box-muller and
+// external noise at R = 1 and 4 (4); D1's kernel (partials_body with D1's
+// policy) once per MixMode at R = 1 and 4 (16), D2's chain for float and
+// bf16 pairs at 16 and 32 values a thread; fleet_finalize_kernel at each
+// horizon of launch_model's pairs, N = 8-40 (33, in the family_serve*.cu
+// sources).
 //
 // C interface (loaded with ctypes): every function returns the
 // cudaGetLastError() value after its last launch (0 on success), -1 when no
 // kernel is built for the (model, N, tier) asked for (the pairs in
 // launch_model; D1 and the sweep: N = kN only; the rows' merge: the
-// horizons of those pairs, N = 8, 20, 40), -2 for an unknown
-// sampler, -3 for an unknown model or function or an R other than 1 or 4,
-// -4 for a batch the grid cannot hold.
+// horizons of those pairs, N = 8-40), -2 for an unknown sampler or one the
+// pair is not built for, -3 for an unknown model or function or an R the
+// pair is not built for, -4 for a batch the grid cannot hold.
+
+#include <array>
+#include <utility>
 
 #include "diag_kernels.cuh"
 #include "estimator_chain.cuh"
@@ -152,40 +159,37 @@ enum ModelId : int {
   kCommu4Cost4 = 4
 };
 
-// Rows merged outside the partials launch (the rows-only entry, and the
-// multi-GPU merge's all-reduced rows at nb = 1): one warp per scenario merges its nb rows
-// by log-sum-exp (merge_rows_warp, as the partials launch's last block does
-// for a few rows), then the status ladder and zero fallback
-// (mppi_pallas.py:1021-1036). Instantiated at every horizon of launch_model's
-// pairs: the fleets' N = kN, the HW flagship's N = 20 and N = 40 (mppi2,
-// serve's cart-pole), so the K-sharded solve finishes any built pair. A lane
-// folds its rows one after another (fold_rows) and keeps the N + 1 sums
-// (s, uw) in registers; the warp's shuffles then add them sum by sum. So at
-// N = 40 the 41 sums need no lane per sum, unlike partials_end_wide, whose
-// block_sums leave sum i in thread i and gather them in shared memory.
-template <int N>
-__global__ void __launch_bounds__(kThreads)
-fleet_finalize_kernel(float inv_lambda, int n_scen, int nb, const float* __restrict__ partials,
-                      float* __restrict__ u_out, int* __restrict__ status) {
-  const int sc = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (sc >= n_scen) return;  // the whole warp leaves together
-  float tot[N + 1];
-  const float m_all = merge_rows_warp<N>(partials + (size_t)sc * nb * (N + 2), nb, inv_lambda, tot);
-  if ((threadIdx.x & 31) == 0) status[sc] = status_ladder<N>(m_all, tot, u_out + (size_t)sc * N);
+// Tables indexed by N - first of the instantiations that horizons.cuh
+// defines and the family_serve*.cu sources instantiate: serve's cart-pole
+// at N = kServeFirst..kServeLast, and the rows' finalize at every horizon of
+// launch_model's pairs, N = kN..kServeLast.
+template <int... I>
+constexpr std::array<int (*)(const SolveCall&), sizeof...(I)> serve_table(std::integer_sequence<int, I...>) {
+  return {&launch_cartpole_shaped4<kServeFirst + I>...};
 }
+
+using Finalizer = int (*)(int, int, float, const float*, float*, int*, cudaStream_t);
+template <int... I>
+constexpr std::array<Finalizer, sizeof...(I)> finalize_table(std::integer_sequence<int, I...>) {
+  return {&launch_finalize<kN + I>...};
+}
+
+constexpr auto kServeLaunchers = serve_table(std::make_integer_sequence<int, kServeLast - kServeFirst + 1>{});
+constexpr auto kFinalizers = finalize_table(std::make_integer_sequence<int, kServeLast - kN + 1>{});
 
 // A call of model model_id at horizon n in tier fast, on the instantiations
 // built for it: the N = kN models in both tiers here, each family model at
-// its own N in the exact tier (its source), and the cart-pole at N = 40 in
-// the exact tier (family_serve.cu); -1 for any other (model, N, tier), -3
-// for an unknown model.
+// its own N in the exact tier (its source), and the cart-pole at serve's
+// N = 9-40 in the exact tier (kServeLaunchers); -1 for any other
+// (model, N, tier), -3 for an unknown model.
 template <bool Fast>
 int launch_model_tier(int model_id, int n, const SolveCall& c) {
   const float* mc = c.model_consts;
   const float* cc = c.cost_consts;
   if (model_id == kCartPoleShaped4) {
-    if (n == 40 && !Fast) return launch_cartpole_shaped4_n40(c);  // serve's plan streaming
-    return n == kN ? launch_call<kN, Fast>(make_model<Fast>(mc), Shaped4{}, c) : -1;
+    if (n == kN) return launch_call<kN, Fast>(make_model<Fast>(mc), Shaped4{}, c);
+    if (Fast || n < kServeFirst || n > kServeLast) return -1;
+    return kServeLaunchers[n - kServeFirst](c);  // serve's plan streaming
   }
   if (model_id == kFlagship4Diag4) {
     return n == kN ? launch_call<kN, Fast>(Flagship4<Fast>{flagship_consts(mc)},
@@ -321,7 +325,8 @@ extern "C" {
 // launches may share them, concurrent streams may not.
 
 // model: 0 cart-pole + shaped4 (9 constants, CartPoleNonlinearT order;
-// N = 8, either tier), 1 flagship4 + diag4 (17 constants, Flagship4Consts
+// N = 8, either tier; N = 9-40, the exact tier, box-muller at R = 1, and
+// at N = 40 also R = 4), 1 flagship4 + diag4 (17 constants, Flagship4Consts
 // order, and 4 cost coefficients; N = 8, either tier), 2 double integrator
 // + quad2 (dt; N = 40, two states), 3 linear cart-pole + shaped4 (5
 // constants, CartPoleLinear order; N = 8), 4 commu4 + commu4 (11
@@ -484,21 +489,13 @@ int mpc_estimator_chain(int model, int n_sub, int obs_scaled, const float* plant
 }
 
 // Merge (B, nb, N+2) partials per scenario; writes u_out (B, N), status (B).
-// N: a horizon of launch_model's pairs, 8, 20 or 40.
+// N: a horizon of launch_model's pairs, 8-40 (kFinalizers).
 int mpc_fleet_finalize(int n, int n_scen, int nb, float inv_lambda, const float* partials,
                        float* u_out, int* status, void* stream) {
-  if (n != kN && n != 20 && n != 40) return -1;
+  if (n < kN || n > kServeLast) return -1;
   if (n_scen < 1 || nb < 1) return -4;
-  const int blocks = (n_scen + kWarps - 1) / kWarps;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n == kN) {
-    fleet_finalize_kernel<kN><<<blocks, kThreads, 0, s>>>(inv_lambda, n_scen, nb, partials, u_out, status);
-  } else if (n == 20) {
-    fleet_finalize_kernel<20><<<blocks, kThreads, 0, s>>>(inv_lambda, n_scen, nb, partials, u_out, status);
-  } else {
-    fleet_finalize_kernel<40><<<blocks, kThreads, 0, s>>>(inv_lambda, n_scen, nb, partials, u_out, status);
-  }
-  return (int)cudaGetLastError();
+  return kFinalizers[n - kN](n_scen, nb, inv_lambda, partials, u_out, status,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // out[i] = f(a[i]) for fn 0 fsin, 1 fcos, 2 flog, 3 frsqrt, 4 fsqrt,

@@ -12,23 +12,35 @@
 
 namespace mpc {
 
+// The noise sources and R an instantiation set of one (model, N) holds: every
+// source at R = 1 and 4 (the main paths' and the application family's), or
+// box-muller alone, at R = 1 and 4 (serve's cart-pole at N = 40) or at R = 1
+// (serve's cart-pole at N = 9-39): serve draws box-muller only and takes
+// R = 4 only at N = 40 (ops/mppi_cuda.py, BUILT_FOR).
+enum Sources : int { kAllSources = 0, kBoxMullerR14 = 1, kBoxMullerR1 = 2 };
+
 // The partials kernel at N steps and R rollouts a thread, by noise source
 // (external noise or a sampler ID); returns the launch's
-// cudaGetLastError(), or -2 for an unknown source.
-template <int N, bool Fast, int R, class Model, class Cost>
+// cudaGetLastError(), or -2 for a source Set does not build.
+template <int N, bool Fast, int R, int Set, class Model, class Cost>
 int launch_partials_r(int source, const Model& model, const Cost& cost, const PartialsArgs& a,
                       dim3 grid, const PartialsIO& io, cudaStream_t stream) {
 #define MPC_PARTIALS_LAUNCH(S)                                                                \
   mppi_partials_kernel<N, Model, Cost, Fast, S, R><<<grid, kThreads, 0, stream>>>(model, cost, a, io)
-  switch (source) {
-    case kExternal: MPC_PARTIALS_LAUNCH(kExternal); break;
-    case kBoxMuller: MPC_PARTIALS_LAUNCH(kBoxMuller); break;
-    case kClt4: MPC_PARTIALS_LAUNCH(kClt4); break;
-    case kClt4a: MPC_PARTIALS_LAUNCH(kClt4a); break;
-    case kWallace: MPC_PARTIALS_LAUNCH(kWallace); break;
-    case kClt2q: MPC_PARTIALS_LAUNCH(kClt2q); break;
-    case kBoxMullerA: MPC_PARTIALS_LAUNCH(kBoxMullerA); break;
-    default: return -2;
+  if constexpr (Set != kAllSources) {
+    if (source != kBoxMuller) return -2;
+    MPC_PARTIALS_LAUNCH(kBoxMuller);
+  } else {
+    switch (source) {
+      case kExternal: MPC_PARTIALS_LAUNCH(kExternal); break;
+      case kBoxMuller: MPC_PARTIALS_LAUNCH(kBoxMuller); break;
+      case kClt4: MPC_PARTIALS_LAUNCH(kClt4); break;
+      case kClt4a: MPC_PARTIALS_LAUNCH(kClt4a); break;
+      case kWallace: MPC_PARTIALS_LAUNCH(kWallace); break;
+      case kClt2q: MPC_PARTIALS_LAUNCH(kClt2q); break;
+      case kBoxMullerA: MPC_PARTIALS_LAUNCH(kBoxMullerA); break;
+      default: return -2;
+    }
   }
 #undef MPC_PARTIALS_LAUNCH
   return (int)cudaGetLastError();
@@ -36,9 +48,9 @@ int launch_partials_r(int source, const Model& model, const Cost& cost, const Pa
 
 // The partials kernel on a grid of n_problems problems of ceil(K/(256 R))
 // blocks each, sampler by ID (or external noise when io.noise is not null);
-// -2 for an unknown sampler or for external noise without a noise pointer,
-// -3 for an R other than 1 or 4.
-template <int N, bool Fast, class Model, class Cost>
+// -2 for a sampler Set does not build or for external noise without a noise
+// pointer, -3 for an R Set does not build (kBoxMullerR1: 1; else 1 and 4).
+template <int N, bool Fast, int Set, class Model, class Cost>
 int launch_partials_grid(int sampler, int rpt, const Model& model, const Cost& cost,
                          const PartialsArgs& a, int n_problems, const PartialsIO& io,
                          cudaStream_t stream) {
@@ -46,8 +58,10 @@ int launch_partials_grid(int sampler, int rpt, const Model& model, const Cost& c
   const int source = io.noise != nullptr ? (int)kExternal : sampler;
   const int per_block = kThreads * rpt;
   const dim3 grid((a.k + per_block - 1) / per_block, n_problems);
-  if (rpt == 1) return launch_partials_r<N, Fast, 1>(source, model, cost, a, grid, io, stream);
-  if (rpt == 4) return launch_partials_r<N, Fast, 4>(source, model, cost, a, grid, io, stream);
+  if (rpt == 1) return launch_partials_r<N, Fast, 1, Set>(source, model, cost, a, grid, io, stream);
+  if constexpr (Set != kBoxMullerR1) {
+    if (rpt == 4) return launch_partials_r<N, Fast, 4, Set>(source, model, cost, a, grid, io, stream);
+  }
   return -3;
 }
 
@@ -71,10 +85,11 @@ struct SolveCall {
 // with word j; its merge writes statuses[j], u0s[j], u_n in place (the
 // verbatim warm start of solve j+1) and, in plant mode, steps x. All
 // launches go to one stream, with no host synchronisation between them.
-template <int N, bool Fast, class Model, class Cost>
+// Set: the instantiations built (enum Sources).
+template <int N, bool Fast, int Set = kAllSources, class Model, class Cost>
 int launch_call(const Model& model, const Cost& cost, const SolveCall& c) {
   if (c.n_solves == 0) {
-    return launch_partials_grid<N, Fast>(c.sampler, c.rpt, model, cost, c.a, c.n_problems, c.io,
+    return launch_partials_grid<N, Fast, Set>(c.sampler, c.rpt, model, cost, c.a, c.n_problems, c.io,
                                          c.stream);
   }
   for (int j = 0; j < c.n_solves; ++j) {
@@ -83,7 +98,7 @@ int launch_call(const Model& model, const Cost& cost, const SolveCall& c) {
     if (io.seeds != nullptr) io.seeds += j; else io.word0 = (uint32_t)j;
     io.status += j;
     io.u0 += j;
-    const int err = launch_partials_grid<N, Fast>(c.sampler, c.rpt, model, cost, c.a, 1, io, c.stream);
+    const int err = launch_partials_grid<N, Fast, Set>(c.sampler, c.rpt, model, cost, c.a, 1, io, c.stream);
     if (err != 0) return err;
   }
   return 0;
@@ -93,7 +108,18 @@ int launch_call(const Model& model, const Cost& cost, const SolveCall& c) {
 int launch_double_integrator_quad2(const SolveCall& c);  // mppi2, N = 40 (family_mppi2.cu)
 int launch_cartpole_linear_shaped4(const SolveCall& c);  // mppi4, N = 8 (family_mppi4.cu)
 int launch_commu4(const SolveCall& c);                   // the HW flagship, N = 20 (family_commu4.cu)
-// The serve bridge's plan-streaming horizon (exact tier):
-int launch_cartpole_shaped4_n40(const SolveCall& c);  // cart-pole + shaped4, N = 40 (family_serve.cu)
+
+// The serve bridge's plan-streaming horizons, N = kServeFirst..kServeLast
+// (exact tier, box-muller): the cart-pole + shaped4 at N, and the rows'
+// finalize at every horizon of launch_model's pairs, N = kN..kServeLast.
+// Defined in horizons.cuh, instantiated in family_serve*.cu, a span of N
+// each, so that nvcc builds the spans beside each other.
+constexpr int kServeFirst = 9;
+constexpr int kServeLast = 40;
+template <int N>
+int launch_cartpole_shaped4(const SolveCall& c);
+template <int N>
+int launch_finalize(int n_scen, int nb, float inv_lambda, const float* partials, float* u_out, int* status,
+                    cudaStream_t stream);
 
 }  // namespace mpc

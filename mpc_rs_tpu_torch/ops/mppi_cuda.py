@@ -40,11 +40,15 @@ the exact tier, the MPPI application family's double integrator with
 ``quad2`` at N = 40 (``DoubleIntegratorQuad2``: mppi2), linear cart-pole
 with ``shaped4`` at N = 8 (``CartPoleLinearShaped4``: mppi4) and the HW
 flagship's ``make_commu4`` with ``costs.commu4`` at N = 20
-(``Commu4Cost4``); and the cart-pole with ``shaped4`` at N = 40 in the exact
-tier, the horizon of ``serve``'s plan streaming. K1/K2 and the scenario
-batch take every one of them.
+(``Commu4Cost4``); and the cart-pole with ``shaped4`` in the exact tier at
+every horizon of ``serve``'s plan streaming, N = 9-40 (``SERVE_HORIZONS``).
+K1/K2 and the scenario batch take every one of them.
 Sampling is Philox4x32-10 by the contract of ``ops/philox.py``,
-with any of its ``SAMPLERS``.
+with any of its ``SAMPLERS`` and external noise, at R = 1 and 4, but for
+serve's cart-pole, which is built for box-muller alone, at R = 1 (and at
+N = 40 R = 4) (``BUILT_FOR``). On a CUDA device a wrapper raises a
+``ValueError`` before any launch for a (model, N, source, R) that is not
+built (``check_built``); the plain versions take every source and R.
 """
 
 from __future__ import annotations
@@ -64,17 +68,27 @@ from mpc_rs_tpu_torch.ops import fastmath, philox
 
 BLOCK = 256  # threads per block: each group of 256 rollouts of a block
 FLEET_HORIZON = 8  # kN in the source: the fleets' N (the sweep's and D1's too)
+# serve's plan-streaming horizons: N = clip(round(0.8 / period), max(8, M), 40)
+# with --ticks-per-dispatch M > 1 (apps/serve.py:plan_horizon), every N of 9-40
+SERVE_HORIZONS = range(9, 41)
 # (model_id, N) pairs mppi_partials_kernel is built for (launch_model in
 # ops/csrc/mppi_kernels.cu): the cart-pole and the flagship at N = 8 in both
 # tiers (FAST_BUILT), the family's models in the exact tier at their apps' N,
-# and the cart-pole in the exact tier at serve's plan-streaming N = 40
-BUILT = frozenset({(0, 8), (1, 8), (2, 40), (3, 8), (4, 20), (0, 40)})
+# and the cart-pole in the exact tier at serve's plan-streaming N = 9-40
+BUILT = frozenset({(0, 8), (1, 8), (2, 40), (3, 8), (4, 20), *((0, n) for n in SERVE_HORIZONS)})
 # the horizons fleet_finalize_kernel is built for: those of BUILT's pairs
 FINALIZE_HORIZONS = frozenset(n for _, n in BUILT)
 FAST_BUILT = frozenset({(0, 8), (1, 8)})
 NEG_BIG = -3.4e38  # score of a block with no finite rollout (mppi_pallas.py:302)
 NO_FINITE_BELOW = -3.3e38  # mppi_pallas.py:898,1022
 ROLLOUTS_PER_THREAD = (1, 4)  # the R the kernel is built for
+NOISE_SOURCES = ("external", *philox.SAMPLERS)  # external noise (B, K, N), or a sampler's draw
+# The noise sources and R each pair of BUILT is built for: every source at
+# R = 1 and 4 (mppi_kernels.cu, family_mppi2.cu, family_mppi4.cu,
+# family_commu4.cu), but serve's cart-pole, which draws box-muller alone
+# (apps/serve.py): at N = 40 at R = 1 and 4 (family_serve.cu), at N = 9-39
+# at R = 1 (family_serve_*.cu; R = 4 would need K >= 66 561 at 8 robots)
+BUILT_FOR = {(0, n): (("box-muller",), (1, 4) if n == 40 else (1,)) for n in SERVE_HORIZONS}
 MIN_BLOCKS = 4 * 132  # four blocks on each of an H100's 132 SMs
 
 # Wrapper calls that launched their kernels since the last reset; CPU calls
@@ -91,21 +105,29 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def rollouts_per_thread(k: int, b: int = 1) -> int:
+def built_for(model, n: int) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """The noise sources and R the kernel of ``model`` at horizon ``n`` is
+    built for (``BUILT_FOR``; every source at R = 1 and 4 elsewhere)."""
+    return BUILT_FOR.get((getattr(model, "model_id", None), n), (NOISE_SOURCES, ROLLOUTS_PER_THREAD))
+
+
+def rollouts_per_thread(k: int, b: int = 1, model=None, n: int = FLEET_HORIZON) -> int:
     """R for B problems of K rollouts: the largest of ``ROLLOUTS_PER_THREAD``
     whose grid, ceil(K/(256 R)) blocks a problem, keeps at least
     ``MIN_BLOCKS`` blocks (the reductions then run once per 256 R rollouts);
     1 when none does, where R = 4 would leave SMs idle (K1 at K = 10 240).
     The same threshold past N = 8, where R = 4 holds fewer blocks an SM (2
     at N = 20, 1 at N = 40): measured there, a grid of one short wave at
-    R = 4 loses to R = 1 (PERF.md §6)."""
-    fits = [r for r in ROLLOUTS_PER_THREAD if -(-k // (BLOCK * r)) * b >= MIN_BLOCKS]
+    R = 4 loses to R = 1 (PERF.md §6). With a ``model``, only the R its
+    kernel at horizon ``n`` is built for (``built_for``): 1 wherever R = 4 is
+    not built, as for serve's cart-pole at N = 9-39 at any K."""
+    fits = [r for r in built_for(model, n)[1] if -(-k // (BLOCK * r)) * b >= MIN_BLOCKS]
     return max(fits, default=1)
 
 
-def _rpt(k: int, b: int, forced: int | None) -> int:
+def _rpt(k: int, b: int, forced: int | None, model=None, n: int = FLEET_HORIZON) -> int:
     if forced is None:
-        return rollouts_per_thread(k, b)
+        return rollouts_per_thread(k, b, model, n)
     if forced not in ROLLOUTS_PER_THREAD:
         raise ValueError(f"rollouts_per_thread must be one of {ROLLOUTS_PER_THREAD}, got {forced}")
     return forced
@@ -295,9 +317,12 @@ launches.update({f"model:{m.__name__}": 0 for m in MODELS})
 launches.update({f"finalize:N={n}": 0 for n in sorted(FINALIZE_HORIZONS)})
 
 
-def check_built(model, n: int) -> None:
-    """Raise unless K1/K2 have a kernel for ``model`` at horizon ``n`` (and
-    in its tier)."""
+def check_built(model, n: int, source: str | None = None, rpt: int | None = None) -> None:
+    """Raise unless K1/K2 and the batch have a kernel for ``model`` at
+    horizon ``n`` (and in its tier) and, where given, for noise ``source``
+    (``NOISE_SOURCES``) at ``rpt`` rollouts a thread (``built_for``). The
+    wrappers check all four on a CUDA device before any launch; the plain
+    versions take every source and R."""
     if not isinstance(model, MODELS):
         raise ValueError(f"no kernel for model {type(model).__name__}; K1/K2 are built for "
                          f"{', '.join(m.__name__ for m in MODELS)}")
@@ -306,6 +331,13 @@ def check_built(model, n: int) -> None:
         raise ValueError(f"no kernel for horizon N={n} with {type(model).__name__}; it is built for N={built}")
     if model.fast and (model.model_id, n) not in FAST_BUILT:
         raise ValueError(f"no fast-tier kernel for {type(model).__name__} at N={n}")
+    sources, rpts = built_for(model, n)
+    if source is not None and source not in sources:
+        raise ValueError(f"no kernel for noise source {source!r} with {type(model).__name__} at N={n}; "
+                         f"it is built for {', '.join(sources)}")
+    if rpt is not None and rpt not in rpts:
+        raise ValueError(f"no kernel at {rpt} rollouts a thread with {type(model).__name__} at N={n}; "
+                         f"it is built for R={list(rpts)}")
 
 
 class ChainResult(NamedTuple):
@@ -354,10 +386,10 @@ def mppi_batch_partials_plain(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: to
     unless given), in the dtype of ``u_ns``. xs (B, S), u_ns (B, N), noise
     (B, K, N) already scaled by σ. A block without a finite rollout has
     m_b = NEG_BIG and zeros."""
-    b, k, _ = noise.shape
+    b, k, n = noise.shape
     inv = cfg.std_dev ** -2.0 if cfg.control_inv is None else cfg.control_inv
     return _rows_plain(model, xs, u_ns, noise, cfg.limit, inv, inv_lambda(cfg.lambda_),
-                       BLOCK * _rpt(k, b, rollouts_per_thread))
+                       BLOCK * _rpt(k, b, rollouts_per_thread, model, n))
 
 
 def mppi_partials_plain(cfg: MppiConfig, model, x: torch.Tensor, u_n: torch.Tensor,
@@ -562,7 +594,7 @@ def _kernel_args(cfg: MppiConfig, model, x, u_n, noise, noise_shape, sampler, rp
     if sampler not in philox.SAMPLERS:
         raise ValueError(f"sampler must be one of {philox.SAMPLERS}, got {sampler!r}")
     n, k = cfg.n_horizon, cfg.n_rollouts
-    check_built(model, n)
+    check_built(model, n, "external" if noise is not None else sampler, rpt)
     if not 1 <= k < 2**31 - 4 * BLOCK:
         raise ValueError(f"n_rollouts must be in [1, 2**31 - {4 * BLOCK}), got {k}")
     _check("x", x, (model.n_state,), torch.float32, device)
@@ -593,7 +625,7 @@ def mppi_solve_fused(cfg: MppiConfig, model, x: torch.Tensor,
     R (default ``rollouts_per_thread(K)``). CUDA tensors must be float32.
     """
     k = cfg.n_rollouts
-    rpt = _rpt(k, 1, rollouts_per_thread)
+    rpt = _rpt(k, 1, rollouts_per_thread, model, cfg.n_horizon)
     if x.device.type == "cpu":
         return mppi_solve_plain(cfg, model, x, u_n, seed=seed, solve=solve, noise=noise,
                                 sampler=sampler, rollouts_per_thread=rpt)
@@ -633,7 +665,7 @@ def mppi_chain_fused(cfg: MppiConfig, model, x: torch.Tensor,
     """
     j = _chain_length(seeds, n_solves, noise)
     k = cfg.n_rollouts
-    rpt = _rpt(k, 1, rollouts_per_thread)
+    rpt = _rpt(k, 1, rollouts_per_thread, model, cfg.n_horizon)
     if x.device.type == "cpu":
         return mppi_chain_plain(cfg, model, x, u_n, seeds=seeds, n_solves=n_solves,
                                 base_seed=base_seed, noise=noise, plant=plant, sampler=sampler,
@@ -674,12 +706,14 @@ def batch_noise(cfg: MppiConfig, model, seeds: torch.Tensor, sampler: str, first
                                cfg.n_rollouts, cfg.n_horizon, cfg.std_dev, fast=model.fast)
 
 
-def _batch_kernel_args(cfg: MppiConfig, model, xs, u_ns):
+def _batch_kernel_args(cfg: MppiConfig, model, xs, u_ns, source: str, rpt: int):
+    """Validate B problems for the kernel (``check_built`` on the model,
+    horizon, noise ``source`` and ``rpt``); return (B, N, K)."""
     device = xs.device
     if device.type != "cuda":
         raise ValueError(f"the fused kernels take CPU or CUDA tensors, got {device}")
     n, k = cfg.n_horizon, cfg.n_rollouts
-    check_built(model, n)
+    check_built(model, n, source, rpt)
     if not 1 <= k < 2**31 - 4 * BLOCK:
         raise ValueError(f"n_rollouts must be in [1, 2**31 - {4 * BLOCK}), got {k}")
     b = xs.shape[0]
@@ -698,7 +732,7 @@ def _batch(cfg: MppiConfig, model, xs, u_ns, seeds, sampler, noise, noise_out, r
         raise ValueError("pass exactly one of noise (B, K, N) or seeds with a sampler")
     if sampler is not None and (sampler not in philox.SAMPLERS or seeds is None):
         raise ValueError(f"sampler must be one of {philox.SAMPLERS}, with seeds (B,) int32")
-    rpt = _rpt(cfg.n_rollouts, xs.shape[0], rollouts_per_thread)
+    rpt = _rpt(cfg.n_rollouts, xs.shape[0], rollouts_per_thread, model, cfg.n_horizon)
     if xs.device.type == "cpu":
         if noise is None:
             noise = batch_noise(cfg, model, seeds, sampler)
@@ -707,7 +741,7 @@ def _batch(cfg: MppiConfig, model, xs, u_ns, seeds, sampler, noise, noise_out, r
         parts = mppi_batch_partials_plain(cfg, model, xs, u_ns, noise.to(u_ns.dtype),
                                           rollouts_per_thread=rpt)
         return (parts, *finalize_batch_plain(cfg, parts)) if merge else (parts,)
-    b, n, k = _batch_kernel_args(cfg, model, xs, u_ns)
+    b, n, k = _batch_kernel_args(cfg, model, xs, u_ns, "external" if noise is not None else sampler, rpt)
     if noise is not None:
         _check("noise", noise, (b, k, n), torch.float32, xs.device)
     else:
@@ -811,7 +845,7 @@ def _merged(cfg: MppiConfig, model, xs, u_ns, *, seeds, base_seed, word0, sample
     word ``word0`` + b; or reads ``noise`` (P, K, N)."""
     if sampler is not None and sampler not in philox.SAMPLERS:
         raise ValueError(f"sampler must be one of {philox.SAMPLERS}, got {sampler!r}")
-    rpt = _rpt(cfg.n_rollouts, xs.shape[0], rollouts_per_thread)
+    rpt = _rpt(cfg.n_rollouts, xs.shape[0], rollouts_per_thread, model, cfg.n_horizon)
     if xs.device.type == "cpu":
         if noise is None:
             noise = (batch_noise(cfg, model, seeds, sampler, word0) if seeds is not None else
@@ -820,7 +854,7 @@ def _merged(cfg: MppiConfig, model, xs, u_ns, *, seeds, base_seed, word0, sample
             noise_out.copy_(noise)
         return mppi_batch_partials_merged_plain(cfg, model, xs, u_ns, noise.to(u_ns.dtype),
                                                 rollouts_per_thread=rpt)
-    b, n, k = _batch_kernel_args(cfg, model, xs, u_ns)
+    b, n, k = _batch_kernel_args(cfg, model, xs, u_ns, "external" if noise is not None else sampler, rpt)
     if noise is not None:
         _check("noise", noise, (b, k, n), torch.float32, xs.device)
     elif seeds is not None:
@@ -986,7 +1020,7 @@ def mppi_sweep_batch_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch
     if not isinstance(model, CartPoleShaped4) or model.fast or cfg.n_horizon != FLEET_HORIZON:
         raise ValueError(f"the sweep's kernel is built for the exact CartPoleShaped4 at N={FLEET_HORIZON}, "
                          f"got {model} at N={cfg.n_horizon}")
-    b, n, k = _batch_kernel_args(cfg, model, xs, u_ns)
+    b, n, k = _batch_kernel_args(cfg, model, xs, u_ns, "external" if noise is not None else "box-muller", rpt)
     dev = xs.device
     _check("lambdas", lambdas, (b,), torch.float32, dev)
     _check("sigmas", sigmas, (b,), torch.float32, dev)

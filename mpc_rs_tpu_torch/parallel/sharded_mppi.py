@@ -74,9 +74,10 @@ def make_sharded_mppi(cfg: MppiConfig, model, mesh: Mesh, *, axis: str = "rollou
 
     K = cfg.n_rollouts is split evenly over ``mesh``'s ``axis``; ``model`` is
     one of ``ops/mppi_cuda.py``'s at a horizon it is built for (``BUILT``:
-    the cart-pole's ``shaped4`` at N = 8 and 40, the flagship's ``diag4`` and
+    the cart-pole's ``shaped4`` at N = 8-40, the flagship's ``diag4`` and
     the linear cart-pole at 8, the HW flagship's ``commu4`` at 20, mppi2's
-    double integrator at 40). Rank r samples ``sampler``'s noise with key
+    double integrator at 40; on a card the cart-pole past N = 8 takes
+    box-muller alone, ``BUILT_FOR``). Rank r samples ``sampler``'s noise with key
     seed + r·7919 (int32) and stream 0, an independent stream a rank; with
     ``external_noise`` the first argument is the global (K, N) noise, already
     scaled by σ, of which rank r takes rows [r·K/n, (r+1)·K/n). x, u_n and

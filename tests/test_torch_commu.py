@@ -438,13 +438,15 @@ def test_commu_solve_matches_jax_on_matched_noise(app):
     np.testing.assert_allclose(got_u.numpy(), np.asarray(res.u_n), **F32_BAND)
 
 
-@pytest.mark.parametrize("n", [8, 40])
+@pytest.mark.parametrize("n", [8, 9, 16, 20, 31, 32, 39, 40])
 def test_serve_batch_solver_matches_jax_robot_by_robot(n):
     """serve's batch of 8 robots (B = 8, no padding) at N = 8 and at the
-    plan-streaming N = 40 against the JAX ``mppi_solve`` robot by robot on
-    each robot's noise; robot 3's NaN state fails to a zero sequence and
-    leaves the others untouched."""
-    dt = 0.1 if n == 8 else 0.01
+    plan-streaming horizons N = 9-40 (each end of the row's sums: N = 31 in
+    warp 0, N = 32 over two; odd N, whose last box-muller pair is half used)
+    against the JAX ``mppi_solve`` robot by robot on each robot's noise;
+    robot 3's NaN state fails to a zero sequence and leaves the others
+    untouched."""
+    dt = 0.1 if n == 8 else 0.8 / n
     model = CartPoleShaped4(SW, dt)
     cfg = MppiConfig(n_horizon=n, n_rollouts=1024, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
     jcfg = jmppi.MppiConfig(n_horizon=n, n_rollouts=1024, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
@@ -480,11 +482,17 @@ def test_serve_batch_solver_takes_a_copy_of_the_state_table():
     assert np.isfinite(first.result()).all()
 
 
-@pytest.mark.parametrize("n", [20, 16])
-def test_serve_other_horizons_raise(n):
+@pytest.mark.parametrize("n, fast, match", [
+    (16, True, "no fast-tier kernel for CartPoleShaped4 at N=16"),
+    (41, False, r"no kernel for horizon N=41 with CartPoleShaped4; it is built for N=\[8, 9, .*, 39, 40\]"),
+])
+def test_serve_other_horizons_raise(n, fast, match):
+    """The cart-pole is built at every horizon serve can pick, N = 8-40, in
+    the exact tier: the fast tier past N = 8 and N = 41 still raise, on
+    every device."""
     cfg = MppiConfig(n_horizon=n, n_rollouts=512, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
-    with pytest.raises(ValueError, match=rf"no kernel for horizon N={n} with CartPoleShaped4; it is built for N=\[8, 40\]"):
-        make_batch_solver(cfg, CartPoleShaped4(SW, 0.8 / n), "cpu")
+    with pytest.raises(ValueError, match=match):
+        make_batch_solver(cfg, CartPoleShaped4(SW, 0.8 / n, fast=fast), "cpu")
 
 
 # --------------------------------------------------------------------------

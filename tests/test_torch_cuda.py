@@ -718,19 +718,28 @@ def test_cuda_family_plant_chain_matches_plain(card, app):
 
 def _sharded_case(app, k):
     """The family's pair past N = 8 at its app's λ, for the finalize and the
-    K-sharded solve; ``serve_n40``: serve's cart-pole at N = 40."""
-    if app == "serve_n40":
-        return CartPoleShaped4(_SW, 0.02), 40, _cfg(k, n=40), X0
+    K-sharded solve; ``serve_n<N>``: serve's cart-pole at N (steps of
+    0.8/N s), built for box-muller alone."""
+    if app.startswith("serve_n"):
+        n = int(app[len("serve_n"):])
+        return CartPoleShaped4(_SW, 0.8 / n), n, _cfg(k, n=n), X0
     return _family(app, k)
 
 
+# the finalize's cases: the family's pairs with external noise and box-muller
+# at R = 1 and 4; serve's cart-pole, box-muller alone, at R = 1 and 4 at
+# N = 40 and at R = 1 at N = 9-39 (each end of the row's sums, odd N)
+FINALIZE_CASES = [(app, k, b, source, rpt) for app, k, b in (("hw_flagship", 65_536, 1), ("hw_flagship", 8192, 8),
+                                                              ("mppi2", 8000, 8))
+                  for source in ("external", "box-muller") for rpt in (1, 4)] + [
+    ("serve_n40", 8192, 8, "box-muller", 1), ("serve_n40", 8192, 8, "box-muller", 4),
+    *((f"serve_n{n}", 8192, 8, "box-muller", 1) for n in (9, 16, 31, 32, 39))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rpt", [1, 4])
-@pytest.mark.parametrize("source", ["external", "box-muller"])
-@pytest.mark.parametrize("app, k, b", [("hw_flagship", 65_536, 1), ("hw_flagship", 8192, 8), ("mppi2", 8000, 8),
-                                       ("serve_n40", 8192, 8)])
+@pytest.mark.parametrize("app, k, b, source, rpt", FINALIZE_CASES)
 def test_cuda_finalize_at_n20_and_n40_matches_plain(card, app, k, b, source, rpt):
-    """``fleet_finalize_kernel`` at N = 20 and 40: the merged rows finished
+    """``fleet_finalize_kernel`` at N = 20 and 40, and at serve's N = 9-39: the merged rows finished
     are the merged-in-launch solve bit for bit; the rows-only launch's rows
     finished match ``finalize_batch_plain`` in float64 on the same rows (the
     f32 band, the same statuses) and, merged by one warp in the launch too
@@ -763,12 +772,14 @@ def test_cuda_finalize_at_n20_and_n40_matches_plain(card, app, k, b, source, rpt
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("app", ["hw_flagship", "mppi2", "serve_n40"])
+@pytest.mark.parametrize("app", ["hw_flagship", "mppi2", "serve_n40", "serve_n16"])
 def test_cuda_sharded_solve_at_world_1_is_the_one_rank_solve(card, app):
     """The K-sharded solve on a world of one rank (no group: no collective)
-    at N = 20 (the HW flagship at K = 800 000) and N = 40: one merged-row
+    at N = 20 (the HW flagship at K = 800 000), N = 40 and serve's N = 16: one merged-row
     launch and one finalize launch at its horizon, and ``mppi_solve_fused``'s
-    bits, with external noise and in-kernel sampling alike."""
+    bits, with external noise and in-kernel sampling alike; serve's
+    cart-pole, built for box-muller alone, refuses external noise before
+    any launch."""
     from mpc_rs_tpu_torch.parallel.mesh import make_mesh
     from mpc_rs_tpu_torch.parallel.sharded_mppi import make_sharded_mppi
 
@@ -778,10 +789,15 @@ def test_cuda_sharded_solve_at_world_1_is_the_one_rank_solve(card, app):
                                       device=card)
     mesh = make_mesh()
     mppi_cuda.reset_launches()
-    u, st = make_sharded_mppi(cfg, m, mesh, external_noise=True)(noise, x, u_n)
-    assert mppi_cuda.launches["mppi_partials_merged_fused"] == 1 and mppi_cuda.launches[f"finalize:N={n}"] == 1
-    want_u, want_st = mppi_solve_fused(cfg, m, x, u_n, noise=noise)
-    assert int(st) == int(want_st) == 0 and torch.equal(u, want_u)
+    if app.startswith("serve_n"):
+        with pytest.raises(ValueError, match="noise source 'external'"):
+            make_sharded_mppi(cfg, m, mesh, external_noise=True)(noise, x, u_n)
+        assert not any(mppi_cuda.launches.values())
+    else:
+        u, st = make_sharded_mppi(cfg, m, mesh, external_noise=True)(noise, x, u_n)
+        assert mppi_cuda.launches["mppi_partials_merged_fused"] == 1 and mppi_cuda.launches[f"finalize:N={n}"] == 1
+        want_u, want_st = mppi_solve_fused(cfg, m, x, u_n, noise=noise)
+        assert int(st) == int(want_st) == 0 and torch.equal(u, want_u)
     u, st = make_sharded_mppi(cfg, m, mesh)(11, x, u_n)
     want_u, want_st = mppi_solve_fused(cfg, m, x, u_n, seed=11)
     assert int(st) == int(want_st) == 0 and torch.equal(u, want_u)
@@ -796,55 +812,81 @@ def test_cuda_family_unbuilt_pairs_raise(card):
 
 
 # --------------------------------------------------------------------------
-# serve: the cart-pole at the plan-streaming N = 40, and the batch solver
+# serve: the cart-pole at the plan-streaming N = 9-40, and the batch solver
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rpt", [1, 4])
-@pytest.mark.parametrize("source", ["external", "box-muller", "clt4a", "wallace"])
-def test_cuda_serve_n40_matches_plain(card, source, rpt):
-    """The (cart-pole, N = 40) instantiation on serve's batch of 8 robots at
-    K = 8192 and on one problem, against the float64 plain version (λ = 20,
-    where the f32 solve is well conditioned); the kernel's noise is
-    ops/philox.py's."""
-    m = CartPoleShaped4(CartPoleParams.single_wheel(), 0.01)
-    cfg = _cfg(8192, lam=20.0, n=40)
-    rng = np.random.default_rng(40 + rpt)
+@pytest.mark.parametrize("n, rpt", [(40, 1), (40, 4), (9, 1), (16, 1), (20, 1), (31, 1), (32, 1), (39, 1)])
+def test_cuda_serve_horizons_match_plain(card, n, rpt):
+    """The (cart-pole, N) instantiations serve reaches, box-muller alone, on
+    serve's batch of 8 robots at K = 8192 and on one problem, against the
+    float64 plain version fed the kernel's noise (λ = 20, where the f32
+    solve is well conditioned): N = 31 ends in warp 0, N = 32 in two warps,
+    odd N half uses its last box-muller pair. The kernel's noise is
+    ops/philox.py's, and the merge tickets are back to zero."""
+    m = CartPoleShaped4(CartPoleParams.single_wheel(), 0.8 / n)
+    cfg = _cfg(8192, lam=20.0, n=n)
+    rng = np.random.default_rng(n + rpt)
     xs = torch.tensor(np.c_[np.zeros((8, 2)), rng.uniform(-0.1, 0.1, (8, 2))], dtype=torch.float32, device=card)
-    u_ns = torch.tensor(0.3 * rng.standard_normal((8, 40)), dtype=torch.float32, device=card)
+    u_ns = torch.tensor(0.3 * rng.standard_normal((8, n)), dtype=torch.float32, device=card)
     seeds = torch.arange(8, dtype=torch.int32, device=card) + 9
-    if source == "external":
-        noise = torch.tensor(3.0 * rng.standard_normal((8, 8192, 40)), dtype=torch.float32, device=card)
-        got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, noise=noise, rollouts_per_thread=rpt)
-    else:
-        noise = torch.empty((8, 8192, 40), device=card)
-        got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, seeds=seeds, sampler=source,
-                                                         noise_out=noise, rollouts_per_thread=rpt)
-        np.testing.assert_allclose(noise.cpu().numpy(), mppi_cuda.batch_noise(cfg, m, seeds, source).cpu().numpy(),
-                                   rtol=1e-5, atol=1e-5)
+    noise = torch.empty((8, 8192, n), device=card)
+    got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, seeds=seeds, sampler="box-muller",
+                                                     noise_out=noise, rollouts_per_thread=rpt)
+    np.testing.assert_allclose(noise.cpu().numpy(), mppi_cuda.batch_noise(cfg, m, seeds, "box-muller").cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
     parts = mppi_cuda.mppi_batch_partials_plain(cfg, m, xs.double(), u_ns.double(), noise.double(),
                                                 rollouts_per_thread=rpt)
     want_u, want_st = mppi_cuda.finalize_batch_plain(cfg, parts)
     assert got_st.tolist() == want_st.tolist() == [0] * 8
     np.testing.assert_allclose(got_u.cpu().numpy(), want_u.cpu().numpy(), **F32_BAND)
-    one_u, one_st = mppi_solve_fused(cfg, m, xs[0], u_ns[0], noise=noise[0], rollouts_per_thread=rpt)
-    assert int(one_st) == 0
-    np.testing.assert_allclose(one_u.cpu().numpy(), want_u[0].cpu().numpy(), **F32_BAND)
-    assert bool((mppi_cuda.merge_tickets(card, 8) == 0).all())
+    one_u, one_st = mppi_solve_fused(cfg, m, xs[0], u_ns[0], seed=int(seeds[0]), rollouts_per_thread=rpt)
+    want_one = mppi_cuda.mppi_solve_plain(cfg, m, xs[0].double(), u_ns[0].double(), rollouts_per_thread=rpt,
+                                          noise=mppi_cuda.solve_noise(cfg, m, int(seeds[0]), 0, device=card).double())
+    assert int(one_st) == int(want_one[1]) == 0
+    np.testing.assert_allclose(one_u.cpu().numpy(), want_one[0].cpu().numpy(), **F32_BAND)
+    assert bool((mppi_cuda.merge_tickets(card, 8) == 0).all()) and bool((mppi_cuda.merge_tickets(card, 1) == 0).all())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [8, 40])
+@pytest.mark.parametrize("n, source, rpt", [(16, "external", 1), (16, "clt4a", 1), (16, "box-muller", 4),
+                                             (32, "box-muller", 4), (40, "wallace", 1), (40, "external", 4)])
+def test_cuda_serve_unbuilt_source_or_r_raises_before_launch(card, n, source, rpt):
+    """On the card each wrapper refuses a (N, source, R) of serve's cart-pole
+    that is not built, with a ValueError before any launch: no fallback to
+    the plain version."""
+    m, cfg = CartPoleShaped4(CartPoleParams.single_wheel(), 0.8 / n), _cfg(1024, n=n)
+    xs, u_ns = torch.zeros((2, 4), device=card), torch.zeros((2, n), device=card)
+    kw = (dict(noise=torch.zeros((2, 1024, n), device=card)) if source == "external"
+          else dict(seeds=torch.arange(2, dtype=torch.int32, device=card), sampler=source))
+    one = dict(noise=kw["noise"][0]) if source == "external" else dict(sampler=source)
+    mppi_cuda.reset_launches()
+    calls = (lambda: mppi_cuda.mppi_solve_batch_fused(cfg, m, xs, u_ns, rollouts_per_thread=rpt, **kw),
+             lambda: mppi_cuda.mppi_batch_partials_fused(cfg, m, xs, u_ns, rollouts_per_thread=rpt, **kw),
+             lambda: mppi_cuda.mppi_batch_partials_merged_fused(cfg, m, xs, u_ns, rollouts_per_thread=rpt, **kw),
+             lambda: mppi_solve_fused(cfg, m, xs[0], u_ns[0], rollouts_per_thread=rpt, **one),
+             lambda: mppi_cuda.mppi_partials_merged_fused(cfg, m, xs[0], u_ns[0], rollouts_per_thread=rpt, **one),
+             lambda: mppi_chain_fused(cfg, m, xs[0], u_ns[0], n_solves=2, rollouts_per_thread=rpt,
+                                      **(dict(noise=kw["noise"]) if source == "external" else one)))
+    for call in calls:
+        with pytest.raises(ValueError, match="noise source" if rpt == 1 or source != "box-muller" else "rollouts a"):
+            call()
+    assert not any(mppi_cuda.launches.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16, 32, 40])
 def test_cuda_serve_batch_solver_matches_its_plain_path(card, n):
     """serve's batch solver on the card (one counted launch a dispatch, the
     zero fallback on the device, the read-back into pinned memory behind an
     event) against the same solver on the CPU: three dispatches queued
     before the first is read, the state table rewritten after each call,
-    the later two warm starts advanced two steps at N = 40, robot 3's NaN
-    state zeroed, the others in the f32 band."""
+    the later two warm starts advanced two steps at the plan-streaming
+    horizons (N = 16, 32 and 40), robot 3's NaN state zeroed, the others in
+    the f32 band."""
     from mpc_rs_tpu_torch.apps.serve import make_batch_solver
 
-    m = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1 if n == 8 else 0.01)
+    m = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1 if n == 8 else 0.8 / n)
     cfg = _cfg(8192, lam=20.0, n=n)  # a well-conditioned λ: the warm starts chain
     xs = np.zeros((8, 4), np.float32)
     xs[:, 2] = np.linspace(-0.1, 0.1, 8)
@@ -855,7 +897,7 @@ def test_cuda_serve_batch_solver_matches_its_plain_path(card, n):
     for d in range(3):
         seeds = np.arange(8, dtype=np.int32) + 8 * d
         x_now = xs.copy()
-        advance = 2 if n == 40 and d else 0
+        advance = 2 if n != 8 and d else 0
         dg = gpu(seeds, xs, u_g, advance)
         xs[:, 0] += 0.01  # the table is rewritten while the solve may be queued
         dc = cpu(seeds, x_now, u_c, advance)

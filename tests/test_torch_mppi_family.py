@@ -261,7 +261,7 @@ def test_k1_plain_chain_with_seeds_is_sequential_k2_for_two_states():
 
 
 def test_built_pairs_and_their_checks():
-    assert mppi_cuda.BUILT == {(0, 8), (1, 8), (2, 40), (3, 8), (4, 20), (0, 40)}
+    assert mppi_cuda.BUILT == {(0, 8), (1, 8), (2, 40), (3, 8), (4, 20), *((0, n) for n in range(9, 41))}
     for name, (model, *_rest) in FAMILY.items():
         mppi_cuda.check_built(model, FAMILY[name][4]["n_horizon"])
     with pytest.raises(ValueError, match="horizon N=8"):
@@ -276,7 +276,7 @@ def test_built_pairs_and_their_checks():
 
     with pytest.raises(ValueError, match="no fast-tier kernel"):
         mppi_cuda.check_built(FastDoubleIntegrator(0.05), 40)
-    # serve's plan-streaming cart-pole at N = 40: the exact tier only
+    # serve's plan-streaming cart-pole at N = 9-40: the exact tier only
     mppi_cuda.check_built(CartPoleShaped4(SW, 0.01), 40)
     with pytest.raises(ValueError, match="no fast-tier kernel for CartPoleShaped4 at N=40"):
         mppi_cuda.check_built(CartPoleShaped4(SW, 0.01, fast=True), 40)

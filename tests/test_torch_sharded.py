@@ -10,9 +10,10 @@ the scaling harness, and write what they got. The tests hold that against:
 - (a) the JAX package's ``make_sharded_mppi(..., backend="jnp",
   external_noise=True)`` on the conftest's virtual CPU devices, on the same
   numpy (K, N) noise: the f32 band (rtol 1e-3 / atol 2e-4) and 1e-9 in f64;
-  at N = 8 on the cart-pole, and at every other horizon the kernels are
-  built for: the HW flagship's N = 20 and mppi2's N = 40 (their JAX models
-  as ``tests/test_torch_mppi_family.py`` builds them);
+  at N = 8 on the cart-pole, at the HW flagship's N = 20 and mppi2's
+  N = 40 (their JAX models as ``tests/test_torch_mppi_family.py`` builds
+  them), and on the cart-pole at one of serve's plan-streaming horizons,
+  N = 16 (0.05 s steps);
 - (b) the port's one-rank solve on the same noise, in the same bands;
 - (c) the JAX package's statuses where a shard has no finite rollout, where
   none has (NO_FINITE), and at λ = 0 (INVALID_U);
@@ -50,7 +51,7 @@ from mpc_rs_tpu.parallel.sharded_mppi import make_sharded_mppi as jmake_sharded
 from mpc_rs_tpu_torch.apps.fleet import build_fleet, build_qp_fleet, resume_fleet, run_fleet, run_qp_fleet
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig, MppiStatus
 from mpc_rs_tpu_torch.models.params import CartPoleParams
-from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Commu4Cost4, mppi_solve_fused
+from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Commu4Cost4, Flagship4Diag4, mppi_solve_fused
 from mpc_rs_tpu_torch.parallel import distributed
 from mpc_rs_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mpc_rs_tpu_torch.parallel.scenario import carry_from_numpy
@@ -67,9 +68,11 @@ BANDS = {np.float32: dict(rtol=1e-3, atol=2e-4), np.float64: dict(rtol=1e-9, ato
 TD = {np.float32: torch.float32, np.float64: torch.float64}
 MESHES = {2: [(2, 1), (1, 2)], 4: [(2, 2)]}
 MODELS = ("cartpole4", "flagship6")
-# the K-sharded solve's models: the cart-pole at N = 8, and the family's
-# pairs past N = 8, as tests/test_torch_mppi_family.py runs them
-SOLVE_MODELS = ("cartpole", "hw_flagship", "mppi2")
+# the K-sharded solve's models: the cart-pole at N = 8, the family's pairs
+# past N = 8, as tests/test_torch_mppi_family.py runs them, and the cart-pole
+# at serve's N = 16 (the JAX serve's horizon at a 0.05 s tick)
+SOLVE_MODELS = ("cartpole", "hw_flagship", "mppi2", "serve16")
+SERVE16_DT = 0.05
 PROC_TIMEOUT_S = 150
 
 _WORKER = textwrap.dedent(
@@ -95,7 +98,8 @@ _WORKER = textwrap.dedent(
     data = torch.load(f"{out}/../inputs.pt", weights_only=False)
     model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
     solve_models = {"cartpole": model, "hw_flagship": Commu4Cost4(CartPoleParams.two_wheel(), 0.05),
-                    "mppi2": DoubleIntegratorQuad2(2.0 / 40)}
+                    "mppi2": DoubleIntegratorQuad2(2.0 / 40),
+                    "serve16": CartPoleShaped4(CartPoleParams.single_wheel(), data["serve16_dt"])}
     res = {}
     mesh = make_mesh({"rollouts": world})
     for m_name, m in solve_models.items():
@@ -148,9 +152,10 @@ def _limit(dtype):
 
 def _solve_kw(model):
     """A solve model's MppiConfig arguments but K and the limit: the
-    cart-pole's (N = 8, λ = 0.5, σ = 3), the family's at their apps' own."""
-    if model == "cartpole":
-        return dict(n_horizon=N, lambda_=0.5, std_dev=3.0)
+    cart-pole's (N = 8, λ = 0.5, σ = 3; serve's at N = 16), the family's at
+    their apps' own."""
+    if model in ("cartpole", "serve16"):
+        return dict(n_horizon=N if model == "cartpole" else 16, lambda_=0.5, std_dev=3.0)
     return {a: v for a, v in FAMILY[model][4].items() if a != "limit"}
 
 
@@ -158,7 +163,7 @@ def _solve_inputs(dtype, model="cartpole"):
     """The solves' numpy inputs: x, u_n, the (K, N) noise, and the noise
     whose first shard's rows overflow every rollout of that shard."""
     n = _solve_kw(model)["n_horizon"]
-    x0 = X0 if model == "cartpole" else FAMILY[model][5]
+    x0 = X0 if model in ("cartpole", "serve16") else FAMILY[model][5]
     rng = np.random.default_rng(21)
     noise = (_solve_kw(model)["std_dev"] * rng.standard_normal((K, n))).astype(dtype)
     big = noise.copy()
@@ -228,7 +233,7 @@ def ranks(tmp_path_factory):
                 starts=case["starts"], mppi=[torch.tensor(m) for m in case["mppi"]],
                 sensor=[torch.tensor(s) for s in case["sensor"]])
     data = dict(k=K, k_fleet=K_FLEET, b=B, meshes=MESHES, models=MODELS, fleet=fleet,
-                cfg={m: _solve_kw(m) for m in SOLVE_MODELS})
+                cfg={m: _solve_kw(m) for m in SOLVE_MODELS}, serve16_dt=SERVE16_DT)
     for dtype in (np.float32, np.float64):
         name = np.dtype(dtype).name
         data[f"limit_{name}"] = _limit(dtype)
@@ -271,8 +276,9 @@ def _jax_solver(world, dtype, lam, model):
     kw = dict(_solve_kw(model), n_rollouts=K, limit=_limit(dtype))
     jcfg = jmppi.MppiConfig(**dict(kw, lambda_=kw["lambda_"] if lam is None else lam))
     mesh = jmake_mesh({"rollouts": world}, devices=jax.devices()[:world])
-    if model == "cartpole":
-        step, cost, n_state = jdyn.make_cartpole_nonlinear(JParams.single_wheel(), 0.1), jcosts.shaped4, 4
+    if model in ("cartpole", "serve16"):
+        dt = 0.1 if model == "cartpole" else SERVE16_DT
+        step, cost, n_state = jdyn.make_cartpole_nonlinear(JParams.single_wheel(), dt), jcosts.shaped4, 4
     else:
         _, step, cost, n_state, _, _ = FAMILY[model]
     return jmake_sharded(jcfg, step, cost, n_state, mesh, backend="jnp", external_noise=True)
@@ -284,6 +290,8 @@ def _jax_solve(world, dtype, noise, x, u, lam=None, model="cartpole"):
 
 
 MODEL = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
+PORT_MODELS = {"cartpole": MODEL, "serve16": CartPoleShaped4(CartPoleParams.single_wheel(), SERVE16_DT),
+               **{m: FAMILY[m][0] for m in ("hw_flagship", "mppi2")}}
 
 
 @pytest.mark.parametrize("model", SOLVE_MODELS)
@@ -292,13 +300,14 @@ MODEL = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
 def test_sharded_solve_matches_jax_and_the_one_rank_solve(ranks, world, dtype, model):
     """(a) and (b): every rank's solve, against the JAX package's sharded
     jnp solve at the same world and against the port's one-rank solve: the
-    cart-pole at N = 8, the HW flagship at N = 20 and mppi2 at N = 40."""
+    cart-pole at N = 8 and 16, the HW flagship at N = 20 and mppi2 at
+    N = 40."""
     key = f"ext_{model}_{np.dtype(dtype).name}"
     x, u, noise, _ = _solve_inputs(dtype, model)
     want, want_st = _jax_solve(world, dtype, noise, x, u, model=model)
     cfg = MppiConfig(**_solve_kw(model), n_rollouts=K, limit=_limit(dtype))
-    one_u, one_st = mppi_solve_fused(cfg, MODEL if model == "cartpole" else FAMILY[model][0], torch.tensor(x),
-                                     torch.tensor(u), noise=torch.tensor(noise))
+    one_u, one_st = mppi_solve_fused(cfg, PORT_MODELS[model], torch.tensor(x), torch.tensor(u),
+                                     noise=torch.tensor(noise))
     for res in ranks[0][world]:
         got, st = res[key]
         assert got.dtype == TD[dtype] and got.shape == (cfg.n_horizon,)
@@ -484,14 +493,16 @@ def test_mesh_needs_the_ranks_it_names():
 
 def test_sharded_solve_checks_k_and_the_horizon():
     """K must split evenly, and a (model, N) pair the kernels are not built
-    for raises, naming the model's built horizons: the cart-pole at N = 12
-    (built at 8 and 40) and the HW flagship at N = 8 (built at 20)."""
+    for raises, naming the model's built horizons: the flagship at N = 12
+    (built at 8) and the HW flagship at N = 8 (built at 20); the cart-pole
+    at N = 12, one of serve's horizons, is built."""
     mesh = Mesh({"rollouts": 3}, {"rollouts": 0}, {"rollouts": None}, 0, 3)
     with pytest.raises(ValueError, match="not divisible by 3 ranks"):
         make_sharded_mppi(_cfg(), MODEL, mesh)
     cfg12 = MppiConfig(n_horizon=12, n_rollouts=K, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
-    with pytest.raises(ValueError, match=r"N=12 with CartPoleShaped4; it is built for N=\[8, 40\]"):
-        make_sharded_mppi(cfg12, CartPoleShaped4(CartPoleParams.single_wheel(), 0.02), make_mesh())
+    with pytest.raises(ValueError, match=r"N=12 with Flagship4Diag4; it is built for N=\[8\]"):
+        make_sharded_mppi(cfg12, Flagship4Diag4(CartPoleParams.two_wheel(), 0.15), make_mesh())
+    make_sharded_mppi(cfg12, CartPoleShaped4(CartPoleParams.single_wheel(), 0.8 / 12), make_mesh())
     with pytest.raises(ValueError, match=r"N=8 with Commu4Cost4; it is built for N=\[20\]"):
         make_sharded_mppi(_cfg(), Commu4Cost4(CartPoleParams.two_wheel(), 0.05), make_mesh())
 
