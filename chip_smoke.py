@@ -74,9 +74,13 @@ fresh oracle, written to ``PARITY_DIST_TORCH.json``.
 
 tune's sweep launch (the partials kernel with a per-problem (λ, σ) policy
 that returns the ESS) is held against its float64 plain version at tune's
-default grid (B = 96) at K = 1 024 and 800 000, and ``tune`` runs through
+default grid (B = 96) at K = 1 024 and 800 000 and at every horizon
+N = 1-40 at K = 4 096 (both noise sources), and ``tune`` runs through
 the CLI entry at its acceptance spec and at the default grid at
-K = 800 000 over 100 ticks, one launch a tick. ``mpc-ukf-commu`` runs at its
+K = 800 000 over 100 ticks, one launch a tick, and ``make_sweep(k=800 000,
+n_horizon=N)`` over that grid at N = 20 and 40 for 50 ticks, one launch a
+tick (their launches timed beside N = 8's and held against the float64
+plain version at that shape). ``mpc-ukf-commu`` runs at its
 acceptance spec against a fake MCU (at least 100 solves in its 6 s window),
 PANOC's CUDA-graph replay is held to the eager solve on the card
 (op-mpc-x-calc's and mpc-ukf-commu's QPs), and the acceptance harness runs
@@ -106,6 +110,7 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import functools
 import io
 import json
 import math
@@ -115,6 +120,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -144,7 +150,7 @@ CLT_FAMILY_SPREAD = 0.02  # cltone/cltbig/cltreg launch clt's kernel: their D1 t
 # integrator at N = 40) as they were built first (the linear cart-pole's
 # three at R = 4 clt4, clt4a and R = 1 clt2q as they were rebuilt with the
 # merge's merged-row output: 58, 57 and 45 registers, from 56, 59 and 44),
-# and serve's cart-pole at N = 40 (family_serve.cu) as it was built first,
+# and serve's cart-pole at N = 40 (horizons_40.cu) as it was built first,
 # now box-muller alone (sampler ID 1: a row of {source ID: registers}), and
 # at N = 9-39, R = 1 (SERVE_R1_PTXAS) as they were built first. The build
 # must keep them.
@@ -177,7 +183,13 @@ PARTIALS_PTXAS.update({("CartPoleNonlinearT", n, 0, 1): {1: r} for n, r in SERVE
 K7_ILL_MAX = 4
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets the run's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -351,6 +363,22 @@ def r_turns(call, per: int) -> dict:
         out[label]["device_us"].append(1e3 * device_ms(lambda: call(**kw), reps=5, kernels=per) / per)
         out[label]["event_us"].append(1e3 * median_ms(lambda: call(**kw), reps=10, warmup=1) / per)
     return out
+
+
+@functools.cache
+def library_sass_job(so: Path) -> Future:
+    """``cuobjdump -sass`` of the built library, started once a run on a
+    thread of its own: its ~280 kernels take it over a minute of one host
+    core, which the phases after the build do not need."""
+    from mpc_rs_tpu_torch.ops import build
+
+    return ThreadPoolExecutor(max_workers=1).submit(
+        subprocess.run, [str(Path(build.find_nvcc()).parent / "cuobjdump"), "-sass", str(so)],
+        capture_output=True, text=True, timeout=600, check=True)
+
+
+def library_sass(so: Path) -> str:
+    return library_sass_job(so).result().stdout
 
 
 def nvidia_smi_line() -> str:
@@ -883,8 +911,7 @@ def diag_phases(dev: torch.device, card: dict) -> list[dict]:
     # separate add; bf16 packed bf16 ops, with at most the conversion of a
     # in the prologue
     so, _ = build.build()
-    sass = subprocess.run([str(Path(build.find_nvcc()).parent / "cuobjdump"), "-sass", str(so)],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
+    sass = library_sass(so)
     seen = 0
     for func in sass.split("Function : ")[1:]:
         name = func.split()[0]
@@ -1334,9 +1361,9 @@ def family_phases(dev: torch.device, card: dict) -> list[dict]:
     ]
 
 
-SERVE_SOURCE = "mpc_rs_tpu_torch/ops/csrc/family_serve.cu"  # the cart-pole at serve's N = 40
+SERVE_SOURCE = "mpc_rs_tpu_torch/ops/csrc/horizons_40.cu"  # the cart-pole at serve's N = 40
 # the cart-pole at serve's N = 9-39 and fleet_finalize_kernel at N = 8-40,
-# instantiated over family_serve*.cu
+# instantiated over horizons_*.cu
 SERVE_HORIZONS_SOURCE = "mpc_rs_tpu_torch/ops/csrc/horizons.cuh"
 NATIVE_FILES = ("native/mpcio.cpp", "native/libmpcio.so", "native/libmpcio.so.src.sha256", "native/oracle.cpp",
                 "native/liboracle.so", "native/liboracle.so.src.sha256")
@@ -1401,7 +1428,7 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
           "payload_bytes": total, "seconds": time.perf_counter() - t0})
 
     # H2. the partials kernel on the cart-pole at serve's plan-streaming
-    # horizons (horizons.cuh, family_serve*.cu), box-muller alone: K2 on one
+    # horizons (horizons.cuh, horizons_*.cu), box-muller alone: K2 on one
     # problem and the batch of serve's 8 robots at K = 8192 against the
     # float64 plain version fed the kernel's noise, at λ = 20, where the f32
     # solve is well conditioned; the kernel's noise against ops/philox.py's
@@ -1972,16 +1999,37 @@ PACKET_PERIOD_S = 0.01  # the HIL apps' 100 Hz sensor stream
 ACCEPTANCE_SUBSET = "tune,mpc-ukf-commu,uart,mppi4-commu,serve-stream,op-en2"
 
 
+SWEEP_MAIN_HORIZONS = (20, 40)  # make_sweep(n_horizon=N) driven as a main path past tune's N = 8
+SWEEP_MAIN_TICKS = 50
+SWEEP_MAIN_PIECE = 12  # problems a piece of the float64 plain version at K = 800 000 (3 GB a (12, K, 40) tensor)
+
+
+def sweep_horizon(n: int) -> tuple[float, float]:
+    """(step dt, λ scale) of the per-horizon checks: tune's 0.1 s and its λ
+    up to N = 8; past it 0.8 s / N, so the horizon spans tune's 0.8 s, and
+    λ times N/8, as a rollout's cost sums N stage costs over those 0.8 s
+    (``tests/test_torch_tune.py::_horizon``)."""
+    return (0.1, 1.0) if n <= N else (0.8 / n, n / N)
+
+
 def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     """tune's sweep launch (the partials kernel with the sweep's policy,
-    ``mppi_sweep_kernel``): its four instantiations' ptxas registers and no
-    spill; at tune's default grid (B = 96) and K = 1 024 and 800 000, each
-    noise source at R = 1 and 4, against its float64 plain version (in-kernel
-    box-muller against ``sweep_noise``'s words), and the failure probes;
-    then, as main paths through the CLI entry (counts reset before, read
-    after), tune at its acceptance spec and at the default grid at
-    K = 800 000 over 100 ticks, one launch a tick (torch.profiler: one
-    sweep kernel in a tick). Returns the kernels line's entry."""
+    ``mppi_sweep_kernel``): its instantiations' ptxas registers and no
+    spill (each for box-muller and external noise: R = 1 at every N of 1-40
+    and R = 4 at N = 8, 41); at tune's default grid (B = 96) and K = 1 024
+    and 800 000, each noise source at R = 1 and 4, against its float64 plain
+    version (in-kernel box-muller against ``sweep_noise``'s words), and the
+    failure probes; every N of 1-40 at K = 4 096 against the float64 plain
+    version, both noise sources; then, as main paths through the CLI entry
+    (counts reset before, read after), tune at its acceptance spec and at
+    the default grid at K = 800 000 over 100 ticks, one launch a tick
+    (torch.profiler: one sweep kernel in a tick), and ``make_sweep(k=800 000,
+    n_horizon=N)`` over the default grid at N = 20 and 40 for 50 ticks, one
+    launch a tick each, and that launch at B = 96, K = 800 000 against the
+    float64 plain version (held in the band or twice the plain float32
+    distance at T2b's dt and λ; at the main path's own, its statuses, ESS
+    and the distance beside the float64 answer's move). Returns the kernels line's entries (N = 8, 20,
+    40)."""
     import numpy as np
 
     from mpc_rs_tpu_torch.apps import acceptance, tune
@@ -1990,16 +2038,22 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     from mpc_rs_tpu_torch.models.params import CartPoleParams
     from mpc_rs_tpu_torch.ops import mppi_cuda
     from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4
-    from mpc_rs_tpu_torch.runtime.profile_fleet import ptxas_kernel
+    from mpc_rs_tpu_torch.runtime.profile_sweep import sweep_ptxas as sweep_ptxas_rows
 
-    # T1. the sweep's instantiations: box-muller and external noise at R = 1 and 4
-    sweep_ptxas = ptxas_kernel(log, "mppi_sweep_kernel")
-    spills = [ln for ln in sweep_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
-    emit({"phase": "ptxas_sweep", "ptxas": sweep_ptxas})
-    check(sum("registers" in ln for ln in sweep_ptxas) == 4, f"sweep instantiations in the ptxas report: {sweep_ptxas}")
+    # T1. the sweep's instantiations, each for box-muller and external noise:
+    # R = 1 at every N of 1-40, and R = 4 at N = 8
+    model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
+    sweep_model = mppi_cuda.SweepModel(model)  # the sweep kernel's rows of the build table
+    sweep_rows = sweep_ptxas_rows(log)
+    built = {(r["rpt"], r["n"]) for r in sweep_rows if "registers" in r}
+    want_built = {(rpt, n) for n in mppi_cuda.SWEEP_HORIZONS for rpt in mppi_cuda.built_for(sweep_model, n)[1]}
+    spills = [r for r in sweep_rows if r.get("spill_bytes")]
+    emit({"phase": "ptxas_sweep", "instantiations": len(sweep_rows),
+          "registers": {f"{r['n']}/R{r['rpt']}": r.get("registers") for r in sweep_rows}})
+    check(len(sweep_rows) == len(want_built) == 41 and built == want_built,
+          f"sweep instantiations in the ptxas report: {sorted(built ^ want_built)} differ")
     check(not spills, f"ptxas spills in the sweep kernel: {spills}")
 
-    model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
     lams, sigs, n_seeds = TUNE_GRID
     grid = [(lam, sig, r) for lam in lams for sig in sigs for r in range(n_seeds)]
     lam = torch.tensor([g[0] for g in grid], dtype=torch.float32, device=dev)
@@ -2054,6 +2108,50 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
           f"sweep probes: statuses {st[:3].tolist()}, ESS {ess[:3].tolist()}")
     emit({"phase": "sweep_failure_probes", "statuses": st[:3].tolist(), "ess": [float(v) for v in ess[:3]]})
 
+    # T2b. every horizon of the sweep at K = 4 096, R = 1 (and the wrapper's
+    # R, 4, at N = 8), both noise sources, against the float64 plain version:
+    # N = 30 is the last row whose N + 2 sums fit in warp 0, N = 31 the first
+    # across two; box-muller's last pair is half used at odd N. The grid's σ
+    # and seeds with λ ∈ {5, 20, 50, 200}: at tune's λ = 0.1-0.5 the softmax
+    # weighs one or two rollouts, where float32 rounding alone moves u_n'
+    # past the band and twice the plain float32 version's distance (held at
+    # N = 8 above, as the serve horizons are held at λ = 20)
+    k = 4096
+    err_n = {}
+    lam_wc = torch.tensor([(5.0, 20.0, 50.0, 200.0)[lams.index(g[0])] for g in grid], dtype=torch.float32,
+                          device=dev)
+    for n in mppi_cuda.SWEEP_HORIZONS:
+        dt, scale = sweep_horizon(n)
+        m_n = CartPoleShaped4(CartPoleParams.single_wheel(), dt)
+        lam_n = lam_wc * scale
+        cfg_n = MppiConfig(n_horizon=n, n_rollouts=k, lambda_=1.0, std_dev=1.0, limit=(-20.0, 20.0))
+        xs = torch.randn((b, 4), generator=gen, device=dev) * torch.tensor([0.3, 0.1, 0.1, 0.1], device=dev)
+        u_ns = torch.randn((b, n), generator=gen, device=dev)
+        row = {"phase": "sweep_horizon_vs_plain", "n": n, "b": b, "k": k, "dt": dt, "lambdas": [5.0, 20.0, 50.0, 200.0],
+               "lambda_scale": scale}
+        for source in ("external", "box-muller"):
+            if source == "external":
+                noise = torch.randn((b, k, n), generator=gen, device=dev) * sig[:, None, None]
+                kw = dict(noise=noise)
+            else:
+                noise, kw = mppi_cuda.sweep_noise(cfg_n, seeds, 11, sig), dict(seeds=seeds, solve=11)
+            for rpt in mppi_cuda.built_for(sweep_model, n)[1]:
+                u, st, ess = mppi_cuda.mppi_sweep_batch_fused(cfg_n, m_n, xs, u_ns, lam_n, sig,
+                                                              rollouts_per_thread=rpt, **kw)
+                want_u, want_st, want_ess = mppi_cuda.mppi_sweep_batch_plain(
+                    cfg_n, m_n, xs.double(), u_ns.double(), lam_n, sig, noise=noise, rollouts_per_thread=rpt)
+                u32, _, ess32 = mppi_cuda.mppi_sweep_batch_plain(cfg_n, m_n, xs, u_ns, lam_n, sig, noise=noise,
+                                                                 rollouts_per_thread=rpt)
+                what = f"sweep N={n} K={k} {source} R={rpt}"
+                check(u.shape == (b, n) and torch.equal(st, want_st) and bool((st == MppiStatus.OK).all()),
+                      f"{what}: statuses {sorted(set(st.tolist()))}, plain {sorted(set(want_st.tolist()))}")
+                e = max(check_band_or_own(u, want_u, u32, f"{what} u_n'"),
+                        check_band_or_own(ess, want_ess, ess32, f"{what} ESS"))
+                err_n[n] = max(err_n.get(n, 0.0), e)
+                row[f"max_abs_err_{source}_r{rpt}"] = e
+        emit(row)
+    check(bool((mppi_cuda.merge_tickets(dev, b) == 0).all()), "sweep tickets not zero after the horizons")
+
     # T3. tune through the CLI entry: the acceptance spec, then the default grid at K = 800 000
     spec_argv = acceptance.SPECS["tune"][1]
     mppi_cuda.reset_launches()
@@ -2072,7 +2170,8 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     counts = {key: v for key, v in mppi_cuda.launches.items() if v}
     ticks = 100
     ref = next(c for c in cells if c["lambda"] == 0.5 and c["sigma"] == 3.0)
-    check(counts == {"mppi_sweep_batch_fused": ticks}, f"tune: launches {counts} for {ticks} ticks")
+    check(counts == {"mppi_sweep_batch_fused": ticks, f"sweep:N={N}": ticks},
+          f"tune: launches {counts} for {ticks} ticks")
     check(ref["survival"] == 1.0, f"tune: the (0.5, 3) cell survived {ref['survival']}")
     check(all(1.0 <= c["mean_ess"] <= TUNE_K for c in cells if c["mean_ess"] is not None),
           f"tune: a mean ESS outside [1, K]: {[c['mean_ess'] for c in cells]}")
@@ -2102,13 +2201,112 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     plain_ms = median_ms(plain, reps=3, warmup=1)
     n_bytes = nbytes(xs, u0, lam, sig, seeds) + nbytes(u0) + 4 * b + 4 * b  # in: x, u_n, λ, σ, seeds; out: u_n', status, ESS
     bnd = bound(flops_of(plain), n_bytes)
-    emit({"phase": "timing_sweep", "b": b, "k": TUNE_K, "kernel_device_ms": kern_ms, "kernel_event_ms": event_ms,
-          "plain_ms": plain_ms, "rollouts_per_thread": mppi_cuda.rollouts_per_thread(TUNE_K, b), **bnd, **card})
-    return [{"name": "mppi_sweep_kernel: the partials kernel with tune's sweep policy, per-problem lambda and "
-                     "sigma, ESS in the merge (K5/K6 extended; mppi_sweep_batch_fused, B=96, K=800000)",
-             "route": "cuda", "source": COMMON_SOURCE, "replaces": f"{PALLAS}:692",
-             "launches": counts["mppi_sweep_batch_fused"], "max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
-             "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"], "library_ms": None}]
+    emit({"phase": "timing_sweep", "n": N, "b": b, "k": TUNE_K, "kernel_device_ms": kern_ms,
+          "kernel_event_ms": event_ms, "plain_ms": plain_ms,
+          "rollouts_per_thread": mppi_cuda.rollouts_per_thread(TUNE_K, b, sweep_model, N), **bnd, **card})
+    entries = [{"name": "mppi_sweep_kernel: the partials kernel with tune's sweep policy, per-problem lambda and "
+                        "sigma, ESS in the merge (K5/K6 extended; mppi_sweep_batch_fused, N=8, B=96, K=800000)",
+                "route": "cuda", "source": COMMON_SOURCE, "replaces": f"{PALLAS}:692",
+                "launches": counts["mppi_sweep_batch_fused"], "max_abs_err": max(err, err_n[N]), "ms": kern_ms,
+                "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"], "library_ms": None}]
+
+    # T3b/T4b. past tune's N = 8: make_sweep(k=800 000, n_horizon=N) over the
+    # default grid, a main path each (counts reset before, read after), then
+    # one launch's device time, a call's CUDA-event time, the plain version
+    # (in four pieces of 24 problems, so that its (B, K, N) tensors fit), the
+    # bound of its operations, and the launch against its float64 plain
+    # version at that shape (the kernels line's max_abs_err)
+    for n in SWEEP_MAIN_HORIZONS:
+        run = tune.make_sweep(k=TUNE_K, n_horizon=n, n_ticks=SWEEP_MAIN_TICKS, device=dev)
+        mppi_cuda.reset_launches()
+        t0 = time.perf_counter()
+        survived, total_cost, mean_ess = run(lam, sig, seeds)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts_n = {key: v for key, v in mppi_cuda.launches.items() if v}
+        check(counts_n == {"mppi_sweep_batch_fused": SWEEP_MAIN_TICKS, f"sweep:N={n}": SWEEP_MAIN_TICKS},
+              f"make_sweep(n_horizon={n}): launches {counts_n} for {SWEEP_MAIN_TICKS} ticks")
+        check(survived.shape == total_cost.shape == mean_ess.shape == (b,)
+              and bool(torch.isfinite(total_cost).all()) and bool(torch.isfinite(mean_ess).all())
+              and bool(((mean_ess >= 0.0) & (mean_ess <= TUNE_K)).all()),
+              f"make_sweep(n_horizon={n}): cost {total_cost.tolist()}, ESS {mean_ess.tolist()}")
+        cfg_n = MppiConfig(n_horizon=n, n_rollouts=TUNE_K, lambda_=1.0, std_dev=1.0, limit=(-20.0, 20.0))
+        xs = torch.tensor(X0, device=dev).repeat(b, 1)
+        u0 = torch.zeros((b, n), device=dev)
+        call = lambda: mppi_cuda.mppi_sweep_batch_fused(cfg_n, model, xs, u0, lam, sig, seeds=seeds,  # noqa: E731
+                                                        solve=3)
+        pieces = [slice(i, i + b // 4) for i in range(0, b, b // 4)]
+        plain = lambda: [mppi_cuda.mppi_sweep_batch_plain(cfg_n, model, xs[p], u0[p], lam[p], sig[p],  # noqa: E731
+                                                          seeds=seeds[p], solve=3) for p in pieces]
+        call()
+        dev_us = [t for name, t in device_events(call, reps=3) if "mppi_sweep_kernel" in name]
+        check(bool(dev_us), f"torch.profiler caught no sweep kernel at N={n}")
+        kern_n = statistics.median(dev_us) / 1e3
+        event_n = median_ms(call, reps=5, warmup=1)
+        plain_n = median_ms(plain, reps=2, warmup=1)
+        n_bytes = nbytes(xs, u0, lam, sig, seeds) + nbytes(u0) + 4 * b + 4 * b
+        bnd_n = bound(flops_of(plain), n_bytes)
+        # the same launch against its float64 plain version fed the kernel's
+        # words (sweep_noise), in pieces of 12 problems, at the main path's
+        # shape (B = 96, K = 800 000, R = 1: 3125 rows a problem, which the
+        # block merges, in partials_end_wide with Σw² at N = 40), σ, seeds
+        # and first tick (X0, u_n = 0, tick 3). (a) At the per-horizon
+        # checks' dt = 0.8 s / N and λ ∈ {5, 20, 50, 200}·N/8 (T2b): in the
+        # band or twice the plain float32 distance (the kernels line's
+        # max_abs_err). (b) At the main path's dt = 0.1 and the grid's λ: the
+        # statuses, ESS in [1, K] and u_n' in the box; the distance is
+        # emitted beside the float64 answer's own move when every noise word
+        # moves by 2^-24 (relative, seeded), not held: 2-4 s rollouts of the
+        # cart-pole at σ = 1-10 are chaotic at float32's resolution, and
+        # that move reaches the kernel's distance (PERF.md §6)
+        dt_h, scale = sweep_horizon(n)
+        gen_moved = torch.Generator(device=dev).manual_seed(17)
+        err_main, err_free, moved_free = 0.0, 0.0, 0.0
+        for m_p, lam_p, held in ((CartPoleShaped4(CartPoleParams.single_wheel(), dt_h), lam_wc * scale, True),
+                                 (model, lam, False)):
+            u, st, ess = mppi_cuda.mppi_sweep_batch_fused(cfg_n, m_p, xs, u0, lam_p, sig, seeds=seeds, solve=3)
+            for p in (slice(i, i + SWEEP_MAIN_PIECE) for i in range(0, b, SWEEP_MAIN_PIECE)):
+                noise = mppi_cuda.sweep_noise(cfg_n, seeds[p], 3, sig[p])
+                plain64 = lambda nz: mppi_cuda.mppi_sweep_batch_plain(  # noqa: E731
+                    cfg_n, m_p, xs[p].double(), u0[p].double(), lam_p[p], sig[p], noise=nz, rollouts_per_thread=1)
+                want_u, want_st, want_ess = plain64(noise)
+                what = (f"make_sweep(n_horizon={n}) launch, B={b} K={TUNE_K} dt={m_p.dt:.4g} problems "
+                        f"{p.start}-{p.stop - 1}")
+                check(torch.equal(st[p], want_st) and bool((st[p] == MppiStatus.OK).all()),
+                      f"{what}: statuses {sorted(set(st[p].tolist()))}, plain {sorted(set(want_st.tolist()))}")
+                if held:
+                    u32, _, ess32 = mppi_cuda.mppi_sweep_batch_plain(cfg_n, m_p, xs[p], u0[p], lam_p[p], sig[p],
+                                                                     noise=noise, rollouts_per_thread=1)
+                    err_main = max(err_main, check_band_or_own(u[p], want_u, u32, f"{what} u_n'"),
+                                   check_band_or_own(ess[p], want_ess, ess32, f"{what} ESS"))
+                    del u32, ess32
+                else:
+                    check(bool(torch.isfinite(u[p]).all()) and bool(((u[p] >= -20.0) & (u[p] <= 20.0)).all())
+                          and bool(((ess[p] >= 1.0) & (ess[p] <= TUNE_K)).all()),
+                          f"{what}: u_n' outside the box or ESS {ess[p].tolist()} outside [1, K]")
+                    moved = noise.double() * (1.0 + 2.0**-24 * torch.randn(
+                        noise.shape, generator=gen_moved, device=dev, dtype=torch.float64))
+                    err_free = max(err_free, max_err(u[p], want_u))
+                    moved_free = max(moved_free, max_err(plain64(moved)[0], want_u))
+                    del moved
+                del noise, want_u, want_ess
+            torch.cuda.empty_cache()
+        surv = float(survived.float().mean())
+        emit({"phase": "tune_main_path_horizon", "n": n, "b": b, "k": TUNE_K, "ticks": SWEEP_MAIN_TICKS,
+              "seconds": run_s, "tick_ms_mean": 1e3 * run_s / SWEEP_MAIN_TICKS, "launches": counts_n,
+              "survival": surv, "max_abs_err_vs_f64_plain": err_main, "held_at_dt": dt_h,
+              "main_dt_max_abs_err_u": err_free, "main_dt_f64_moved_by_2^-24": moved_free, "kernel_device_ms": kern_n, "kernel_event_ms": event_n, "plain_ms": plain_n,
+              "rollouts_per_thread": mppi_cuda.rollouts_per_thread(TUNE_K, b, sweep_model, n), **bnd_n,
+              **card})
+        entries.append({"name": f"mppi_sweep_kernel at N={n}, R=1 (tune's make_sweep(n_horizon={n}), B=96, "
+                                f"K=800000)",
+                        "route": "cuda", "source": COMMON_SOURCE, "replaces": f"{PALLAS}:692",
+                        "launches": counts_n[f"sweep:N={n}"], "max_abs_err": err_main, "ms": kern_n,
+                        "plain_ms": plain_n, "bound_ms": bnd_n["bound_ms"], "bound_by": bnd_n["bound_by"],
+                        "library_ms": None})
+        del run, survived, total_cost, mean_ess
+        torch.cuda.empty_cache()
+    return entries
 
 
 def mpc_commu_phase(dev: torch.device, card: dict) -> None:
@@ -2789,11 +2987,11 @@ def main() -> None:
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "library": so.name, "build_s": build_s, "build_wall_s": build_wall,
           "built_model_horizons": sorted(mppi_cuda.BUILT), "ptxas": ptxas})
-    # the production partials instantiations' static SASS and ptxas report
-    sass = sass_counts(so, Path(build.find_nvcc()).parent / "cuobjdump")
+    # the production partials instantiations' ptxas report (their static
+    # SASS is read after the fleet and estimator phases)
     partials_ptxas = ptxas_partials(log)
     spills = [ln for ln in partials_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
-    emit({"phase": "sass", "build_s": build_s, "kernels": sass, "ptxas_partials": partials_ptxas})
+    emit({"phase": "ptxas_partials", "build_s": build_s, "ptxas_partials": partials_ptxas})
     check(not spills, f"ptxas spills in partials instantiations: {spills}")
     registers = {}
     for ln in partials_ptxas:
@@ -2812,11 +3010,6 @@ def main() -> None:
     emit({"phase": "ptxas_d1", "ptxas": d1_ptxas})
     check(sum("registers" in ln for ln in d1_ptxas) == 16, f"D1 instantiations in the ptxas report: {d1_ptxas}")
     check(not d1_spills, f"ptxas spills in the D1 kernel: {d1_spills}")
-    check(not any("mppi_finalize_kernel" in r["kernel"] for r in sass), "mppi_finalize_kernel is still built")
-    production = [r for r in sass if "finalize_kernel" not in r["kernel"]]
-    check(len(production) == 6 + 4 and all(r["ATOM"] >= 1 for r in production),
-          f"the production partials instantiations (3 solves x R = 1, 4), the sweep's (2 noise sources x R = 1, "
-          f"4) and their tickets: {sass}")
     # the estimator chain's three instantiations (K7: cartpole4, flagship6 and
     # flagship6 on the scaled sensor): registers, no spill
     k7_ptxas = ptxas_kernel(log, "estimator_chain_kernel")
@@ -2837,6 +3030,9 @@ def main() -> None:
     # clock, before any torch.profiler session of the run
     mpc_commu_phase(dev, card)
     acceptance_phase(dev, card)
+    # the library's SASS dump, beside the phases that follow (none of them
+    # gated on the host's clock)
+    library_sass_job(so)
 
     # 3. K2 with external noise against the plain version in float64
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -3060,6 +3256,14 @@ def main() -> None:
 
     fleet = fleet_phases(dev, card)
     estimator = estimator_phases(dev, card)
+    # the production partials instantiations' static SASS: each merges its rows by a ticket
+    sass = sass_counts(so, Path(build.find_nvcc()).parent / "cuobjdump", library_sass(so))
+    emit({"phase": "sass", "build_s": build_s, "kernels": sass})
+    check(not any("mppi_finalize_kernel" in r["kernel"] for r in sass), "mppi_finalize_kernel is still built")
+    production = [r for r in sass if "finalize_kernel" not in r["kernel"]]
+    check(len(production) == 6 + 2 and all(r["ATOM"] >= 1 for r in production),
+          f"the production partials instantiations (3 solves x R = 1, 4), the sweep's (R = 1, 4, each for both "
+          f"noise sources) and their tickets: {sass}")
     diag = diag_phases(dev, card)
     ukf_fidelity_phase(dev, card)
     family = family_phases(dev, card)

@@ -8,6 +8,7 @@ the caller and never picks one itself: a CUDA device runs the fused kernel,
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 
@@ -34,6 +35,31 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
+def solves_on_one_cpu_thread(app):
+    """Run ``app(args)`` with torch's intra-op threads set to one on a CPU
+    ``args.device``, and the count restored after it (it is the process's:
+    a caller's process, as the tests calling ``cli.main``, gets its own
+    back); on a card, as it is. For the HIL apps whose solve count follows
+    the host's speed (a solve every pass of the loop, or one a packet): a
+    plain solve is a few thousand small torch ops, and an OpenMP team of a
+    thread a core shares those cores with the fake MCU's threads and with
+    every other process, so under host load a solve takes a hundred times
+    as long."""
+
+    @functools.wraps(app)
+    def run(args):
+        if resolve_device(args.device).type != "cpu":
+            return app(args)
+        before = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return app(args)
+        finally:
+            torch.set_num_threads(before)
+
+    return run
+
+
 def make_mppi_solver(cfg: MppiConfig, model, device: str | torch.device, sampler: str | None = None):
     """solve(seed: int, x: np (S,), u_n: tensor (N,)) -> (u_n', status).
 
@@ -42,7 +68,8 @@ def make_mppi_solver(cfg: MppiConfig, model, device: str | torch.device, sampler
     lie on the host and is moved there. Each solve samples ``sampler``'s
     Philox noise (default box-muller, as ``mpc_rs_tpu/apps/common.py:25-61``)
     keyed by ``seed`` (``ops/philox.py``), so the CPU and CUDA paths draw
-    the same samples."""
+    the same samples. A HIL app runs it on one intra-op thread on the CPU
+    (``solves_on_one_cpu_thread``)."""
     device = resolve_device(device)
     sampler = sampler or "box-muller"
 

@@ -10,6 +10,9 @@ runs on the device the caller names (``--device``, default cuda): the fused
 kernel on the card, raising when there is none, or its plain version with
 ``--device cpu``; mpc-ukf-commu's PANOC solve runs in float64 on it
 (``controllers/panoc.py``, its segments replayed from CUDA graphs on a card).
+On the CPU the apps that solve run on one intra-op thread for the run
+(``common.solves_on_one_cpu_thread``): a solve every pass of the loop, or
+one a packet, then keeps its rate while other processes hold the cores.
 
 The HW apps' 6-state UKF runs on the host CPU in float32, as the port's
 ``mppi4-non-liner-ukf`` runs its filter: the JAX app jits its estimator
@@ -29,7 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mpc_rs_tpu_torch.apps.common import DEG60, PI_2, Elapsed, make_mppi_solver, resolve_device
+from mpc_rs_tpu_torch.apps.common import (DEG60, PI_2, Elapsed, make_mppi_solver, resolve_device,
+                                          solves_on_one_cpu_thread)
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
 from mpc_rs_tpu_torch.controllers.panoc import PanocConfig, box_projection, panoc_solve
 from mpc_rs_tpu_torch.controllers.qp import build_condensed_qp, make_qp_value_and_grad
@@ -215,6 +219,7 @@ class CommuResult(NamedTuple):
         return self.solves
 
 
+@solves_on_one_cpu_thread
 def mppi4_commu(args) -> CommuResult:
     """HW-in-loop MPPI — examples/mppi4-commu.rs: the MCU streams State, the
     host replies Control::from_current(u0). K2 on the nonlinear cart-pole
@@ -329,6 +334,7 @@ def commu_estimator(p: CartPoleParams, dt: float, dtype=torch.float32, *, alpha:
     return params, state0, est_step
 
 
+@solves_on_one_cpu_thread
 def mppi4_ukf_commu(args) -> CommuResult:
     """HW flagship — examples/mppi4-ukf-commu.rs: Sensor3 with its enable
     bitmask, UKF2(6,5) with a per-packet gen_q and the sensor-dropout R
@@ -474,6 +480,7 @@ def mpc_ukf_commu_parts(device, *, max_iter: int | None = None, est_dtype=torch.
     return solve, est0, est_step
 
 
+@solves_on_one_cpu_thread
 def mpc_ukf_commu(args) -> MpcCommuResult:
     """HW gradient-MPC flagship — examples/mpc-ukf-commu.rs
     (``commu_examples.py:312-421``): the MCU streams Sensor3, the host

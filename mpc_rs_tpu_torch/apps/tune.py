@@ -7,7 +7,9 @@ seeds = B independent closed-loop episodes (plant = mppi4-non-liner's
 nonlinear cart-pole, its x₀ = [0.5, 0, 0.1, 0] and |θ| > 60° tip-over
 guard, examples/mppi4.rs:30,50-53) advance together: each tick is one
 launch of the sweep's partials kernel over all B episodes, each at its own
-(λ, σ) (``ops/mppi_cuda.py::mppi_sweep_batch_fused``), then the plant step
+(λ, σ) (``ops/mppi_cuda.py::mppi_sweep_batch_fused``, at ``make_sweep``'s
+horizon N: 8 for the grid and the CLI, as in the JAX package, and any N of
+1-40 on the card through ``make_sweep(n_horizon=N)``), then the plant step
 and the accumulators on (B,) tensors on the device, with no host read-back
 before the episodes end. The report per cell: survival, mean accumulated
 cost and mean softmax effective sample size (ESS → K: λ too hot; ESS → 1:
@@ -33,7 +35,7 @@ from mpc_rs_tpu_torch.apps.common import DEG60, resolve_device
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
 from mpc_rs_tpu_torch.models import costs
 from mpc_rs_tpu_torch.models.params import CartPoleParams
-from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, mppi_sweep_batch_fused
+from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, SweepModel, check_built, mppi_sweep_batch_fused
 
 
 def make_sweep(*, k: int, n_horizon: int = 8, dt: float = 0.1, n_ticks: int = 50, limit=(-20.0, 20.0),
@@ -41,7 +43,9 @@ def make_sweep(*, k: int, n_horizon: int = 8, dt: float = 0.1, n_ticks: int = 50
     """Returns ``sweep(lambdas (B,), sigmas (B,), seeds (B,)) -> (survived
     (B,) bool, total_cost (B,), mean_ess (B,))`` on ``device``, in float32
     as the JAX sweep (``dtype=torch.float64`` runs the plain version on the
-    CPU; the kernel is float32).
+    CPU; the kernel is float32). Any ``n_horizon`` on the CPU, as the JAX
+    sweep; on a card every N the sweep's kernel is built for, N = 1-40
+    (``mppi_cuda.SWEEP_HORIZONS``): another raises here, before any launch.
 
     One episode per entry (``tune.py:40-80``): the closed loop on the
     nonlinear cart-pole (examples/mppi4-non-liner.rs:81-94 dynamics, shaped
@@ -51,6 +55,8 @@ def make_sweep(*, k: int, n_horizon: int = 8, dt: float = 0.1, n_ticks: int = 50
     episode tipped."""
     device = resolve_device(device)
     model = CartPoleShaped4(CartPoleParams.single_wheel(), dt)
+    if device.type == "cuda":
+        check_built(SweepModel(model), n_horizon)
     step, cost = model.step, costs.shaped4
     # λ and σ are the episodes' own (B,) tensors; the config gives N, K and the box
     cfg = MppiConfig(n_horizon=n_horizon, n_rollouts=k, lambda_=1.0, std_dev=1.0, limit=limit)

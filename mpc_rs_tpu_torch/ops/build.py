@@ -26,20 +26,31 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-# mppi_kernels.cu: the C entries, K1/K2 and the fleet's K5/K6 at N = 8, tune's
-# sweep, K7, the fast-math probe, D1/D2; family_*.cu: K1/K2 of the MPPI
-# application family, one model each (mppi_launch.cuh); family_serve*.cu: the
-# cart-pole at serve's plan-streaming N = 40 and, a span of horizons each,
-# N = 9-39, with the rows' finalize at N = 8-40 (horizons.cuh). The spans are
-# cut by each horizon's nvcc time on the H100 machine's host
-# (runtime/profile_build.py --per-horizon; PERF.md §6) so that none compiles
-# slower than the N = 40 source. In the order they are started: the longest
-# compiles first.
-SERVE_SPANS = ((9, 15), (16, 18), (19, 21), (22, 23), (24, 25), (26, 27), (28, 29), (30, 31),
-               *((n, n) for n in range(32, 40)))
-SOURCES = ("mppi_kernels.cu", "family_commu4.cu", "family_mppi2.cu", "family_serve.cu",
-           *(f"family_serve_{a}.cu" if a == b else f"family_serve_{a}_{b}.cu" for a, b in SERVE_SPANS[::-1]),
-           "family_mppi4.cu")
+# mppi_kernels.cu: the C entries, K1/K2 and the fleet's K5/K6 at N = 8, K7,
+# the fast-math probe, D1/D2; family_*.cu: K1/K2 of the MPPI application
+# family, one model each (mppi_launch.cuh); horizons_<a>[_<b>].cu, a span of
+# horizons each (horizons.cuh): tune's sweep at N = 1-40, serve's cart-pole
+# at N = 9-40 and the rows' finalize at N = 8-40. Serve's spans were cut by
+# each horizon's nvcc time on the H100 machine's host (runtime/
+# profile_build.py --per-horizon; PERF.md §6), and the sweep shares them;
+# fewer, longer spans cost more CPU seconds in all (the compiles slow one
+# another on the host's 8 cores). In the order they are started: the
+# longest compiles first, by the CPU seconds each took in a whole build
+# there (in brackets; two builds on the NVIDIA H100 80GB HBM3 machine).
+HORIZON_SPANS = ((9, 15), (40, 40), (19, 21), (30, 31), (28, 29), (26, 27), (16, 18), (39, 39), (24, 25),
+                 (37, 37), (22, 23), (38, 38), (36, 36), (35, 35), (33, 33), (34, 34), (32, 32), (1, 8))
+
+
+def _span_source(a: int, b: int) -> str:
+    return f"horizons_{a}.cu" if a == b else f"horizons_{a}_{b}.cu"
+
+
+SOURCES = ("mppi_kernels.cu",  # [64.5-65.7]
+           "family_commu4.cu",  # [41.1-42.4]
+           _span_source(9, 15),  # [30.3-33.0]
+           "family_mppi2.cu",  # [31.6-33.2]
+           *(_span_source(a, b) for a, b in HORIZON_SPANS[1:]),  # [26.2-28.1 at N = 40 ... 12.0-14.4 at 1-8]
+           "family_mppi4.cu")  # [10.9-11.2]
 HEADERS = ("mppi_common.cuh", "mppi_launch.cuh", "horizons.cuh", "fastmath.cuh", "estimator_chain.cuh",
            "diag_kernels.cuh")
 

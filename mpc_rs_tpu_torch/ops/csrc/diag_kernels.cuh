@@ -134,8 +134,10 @@ struct MixSolve {
     mix_controls<Mode>(v, un, k, key, solve, a, m);
   }
 
+  template <int N>
   __device__ __forceinline__ void finish(float, const float* tot, const PartialsIO& io,
                                          int b) const {
+    static_assert(N == kN, "D1 runs at N = kN");
     const float inv_s = 1.0f / (tot[0] == 0.0f ? 1.0f : tot[0]);
     float* u = io.u_out + (size_t)b * kN;
 #pragma unroll

@@ -778,38 +778,58 @@ __device__ __forceinline__ void finish_solve(const Model& model, float m_all, co
   }
 }
 
+// partials_body's policy for every MPPI solve: sample sampler S's noise in
+// tier Fast (or read the external noise) and clamp, and finish with the
+// status ladder (finish_solve). It is written out in partials_body itself,
+// which calls another policy's hooks only when Pol is not MppiSolve (D1's
+// MixSolve, diag_kernels.cuh; tune's MppiSweep): controls(v, un, k, key,
+// word, a) and finish<N>(m_all, tot, io, b). So the solves' instantiations
+// compile from the very statements they always had, to the same registers.
+// Every policy rolls out and scores with rollout_score on its Model and Cost.
+struct MppiSolve {};
+
 // Problems of at most this many blocks are merged by one warp of their last
 // block (the other warps leave after the reductions); more, by the block.
 constexpr int kWarpMergeRows = 128;
 
-// The end of partials_body for a horizon whose N + 1 sums (s, uw) span more
-// than warp 0 (N >= 32: mppi2's N = 40): block_sums leaves sum i in thread
-// i, so they are gathered in shared memory (tot) first, and lane 0 writes
-// the row from there. Otherwise the steps of partials_body's own end: the
-// only block finishes from its sums; a block writes its row and draws the
-// problem's ticket, and the last merges the rows (one warp up to
-// kWarpMergeRows rows, else the block) and finishes the solve.
-template <int N, class Model>
+// The end of partials_body for a row whose L = N + 1 + Q sums (s, uw, then
+// Pol's Q sums of squared weights) span more than warp 0 (L > 32: the
+// solves from N = 32, mppi2's N = 40; the sweep, whose rows carry Σw², from
+// N = 31): block_sums leaves sum i in thread i, so they are gathered in
+// shared memory (tot) first, and lane 0 writes the row from there.
+// Otherwise the steps of partials_body's own end: the only block finishes
+// from its sums; a block writes its row and draws the problem's ticket, and
+// the last merges the rows (one warp up to kWarpMergeRows rows, else the
+// block) and finishes the solve (finish_solve, or Pol's finish).
+template <int N, int Q, class Model, class Pol>
 __device__ __forceinline__ void partials_end_wide(const Model& model, const PartialsArgs& a,
                                                   const PartialsIO& io, int nb, float m_b, float s,
                                                   const float (&xb)[kStates<Model>],
-                                                  float* red_max, float (*red_sum)[N + 1],
-                                                  float* tot) {
+                                                  float* red_max, float (*red_sum)[N + 1 + Q],
+                                                  float* tot, const Pol& pol) {
+  constexpr bool kSolve = std::is_same_v<Pol, MppiSolve>;
+  constexpr int L = N + 1 + Q;
   const int b = blockIdx.y;
-  if (threadIdx.x <= N) tot[threadIdx.x] = s;
+  if (threadIdx.x < L) tot[threadIdx.x] = s;
   __syncthreads();
   if (io.merges() && nb == 1) {  // the problem's only block: no row, no ticket
-    if (threadIdx.x == 0) finish_solve<N>(model, m_b, tot, xb, io, b);
+    if (threadIdx.x == 0) {
+      if constexpr (!kSolve) {
+        pol.template finish<N>(m_b, tot, io, b);
+      } else {
+        finish_solve<N>(model, m_b, tot, xb, io, b);
+      }
+    }
     return;
   }
   const bool block_merge = io.merges() && nb > kWarpMergeRows;
   if (threadIdx.x >= 32 && !block_merge) return;
-  float* rows = io.partials + (size_t)b * nb * (N + 2);
+  float* rows = io.partials + (size_t)b * nb * (L + 1);
   __shared__ int ticket;
   if (threadIdx.x == 0) {
-    float* row = rows + (size_t)blockIdx.x * (N + 2);
+    float* row = rows + (size_t)blockIdx.x * (L + 1);
     row[0] = m_b;
-    for (int i = 0; i <= N; ++i) row[1 + i] = tot[i];
+    for (int i = 0; i < L; ++i) row[1 + i] = tot[i];
     if (io.merges()) {
       ticket = cuda::atomic_ref<int, cuda::thread_scope_device>(io.tickets[b])
                    .fetch_add(1, cuda::memory_order_acq_rel);
@@ -819,77 +839,87 @@ __device__ __forceinline__ void partials_end_wide(const Model& model, const Part
   if (block_merge) {
     __syncthreads();
     if (ticket != nb - 1) return;
-    const float m_all = merge_rows_block<N>(rows, nb, a.inv_lambda, red_max, red_sum, tot);
+    const float m_all = merge_rows_block<N, Q>(rows, nb, a.inv_lambda, red_max, red_sum, tot);
     if (threadIdx.x == 0) {
-      finish_solve<N>(model, m_all, tot, xb, io, b);
+      if constexpr (!kSolve) {
+        pol.template finish<N>(m_all, tot, io, b);
+      } else {
+        finish_solve<N>(model, m_all, tot, xb, io, b);
+      }
       io.tickets[b] = 0;
     }
     return;
   }
   __syncwarp();
   if (ticket != nb - 1) return;
-  float wtot[N + 1];
-  const float m_all = merge_rows_warp<N>(rows, nb, a.inv_lambda, wtot);
+  float wtot[L];
+  const float m_all = merge_rows_warp<N, Q>(rows, nb, a.inv_lambda, wtot);
   if (threadIdx.x == 0) {
-    finish_solve<N>(model, m_all, wtot, xb, io, b);
+    if constexpr (!kSolve) {
+      pol.template finish<N>(m_all, wtot, io, b);
+    } else {
+      finish_solve<N>(model, m_all, wtot, xb, io, b);
+    }
     io.tickets[b] = 0;
   }
 }
 
-// partials_body's policy for every MPPI solve: sample sampler S's noise in
-// tier Fast (or read the external noise) and clamp, and finish with the
-// status ladder (finish_solve). It is written out in partials_body itself,
-// which calls another policy's hooks only when Pol is not MppiSolve (D1's
-// MixSolve, diag_kernels.cuh): controls(v, un, k, key, word, a) and
-// finish(m_all, tot, io, b). So the solves' instantiations compile from the
-// very statements they always had, to the same registers. Every policy
-// rolls out and scores with rollout_score on its Model and Cost.
-struct MppiSolve {};
-
 // The policy of tune's sweep (mpc_rs_tpu/apps/tune.py:40-80, a vmap of
 // mppi_solve over per-episode (lambda, sigma)): B episodes of the exact
-// cart-pole with shaped4 at N = kN, problem b at its own lambda_b and
+// cart-pole with shaped4 at any horizon N (the hooks are templates on N,
+// which partials_body's arrays fix), problem b at its own lambda_b and
 // sigma_b. mppi_sweep_kernel puts problem b's f32(1/lambda_b), sigma_b and
 // f32(sigma_b^-2) from these device arrays into its PartialsArgs, so the
 // rollout, the control term and every log-sum-exp take them. The controls:
-// box-muller (S = kBoxMuller) keyed seeds[b] with counter word `tick` for
-// every problem, so the cells of one seed draw the same standard normals at
-// a tick (the common random numbers of the JAX grid, tune.py:87-90), scaled
-// by sigma_b; or the external (B, K, N) noise (S = kExternal). Its rows carry
-// the sum of squared weights after (s, uw) (kSquares), and its end of a
-// solve writes u_n', the status ladder with the zero fallback, and
-// ESS_b = s^2 / max(sum w^2, 1e-30) (mpc_rs_tpu/controllers/mppi.py:145).
-template <int S>
+// the launch's external (B, K, N) noise where it gives one, else
+// box-muller keyed seeds[b] with counter word `tick` for every problem, so
+// the cells of one seed draw the same standard normals at a tick (the
+// common random numbers of the JAX grid, tune.py:87-90), scaled by sigma_b;
+// at odd N the last pair is half used, as in every solve. One instantiation
+// serves both sources (the branch is the same in every thread of the
+// launch): one a source took half as much again of the build's CPU seconds,
+// which its wall could not hold, and at N = kN it gave the same bits and
+// registers as one for both (PERF.md §6). Its rows carry the sum of
+// squared weights after (s, uw) (kSquares), so a row holds N + 2 sums, one
+// more than a solve's: they span two warps from N = 31 (partials_end_wide).
+// Its end of a solve writes u_n', the status ladder with the zero fallback,
+// and ESS_b = s^2 / max(sum w^2, 1e-30) (mpc_rs_tpu/controllers/mppi.py:145).
 struct MppiSweep {
   const float* inv_lambdas;  // (B) f32(1/lambda_b), folded in double (+inf for lambda_b = 0)
   const float* sigmas;       // (B) sigma_b
   const float* invs;         // (B) f32(sigma_b^-2), the control-term coefficient
-  const float* noise;        // (B, K, N) external noise, already scaled (S = kExternal), else null
+  const float* noise;        // (B, K, N) external noise, already scaled, or null (box-muller)
   float* ess;                // (B) out
   uint32_t tick;             // the Philox counter word of every problem
 
-  __device__ __forceinline__ void controls(float (&v)[kN], const float (&un)[kN], uint32_t k,
-                                           uint32_t key, uint32_t, const PartialsArgs& a) const {
-    float e[kN];
+  template <int N>
+  __device__ __forceinline__ void read_noise(float (&e)[N], uint32_t k, const PartialsArgs& a) const {
+    if (k < (uint32_t)a.k) {
 #pragma unroll
-    for (int t = 0; t < kN; ++t) e[t] = 0.0f;
-    if constexpr (S == kExternal) {
-      if (k < (uint32_t)a.k) {
-#pragma unroll
-        for (int t = 0; t < kN; ++t) e[t] = noise[((size_t)blockIdx.y * a.k + k) * kN + t];
-      }
-    } else {
-      static_assert(S == kBoxMuller, "the sweep samples box-muller or reads external noise");
-      sample<kN, false, kBoxMuller>(e, k, key, tick, a);
+      for (int t = 0; t < N; ++t) e[t] = noise[((size_t)blockIdx.y * a.k + k) * N + t];
     }
-#pragma unroll
-    for (int t = 0; t < kN; ++t) v[t] = clampf(un[t] + e[t], a.lo, a.hi);
   }
 
+  template <int N>
+  __device__ __forceinline__ void controls(float (&v)[N], const float (&un)[N], uint32_t k,
+                                           uint32_t key, uint32_t, const PartialsArgs& a) const {
+    float e[N];
+#pragma unroll
+    for (int t = 0; t < N; ++t) e[t] = 0.0f;
+    if (noise != nullptr) {
+      read_noise(e, k, a);
+    } else {
+      sample<N, false, kBoxMuller>(e, k, key, tick, a);
+    }
+#pragma unroll
+    for (int t = 0; t < N; ++t) v[t] = clampf(un[t] + e[t], a.lo, a.hi);
+  }
+
+  template <int N>
   __device__ __forceinline__ void finish(float m_all, const float* tot, const PartialsIO& io,
                                          int b) const {
-    io.status[b] = status_ladder<kN>(m_all, tot, io.u_out + (size_t)b * kN);
-    const float s = tot[0], q = tot[kN + 1];
+    io.status[b] = status_ladder<N>(m_all, tot, io.u_out + (size_t)b * N);
+    const float s = tot[0], q = tot[N + 1];
     ess[b] = s * s / (q < 1e-30f ? 1e-30f : q);  // a NaN q stays NaN, as jnp.maximum
   }
 };
@@ -897,8 +927,8 @@ struct MppiSweep {
 // Trailing sums of squared weights a policy's rows carry: the sweep's one.
 template <class Pol>
 constexpr int kSquares = 0;
-template <int S>
-constexpr int kSquares<MppiSweep<S>> = 1;
+template <>
+constexpr int kSquares<MppiSweep> = 1;
 
 // One block of one problem's rollouts: sample (or read) and clamp (or Pol's
 // controls), roll out N steps, score, and reduce to the row (m_b, s_b,
@@ -1000,9 +1030,8 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
 
   const int nb = gridDim.x;
   __shared__ float tot[L];
-  if constexpr (N >= 32) {
-    static_assert(kSolve, "a policy other than MppiSolve runs at N = kN only");
-    partials_end_wide<N>(model, a, io, nb, m_b, s, xb, red_max, red_sum, tot);
+  if constexpr (L > 32) {  // the sums span two warps
+    partials_end_wide<N, Q>(model, a, io, nb, m_b, s, xb, red_max, red_sum, tot, pol);
     return;
   }
   if (io.merges() && nb == 1) {  // the problem's only block: no row, no ticket
@@ -1010,7 +1039,7 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
     __syncwarp();
     if (threadIdx.x == 0) {
       if constexpr (!kSolve) {
-        pol.finish(m_b, tot, io, b);
+        pol.template finish<N>(m_b, tot, io, b);
       } else {
         finish_solve<N>(model, m_b, tot, xb, io, b);
       }
@@ -1049,7 +1078,7 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
     const float m_all = merge_rows_block<N, Q>(rows, nb, a.inv_lambda, red_max, red_sum, tot);
     if (threadIdx.x == 0) {
       if constexpr (!kSolve) {
-        pol.finish(m_all, tot, io, b);
+        pol.template finish<N>(m_all, tot, io, b);
       } else {
         finish_solve<N>(model, m_all, tot, xb, io, b);
       }
@@ -1063,7 +1092,7 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   const float m_all = merge_rows_warp<N, Q>(rows, nb, a.inv_lambda, wtot);
   if (threadIdx.x == 0) {
     if constexpr (!kSolve) {
-      pol.finish(m_all, wtot, io, b);
+      pol.template finish<N>(m_all, wtot, io, b);
     } else {
       finish_solve<N>(model, m_all, wtot, xb, io, b);
     }
@@ -1113,13 +1142,13 @@ mppi_partials_kernel(Model model, Cost cost, PartialsArgs a, PartialsIO io) {
   partials_body<N, Model, Cost, Fast, S, R>(model, cost, a, io);
 }
 
-// The sweep's kernel (tune): partials_body with MppiSweep<S> on the exact
-// cart-pole with shaped4 at N = kN, problem b's f32(1/lambda_b), sigma_b and
-// f32(sigma_b^-2) put into its PartialsArgs first; the launch bounds of
-// mppi_partials_kernel at the same R. Four instantiations: box-muller and
-// external noise, R = 1 and 4.
-template <int S>
-__device__ __forceinline__ PartialsArgs sweep_args(PartialsArgs a, const MppiSweep<S>& pol) {
+// The sweep's kernel (tune): partials_body with MppiSweep on the exact
+// cart-pole with shaped4 at horizon N, problem b's f32(1/lambda_b), sigma_b
+// and f32(sigma_b^-2) put into its PartialsArgs first; the launch bounds of
+// mppi_partials_kernel at the same R and N (but below N = kN). Instantiated
+// at every N of 1-40 at R = 1, and at N = kN also at R = 4, each for both
+// noise sources (horizons.cuh, launch_sweep).
+__device__ __forceinline__ PartialsArgs sweep_args(PartialsArgs a, const MppiSweep& pol) {
   const int b = blockIdx.y;
   a.inv_lambda = pol.inv_lambdas[b];
   a.std_dev = pol.sigmas[b];
@@ -1127,18 +1156,24 @@ __device__ __forceinline__ PartialsArgs sweep_args(PartialsArgs a, const MppiSwe
   return a;
 }
 
-template <int S, int R, std::enable_if_t<R == 1, int> = 0>
-__global__ void __launch_bounds__(kThreads, kMinBlocksR1<kN>)
-mppi_sweep_kernel(CartPoleNonlinearT<false> model, PartialsArgs a, PartialsIO io, MppiSweep<S> pol) {
-  partials_body<kN, CartPoleNonlinearT<false>, Shaped4, false, kBoxMuller, R>(model, Shaped4{},
-                                                                              sweep_args(a, pol), io, pol);
+// Blocks an SM the sweep's kernel at R = 1 asks for: mppi_partials_kernel's
+// kMinBlocksR1 at N = kN (5, 48 registers) and past it (1), and 4 (64
+// registers) below it, where 48 registers spilled 4-12 bytes at N = 5.
+template <int N>
+constexpr int kSweepMinBlocksR1 = N < kN ? 4 : kMinBlocksR1<N>;
+
+template <int R, int N, std::enable_if_t<R == 1, int> = 0>
+__global__ void __launch_bounds__(kThreads, kSweepMinBlocksR1<N>)
+mppi_sweep_kernel(CartPoleNonlinearT<false> model, PartialsArgs a, PartialsIO io, MppiSweep pol) {
+  partials_body<N, CartPoleNonlinearT<false>, Shaped4, false, kBoxMuller, R>(model, Shaped4{},
+                                                                             sweep_args(a, pol), io, pol);
 }
 
-template <int S, int R, std::enable_if_t<(R > 1), int> = 0>
+template <int R, int N, std::enable_if_t<(R > 1 && N == kN), int> = 0>
 __global__ void __launch_bounds__(kThreads)
-mppi_sweep_kernel(CartPoleNonlinearT<false> model, PartialsArgs a, PartialsIO io, MppiSweep<S> pol) {
-  partials_body<kN, CartPoleNonlinearT<false>, Shaped4, false, kBoxMuller, R>(model, Shaped4{},
-                                                                              sweep_args(a, pol), io, pol);
+mppi_sweep_kernel(CartPoleNonlinearT<false> model, PartialsArgs a, PartialsIO io, MppiSweep pol) {
+  partials_body<N, CartPoleNonlinearT<false>, Shaped4, false, kBoxMuller, R>(model, Shaped4{},
+                                                                             sweep_args(a, pol), io, pol);
 }
 
 }  // namespace mpc

@@ -8,8 +8,9 @@ Replaces ``mpc_rs_tpu/ops/mppi_pallas.py``: ``mppi_solve_fused`` stands for
 ``mppi_pallas_batch_partials`` (both of its kernels) + the vmapped
 ``finalize_partials``, and ``mppi_solve_batch_fused`` for both with the
 vmapped ``finalize_partials``; ``mppi_sweep_batch_fused`` is the batch of
-``tune``'s sweep, each problem at its own (λ, σ), returning the ESS (the
-JAX ``tune`` runs a vmap of ``mppi_solve``, no Pallas kernel). All of them run one kernel,
+``tune``'s sweep, each problem at its own (λ, σ), returning the ESS, at
+every horizon N = 1-40 (``SWEEP_HORIZONS``; the JAX ``tune`` runs a vmap of
+``mppi_solve`` at any N, no Pallas kernel). All of them run one kernel,
 ``mppi_partials_kernel`` (``ops/csrc/mppi_common.cuh``), at R rollouts a
 thread (``rollouts_per_thread``): a solve is one launch, whose last block to
 finish merges the partials rows and finishes the solve; a chain of J solves
@@ -67,7 +68,7 @@ from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops import fastmath, philox
 
 BLOCK = 256  # threads per block: each group of 256 rollouts of a block
-FLEET_HORIZON = 8  # kN in the source: the fleets' N (the sweep's and D1's too)
+FLEET_HORIZON = 8  # kN in the source: the fleets' N (D1's too, and tune's default)
 # serve's plan-streaming horizons: N = clip(round(0.8 / period), max(8, M), 40)
 # with --ticks-per-dispatch M > 1 (apps/serve.py:plan_horizon), every N of 9-40
 SERVE_HORIZONS = range(9, 41)
@@ -86,9 +87,19 @@ NOISE_SOURCES = ("external", *philox.SAMPLERS)  # external noise (B, K, N), or a
 # The noise sources and R each pair of BUILT is built for: every source at
 # R = 1 and 4 (mppi_kernels.cu, family_mppi2.cu, family_mppi4.cu,
 # family_commu4.cu), but serve's cart-pole, which draws box-muller alone
-# (apps/serve.py): at N = 40 at R = 1 and 4 (family_serve.cu), at N = 9-39
-# at R = 1 (family_serve_*.cu; R = 4 would need K >= 66 561 at 8 robots)
-BUILT_FOR = {(0, n): (("box-muller",), (1, 4) if n == 40 else (1,)) for n in SERVE_HORIZONS}
+# (apps/serve.py): at N = 40 at R = 1 and 4, at N = 9-39 at R = 1 (R = 4
+# would need K >= 66 561 at 8 robots); ops/csrc/horizons_*.cu.
+# tune's horizons: the sweep's kernel (mppi_sweep_kernel on the exact
+# cart-pole with shaped4, ``SweepModel``) is built at every N of 1-40, as the
+# JAX make_sweep takes any n_horizon (horizons.cuh, instantiated in
+# horizons_*.cu): box-muller and external noise at R = 1, and at tune's
+# default N = 8 also R = 4; its rows of BUILT_FOR are keyed SWEEP
+SWEEP_HORIZONS = range(1, 41)
+SWEEP = "sweep"
+BUILT_FOR = {
+    **{(0, n): (("box-muller",), (1, 4) if n == 40 else (1,)) for n in SERVE_HORIZONS},
+    **{(SWEEP, n): (("external", "box-muller"), (1, 4) if n == FLEET_HORIZON else (1,)) for n in SWEEP_HORIZONS},
+}
 MIN_BLOCKS = 4 * 132  # four blocks on each of an H100's 132 SMs
 
 # Wrapper calls that launched their kernels since the last reset; CPU calls
@@ -120,7 +131,8 @@ def rollouts_per_thread(k: int, b: int = 1, model=None, n: int = FLEET_HORIZON) 
     at N = 20, 1 at N = 40): measured there, a grid of one short wave at
     R = 4 loses to R = 1 (PERF.md §6). With a ``model``, only the R its
     kernel at horizon ``n`` is built for (``built_for``): 1 wherever R = 4 is
-    not built, as for serve's cart-pole at N = 9-39 at any K."""
+    not built, as for serve's cart-pole at N = 9-39 and tune's sweep
+    (``SweepModel``) past N = 8, at any K."""
     fits = [r for r in built_for(model, n)[1] if -(-k // (BLOCK * r)) * b >= MIN_BLOCKS]
     return max(fits, default=1)
 
@@ -315,21 +327,47 @@ class Commu4Cost4:
 MODELS = (CartPoleShaped4, Flagship4Diag4, DoubleIntegratorQuad2, CartPoleLinearShaped4, Commu4Cost4)
 launches.update({f"model:{m.__name__}": 0 for m in MODELS})
 launches.update({f"finalize:N={n}": 0 for n in sorted(FINALIZE_HORIZONS)})
+launches.update({f"sweep:N={n}": 0 for n in SWEEP_HORIZONS})
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepModel:
+    """tune's sweep kernel (``mppi_sweep_kernel``) on ``model``: a model of
+    the build table of its own, its rows keyed ``SWEEP`` (``BUILT_FOR``),
+    built for the exact ``CartPoleShaped4`` at ``SWEEP_HORIZONS``."""
+
+    model: object
+    model_id = SWEEP
+
+    @property
+    def fast(self) -> bool:
+        return self.model.fast
+
+    @property
+    def n_state(self) -> int:
+        return self.model.n_state
 
 
 def check_built(model, n: int, source: str | None = None, rpt: int | None = None) -> None:
     """Raise unless K1/K2 and the batch have a kernel for ``model`` at
-    horizon ``n`` (and in its tier) and, where given, for noise ``source``
-    (``NOISE_SOURCES``) at ``rpt`` rollouts a thread (``built_for``). The
-    wrappers check all four on a CUDA device before any launch; the plain
-    versions take every source and R."""
-    if not isinstance(model, MODELS):
+    horizon ``n`` (and in its tier), or tune's sweep for a ``SweepModel``,
+    and, where given, for noise ``source`` (``NOISE_SOURCES``) at ``rpt``
+    rollouts a thread (``built_for``). The wrappers check all four on a
+    CUDA device before any launch; the plain versions take every source and
+    R."""
+    if isinstance(model, SweepModel):
+        if not isinstance(model.model, CartPoleShaped4) or model.fast:
+            raise ValueError(f"the sweep's kernel is built for the exact CartPoleShaped4, got {model.model}")
+        if (SWEEP, n) not in BUILT_FOR:
+            raise ValueError(f"no sweep kernel for horizon N={n}; it is built for "
+                             f"N={SWEEP_HORIZONS.start}-{SWEEP_HORIZONS.stop - 1}")
+    elif not isinstance(model, MODELS):
         raise ValueError(f"no kernel for model {type(model).__name__}; K1/K2 are built for "
                          f"{', '.join(m.__name__ for m in MODELS)}")
-    if (model.model_id, n) not in BUILT:
+    elif (model.model_id, n) not in BUILT:
         built = sorted(m for i, m in BUILT if i == model.model_id)
         raise ValueError(f"no kernel for horizon N={n} with {type(model).__name__}; it is built for N={built}")
-    if model.fast and (model.model_id, n) not in FAST_BUILT:
+    elif model.fast and (model.model_id, n) not in FAST_BUILT:
         raise ValueError(f"no fast-tier kernel for {type(model).__name__} at N={n}")
     sources, rpts = built_for(model, n)
     if source is not None and source not in sources:
@@ -958,10 +996,11 @@ def sweep_partials_plain(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.T
     """The sweep's (B, nb, N+3) rows (m_b, s_b, uw_b, Σw²_b) in the dtype
     of ``u_ns``, each problem at its own 1/λ_b and σ_b⁻²
     (``sweep_coefficients`` in that dtype). noise (B, K, N) already scaled."""
-    b, k, _ = noise.shape
+    b, k, n = noise.shape
     inv_l, _, inv = sweep_coefficients(lambdas, sigmas, u_ns.dtype)
+    rows = BLOCK * _rpt(k, b, rollouts_per_thread, SweepModel(model), n)
     return _rows_plain(model, xs, u_ns, noise.to(u_ns.dtype), cfg.limit, inv.to(xs.device)[:, None, None],
-                       inv_l.to(xs.device)[:, None, None], BLOCK * _rpt(k, b, rollouts_per_thread), squares=True)
+                       inv_l.to(xs.device)[:, None, None], rows, squares=True)
 
 
 def finalize_sweep_plain(partials: torch.Tensor, lambdas: torch.Tensor
@@ -1003,24 +1042,27 @@ def mppi_sweep_batch_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch
     """B MPPI solves of ``tune``'s sweep in one launch (``mppi_sweep_kernel``,
     the partials kernel with the sweep's policy): problem b solves from
     xs[b] (B, 4) with nominal u_ns[b] (B, N) at its own λ = lambdas[b] and
-    σ = sigmas[b] (B,), for the exact cart-pole with ``shaped4`` at N = 8
-    (``CartPoleShaped4``, exact tier); ``cfg`` gives N, K and the control
-    box (its λ and σ are not read). Pass ``seeds`` (B,) int32 with the tick
-    ``solve`` (box-muller, problem b keyed seeds[b] with counter word
-    ``solve``: cells of one seed draw the same normals, ``sweep_noise``) or
-    ``noise`` (B, K, N) already scaled. Returns (u_n' (B, N), status (B,)
-    int32, ess (B,)) with the zero fallback on failure; ``rollouts_per_thread``
-    forces R. CUDA tensors must be float32."""
+    σ = sigmas[b] (B,), for the exact cart-pole with ``shaped4``
+    (``CartPoleShaped4``, exact tier) at any horizon N of ``SWEEP_HORIZONS``
+    (1-40); ``cfg`` gives N, K and the control box (its λ and σ are not
+    read). Pass ``seeds`` (B,) int32 with the tick ``solve`` (box-muller,
+    problem b keyed seeds[b] with counter word ``solve``: cells of one seed
+    draw the same normals, ``sweep_noise``) or ``noise`` (B, K, N) already
+    scaled. Returns (u_n' (B, N), status (B,) int32, ess (B,)) with the zero
+    fallback on failure; ``rollouts_per_thread`` forces R (R = 4 is built
+    at N = 8 alone; ``BUILT_FOR``). CUDA tensors must be float32; on a
+    CUDA device another model or N, or an R not built, raises before any
+    launch (``check_built`` on ``SweepModel(model)``). ``launches`` counts each launch, and
+    under ``sweep:N=<n>`` its horizon."""
     if (noise is None) == (seeds is None):
         raise ValueError("pass exactly one of noise (B, K, N) or seeds (B,) with the tick `solve`")
-    rpt = _rpt(cfg.n_rollouts, xs.shape[0], rollouts_per_thread)
+    n = cfg.n_horizon
+    rpt = _rpt(cfg.n_rollouts, xs.shape[0], rollouts_per_thread, SweepModel(model), n)
     if xs.device.type == "cpu":
         return mppi_sweep_batch_plain(cfg, model, xs, u_ns, lambdas, sigmas, seeds=seeds, solve=solve,
                                       noise=noise, rollouts_per_thread=rpt)
-    if not isinstance(model, CartPoleShaped4) or model.fast or cfg.n_horizon != FLEET_HORIZON:
-        raise ValueError(f"the sweep's kernel is built for the exact CartPoleShaped4 at N={FLEET_HORIZON}, "
-                         f"got {model} at N={cfg.n_horizon}")
-    b, n, k = _batch_kernel_args(cfg, model, xs, u_ns, "external" if noise is not None else "box-muller", rpt)
+    b, n, k = _batch_kernel_args(cfg, SweepModel(model), xs, u_ns,
+                                 "external" if noise is not None else "box-muller", rpt)
     dev = xs.device
     _check("lambdas", lambdas, (b,), torch.float32, dev)
     _check("sigmas", sigmas, (b,), torch.float32, dev)
@@ -1042,6 +1084,7 @@ def mppi_sweep_batch_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch
                  _ptr(u_out), _ptr(status), _ptr(ess)),
                 "mppi_sweep_batch_fused", tickets)
     launches["mppi_sweep_batch_fused"] += 1
+    launches[f"sweep:N={n}"] += 1
     return u_out, status, ess
 
 

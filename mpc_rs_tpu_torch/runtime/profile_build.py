@@ -1,7 +1,7 @@
 """Time the kernels' build: each source's ``nvcc`` and the build's wall, for
 one or more checkouts in turns, and, with ``--per-horizon``, one ``nvcc`` a
 horizon of serve's cart-pole (``ops/csrc/horizons.cuh``), to choose the
-split of the ``family_serve*.cu`` sources.
+split of the ``horizons_*.cu`` sources.
 
     python mpc_rs_tpu_torch/runtime/profile_build.py --root _cmp/parent --label parent \\
         --root . --label change --turns 2 --per-horizon --out logs/profile_build.jsonl

@@ -70,8 +70,9 @@ KERNELS = ("mppi_partials_kernel", "mppi_finalize_kernel", "fleet_finalize_kerne
 PARTIALS_RE = re.compile(r"mppi_partials_kernelILi(\d+)ENS_\d+"
                          r"(CartPoleNonlinearT|Flagship4|DoubleIntegrator|CartPoleLinear|Commu4)(?:ILb([01])EE)?ENS_\d+"
                          r"(Shaped4|Diag4|Quad2|Commu4Cost)ELb([01])ELi(\d+)E(?:Li(\d+)E)?")
-# tune's sweep (mppi_sweep_kernel<S, R>): noise source, rollouts per thread
-SWEEP_RE = re.compile(r"mppi_sweep_kernelILi(\d+)ELi(\d+)E")
+# tune's sweep (mppi_sweep_kernel<R, N>, then enable_if's 0): rollouts per
+# thread, horizon
+SWEEP_RE = re.compile(r"mppi_sweep_kernelILi(\d+)ELi(\d+)ELi0E")
 HW_BUDGET_S = 0.06  # the HW flagship's control budget a solve (SURVEY §6)
 PRODUCTION = {("CartPoleNonlinearT", False, 1): "cartpole_exact_box-muller (mppi4-non-liner)",
               ("CartPoleNonlinearT", True, 2): "cartpole_fast_clt4 (cartpole4)",
@@ -85,11 +86,13 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_counts(so: Path, cuobjdump: Path) -> list[dict]:
+def sass_counts(so: Path, cuobjdump: Path, sass: str | None = None) -> list[dict]:
     """Static SASS counts of the production partials instantiations, of the
-    sweep's (tune) and of the finalize kernels in library ``so``."""
-    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
-                          timeout=600, check=True).stdout
+    sweep's (tune) and of the finalize kernels in library ``so``; ``sass``:
+    its ``cuobjdump -sass`` text where the caller has it already."""
+    if sass is None:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+                              timeout=600, check=True).stdout
     rows = []
     for func in sass.split("Function : ")[1:]:
         name = func.split()[0]
@@ -101,7 +104,9 @@ def sass_counts(so: Path, cuobjdump: Path) -> list[dict]:
                 continue
             what = PRODUCTION[key] + (f" R={m.group(7)}" if m.group(7) else "")
         elif sweep:
-            what = f"sweep_{'box-muller' if sweep.group(1) == '1' else 'external'} (tune) R={sweep.group(2)}"
+            if sweep.group(2) != str(N):
+                continue  # the production sweep is tune's N = 8
+            what = f"sweep (tune) R={sweep.group(1)}"
         elif "finalize_kernel" in name:
             what = name
         else:

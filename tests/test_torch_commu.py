@@ -564,6 +564,41 @@ def test_mppi4_ukf_commu_sim_mcu(tmp_path, ukf_dtype):
     assert rows.shape[1] == 14  # t, u, x_est[0..6], p_diag[0..6] (mppi4-ukf-commu.rs:353-396)
 
 
+@pytest.mark.parametrize("app", ["mppi4-commu", "mppi4-ukf-commu", "mpc-ukf-commu"])
+def test_hil_apps_solve_on_one_intra_op_thread_on_the_cpu(app, monkeypatch, tmp_path):
+    """On the CPU the HIL apps that solve as fast as the host lets them run
+    each solve on one intra-op thread, and give the caller's process its
+    thread count back after the run: an OpenMP team of a thread a core,
+    sharing the cores with the fake MCU's threads and other processes, cut
+    eight loaded copies of mppi4-ukf-commu from ~100 solves to 9-14 (and
+    mpc-ukf-commu to 1)."""
+    seen = []
+
+    def recording(solve):
+        def solve_and_record(*a, **kw):
+            seen.append(torch.get_num_threads())
+            return solve(*a, **kw)
+
+        return solve_and_record
+
+    real_mppi, real_mpc = commu_examples.make_mppi_solver, commu_examples.mpc_ukf_commu_parts
+    monkeypatch.setattr(commu_examples, "make_mppi_solver", lambda *a, **kw: recording(real_mppi(*a, **kw)))
+    def recording_parts(*a, **kw):
+        solve, *rest = real_mpc(*a, **kw)
+        return (recording(solve), *rest)
+
+    monkeypatch.setattr(commu_examples, "mpc_ukf_commu_parts", recording_parts)
+    before = max(2, torch.get_num_threads())
+    torch.set_num_threads(before)
+    extra = {"mppi4-commu": ["--k", "256"], "mppi4-ukf-commu": ["--k", "256", "--time-scale", "0.2",
+                                                                "--log-dir", str(tmp_path)],
+             "mpc-ukf-commu": ["--max-iter", "4", "--ukf-dtype", "float64"]}[app]
+    res, _ = _run([app, "--device", "cpu", "--sim-mcu", "--t-end", "0.3", *extra])
+    assert res.solves >= 1 and len(seen) == res.solves + 1  # the pre-solve before traffic and the loop's
+    assert set(seen) == {1}, seen
+    assert torch.get_num_threads() == before
+
+
 def _serve(extra, seed):
     return _run(["serve", "--device", "cpu", "--sim-mcu", "--robots", "8", "--k", "128", "--time-scale", "0.2",
                  "--seed", str(seed), *extra])

@@ -961,6 +961,73 @@ def test_cuda_sweep_matches_plain(card, k, source):
     assert bool((mppi_cuda.merge_tickets(card, b) == 0).all())
 
 
+SWEEP_HORIZONS = (1, 9, 30, 31, 32, 40)  # N = 30 and 31: the last row in warp 0, the first across two
+# K = 8192 gives a problem 32 blocks, whose rows one warp merges; K = 65 536
+# gives it 256, past kWarpMergeRows = 128, which the block merges (as at
+# tune's K = 800 000: 3125), at N = 31 and 40 in partials_end_wide
+SWEEP_HORIZON_KS = [(n, 8192) for n in SWEEP_HORIZONS] + [(31, 65_536), (40, 65_536)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["external", "box-muller"])
+@pytest.mark.parametrize("n, k", SWEEP_HORIZON_KS)
+def test_cuda_sweep_at_horizons_matches_plain(card, n, k, source):
+    """The sweep launch at horizon N (R = 1, the only R built past N = 8) on
+    tune's default grid (B = 96) at K = 8192, and at N = 31 and 40 also at K
+    = 65 536 (the block merge), against its float64 plain version, as
+    ``test_cuda_sweep_matches_plain``; past N = 8 the step is 0.8 s / N and
+    λ scaled by N/8 (``tests/test_torch_tune.py::_horizon``). In-kernel
+    box-muller against ``sweep_noise``'s words, its last pair half used at
+    odd N; the launch counted under its horizon."""
+    lam, sig, seeds = _sweep_grid(card)
+    dt, scale = (0.1, 1.0) if n <= N else (0.8 / n, n / N)
+    lam = lam * scale
+    model = CartPoleShaped4(CartPoleParams.single_wheel(), dt)
+    b = lam.numel()
+    gen = torch.Generator(device=card).manual_seed(n)
+    xs = torch.randn((b, 4), generator=gen, device=card) * torch.tensor([0.3, 0.1, 0.1, 0.1], device=card)
+    u_ns = torch.randn((b, n), generator=gen, device=card)
+    cfg = _cfg(k, n=n)
+    if source == "external":
+        noise = torch.randn((b, k, n), generator=gen, device=card) * sig[:, None, None]
+        kw = dict(noise=noise)
+    else:
+        kw = dict(seeds=seeds, solve=5)
+        noise = mppi_cuda.sweep_noise(cfg, seeds, 5, sig)
+    mppi_cuda.reset_launches()
+    u, st, ess = mppi_cuda.mppi_sweep_batch_fused(cfg, model, xs, u_ns, lam, sig, **kw)
+    assert mppi_cuda.launches["mppi_sweep_batch_fused"] == mppi_cuda.launches[f"sweep:N={n}"] == 1
+    want_u, want_st, want_ess = mppi_cuda.mppi_sweep_batch_plain(cfg, model, xs.double(), u_ns.double(), lam, sig,
+                                                                  noise=noise)
+    u32, _, ess32 = mppi_cuda.mppi_sweep_batch_plain(cfg, model, xs, u_ns, lam, sig, noise=noise)
+    torch.cuda.synchronize()
+    assert u.shape == (b, n) and torch.equal(st, want_st) and bool((st == 0).all())
+    for got, want, f32 in ((u, want_u, u32), (ess, want_ess, ess32)):
+        got, want, f32 = (t.double().cpu() for t in (got, want, f32))
+        tol = torch.maximum(F32_BAND["atol"] + F32_BAND["rtol"] * want.abs(), 2.0 * (f32 - want).abs())
+        assert bool(((got - want).abs() <= tol).all()), float(((got - want).abs() / tol).max())
+    assert bool((mppi_cuda.merge_tickets(card, b) == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_unbuilt_horizon_or_r_raises_before_launch(card):
+    """N = 41, R = 4 past N = 8, or another sampler raise a ValueError before
+    any launch, through the wrapper and through ``make_sweep``."""
+    from mpc_rs_tpu_torch.apps import tune
+
+    lam, sig, seeds = _sweep_grid(card, seeds=1)
+    b = lam.numel()
+    mppi_cuda.reset_launches()
+    for n, rpt, match in ((41, None, "horizon N=41"), (20, 4, "4 rollouts a thread with SweepModel at N=20")):
+        with pytest.raises(ValueError, match=match):
+            mppi_cuda.mppi_sweep_batch_fused(_cfg(1024, n=n), MODEL, torch.zeros((b, 4), device=card),
+                                             torch.zeros((b, n), device=card), lam, sig, seeds=seeds,
+                                             rollouts_per_thread=rpt)
+    with pytest.raises(ValueError, match="horizon N=41"):
+        tune.make_sweep(k=1024, n_horizon=41, device=card)
+    assert not any(mppi_cuda.launches.values())
+
+
 @pytest.mark.cuda
 def test_cuda_sweep_failure_probes(card):
     lam, sig, seeds = _sweep_grid(card, seeds=1)
