@@ -72,10 +72,12 @@ card against the CPU tick by tick, the QP fleet at B = 1024 on both
 solvers (timed and profiled), and 200 ``qp-parking`` episodes against a
 fresh oracle, written to ``PARITY_DIST_TORCH.json``.
 
-tune's sweep launch (the partials kernel with a per-problem (λ, σ) policy
-that returns the ESS) is held against its float64 plain version at tune's
-default grid (B = 96) at K = 1 024 and 800 000 and at every horizon
-N = 1-40 at K = 4 096 (both noise sources), and ``tune`` runs through
+tune's sweep launch (``mppi_sweep_kernel``, one kernel that takes the
+horizon at run time, each problem at its own (λ, σ), returning the ESS) is
+held against its float64 plain version at tune's default grid (B = 96) at
+K = 1 024 and 800 000 and at every horizon N = 1-40, 41, 64 and the largest
+(224) at K = 4 096 (both noise sources), with its registers, no spill and
+its blocks an SM at N = 1, 8, 20, 40 and 224, and ``tune`` runs through
 the CLI entry at its acceptance spec and at the default grid at
 K = 800 000 over 100 ticks, one launch a tick, and ``make_sweep(k=800 000,
 n_horizon=N)`` over that grid at N = 20 and 40 for 50 ticks, one launch a
@@ -132,6 +134,7 @@ F32_BAND = dict(rtol=1e-3, atol=2e-4)  # the JAX package's band (tests/test_pall
 SOURCE = "mpc_rs_tpu_torch/ops/csrc/mppi_kernels.cu"
 FASTMATH_SOURCE = "mpc_rs_tpu_torch/ops/csrc/fastmath.cuh"
 COMMON_SOURCE = "mpc_rs_tpu_torch/ops/csrc/mppi_common.cuh"  # the partials kernel, the samplers
+SWEEP_SOURCE = "mpc_rs_tpu_torch/ops/csrc/sweep.cuh"  # tune's sweep kernel
 ESTIMATOR_SOURCE = "mpc_rs_tpu_torch/ops/csrc/estimator_chain.cuh"
 DIAG_SOURCE = "mpc_rs_tpu_torch/ops/csrc/diag_kernels.cuh"  # D1, D2
 PALLAS = "mpc_rs_tpu/ops/mppi_pallas.py"
@@ -246,19 +249,27 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
 
 PROFILED = "chip_smoke_profiled_calls"
 GAP_S = 2e-3  # host idle time around the profiled calls
+PROFILE_TRIES = 8  # profiles taken before a call counts as having caught none of its events
 
 
-def device_events(fn, reps: int = 1) -> list[tuple[str, float]]:
+def is_kernel(name: str) -> bool:
+    """A device event that is a kernel, not a copy or a fill by the driver."""
+    return not name.startswith(("Memcpy", "Memset"))
+
+
+def device_events(fn, reps: int = 1, keep=None) -> list[tuple[str, float]]:
     """(name, µs) of every device event of ``reps`` calls under
     torch.profiler. The profiler drops some device events, most at the start
     of a session, so one call runs first and only the events that start
     inside the measured range count. The host idles ``GAP_S`` after that
     call, at the start of the range and at its end, so an event whose device
     time the profiler places up to ``GAP_S`` off the host clock still falls
-    on the right side of the range's ends. A profile that caught no device
-    event is taken again, up to five times."""
+    on the right side of the range's ends. ``keep`` (a test of an event's
+    name; default every event) picks the events returned, and a profile that
+    caught none of them is taken again, up to ``PROFILE_TRIES`` times: the
+    profiler can catch a call's copies and drop its kernel."""
     events = []
-    for _ in range(5):
+    for _ in range(PROFILE_TRIES):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
@@ -273,7 +284,7 @@ def device_events(fn, reps: int = 1) -> list[tuple[str, float]]:
         span = next(e.time_range for e in prof.events() if e.name == PROFILED)
         events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name != PROFILED
-                  and span.start <= e.time_range.start <= span.end]
+                  and span.start <= e.time_range.start <= span.end and (keep is None or keep(e.name))]
         if events:
             break
     return events
@@ -286,7 +297,7 @@ def check_kernels_per_call(fn, want: int, what: str, kernel: str = "mppi_partial
     kernel too many, or another kernel, fails at once."""
     names = []
     for _ in range(5):
-        names = [n for n, _ in device_events(fn) if not n.startswith(("Memcpy", "Memset"))]
+        names = [n for n, _ in device_events(fn, keep=is_kernel)]
         check(len(names) <= want and all(kernel in n for n in names),
               f"{what}: kernels launched {names}, want {want} {kernel} launches")
         if len(names) == want:
@@ -303,8 +314,8 @@ def device_ms(fn, reps: int = 20, kernels: int = 1) -> float:
     the sum over ``reps``."""
     fn()
     torch.cuda.synchronize()
-    us = [t for name, t in device_events(fn, reps) if not name.startswith(("Memcpy", "Memset"))]
-    check(bool(us), "torch.profiler caught no kernel of the call")
+    us = [t for _, t in device_events(fn, reps, keep=is_kernel)]
+    check(bool(us), f"torch.profiler caught no kernel of the call in {PROFILE_TRIES} profiles")
     return kernels * sum(us) / len(us) / 1e3
 
 
@@ -2013,14 +2024,16 @@ def sweep_horizon(n: int) -> tuple[float, float]:
 
 
 def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
-    """tune's sweep launch (the partials kernel with the sweep's policy,
-    ``mppi_sweep_kernel``): its instantiations' ptxas registers and no
-    spill (each for box-muller and external noise: R = 1 at every N of 1-40
-    and R = 4 at N = 8, 41); at tune's default grid (B = 96) and K = 1 024
-    and 800 000, each noise source at R = 1 and 4, against its float64 plain
-    version (in-kernel box-muller against ``sweep_noise``'s words), and the
-    failure probes; every N of 1-40 at K = 4 096 against the float64 plain
-    version, both noise sources; then, as main paths through the CLI entry
+    """tune's sweep launch (``mppi_sweep_kernel``, ``ops/csrc/sweep.cuh``:
+    one kernel for every horizon and both noise sources): its ptxas
+    registers and no spill, and its blocks an SM at N = 1, 8, 20, 40 and
+    the largest (at least 4 up to N = 40); at tune's default grid (B = 96)
+    and K = 1 024 and 800 000, each noise source at 1 and 4 tiles a block
+    and the wrapper's, against its float64 plain version (in-kernel
+    box-muller against ``sweep_noise``'s words), and the failure probes;
+    every N of 1-40, 41, 64 and the largest at K = 4 096 against the
+    float64 plain version, both noise sources, at the wrapper's tiles and at
+    4; then, as main paths through the CLI entry
     (counts reset before, read after), tune at its acceptance spec and at
     the default grid at K = 800 000 over 100 ticks, one launch a tick
     (torch.profiler: one sweep kernel in a tick), and ``make_sweep(k=800 000,
@@ -2040,19 +2053,21 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4
     from mpc_rs_tpu_torch.runtime.profile_sweep import sweep_ptxas as sweep_ptxas_rows
 
-    # T1. the sweep's instantiations, each for box-muller and external noise:
-    # R = 1 at every N of 1-40, and R = 4 at N = 8
+    # T1. the sweep's one kernel, for every horizon and both noise sources:
+    # its registers, no spill, and its blocks an SM at the launch's shared
+    # memory (at tune's grid's 16 tiles a block, and one at the largest N)
     model = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
-    sweep_model = mppi_cuda.SweepModel(model)  # the sweep kernel's rows of the build table
     sweep_rows = sweep_ptxas_rows(log)
-    built = {(r["rpt"], r["n"]) for r in sweep_rows if "registers" in r}
-    want_built = {(rpt, n) for n in mppi_cuda.SWEEP_HORIZONS for rpt in mppi_cuda.built_for(sweep_model, n)[1]}
-    spills = [r for r in sweep_rows if r.get("spill_bytes")]
-    emit({"phase": "ptxas_sweep", "instantiations": len(sweep_rows),
-          "registers": {f"{r['n']}/R{r['rpt']}": r.get("registers") for r in sweep_rows}})
-    check(len(sweep_rows) == len(want_built) == 41 and built == want_built,
-          f"sweep instantiations in the ptxas report: {sorted(built ^ want_built)} differ")
-    check(not spills, f"ptxas spills in the sweep kernel: {spills}")
+    occupancy = [mppi_cuda.sweep_occupancy(n, mppi_cuda.sweep_tiles(TUNE_K, 96, dev), dev) for n in (1, 8, 20, 40)]
+    occupancy.append(mppi_cuda.sweep_occupancy(mppi_cuda.SWEEP_MAX_HORIZON, 1, dev))
+    emit({"phase": "ptxas_sweep", "instantiations": len(sweep_rows), "ptxas": sweep_rows, "occupancy": occupancy})
+    check(len(sweep_rows) == 1 and sweep_rows[0].get("registers", 255) <= 64,
+          f"the sweep kernel in the ptxas report: {sweep_rows} (one kernel, at most 64 registers)")
+    check(not any(r.get("spill_bytes") for r in sweep_rows), f"ptxas spills in the sweep kernel: {sweep_rows}")
+    check(all(r["blocks_per_sm"] >= 4 for r in occupancy[:-1]) and occupancy[-1]["blocks_per_sm"] >= 1,
+          f"the sweep kernel's blocks an SM: {occupancy}")
+    check(all(r["shared_bytes"] == mppi_cuda.sweep_shared_bytes(r["n"], r["tiles"]) for r in occupancy),
+          f"the sweep launch's shared bytes (C side) against sweep_shared_bytes: {occupancy}")
 
     lams, sigs, n_seeds = TUNE_GRID
     grid = [(lam, sig, r) for lam in lams for sig in sigs for r in range(n_seeds)]
@@ -2079,21 +2094,23 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
                 kw = dict(noise=noise)
             else:
                 noise, kw = mppi_cuda.sweep_noise(cfg(k), seeds, 9, sig), dict(seeds=seeds, solve=9)
-            row = {"phase": "sweep_vs_plain", "b": b, "k": k, "noise": source}
-            for rpt in (1, 4):
+            row = {"phase": "sweep_vs_plain", "b": b, "k": k, "noise": source,
+                   "wrapper_tiles": mppi_cuda.sweep_tiles(k, b, dev)}
+            for tiles in (1, 4, None):
                 u, st, ess = mppi_cuda.mppi_sweep_batch_fused(cfg(k), model, xs, u_ns, lam, sig,
-                                                              rollouts_per_thread=rpt, **kw)
+                                                              tiles_per_block=tiles, **kw)
                 want_u, want_st, want_ess = mppi_cuda.mppi_sweep_batch_plain(
-                    cfg(k), model, xs.double(), u_ns.double(), lam, sig, noise=noise, rollouts_per_thread=rpt)
+                    cfg(k), model, xs.double(), u_ns.double(), lam, sig, noise=noise, tiles_per_block=tiles)
                 u32, _, ess32 = mppi_cuda.mppi_sweep_batch_plain(cfg(k), model, xs, u_ns, lam, sig, noise=noise,
-                                                                 rollouts_per_thread=rpt)
+                                                                 tiles_per_block=tiles)
+                what = f"sweep K={k} {source} tiles={tiles or 'wrapper'}"
                 check(torch.equal(st, want_st) and bool((st == MppiStatus.OK).all()),
-                      f"sweep K={k} {source} R={rpt}: statuses {sorted(set(st.tolist()))}, plain {sorted(set(want_st.tolist()))}")
-                e = max(check_band_or_own(u, want_u, u32, f"sweep K={k} {source} R={rpt} u_n'"),
-                        check_band_or_own(ess, want_ess, ess32, f"sweep K={k} {source} R={rpt} ESS"))
+                      f"{what}: statuses {sorted(set(st.tolist()))}, plain {sorted(set(want_st.tolist()))}")
+                e = max(check_band_or_own(u, want_u, u32, f"{what} u_n'"),
+                        check_band_or_own(ess, want_ess, ess32, f"{what} ESS"))
                 err = max(err, e)
-                row[f"max_abs_err_r{rpt}"] = e
-                row[f"ess_range_r{rpt}"] = [float(ess.min()), float(ess.max())]
+                row[f"max_abs_err_tiles_{tiles or 'wrapper'}"] = e
+                row[f"ess_range_tiles_{tiles or 'wrapper'}"] = [float(ess.min()), float(ess.max())]
             emit(row)
             del noise, kw
     check(bool((mppi_cuda.merge_tickets(dev, b) == 0).all()), "sweep tickets not zero")
@@ -2108,10 +2125,10 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
           f"sweep probes: statuses {st[:3].tolist()}, ESS {ess[:3].tolist()}")
     emit({"phase": "sweep_failure_probes", "statuses": st[:3].tolist(), "ess": [float(v) for v in ess[:3]]})
 
-    # T2b. every horizon of the sweep at K = 4 096, R = 1 (and the wrapper's
-    # R, 4, at N = 8), both noise sources, against the float64 plain version:
-    # N = 30 is the last row whose N + 2 sums fit in warp 0, N = 31 the first
-    # across two; box-muller's last pair is half used at odd N. The grid's σ
+    # T2b. every horizon of the sweep of N = 1-40, 41, 64 and the largest at K
+    # = 4 096, at the wrapper's tiles (1) and, up to N = 21, at 4 (R = 4 up to
+    # N = 10, 2 up to 20), both noise sources, against the float64 plain
+    # version; box-muller's last pair is half used at odd N. The grid's σ
     # and seeds with λ ∈ {5, 20, 50, 200}: at tune's λ = 0.1-0.5 the softmax
     # weighs one or two rollouts, where float32 rounding alone moves u_n'
     # past the band and twice the plain float32 version's distance (held at
@@ -2120,7 +2137,7 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     err_n = {}
     lam_wc = torch.tensor([(5.0, 20.0, 50.0, 200.0)[lams.index(g[0])] for g in grid], dtype=torch.float32,
                           device=dev)
-    for n in mppi_cuda.SWEEP_HORIZONS:
+    for n in (*range(1, 41), 41, 64, mppi_cuda.SWEEP_MAX_HORIZON):
         dt, scale = sweep_horizon(n)
         m_n = CartPoleShaped4(CartPoleParams.single_wheel(), dt)
         lam_n = lam_wc * scale
@@ -2135,20 +2152,20 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
                 kw = dict(noise=noise)
             else:
                 noise, kw = mppi_cuda.sweep_noise(cfg_n, seeds, 11, sig), dict(seeds=seeds, solve=11)
-            for rpt in mppi_cuda.built_for(sweep_model, n)[1]:
+            for tiles in (None, 4) if n <= 21 else (None,):  # past N = 20 a thread runs one rollout a tile
                 u, st, ess = mppi_cuda.mppi_sweep_batch_fused(cfg_n, m_n, xs, u_ns, lam_n, sig,
-                                                              rollouts_per_thread=rpt, **kw)
+                                                              tiles_per_block=tiles, **kw)
                 want_u, want_st, want_ess = mppi_cuda.mppi_sweep_batch_plain(
-                    cfg_n, m_n, xs.double(), u_ns.double(), lam_n, sig, noise=noise, rollouts_per_thread=rpt)
+                    cfg_n, m_n, xs.double(), u_ns.double(), lam_n, sig, noise=noise, tiles_per_block=tiles)
                 u32, _, ess32 = mppi_cuda.mppi_sweep_batch_plain(cfg_n, m_n, xs, u_ns, lam_n, sig, noise=noise,
-                                                                 rollouts_per_thread=rpt)
-                what = f"sweep N={n} K={k} {source} R={rpt}"
+                                                                 tiles_per_block=tiles)
+                what = f"sweep N={n} K={k} {source} tiles={tiles or 'wrapper'}"
                 check(u.shape == (b, n) and torch.equal(st, want_st) and bool((st == MppiStatus.OK).all()),
                       f"{what}: statuses {sorted(set(st.tolist()))}, plain {sorted(set(want_st.tolist()))}")
                 e = max(check_band_or_own(u, want_u, u32, f"{what} u_n'"),
                         check_band_or_own(ess, want_ess, ess32, f"{what} ESS"))
                 err_n[n] = max(err_n.get(n, 0.0), e)
-                row[f"max_abs_err_{source}_r{rpt}"] = e
+                row[f"max_abs_err_{source}_tiles_{tiles or 'wrapper'}"] = e
         emit(row)
     check(bool((mppi_cuda.merge_tickets(dev, b) == 0).all()), "sweep tickets not zero after the horizons")
 
@@ -2194,19 +2211,20 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     call = lambda: mppi_cuda.mppi_sweep_batch_fused(cfg_k, model, xs, u0, lam, sig, seeds=seeds, solve=3)  # noqa: E731
     plain = lambda: mppi_cuda.mppi_sweep_batch_plain(cfg_k, model, xs, u0, lam, sig, seeds=seeds, solve=3)  # noqa: E731
     call()
-    dev_us = [t for name, t in device_events(call, reps=5) if "mppi_sweep_kernel" in name]
+    dev_us = [t for _, t in device_events(call, reps=5, keep=lambda name: "mppi_sweep_kernel" in name)]
     check(bool(dev_us), "torch.profiler caught no sweep kernel")
     kern_ms = statistics.median(dev_us) / 1e3
     event_ms = median_ms(call, reps=20)
     plain_ms = median_ms(plain, reps=3, warmup=1)
     n_bytes = nbytes(xs, u0, lam, sig, seeds) + nbytes(u0) + 4 * b + 4 * b  # in: x, u_n, λ, σ, seeds; out: u_n', status, ESS
     bnd = bound(flops_of(plain), n_bytes)
+    tiles_main = mppi_cuda.sweep_tiles(TUNE_K, b, dev)
     emit({"phase": "timing_sweep", "n": N, "b": b, "k": TUNE_K, "kernel_device_ms": kern_ms,
-          "kernel_event_ms": event_ms, "plain_ms": plain_ms,
-          "rollouts_per_thread": mppi_cuda.rollouts_per_thread(TUNE_K, b, sweep_model, N), **bnd, **card})
-    entries = [{"name": "mppi_sweep_kernel: the partials kernel with tune's sweep policy, per-problem lambda and "
-                        "sigma, ESS in the merge (K5/K6 extended; mppi_sweep_batch_fused, N=8, B=96, K=800000)",
-                "route": "cuda", "source": COMMON_SOURCE, "replaces": f"{PALLAS}:692",
+          "kernel_event_ms": event_ms, "plain_ms": plain_ms, "tiles": tiles_main,
+          "rollouts_a_thread": mppi_cuda.sweep_rollouts_a_thread(N, tiles_main), **bnd, **card})
+    entries = [{"name": "mppi_sweep_kernel: tune's sweep, one kernel for every horizon, per-problem lambda and "
+                        "sigma, ESS in the merge (mppi_sweep_batch_fused, N=8, B=96, K=800000)",
+                "route": "cuda", "source": SWEEP_SOURCE, "replaces": f"{PALLAS}:692",
                 "launches": counts["mppi_sweep_batch_fused"], "max_abs_err": max(err, err_n[N]), "ms": kern_ms,
                 "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"], "library_ms": None}]
 
@@ -2239,7 +2257,7 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
         plain = lambda: [mppi_cuda.mppi_sweep_batch_plain(cfg_n, model, xs[p], u0[p], lam[p], sig[p],  # noqa: E731
                                                           seeds=seeds[p], solve=3) for p in pieces]
         call()
-        dev_us = [t for name, t in device_events(call, reps=3) if "mppi_sweep_kernel" in name]
+        dev_us = [t for _, t in device_events(call, reps=3, keep=lambda name: "mppi_sweep_kernel" in name)]
         check(bool(dev_us), f"torch.profiler caught no sweep kernel at N={n}")
         kern_n = statistics.median(dev_us) / 1e3
         event_n = median_ms(call, reps=5, warmup=1)
@@ -2268,7 +2286,7 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
             for p in (slice(i, i + SWEEP_MAIN_PIECE) for i in range(0, b, SWEEP_MAIN_PIECE)):
                 noise = mppi_cuda.sweep_noise(cfg_n, seeds[p], 3, sig[p])
                 plain64 = lambda nz: mppi_cuda.mppi_sweep_batch_plain(  # noqa: E731
-                    cfg_n, m_p, xs[p].double(), u0[p].double(), lam_p[p], sig[p], noise=nz, rollouts_per_thread=1)
+                    cfg_n, m_p, xs[p].double(), u0[p].double(), lam_p[p], sig[p], noise=nz, tiles_per_block=tiles_main)
                 want_u, want_st, want_ess = plain64(noise)
                 what = (f"make_sweep(n_horizon={n}) launch, B={b} K={TUNE_K} dt={m_p.dt:.4g} problems "
                         f"{p.start}-{p.stop - 1}")
@@ -2276,7 +2294,7 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
                       f"{what}: statuses {sorted(set(st[p].tolist()))}, plain {sorted(set(want_st.tolist()))}")
                 if held:
                     u32, _, ess32 = mppi_cuda.mppi_sweep_batch_plain(cfg_n, m_p, xs[p], u0[p], lam_p[p], sig[p],
-                                                                     noise=noise, rollouts_per_thread=1)
+                                                                     noise=noise, tiles_per_block=tiles_main)
                     err_main = max(err_main, check_band_or_own(u[p], want_u, u32, f"{what} u_n'"),
                                    check_band_or_own(ess[p], want_ess, ess32, f"{what} ESS"))
                     del u32, ess32
@@ -2296,11 +2314,10 @@ def tune_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
               "seconds": run_s, "tick_ms_mean": 1e3 * run_s / SWEEP_MAIN_TICKS, "launches": counts_n,
               "survival": surv, "max_abs_err_vs_f64_plain": err_main, "held_at_dt": dt_h,
               "main_dt_max_abs_err_u": err_free, "main_dt_f64_moved_by_2^-24": moved_free, "kernel_device_ms": kern_n, "kernel_event_ms": event_n, "plain_ms": plain_n,
-              "rollouts_per_thread": mppi_cuda.rollouts_per_thread(TUNE_K, b, sweep_model, n), **bnd_n,
+              "tiles": tiles_main, "rollouts_a_thread": mppi_cuda.sweep_rollouts_a_thread(n, tiles_main), **bnd_n,
               **card})
-        entries.append({"name": f"mppi_sweep_kernel at N={n}, R=1 (tune's make_sweep(n_horizon={n}), B=96, "
-                                f"K=800000)",
-                        "route": "cuda", "source": COMMON_SOURCE, "replaces": f"{PALLAS}:692",
+        entries.append({"name": f"mppi_sweep_kernel at N={n} (tune's make_sweep(n_horizon={n}), B=96, K=800000)",
+                        "route": "cuda", "source": SWEEP_SOURCE, "replaces": f"{PALLAS}:692",
                         "launches": counts_n[f"sweep:N={n}"], "max_abs_err": err_main, "ms": kern_n,
                         "plain_ms": plain_n, "bound_ms": bnd_n["bound_ms"], "bound_by": bnd_n["bound_by"],
                         "library_ms": None})
@@ -3261,9 +3278,9 @@ def main() -> None:
     emit({"phase": "sass", "build_s": build_s, "kernels": sass})
     check(not any("mppi_finalize_kernel" in r["kernel"] for r in sass), "mppi_finalize_kernel is still built")
     production = [r for r in sass if "finalize_kernel" not in r["kernel"]]
-    check(len(production) == 6 + 2 and all(r["ATOM"] >= 1 for r in production),
-          f"the production partials instantiations (3 solves x R = 1, 4), the sweep's (R = 1, 4, each for both "
-          f"noise sources) and their tickets: {sass}")
+    check(len(production) == 6 + 1 and all(r["ATOM"] >= 1 for r in production),
+          f"the production partials instantiations (3 solves x R = 1, 4), the sweep's one kernel and their "
+          f"tickets: {sass}")
     diag = diag_phases(dev, card)
     ukf_fidelity_phase(dev, card)
     family = family_phases(dev, card)

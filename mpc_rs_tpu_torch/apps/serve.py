@@ -297,6 +297,14 @@ def plan_horizon(period: float, ticks_per_dispatch: int) -> tuple[int, float]:
     return 8, t_hor / 8
 
 
+def plan_steps_gone_by(snap_t: float, last_snap: float, step_s: float) -> int:
+    """The plan steps between two state snapshots taken at wall times
+    ``last_snap`` and ``snap_t``, at ``step_s`` wall seconds a step, to the
+    nearest (a half rounds to even): how far ``serve`` advances the warm
+    start of the dispatch solved from the later snapshot."""
+    return int(round((snap_t - last_snap) / step_s))
+
+
 def serve(args) -> dict:
     """Serve a robot fleet from one device: B links, one batched solve a
     dispatch.
@@ -311,8 +319,8 @@ def serve(args) -> dict:
     clip(round(0.8 / period), max(8, M), 40), 40 at the default 0.01 s; the
     kernel is built at every such N. Each dispatch's warm start is the previous dispatch's
     sequence advanced by the plan steps that went by between their state
-    snapshots (rounded; 0 while they are under half a step apart, as at
-    N = 8 with its 0.1 s steps): with plan streaming a dispatch comes M
+    snapshots (``plan_steps_gone_by``: 0 while they are under half a step
+    apart, as at N = 8 with its 0.1 s steps): with plan streaming a dispatch comes M
     steps after the one before, and a sequence left M steps behind the
     state makes the fake MCUs' robots swing, and now and then fall, at
     K = 128. Returns the JAX runner's summary."""
@@ -361,7 +369,7 @@ def serve(args) -> dict:
         if not fresh.any():
             return False
         seeds = np.int32(args.seed) + np.int32(dispatched) * np.int32(b) + seeds0
-        advance = 0 if last_snap is None else int(round((snap_t - last_snap) / step_s))
+        advance = 0 if last_snap is None else plan_steps_gone_by(snap_t, last_snap, step_s)
         last_snap = snap_t
         d0 = time.time()
         d = solve(seeds, xs, u_dev, advance)

@@ -9,7 +9,7 @@ guard, examples/mppi4.rs:30,50-53) advance together: each tick is one
 launch of the sweep's partials kernel over all B episodes, each at its own
 (λ, σ) (``ops/mppi_cuda.py::mppi_sweep_batch_fused``, at ``make_sweep``'s
 horizon N: 8 for the grid and the CLI, as in the JAX package, and any N of
-1-40 on the card through ``make_sweep(n_horizon=N)``), then the plant step
+1-224 on the card through ``make_sweep(n_horizon=N)``), then the plant step
 and the accumulators on (B,) tensors on the device, with no host read-back
 before the episodes end. The report per cell: survival, mean accumulated
 cost and mean softmax effective sample size (ESS → K: λ too hot; ESS → 1:
@@ -44,8 +44,9 @@ def make_sweep(*, k: int, n_horizon: int = 8, dt: float = 0.1, n_ticks: int = 50
     (B,) bool, total_cost (B,), mean_ess (B,))`` on ``device``, in float32
     as the JAX sweep (``dtype=torch.float64`` runs the plain version on the
     CPU; the kernel is float32). Any ``n_horizon`` on the CPU, as the JAX
-    sweep; on a card every N the sweep's kernel is built for, N = 1-40
-    (``mppi_cuda.SWEEP_HORIZONS``): another raises here, before any launch.
+    sweep; on a card every N whose block fits the card's shared memory, N =
+    1-224 (``mppi_cuda.SWEEP_MAX_HORIZON``): another raises here, before
+    any launch.
 
     One episode per entry (``tune.py:40-80``): the closed loop on the
     nonlinear cart-pole (examples/mppi4-non-liner.rs:81-94 dynamics, shaped

@@ -20,6 +20,9 @@ the other makers take tensors only.
 ``fast=True`` swaps sin/cos for the polynomials of ``ops/fastmath.py`` and
 divides once, by ``fdiv``/``freciprocal``: exact division here, the hardware
 approximate reciprocal inside the kernel.
+
+A tensor divided by a Python float goes through ``_div``: one IEEE division
+on every device, as in the kernels and the JAX reference.
 """
 
 from __future__ import annotations
@@ -27,6 +30,17 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def _div(a, b: float):
+    """a / b, rounded once, for a tensor or a Python float ``a`` and a
+    Python float ``b``. On a CUDA tensor PyTorch would multiply by the
+    float32 reciprocal of a Python-float divisor, which is an ulp off for
+    many quotients (about one in five for the wheel radius); a 0-d tensor on
+    the same device makes it divide."""
+    if isinstance(a, torch.Tensor) and a.is_cuda:
+        return a / a.new_full((), b)
+    return a / b
 
 from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops import fastmath
@@ -128,7 +142,7 @@ def make_cartpole_nonlinear(p: CartPoleParams, dt: float | None = None, *, fast:
     def step_dt(x0, x1, x2, x3, u, dt):
         s, c = sincos(x2)
         d = d0 - ml * ml * c * c
-        thrust = p.kt * u / p.r_w + ml * x3 * x3 * s
+        thrust = _div(p.kt * u, p.r_w) + ml * x3 * x3 * s
         term1 = p.mass_line * p.m2 * p.g * p.l * s
         term2 = thrust * ml * c
         term3 = (p.j2 + p.m2 * p.l * p.l) * thrust
@@ -332,7 +346,7 @@ def make_pen6(p: CartPoleParams, dt: float):
         d = d0 - (ml * torch.cos(x2)) ** 2
         n0 = x0 + x1 * dt
         n1 = x1 + x2 * dt
-        thrust = p.kt * u / p.r_w + ml * x4 * x4 * s
+        thrust = _div(p.kt * u, p.r_w) + ml * x4 * x4 * s
         term3 = (p.j2 + p.m2 * p.l * p.l) * thrust
         term4 = p.m2 * p.g * p.l * p.l * s * c
         n2 = (term3 + term4) / d

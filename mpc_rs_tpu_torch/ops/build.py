@@ -29,30 +29,33 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # mppi_kernels.cu: the C entries, K1/K2 and the fleet's K5/K6 at N = 8, K7,
 # the fast-math probe, D1/D2; family_*.cu: K1/K2 of the MPPI application
 # family, one model each (mppi_launch.cuh); horizons_<a>[_<b>].cu, a span of
-# horizons each (horizons.cuh): tune's sweep at N = 1-40, serve's cart-pole
-# at N = 9-40 and the rows' finalize at N = 8-40. Serve's spans were cut by
-# each horizon's nvcc time on the H100 machine's host (runtime/
-# profile_build.py --per-horizon; PERF.md §6), and the sweep shares them;
-# fewer, longer spans cost more CPU seconds in all (the compiles slow one
-# another on the host's 8 cores). In the order they are started: the
-# longest compiles first, by the CPU seconds each took in a whole build
-# there (in brackets; two builds on the NVIDIA H100 80GB HBM3 machine).
+# horizons each (horizons.cuh): serve's cart-pole at N = 9-40 and the rows'
+# finalize at N = 8-40 (N = 8 in horizons_32.cu); sweep.cu: tune's sweep,
+# one kernel for every horizon (sweep.cuh), and its C entries. Serve's spans
+# were cut by each horizon's nvcc time on the H100 machine's host (runtime/
+# profile_build.py --per-horizon; PERF.md §6); fewer, longer spans cost
+# more CPU seconds in all (the compiles slow one another on the host's 8
+# cores). In the order they are started: the longest compiles first, by the
+# CPU seconds each took in a whole build there when each span also held
+# tune's sweep at its horizons; in brackets, what each took in one build
+# without it (NVIDIA H100 80GB HBM3 machine): mppi_kernels.cu sets the wall.
 HORIZON_SPANS = ((9, 15), (40, 40), (19, 21), (30, 31), (28, 29), (26, 27), (16, 18), (39, 39), (24, 25),
-                 (37, 37), (22, 23), (38, 38), (36, 36), (35, 35), (33, 33), (34, 34), (32, 32), (1, 8))
+                 (37, 37), (22, 23), (38, 38), (36, 36), (35, 35), (33, 33), (34, 34), (32, 32))
 
 
 def _span_source(a: int, b: int) -> str:
     return f"horizons_{a}.cu" if a == b else f"horizons_{a}_{b}.cu"
 
 
-SOURCES = ("mppi_kernels.cu",  # [64.5-65.7]
-           "family_commu4.cu",  # [41.1-42.4]
-           _span_source(9, 15),  # [30.3-33.0]
-           "family_mppi2.cu",  # [31.6-33.2]
-           *(_span_source(a, b) for a, b in HORIZON_SPANS[1:]),  # [26.2-28.1 at N = 40 ... 12.0-14.4 at 1-8]
-           "family_mppi4.cu")  # [10.9-11.2]
+SOURCES = ("mppi_kernels.cu",  # [68.1]
+           "family_commu4.cu",  # [43.7]
+           _span_source(9, 15),  # [21.5]
+           "family_mppi2.cu",  # [34.2]
+           *(_span_source(a, b) for a, b in HORIZON_SPANS[1:]),  # [22.6 at N = 40 ... 10.8 at 32]
+           "family_mppi4.cu",  # [11.8]
+           "sweep.cu")  # [6.2]
 HEADERS = ("mppi_common.cuh", "mppi_launch.cuh", "horizons.cuh", "fastmath.cuh", "estimator_chain.cuh",
-           "diag_kernels.cuh")
+           "diag_kernels.cuh", "sweep.cuh")
 
 # No --use_fast_math (sinf/cosf/logf/expf and '/' stay the accurate forms;
 # the fast tier writes its polynomials and rcp.approx out in fastmath.cuh),
@@ -177,12 +180,15 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.mpc_partials_merged.restype = _I
     lib.mpc_mppi_sweep.argtypes = [
-        _P, _I, _I, _I, _I, _F, _F, _I,  # model consts, sampler, n, b, k, lo, hi, rollouts a thread
+        _P, _I, _I, _I, _I, _I, _F, _F,  # model consts, n, b, k, tiles a block, rollouts a thread, lo, hi
         _P, _P, _P, _P, _U,  # x, u_n, noise, seeds, tick
         _P, _P, _P,  # f32(1/lambda), sigma, f32(sigma^-2), each (B)
         _P, _P, _P, _P, _P, _P,  # partials, tickets, u_out, status, ess, stream
     ]
     lib.mpc_mppi_sweep.restype = _I
+    # n, rollouts a thread; out: blocks an SM, registers, local bytes, shared bytes
+    lib.mpc_sweep_occupancy.argtypes = [_I, _I, _P, _P, _P, _P]
+    lib.mpc_sweep_occupancy.restype = _I
     lib.mpc_estimator_chain.argtypes = [
         _I, _I, _I, _P, _P, _P, _I,  # model, n_sub, obs_scaled, plant, obs and chain consts, b
         _P, _P, _P, _P, _I, _P, _P,  # x, ex, p, u0, u_stride, t, noise

@@ -1,8 +1,7 @@
-// The instantiations a horizon at a time: tune's sweep at N = 1-40, and past
-// N = 8 what serve's plan streaming reaches, split over the horizons_*.cu
-// sources, a span of horizons each, so that nvcc builds them beside each
-// other (ops/build.py): the nonlinear cart-pole with
-// shaped4 in the exact tier at N = kServeFirst..kServeLast, box-muller
+// The instantiations a horizon at a time: past N = 8 what serve's plan
+// streaming reaches, split over the horizons_*.cu sources, a span of
+// horizons each, so that nvcc builds them beside each other (ops/build.py):
+// the nonlinear cart-pole with shaped4 in the exact tier at N = kServeFirst..kServeLast, box-muller
 // alone, at R = 1 (and R = 4 at N = 40 only), and fleet_finalize_kernel at
 // every horizon of launch_model's pairs, N = kN..kServeLast. Each source
 // instantiates its span explicitly; mppi_kernels.cu sees only the
@@ -22,18 +21,6 @@
 // a horizon needs: 48 at N = 9 to 145 at N = 39, no spill (chip_smoke.py,
 // SERVE_R1_PTXAS); past 128, from N = 38, a block of 256 threads leaves
 // room for one block an SM, not two.
-//
-// tune's sweep (mppi_sweep_kernel) at every N of 1-40: the JAX make_sweep
-// takes any n_horizon (mpc_rs_tpu/apps/tune.py:40-81, a vmap of
-// mppi_solve). One instantiation for box-muller and external noise at
-// R = 1, and at N = kN also R = 4: 41 in all. Its rows carry Σw² after
-// (s, uw), so their N + 2 sums leave warp 0 one horizon earlier, from
-// N = 31. A source holds
-// both at its horizons (sharing each nvcc's fixed cost of about 5 s).
-// Registers rise with N as serve's (38-56 at N = 1-9, 72 at N = 20, 115 at
-// N = 31, 134 at N = 40, no spill; chip_smoke.py), and the launch's device
-// time steps where they cross 64, 80 and 128 (4, 3, 2 and 1 blocks an SM;
-// PERF.md §6).
 
 #pragma once
 
@@ -70,30 +57,6 @@ int launch_finalize(int n_scen, int nb, float inv_lambda, const float* partials,
   return (int)cudaGetLastError();
 }
 
-// tune's sweep at horizon N: mppi_sweep_kernel on a grid (ceil(K/(256 R)),
-// B), box-muller or external noise, at R = 1, and at N = kN also R = 4.
-template <int N>
-int launch_sweep(const SweepCall& c) {
-  static_assert(N >= kSweepFirst && N <= kSweepLast, "tune's horizons");
-  const float* m = c.model_consts;
-  const CartPoleNonlinearT<false> model{m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8]};
-  const dim3 grid((c.a.k + kThreads * c.rpt - 1) / (kThreads * c.rpt), c.n_problems);
-  const bool external = c.sampler == kExternal && c.noise != nullptr;
-  if (!external && !(c.sampler == kBoxMuller && c.io.seeds != nullptr && c.noise == nullptr)) return -2;
-  const MppiSweep pol{c.inv_lambdas, c.sigmas, c.invs, c.noise, c.ess, c.tick};
-  if (c.rpt == 1) {
-    mppi_sweep_kernel<1, N><<<grid, kThreads, 0, c.stream>>>(model, c.a, c.io, pol);
-    return (int)cudaGetLastError();
-  }
-  if constexpr (N == kN) {
-    if (c.rpt == 4) {
-      mppi_sweep_kernel<4, N><<<grid, kThreads, 0, c.stream>>>(model, c.a, c.io, pol);
-      return (int)cudaGetLastError();
-    }
-  }
-  return -3;
-}
-
 template <int N>
 int launch_cartpole_shaped4(const SolveCall& c) {
   static_assert(N >= kServeFirst && N <= kServeLast, "serve's plan-streaming horizons");
@@ -111,5 +74,3 @@ int launch_cartpole_shaped4(const SolveCall& c) {
 #define MPC_SERVE_HORIZON(N)                                            \
   template int mpc::launch_cartpole_shaped4<N>(const mpc::SolveCall&); \
   MPC_FINALIZE_HORIZON(N)
-// tune's sweep at one horizon (launch_sweep).
-#define MPC_SWEEP_HORIZON(N) template int mpc::launch_sweep<N>(const mpc::SweepCall&);

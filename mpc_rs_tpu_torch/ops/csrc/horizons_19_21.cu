@@ -1,10 +1,7 @@
-// tune's sweep at N = 19-21; serve's cart-pole and the rows' finalize at N = 19-21 (horizons.cuh).
+// serve's cart-pole and the rows' finalize at N = 19-21 (horizons.cuh).
 
 #include "horizons.cuh"
 
 MPC_SERVE_HORIZON(19)
-MPC_SWEEP_HORIZON(19)
 MPC_SERVE_HORIZON(20)
-MPC_SWEEP_HORIZON(20)
 MPC_SERVE_HORIZON(21)
-MPC_SWEEP_HORIZON(21)

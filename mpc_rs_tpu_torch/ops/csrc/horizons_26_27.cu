@@ -1,8 +1,6 @@
-// tune's sweep at N = 26-27; serve's cart-pole and the rows' finalize at N = 26-27 (horizons.cuh).
+// serve's cart-pole and the rows' finalize at N = 26-27 (horizons.cuh).
 
 #include "horizons.cuh"
 
 MPC_SERVE_HORIZON(26)
-MPC_SWEEP_HORIZON(26)
 MPC_SERVE_HORIZON(27)
-MPC_SWEEP_HORIZON(27)

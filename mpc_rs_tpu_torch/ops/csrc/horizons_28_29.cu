@@ -1,8 +1,6 @@
-// tune's sweep at N = 28-29; serve's cart-pole and the rows' finalize at N = 28-29 (horizons.cuh).
+// serve's cart-pole and the rows' finalize at N = 28-29 (horizons.cuh).
 
 #include "horizons.cuh"
 
 MPC_SERVE_HORIZON(28)
-MPC_SWEEP_HORIZON(28)
 MPC_SERVE_HORIZON(29)
-MPC_SWEEP_HORIZON(29)

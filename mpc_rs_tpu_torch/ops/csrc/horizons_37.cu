@@ -1,6 +1,5 @@
-// tune's sweep at N = 37; serve's cart-pole and the rows' finalize at N = 37 (horizons.cuh).
+// serve's cart-pole and the rows' finalize at N = 37 (horizons.cuh).
 
 #include "horizons.cuh"
 
 MPC_SERVE_HORIZON(37)
-MPC_SWEEP_HORIZON(37)

@@ -583,10 +583,8 @@ __device__ __forceinline__ void sample(float (&e)[N], uint32_t k, uint32_t key, 
 // (m, acc), with one exp: the first entry (m = neg_big, acc = 0) is taken
 // as it is; a new maximum rescales acc by exp((m - m_e) f32(1/lambda)) and
 // adds vals; otherwise vals is added with weight exp((m_e - m) f32(1/lambda)).
-// The roundings are those of a rescale followed by a weighted add. The last
-// Q entries are sums of squared weights (the sweep's sum of w^2): they take
-// the square of each factor, keep*keep and w*w (Q = 0 for every solve).
-template <int L, int Q = 0>
+// The roundings are those of a rescale followed by a weighted add.
+template <int L>
 __device__ __forceinline__ void lse_fold(float& m, float (&acc)[L], float m_e,
                                          const float (&vals)[L], float inv_lambda) {
   if (m == kNegBig) {
@@ -600,24 +598,18 @@ __device__ __forceinline__ void lse_fold(float& m, float (&acc)[L], float m_e,
   const float e = expf(-fabsf(d) * inv_lambda);
   const float keep = new_max ? e : 1.0f, w = new_max ? 1.0f : e;  // a product by 1 is exact
 #pragma unroll
-  for (int i = 0; i < L - Q; ++i) acc[i] = acc[i] * keep + vals[i] * w;
-  if constexpr (Q > 0) {
-    const float keep2 = keep * keep, w2 = w * w;
-#pragma unroll
-    for (int i = L - Q; i < L; ++i) acc[i] = acc[i] * keep2 + vals[i] * w2;
-  }
+  for (int i = 0; i < L; ++i) acc[i] = acc[i] * keep + vals[i] * w;
   if (new_max) m = m_e;
 }
 
 // The thread's share of a merge: rows first, first + stride, ... < nb of
-// (m_b, s_b, uw_b[0..N-1], and Q sums of squares), each read once, folded
-// into (returned m, tot). The rows were written by other blocks of the
+// (m_b, s_b, uw_b[0..N-1]), each read once, folded into (returned m, tot). The rows were written by other blocks of the
 // launch (or an earlier launch): read them from L2 (__ldcg), past this SM's
 // L1. An all-masked row (m_b = neg_big, s_b = 0) contributes exactly 0.
-template <int N, int Q = 0>
+template <int N>
 __device__ __forceinline__ float fold_rows(const float* rows, int nb, int first, int stride,
-                                           float inv_lambda, float (&tot)[N + 1 + Q]) {
-  constexpr int L = N + 1 + Q;
+                                           float inv_lambda, float (&tot)[N + 1]) {
+  constexpr int L = N + 1;
   float m = kNegBig;
 #pragma unroll
   for (int i = 0; i < L; ++i) tot[i] = 0.0f;
@@ -627,46 +619,40 @@ __device__ __forceinline__ float fold_rows(const float* rows, int nb, int first,
     float vals[L];
 #pragma unroll
     for (int i = 0; i < L; ++i) vals[i] = __ldcg(row + 1 + i);
-    if (m_r > kNoFiniteBelow) lse_fold<L, Q>(m, tot, m_r, vals, inv_lambda);
+    if (m_r > kNoFiniteBelow) lse_fold<L>(m, tot, m_r, vals, inv_lambda);
   }
   return m;
 }
 
 // Merge the nb rows of one problem by log-sum-exp in one warp (the rows of
 // a few blocks; fleet_finalize_kernel's merge): every lane gets m_all and
-// tot[0..N] = (s, uw[0..N-1]) (then the Q sums of squares, each scaled by
-// the square of its row's factor). Up to 32 rows a lane holds one, and the
+// tot[0..N] = (s, uw[0..N-1]). Up to 32 rows a lane holds one, and the
 // result is the bits of the two-pass merge (each row scaled by
 // exp((m_b - m_all) f32(1/lambda)), then summed).
-template <int N, int Q = 0>
+template <int N>
 __device__ __forceinline__ float merge_rows_warp(const float* rows, int nb, float inv_lambda,
-                                                 float (&tot)[N + 1 + Q]) {
-  const float m = fold_rows<N, Q>(rows, nb, threadIdx.x & 31, 32, inv_lambda, tot);
+                                                 float (&tot)[N + 1]) {
+  const float m = fold_rows<N>(rows, nb, threadIdx.x & 31, 32, inv_lambda, tot);
   const float m_all = warp_max(m);
   const float scale = m > kNoFiniteBelow ? expf((m - m_all) * inv_lambda) : 0.0f;
 #pragma unroll
   for (int i = 0; i <= N; ++i) tot[i] = warp_sum(tot[i] * scale);
-#pragma unroll
-  for (int i = N + 1; i < N + 1 + Q; ++i) tot[i] = warp_sum(tot[i] * (scale * scale));
   return m_all;
 }
 
 // The same merge by the whole block, for the rows of many blocks (K1/K2 at
-// large K): every thread gets m_all; tot[0..N+Q] (shared) is filled after the
+// large K): every thread gets m_all; tot[0..N] (shared) is filled after the
 // final barrier.
-template <int N, int Q = 0>
+template <int N>
 __device__ __forceinline__ float merge_rows_block(const float* rows, int nb, float inv_lambda,
-                                                  float* red_max, float (*red_sum)[N + 1 + Q],
-                                                  float* tot) {
-  constexpr int L = N + 1 + Q;
+                                                  float* red_max, float (*red_sum)[N + 1], float* tot) {
+  constexpr int L = N + 1;
   float acc[L];
-  const float m = fold_rows<N, Q>(rows, nb, threadIdx.x, kThreads, inv_lambda, acc);
+  const float m = fold_rows<N>(rows, nb, threadIdx.x, kThreads, inv_lambda, acc);
   const float m_all = block_max(m, red_max);
   const float scale = m > kNoFiniteBelow ? expf((m - m_all) * inv_lambda) : 0.0f;
 #pragma unroll
   for (int i = 0; i <= N; ++i) acc[i] *= scale;
-#pragma unroll
-  for (int i = N + 1; i < L; ++i) acc[i] *= scale * scale;
   const float s = block_sums<L>(acc, red_sum);
   if (threadIdx.x < L) tot[threadIdx.x] = s;
   __syncthreads();
@@ -782,8 +768,8 @@ __device__ __forceinline__ void finish_solve(const Model& model, float m_all, co
 // tier Fast (or read the external noise) and clamp, and finish with the
 // status ladder (finish_solve). It is written out in partials_body itself,
 // which calls another policy's hooks only when Pol is not MppiSolve (D1's
-// MixSolve, diag_kernels.cuh; tune's MppiSweep): controls(v, un, k, key,
-// word, a) and finish<N>(m_all, tot, io, b). So the solves' instantiations
+// MixSolve, diag_kernels.cuh): controls(v, un, k, key, word, a) and
+// finish<N>(m_all, tot, io, b). So the solves' instantiations
 // compile from the very statements they always had, to the same registers.
 // Every policy rolls out and scores with rollout_score on its Model and Cost.
 struct MppiSolve {};
@@ -792,23 +778,22 @@ struct MppiSolve {};
 // block (the other warps leave after the reductions); more, by the block.
 constexpr int kWarpMergeRows = 128;
 
-// The end of partials_body for a row whose L = N + 1 + Q sums (s, uw, then
-// Pol's Q sums of squared weights) span more than warp 0 (L > 32: the
-// solves from N = 32, mppi2's N = 40; the sweep, whose rows carry Σw², from
-// N = 31): block_sums leaves sum i in thread i, so they are gathered in
+// The end of partials_body for a row whose L = N + 1 sums (s, uw) span more
+// than warp 0 (L > 32: the solves from N = 32, mppi2's N = 40): block_sums
+// leaves sum i in thread i, so they are gathered in
 // shared memory (tot) first, and lane 0 writes the row from there.
 // Otherwise the steps of partials_body's own end: the only block finishes
 // from its sums; a block writes its row and draws the problem's ticket, and
 // the last merges the rows (one warp up to kWarpMergeRows rows, else the
 // block) and finishes the solve (finish_solve, or Pol's finish).
-template <int N, int Q, class Model, class Pol>
+template <int N, class Model, class Pol>
 __device__ __forceinline__ void partials_end_wide(const Model& model, const PartialsArgs& a,
                                                   const PartialsIO& io, int nb, float m_b, float s,
                                                   const float (&xb)[kStates<Model>],
-                                                  float* red_max, float (*red_sum)[N + 1 + Q],
+                                                  float* red_max, float (*red_sum)[N + 1],
                                                   float* tot, const Pol& pol) {
   constexpr bool kSolve = std::is_same_v<Pol, MppiSolve>;
-  constexpr int L = N + 1 + Q;
+  constexpr int L = N + 1;
   const int b = blockIdx.y;
   if (threadIdx.x < L) tot[threadIdx.x] = s;
   __syncthreads();
@@ -839,7 +824,7 @@ __device__ __forceinline__ void partials_end_wide(const Model& model, const Part
   if (block_merge) {
     __syncthreads();
     if (ticket != nb - 1) return;
-    const float m_all = merge_rows_block<N, Q>(rows, nb, a.inv_lambda, red_max, red_sum, tot);
+    const float m_all = merge_rows_block<N>(rows, nb, a.inv_lambda, red_max, red_sum, tot);
     if (threadIdx.x == 0) {
       if constexpr (!kSolve) {
         pol.template finish<N>(m_all, tot, io, b);
@@ -853,7 +838,7 @@ __device__ __forceinline__ void partials_end_wide(const Model& model, const Part
   __syncwarp();
   if (ticket != nb - 1) return;
   float wtot[L];
-  const float m_all = merge_rows_warp<N, Q>(rows, nb, a.inv_lambda, wtot);
+  const float m_all = merge_rows_warp<N>(rows, nb, a.inv_lambda, wtot);
   if (threadIdx.x == 0) {
     if constexpr (!kSolve) {
       pol.template finish<N>(m_all, wtot, io, b);
@@ -864,76 +849,9 @@ __device__ __forceinline__ void partials_end_wide(const Model& model, const Part
   }
 }
 
-// The policy of tune's sweep (mpc_rs_tpu/apps/tune.py:40-80, a vmap of
-// mppi_solve over per-episode (lambda, sigma)): B episodes of the exact
-// cart-pole with shaped4 at any horizon N (the hooks are templates on N,
-// which partials_body's arrays fix), problem b at its own lambda_b and
-// sigma_b. mppi_sweep_kernel puts problem b's f32(1/lambda_b), sigma_b and
-// f32(sigma_b^-2) from these device arrays into its PartialsArgs, so the
-// rollout, the control term and every log-sum-exp take them. The controls:
-// the launch's external (B, K, N) noise where it gives one, else
-// box-muller keyed seeds[b] with counter word `tick` for every problem, so
-// the cells of one seed draw the same standard normals at a tick (the
-// common random numbers of the JAX grid, tune.py:87-90), scaled by sigma_b;
-// at odd N the last pair is half used, as in every solve. One instantiation
-// serves both sources (the branch is the same in every thread of the
-// launch): one a source took half as much again of the build's CPU seconds,
-// which its wall could not hold, and at N = kN it gave the same bits and
-// registers as one for both (PERF.md §6). Its rows carry the sum of
-// squared weights after (s, uw) (kSquares), so a row holds N + 2 sums, one
-// more than a solve's: they span two warps from N = 31 (partials_end_wide).
-// Its end of a solve writes u_n', the status ladder with the zero fallback,
-// and ESS_b = s^2 / max(sum w^2, 1e-30) (mpc_rs_tpu/controllers/mppi.py:145).
-struct MppiSweep {
-  const float* inv_lambdas;  // (B) f32(1/lambda_b), folded in double (+inf for lambda_b = 0)
-  const float* sigmas;       // (B) sigma_b
-  const float* invs;         // (B) f32(sigma_b^-2), the control-term coefficient
-  const float* noise;        // (B, K, N) external noise, already scaled, or null (box-muller)
-  float* ess;                // (B) out
-  uint32_t tick;             // the Philox counter word of every problem
-
-  template <int N>
-  __device__ __forceinline__ void read_noise(float (&e)[N], uint32_t k, const PartialsArgs& a) const {
-    if (k < (uint32_t)a.k) {
-#pragma unroll
-      for (int t = 0; t < N; ++t) e[t] = noise[((size_t)blockIdx.y * a.k + k) * N + t];
-    }
-  }
-
-  template <int N>
-  __device__ __forceinline__ void controls(float (&v)[N], const float (&un)[N], uint32_t k,
-                                           uint32_t key, uint32_t, const PartialsArgs& a) const {
-    float e[N];
-#pragma unroll
-    for (int t = 0; t < N; ++t) e[t] = 0.0f;
-    if (noise != nullptr) {
-      read_noise(e, k, a);
-    } else {
-      sample<N, false, kBoxMuller>(e, k, key, tick, a);
-    }
-#pragma unroll
-    for (int t = 0; t < N; ++t) v[t] = clampf(un[t] + e[t], a.lo, a.hi);
-  }
-
-  template <int N>
-  __device__ __forceinline__ void finish(float m_all, const float* tot, const PartialsIO& io,
-                                         int b) const {
-    io.status[b] = status_ladder<N>(m_all, tot, io.u_out + (size_t)b * N);
-    const float s = tot[0], q = tot[N + 1];
-    ess[b] = s * s / (q < 1e-30f ? 1e-30f : q);  // a NaN q stays NaN, as jnp.maximum
-  }
-};
-
-// Trailing sums of squared weights a policy's rows carry: the sweep's one.
-template <class Pol>
-constexpr int kSquares = 0;
-template <>
-constexpr int kSquares<MppiSweep> = 1;
-
 // One block of one problem's rollouts: sample (or read) and clamp (or Pol's
 // controls), roll out N steps, score, and reduce to the row (m_b, s_b,
-// uw_b[0..N-1], then Pol's kSquares sums of squared weights: the sweep's
-// sum of w^2) of that problem's partials; then, with io.u_out, the merge.
+// uw_b[0..N-1]) of that problem's partials; then, with io.u_out, the merge.
 // Grid (ceil(K/(256 R)),
 // P): thread i of block g runs rollouts k = (g R + r) 256 + i, r < R, one
 // after another, so each group of 256 rollouts is one warp-aligned range as
@@ -959,8 +877,7 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
                                               const PartialsArgs& a, const PartialsIO& io,
                                               const Pol& pol = Pol{}) {
   constexpr bool kSolve = std::is_same_v<Pol, MppiSolve>;
-  constexpr int Q = kSquares<Pol>;  // sums of squared weights after (s, uw): the sweep's
-  constexpr int L = N + 1 + Q;      // sums a row carries after m_b
+  constexpr int L = N + 1;  // sums a row carries after m_b
   __shared__ float red_max[kWarps];
   __shared__ float red_sum[kWarps][L];
 
@@ -1013,9 +930,7 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
     vals[0] = 1.0f;
 #pragma unroll
     for (int t = 0; t < N; ++t) vals[t + 1] = v[t];
-#pragma unroll
-    for (int i = N + 1; i < L; ++i) vals[i] = 1.0f;  // w^2 of the rollout's own weight
-    lse_fold<L, Q>(m_t, acc, score, vals, a.inv_lambda);
+    lse_fold<L>(m_t, acc, score, vals, a.inv_lambda);
   }
 
   // one block_max and one block_sums per 256 R rollouts; at R = 1 these are
@@ -1024,14 +939,12 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   const float scale = m_t > kNoFiniteBelow ? expf((m_t - m_b) * a.inv_lambda) : 0.0f;
 #pragma unroll
   for (int i = 0; i <= N; ++i) acc[i] *= scale;
-#pragma unroll
-  for (int i = N + 1; i < L; ++i) acc[i] *= scale * scale;
   const float s = block_sums<L>(acc, red_sum);  // sum i in thread i < L (warp 0)
 
   const int nb = gridDim.x;
   __shared__ float tot[L];
   if constexpr (L > 32) {  // the sums span two warps
-    partials_end_wide<N, Q>(model, a, io, nb, m_b, s, xb, red_max, red_sum, tot, pol);
+    partials_end_wide<N>(model, a, io, nb, m_b, s, xb, red_max, red_sum, tot, pol);
     return;
   }
   if (io.merges() && nb == 1) {  // the problem's only block: no row, no ticket
@@ -1075,7 +988,7 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   if (block_merge) {
     __syncthreads();
     if (ticket != nb - 1) return;
-    const float m_all = merge_rows_block<N, Q>(rows, nb, a.inv_lambda, red_max, red_sum, tot);
+    const float m_all = merge_rows_block<N>(rows, nb, a.inv_lambda, red_max, red_sum, tot);
     if (threadIdx.x == 0) {
       if constexpr (!kSolve) {
         pol.template finish<N>(m_all, tot, io, b);
@@ -1089,7 +1002,7 @@ __device__ __forceinline__ void partials_body(const Model& model, const Cost& co
   __syncwarp();
   if (ticket != nb - 1) return;
   float wtot[L];
-  const float m_all = merge_rows_warp<N, Q>(rows, nb, a.inv_lambda, wtot);
+  const float m_all = merge_rows_warp<N>(rows, nb, a.inv_lambda, wtot);
   if (threadIdx.x == 0) {
     if constexpr (!kSolve) {
       pol.template finish<N>(m_all, wtot, io, b);
@@ -1140,40 +1053,6 @@ template <int N, class Model, class Cost, bool Fast, int S, int R,
 __global__ void __launch_bounds__(kThreads, kMinBlocksWide<N>)
 mppi_partials_kernel(Model model, Cost cost, PartialsArgs a, PartialsIO io) {
   partials_body<N, Model, Cost, Fast, S, R>(model, cost, a, io);
-}
-
-// The sweep's kernel (tune): partials_body with MppiSweep on the exact
-// cart-pole with shaped4 at horizon N, problem b's f32(1/lambda_b), sigma_b
-// and f32(sigma_b^-2) put into its PartialsArgs first; the launch bounds of
-// mppi_partials_kernel at the same R and N (but below N = kN). Instantiated
-// at every N of 1-40 at R = 1, and at N = kN also at R = 4, each for both
-// noise sources (horizons.cuh, launch_sweep).
-__device__ __forceinline__ PartialsArgs sweep_args(PartialsArgs a, const MppiSweep& pol) {
-  const int b = blockIdx.y;
-  a.inv_lambda = pol.inv_lambdas[b];
-  a.std_dev = pol.sigmas[b];
-  a.inv = pol.invs[b];
-  return a;
-}
-
-// Blocks an SM the sweep's kernel at R = 1 asks for: mppi_partials_kernel's
-// kMinBlocksR1 at N = kN (5, 48 registers) and past it (1), and 4 (64
-// registers) below it, where 48 registers spilled 4-12 bytes at N = 5.
-template <int N>
-constexpr int kSweepMinBlocksR1 = N < kN ? 4 : kMinBlocksR1<N>;
-
-template <int R, int N, std::enable_if_t<R == 1, int> = 0>
-__global__ void __launch_bounds__(kThreads, kSweepMinBlocksR1<N>)
-mppi_sweep_kernel(CartPoleNonlinearT<false> model, PartialsArgs a, PartialsIO io, MppiSweep pol) {
-  partials_body<N, CartPoleNonlinearT<false>, Shaped4, false, kBoxMuller, R>(model, Shaped4{},
-                                                                             sweep_args(a, pol), io, pol);
-}
-
-template <int R, int N, std::enable_if_t<(R > 1 && N == kN), int> = 0>
-__global__ void __launch_bounds__(kThreads)
-mppi_sweep_kernel(CartPoleNonlinearT<false> model, PartialsArgs a, PartialsIO io, MppiSweep pol) {
-  partials_body<N, CartPoleNonlinearT<false>, Shaped4, false, kBoxMuller, R>(model, Shaped4{},
-                                                                             sweep_args(a, pol), io, pol);
 }
 
 }  // namespace mpc

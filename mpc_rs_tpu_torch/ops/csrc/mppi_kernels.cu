@@ -16,10 +16,6 @@
 //   - K1 (mppi_pallas_chain / _make_chain_kernel): J such launches issued
 //     from a C loop on one stream, the merging block also writing u0 and,
 //     optionally, stepping the plant on the device;
-//   - the sweep of tune (mpc_rs_tpu/apps/tune.py's vmap of mppi_solve over
-//     per-episode lambda and sigma): P = B episodes, each at its own
-//     lambda and sigma, the rows carrying the sum of squared weights, the
-//     merge writing each problem's ESS (mppi_sweep_kernel, MppiSweep);
 //   - K5 and K6 (mppi_pallas_batch_partials: _make_fleet_kernel, one
 //     (bs, 128) block per scenario with 8 scenarios unrolled per grid step,
 //     and _make_batched_kernel, a scenario's K-blocks streamed through
@@ -119,16 +115,14 @@
 // elements a thread (14); D1's kernel (partials_body with D1's policy) once
 // per MixMode at R = 1 and 4 (16), D2's chain for float and bf16 pairs at
 // 16 and 32 values a thread. Outside this source: fleet_finalize_kernel at
-// each horizon of launch_model's pairs, N = 8-40 (33), and the sweep's
-// kernel (partials_body with MppiSweep) for the exact cart-pole with shaped4
-// at every N of 1-40 at R = 1, and at N = 8 also R = 4, each instantiation
-// serving box-muller and external noise (41); all in the horizons_*.cu
-// sources (horizons.cuh).
+// each horizon of launch_model's pairs, N = 8-40 (33), in the horizons_*.cu
+// sources (horizons.cuh); tune's sweep, one kernel for every horizon, in
+// sweep.cu (sweep.cuh, with its C entries).
 //
 // C interface (loaded with ctypes): every function returns the
 // cudaGetLastError() value after its last launch (0 on success), -1 when no
 // kernel is built for the (model, N, tier) asked for (the pairs in
-// launch_model; D1: N = kN only; the sweep: N = 1-40; the rows' merge:
+// launch_model; D1: N = kN only; the rows' merge:
 // the horizons of those pairs, N = 8-40), -2 for an unknown sampler or one the
 // pair is not built for, -3 for an unknown model or function or an R the
 // pair is not built for, -4 for a batch the grid cannot hold.
@@ -163,8 +157,7 @@ enum ModelId : int {
 // Tables indexed by N - first of the instantiations that horizons.cuh
 // defines and the horizons_*.cu sources instantiate:
 // serve's cart-pole at N = kServeFirst..kServeLast, the rows' finalize at
-// every horizon of launch_model's pairs, N = kN..kServeLast, and tune's
-// sweep at N = kSweepFirst..kSweepLast.
+// every horizon of launch_model's pairs, N = kN..kServeLast.
 template <int... I>
 constexpr std::array<int (*)(const SolveCall&), sizeof...(I)> serve_table(std::integer_sequence<int, I...>) {
   return {&launch_cartpole_shaped4<kServeFirst + I>...};
@@ -176,14 +169,8 @@ constexpr std::array<Finalizer, sizeof...(I)> finalize_table(std::integer_sequen
   return {&launch_finalize<kN + I>...};
 }
 
-template <int... I>
-constexpr std::array<int (*)(const SweepCall&), sizeof...(I)> sweep_table(std::integer_sequence<int, I...>) {
-  return {&launch_sweep<kSweepFirst + I>...};
-}
-
 constexpr auto kServeLaunchers = serve_table(std::make_integer_sequence<int, kServeLast - kServeFirst + 1>{});
 constexpr auto kFinalizers = finalize_table(std::make_integer_sequence<int, kServeLast - kN + 1>{});
-constexpr auto kSweepLaunchers = sweep_table(std::make_integer_sequence<int, kSweepLast - kSweepFirst + 1>{});
 
 // A call of model model_id at horizon n in tier fast, on the instantiations
 // built for it: the N = kN models in both tiers here, each family model at
@@ -407,29 +394,6 @@ int mpc_partials_merged(int model, int fast, int sampler, const float* model_con
                     partials_args(k, inv_lambda, inv, lo, hi, std_dev, sampler_consts), io, n_scen,
                     0, static_cast<cudaStream_t>(stream)};
   return launch_model(model, fast, n, c);
-}
-
-// tune's sweep, B episodes of the exact cart-pole with shaped4 at horizon n
-// (1-40, kSweepLaunchers) in one launch (MppiSweep, mppi_common.cuh): problem
-// b at its own lambda and sigma. model_consts: the 9 CartPoleNonlinearT
-// floats. sampler 0: the external noise (B, K, N), already scaled; 1:
-// box-muller keyed seeds[b] with counter word tick for every problem. rpt:
-// 1, or 4 at n = 8. Device pointers: x (B, 4), u_n (B, N), inv_lambdas (B)
-// f32(1/lambda_b), sigmas (B), invs (B) f32(sigma_b^-2), partials (B,
-// ceil(K/(256 R)), N+3) scratch, tickets (B); out: u_out (B, N), status (B),
-// ess (B).
-int mpc_mppi_sweep(const float* model_consts, int sampler, int n, int n_scen, int k, float lo, float hi,
-                   int rpt, const float* x, const float* u_n, const float* noise, const int* seeds,
-                   unsigned int tick, const float* inv_lambdas, const float* sigmas, const float* invs,
-                   float* partials, int* tickets, float* u_out, int* status, float* ess, void* stream) {
-  if (n < kSweepFirst || n > kSweepLast) return -1;
-  if (n_scen < 1 || n_scen > 65535 || k < 1) return -4;
-  const PartialsArgs a{k, 0.0f, 0.0f, lo, hi, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  const PartialsIO io{x, u_n, noise, seeds, 0u, tick, partials, nullptr, u_out, status, tickets,
-                      nullptr, nullptr};
-  const SweepCall c{model_consts, sampler, rpt, a, io, inv_lambdas, sigmas, invs, noise, ess, tick, n_scen,
-                    static_cast<cudaStream_t>(stream)};
-  return kSweepLaunchers[n - kSweepFirst](c);
 }
 
 // The fused estimator chain (K7) of B scenarios, one tick. model: 0

@@ -122,32 +122,4 @@ template <int N>
 int launch_finalize(int n_scen, int nb, float inv_lambda, const float* partials, float* u_out, int* status,
                     cudaStream_t stream);
 
-// tune's sweep (mppi_sweep_kernel, MppiSweep) of n_problems episodes of the
-// exact cart-pole with shaped4 at horizon N, each at its own (lambda,
-// sigma): sampler kBoxMuller (io.seeds, keyed with the tick) or kExternal
-// (noise), at R = rpt. Defined in horizons.cuh at every N of
-// kSweepFirst..kSweepLast, instantiated beside serve's horizons in the
-// horizons_*.cu sources; -2 for another
-// sampler or external noise without its pointer, -3 for an R not built
-// (R = 4 at N = kN only).
-struct SweepCall {
-  const float* model_consts;  // the 9 CartPoleNonlinearT floats
-  int sampler;                // kBoxMuller or kExternal
-  int rpt;                    // rollouts a thread R
-  PartialsArgs a;             // K and the control box; lambda and sigma are each problem's
-  PartialsIO io;
-  const float* inv_lambdas;   // (B) f32(1/lambda_b)
-  const float* sigmas;        // (B) sigma_b
-  const float* invs;          // (B) f32(sigma_b^-2)
-  const float* noise;         // (B, K, N) external noise, or null
-  float* ess;                 // (B) out
-  uint32_t tick;              // the Philox counter word of every problem
-  int n_problems;
-  cudaStream_t stream;
-};
-constexpr int kSweepFirst = 1;
-constexpr int kSweepLast = 40;
-template <int N>
-int launch_sweep(const SweepCall& c);
-
 }  // namespace mpc

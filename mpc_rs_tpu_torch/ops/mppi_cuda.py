@@ -7,10 +7,7 @@ Replaces ``mpc_rs_tpu/ops/mppi_pallas.py``: ``mppi_solve_fused`` stands for
 ``mppi_batch_partials_fused`` + ``finalize_batch_fused`` for
 ``mppi_pallas_batch_partials`` (both of its kernels) + the vmapped
 ``finalize_partials``, and ``mppi_solve_batch_fused`` for both with the
-vmapped ``finalize_partials``; ``mppi_sweep_batch_fused`` is the batch of
-``tune``'s sweep, each problem at its own (λ, σ), returning the ESS, at
-every horizon N = 1-40 (``SWEEP_HORIZONS``; the JAX ``tune`` runs a vmap of
-``mppi_solve`` at any N, no Pallas kernel). All of them run one kernel,
+vmapped ``finalize_partials``. All of them run one kernel,
 ``mppi_partials_kernel`` (``ops/csrc/mppi_common.cuh``), at R rollouts a
 thread (``rollouts_per_thread``): a solve is one launch, whose last block to
 finish merges the partials rows and finishes the solve; a chain of J solves
@@ -22,7 +19,11 @@ scenario). ``mppi_partials_merged_fused`` (one solve) and
 share of a multi-GPU solve (``parallel/sharded_mppi.py``), which
 ``finalize_batch_fused`` finishes after the all-reduces. The launchers are
 in ``ops/csrc/mppi_kernels.cu``, whose design notes say what bounds the
-kernel.
+kernel. ``mppi_sweep_batch_fused`` is the batch of ``tune``'s sweep, each
+problem at its own (λ, σ), returning the ESS, at any horizon N from 1 to
+``SWEEP_MAX_HORIZON`` (the JAX ``tune`` runs a vmap of ``mppi_solve`` at
+any N, no Pallas kernel): one launch of a kernel of its own,
+``mppi_sweep_kernel`` (``ops/csrc/sweep.cuh``), that takes N at run time.
 
 Each wrapper takes tensors on one device. On CPU tensors it runs the plain
 version beside it (the CPU tests use it); on CUDA tensors it launches the
@@ -89,18 +90,73 @@ NOISE_SOURCES = ("external", *philox.SAMPLERS)  # external noise (B, K, N), or a
 # family_commu4.cu), but serve's cart-pole, which draws box-muller alone
 # (apps/serve.py): at N = 40 at R = 1 and 4, at N = 9-39 at R = 1 (R = 4
 # would need K >= 66 561 at 8 robots); ops/csrc/horizons_*.cu.
-# tune's horizons: the sweep's kernel (mppi_sweep_kernel on the exact
-# cart-pole with shaped4, ``SweepModel``) is built at every N of 1-40, as the
-# JAX make_sweep takes any n_horizon (horizons.cuh, instantiated in
-# horizons_*.cu): box-muller and external noise at R = 1, and at tune's
-# default N = 8 also R = 4; its rows of BUILT_FOR are keyed SWEEP
-SWEEP_HORIZONS = range(1, 41)
-SWEEP = "sweep"
-BUILT_FOR = {
-    **{(0, n): (("box-muller",), (1, 4) if n == 40 else (1,)) for n in SERVE_HORIZONS},
-    **{(SWEEP, n): (("external", "box-muller"), (1, 4) if n == FLEET_HORIZON else (1,)) for n in SWEEP_HORIZONS},
-}
+BUILT_FOR = {(0, n): (("box-muller",), (1, 4) if n == 40 else (1,)) for n in SERVE_HORIZONS}
 MIN_BLOCKS = 4 * 132  # four blocks on each of an H100's 132 SMs
+
+# tune's sweep (mppi_sweep_kernel, ops/csrc/sweep.cuh): one kernel for every
+# horizon N, the exact cart-pole with shaped4 (``SweepModel``), box-muller or
+# external noise. A thread runs R rollouts a tile of 256 R (R = 4 up to N =
+# 10, 2 up to 20, else 1, where R divides the block's tiles of 256:
+# sweep_rollouts_a_thread, decided here and passed to the launch). A block's
+# shared memory holds the tile's controls (256 R N floats) and scores (256
+# R), u_n and the running Σ w v (N each) and the reductions' scratch (26
+# floats, kSweepRed): 4 (256 R (N + 1) + 2 N + 26) bytes
+# (sweep_shared_bytes; the C side sizes the launch by the same formula, and
+# the card tests hold the two equal through sweep_occupancy), which one
+# block of an H100 may take up to 232 448 (227 KB, SWEEP_SHARED_MAX). At R =
+# 1 that is 4 (258 N + 282), so the largest horizon is SWEEP_MAX_HORIZON =
+# (232 448 / 4 - 282) // 258 = 224; the JAX make_sweep takes any n_horizon,
+# and past 224 only the CPU runs it.
+SWEEP_SHARED_MAX = 232_448
+SWEEP_SCRATCH = 26  # floats: the tile max's 8 partials, 8 (s, Σw²) pairs, the ticket and a pad
+
+
+def sweep_rollouts_a_thread(n: int, tiles: int) -> int:
+    """R, the rollouts a thread of the sweep kernel runs in a tile at horizon
+    ``n`` with ``tiles`` tiles of 256 a block (R N ≤ 40, so that the tile's
+    controls take at most 40 KB and shared memory keeps five blocks an SM,
+    and R | tiles). The wrapper passes it to the kernel."""
+    return 4 if n <= 10 and tiles % 4 == 0 else 2 if n <= 20 and tiles % 2 == 0 else 1
+
+
+def sweep_shared_bytes(n: int, tiles: int = 1) -> int:
+    """The sweep kernel's dynamic shared memory a block at horizon ``n``."""
+    return 4 * (BLOCK * sweep_rollouts_a_thread(n, tiles) * (n + 1) + 2 * n + SWEEP_SCRATCH)
+
+
+SWEEP_MAX_HORIZON = (SWEEP_SHARED_MAX // 4 - BLOCK - SWEEP_SCRATCH) // (BLOCK + 2)
+# A sweep block runs tiles of 256 rollouts one after another and pays its
+# row, its ticket and its share of the merge once (sweep_tiles): the most
+# tiles a block, up to SWEEP_MAX_TILES, whose grid still holds
+# SWEEP_MIN_BLOCKS_AN_SM blocks for each SM of the card, eight waves at the
+# kernel's five blocks an SM. Timed on an H100 (runtime/profile_sweep.py
+# --tiles, PERF.md §6): at tune's grid (B = 96, K = 800 000) 16 tiles were
+# the fastest at N = 8, 20 and 40 (8: +0.1-0.3 %, 32: +0.7-0.9 %, 64: +1.6-
+# 2.0 %, 1: +2.8-15 %); at K = 65 536 4 tiles, 9.3 waves (8 tiles, 4.7
+# waves: +1.5-2.6 %; 1 tile: +1.1-12 %).
+SWEEP_MIN_BLOCKS_AN_SM = 40
+SWEEP_MAX_TILES = 16
+H100_SMS = 132  # the SMs the rows of the plain version on the CPU are grouped for
+
+
+def _sms(device) -> int:
+    dev = None if device is None else torch.device(device)
+    if dev is not None and dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).multi_processor_count
+    return H100_SMS
+
+
+def sweep_tiles(k: int, b: int, device=None) -> int:
+    """Tiles of 256 rollouts a sweep block for B problems of K rollouts on
+    ``device``'s card (an H100's 132 SMs for the CPU): the largest power of
+    two up to ``SWEEP_MAX_TILES`` whose grid, ceil(ceil(K / 256) / tiles)
+    blocks a problem, keeps at least ``SWEEP_MIN_BLOCKS_AN_SM`` blocks an
+    SM; 1 when none does (on an H100, tune's grid, B = 96, at K = 800 000:
+    16 tiles, 196 blocks a problem; at K = 65 536: 4 tiles)."""
+    tiles, least = -(-k // BLOCK), SWEEP_MIN_BLOCKS_AN_SM * _sms(device)
+    fits = [t for t in (2 ** i for i in range(SWEEP_MAX_TILES.bit_length())) if -(-tiles // t) * b >= least]
+    return max(fits, default=1)
+
 
 # Wrapper calls that launched their kernels since the last reset; CPU calls
 # do not count. "model:<class>" counts the K1/K2/batch calls of each model.
@@ -131,8 +187,7 @@ def rollouts_per_thread(k: int, b: int = 1, model=None, n: int = FLEET_HORIZON) 
     at N = 20, 1 at N = 40): measured there, a grid of one short wave at
     R = 4 loses to R = 1 (PERF.md §6). With a ``model``, only the R its
     kernel at horizon ``n`` is built for (``built_for``): 1 wherever R = 4 is
-    not built, as for serve's cart-pole at N = 9-39 and tune's sweep
-    (``SweepModel``) past N = 8, at any K."""
+    not built, as for serve's cart-pole at N = 9-39, at any K."""
     fits = [r for r in built_for(model, n)[1] if -(-k // (BLOCK * r)) * b >= MIN_BLOCKS]
     return max(fits, default=1)
 
@@ -327,17 +382,16 @@ class Commu4Cost4:
 MODELS = (CartPoleShaped4, Flagship4Diag4, DoubleIntegratorQuad2, CartPoleLinearShaped4, Commu4Cost4)
 launches.update({f"model:{m.__name__}": 0 for m in MODELS})
 launches.update({f"finalize:N={n}": 0 for n in sorted(FINALIZE_HORIZONS)})
-launches.update({f"sweep:N={n}": 0 for n in SWEEP_HORIZONS})
+launches.update({f"sweep:N={n}": 0 for n in range(1, SWEEP_MAX_HORIZON + 1)})
 
 
 @dataclasses.dataclass(frozen=True)
 class SweepModel:
-    """tune's sweep kernel (``mppi_sweep_kernel``) on ``model``: a model of
-    the build table of its own, its rows keyed ``SWEEP`` (``BUILT_FOR``),
-    built for the exact ``CartPoleShaped4`` at ``SWEEP_HORIZONS``."""
+    """tune's sweep kernel (``mppi_sweep_kernel``) on ``model``, for
+    ``check_built``: built for the exact ``CartPoleShaped4`` at every N of
+    1-``SWEEP_MAX_HORIZON``, box-muller and external noise."""
 
     model: object
-    model_id = SWEEP
 
     @property
     def fast(self) -> bool:
@@ -352,16 +406,20 @@ def check_built(model, n: int, source: str | None = None, rpt: int | None = None
     """Raise unless K1/K2 and the batch have a kernel for ``model`` at
     horizon ``n`` (and in its tier), or tune's sweep for a ``SweepModel``,
     and, where given, for noise ``source`` (``NOISE_SOURCES``) at ``rpt``
-    rollouts a thread (``built_for``). The wrappers check all four on a
-    CUDA device before any launch; the plain versions take every source and
-    R."""
+    rollouts a thread (``built_for``; the sweep takes no R, its tiles a
+    block are any count). The wrappers check all four on a CUDA device
+    before any launch; the plain versions take every source and R."""
     if isinstance(model, SweepModel):
         if not isinstance(model.model, CartPoleShaped4) or model.fast:
             raise ValueError(f"the sweep's kernel is built for the exact CartPoleShaped4, got {model.model}")
-        if (SWEEP, n) not in BUILT_FOR:
-            raise ValueError(f"no sweep kernel for horizon N={n}; it is built for "
-                             f"N={SWEEP_HORIZONS.start}-{SWEEP_HORIZONS.stop - 1}")
-    elif not isinstance(model, MODELS):
+        if not 1 <= n <= SWEEP_MAX_HORIZON:
+            raise ValueError(f"no sweep kernel for horizon N={n}; it runs N=1-{SWEEP_MAX_HORIZON} (a block's "
+                             f"shared memory, {sweep_shared_bytes(n)} bytes at N={n}, past {SWEEP_SHARED_MAX})")
+        if source is not None and source not in ("external", "box-muller"):
+            raise ValueError(f"no kernel for noise source {source!r} with SweepModel at N={n}; it is built for "
+                             f"external, box-muller")
+        return
+    if not isinstance(model, MODELS):
         raise ValueError(f"no kernel for model {type(model).__name__}; K1/K2 are built for "
                          f"{', '.join(m.__name__ for m in MODELS)}")
     elif (model.model_id, n) not in BUILT:
@@ -990,15 +1048,25 @@ def sweep_noise(cfg: MppiConfig, seeds: torch.Tensor, solve: int, sigmas: torch.
     return philox.sample_noise("box-muller", seeds, solve, cfg.n_rollouts, cfg.n_horizon, sig)
 
 
+def _tiles(k: int, b: int, forced: int | None, device) -> int:
+    if forced is None:
+        return sweep_tiles(k, b, device)
+    if forced < 1:
+        raise ValueError(f"tiles_per_block must be at least 1, got {forced}")
+    return forced
+
+
 def sweep_partials_plain(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, noise: torch.Tensor,
                          lambdas: torch.Tensor, sigmas: torch.Tensor, *,
-                         rollouts_per_thread: int | None = None) -> torch.Tensor:
+                         tiles_per_block: int | None = None) -> torch.Tensor:
     """The sweep's (B, nb, N+3) rows (m_b, s_b, uw_b, Σw²_b) in the dtype
     of ``u_ns``, each problem at its own 1/λ_b and σ_b⁻²
-    (``sweep_coefficients`` in that dtype). noise (B, K, N) already scaled."""
+    (``sweep_coefficients`` in that dtype), a row for the 256 ``tiles``
+    rollouts of a kernel's block (``sweep_tiles`` unless
+    ``tiles_per_block``). noise (B, K, N) already scaled."""
     b, k, n = noise.shape
     inv_l, _, inv = sweep_coefficients(lambdas, sigmas, u_ns.dtype)
-    rows = BLOCK * _rpt(k, b, rollouts_per_thread, SweepModel(model), n)
+    rows = BLOCK * _tiles(k, b, tiles_per_block, noise.device)
     return _rows_plain(model, xs, u_ns, noise.to(u_ns.dtype), cfg.limit, inv.to(xs.device)[:, None, None],
                        inv_l.to(xs.device)[:, None, None], rows, squares=True)
 
@@ -1023,46 +1091,44 @@ def finalize_sweep_plain(partials: torch.Tensor, lambdas: torch.Tensor
 
 def mppi_sweep_batch_plain(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, lambdas: torch.Tensor,
                            sigmas: torch.Tensor, *, seeds: torch.Tensor | None = None, solve: int = 0,
-                           noise: torch.Tensor | None = None, rollouts_per_thread: int | None = None
+                           noise: torch.Tensor | None = None, tiles_per_block: int | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ``mppi_sweep_batch_fused``, in the dtype of ``u_ns``:
     the sweep's noise (``sweep_noise``) or ``noise``, then
     ``sweep_partials_plain`` and ``finalize_sweep_plain``."""
     if noise is None:
         noise = sweep_noise(cfg, seeds, solve, sigmas)
-    rows = sweep_partials_plain(cfg, model, xs, u_ns, noise, lambdas, sigmas,
-                                rollouts_per_thread=rollouts_per_thread)
+    rows = sweep_partials_plain(cfg, model, xs, u_ns, noise, lambdas, sigmas, tiles_per_block=tiles_per_block)
     return finalize_sweep_plain(rows, lambdas)
 
 
 def mppi_sweep_batch_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch.Tensor, lambdas: torch.Tensor,
                            sigmas: torch.Tensor, *, seeds: torch.Tensor | None = None, solve: int = 0,
-                           noise: torch.Tensor | None = None, rollouts_per_thread: int | None = None
+                           noise: torch.Tensor | None = None, tiles_per_block: int | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B MPPI solves of ``tune``'s sweep in one launch (``mppi_sweep_kernel``,
-    the partials kernel with the sweep's policy): problem b solves from
-    xs[b] (B, 4) with nominal u_ns[b] (B, N) at its own λ = lambdas[b] and
-    σ = sigmas[b] (B,), for the exact cart-pole with ``shaped4``
-    (``CartPoleShaped4``, exact tier) at any horizon N of ``SWEEP_HORIZONS``
-    (1-40); ``cfg`` gives N, K and the control box (its λ and σ are not
-    read). Pass ``seeds`` (B,) int32 with the tick ``solve`` (box-muller,
-    problem b keyed seeds[b] with counter word ``solve``: cells of one seed
-    draw the same normals, ``sweep_noise``) or ``noise`` (B, K, N) already
-    scaled. Returns (u_n' (B, N), status (B,) int32, ess (B,)) with the zero
-    fallback on failure; ``rollouts_per_thread`` forces R (R = 4 is built
-    at N = 8 alone; ``BUILT_FOR``). CUDA tensors must be float32; on a
-    CUDA device another model or N, or an R not built, raises before any
-    launch (``check_built`` on ``SweepModel(model)``). ``launches`` counts each launch, and
-    under ``sweep:N=<n>`` its horizon."""
+    ``ops/csrc/sweep.cuh``): problem b solves from xs[b] (B, 4) with nominal
+    u_ns[b] (B, N) at its own λ = lambdas[b] and σ = sigmas[b] (B,), for the
+    exact cart-pole with ``shaped4`` (``CartPoleShaped4``, exact tier) at
+    any horizon N of 1-``SWEEP_MAX_HORIZON``; ``cfg`` gives N, K and the
+    control box (its λ and σ are not read). Pass ``seeds`` (B,) int32 with
+    the tick ``solve`` (box-muller, problem b keyed seeds[b] with counter
+    word ``solve``: cells of one seed draw the same normals,
+    ``sweep_noise``) or ``noise`` (B, K, N) already scaled. Returns (u_n'
+    (B, N), status (B,) int32, ess (B,)) with the zero fallback on failure;
+    ``tiles_per_block`` forces the tiles of 256 rollouts a block (default
+    ``sweep_tiles(K, B, device)``). CUDA tensors must be float32; on a CUDA device
+    another model or N raises before any launch (``check_built`` on
+    ``SweepModel(model)``). ``launches`` counts each launch, and under
+    ``sweep:N=<n>`` its horizon."""
     if (noise is None) == (seeds is None):
         raise ValueError("pass exactly one of noise (B, K, N) or seeds (B,) with the tick `solve`")
-    n = cfg.n_horizon
-    rpt = _rpt(cfg.n_rollouts, xs.shape[0], rollouts_per_thread, SweepModel(model), n)
+    tiles = _tiles(cfg.n_rollouts, xs.shape[0], tiles_per_block, xs.device)
     if xs.device.type == "cpu":
         return mppi_sweep_batch_plain(cfg, model, xs, u_ns, lambdas, sigmas, seeds=seeds, solve=solve,
-                                      noise=noise, rollouts_per_thread=rpt)
+                                      noise=noise, tiles_per_block=tiles)
     b, n, k = _batch_kernel_args(cfg, SweepModel(model), xs, u_ns,
-                                 "external" if noise is not None else "box-muller", rpt)
+                                 "external" if noise is not None else "box-muller", None)
     dev = xs.device
     _check("lambdas", lambdas, (b,), torch.float32, dev)
     _check("sigmas", sigmas, (b,), torch.float32, dev)
@@ -1071,21 +1137,38 @@ def mppi_sweep_batch_fused(cfg: MppiConfig, model, xs: torch.Tensor, u_ns: torch
     else:
         _check("seeds", seeds, (b,), torch.int32, dev)
     inv_l, sig, inv = sweep_coefficients(lambdas, sigmas)
-    partials = torch.empty((b, -(-k // (BLOCK * rpt)), n + 3), dtype=torch.float32, device=dev)
+    partials = torch.empty((b, -(-k // (BLOCK * tiles)), n + 3), dtype=torch.float32, device=dev)
     u_out = torch.empty((b, n), dtype=torch.float32, device=dev)
     status = torch.empty(b, dtype=torch.int32, device=dev)
     ess = torch.empty(b, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         tickets = merge_tickets(dev, b)
         _launch(_library().mpc_mppi_sweep,
-                (model.c_constants[0], _SAMPLER_IDS["external" if noise is not None else "box-muller"], n, b, k,
-                 cfg.limit[0], cfg.limit[1], rpt, _ptr(xs), _ptr(u_ns), _ptr(noise), _ptr(seeds),
-                 solve & 0xFFFFFFFF, _ptr(inv_l), _ptr(sig), _ptr(inv), _ptr(partials), _ptr(tickets),
-                 _ptr(u_out), _ptr(status), _ptr(ess)),
+                (model.c_constants[0], n, b, k, tiles, sweep_rollouts_a_thread(n, tiles), cfg.limit[0], cfg.limit[1], _ptr(xs), _ptr(u_ns),
+                 _ptr(noise), _ptr(seeds), solve & 0xFFFFFFFF, _ptr(inv_l), _ptr(sig), _ptr(inv), _ptr(partials),
+                 _ptr(tickets), _ptr(u_out), _ptr(status), _ptr(ess)),
                 "mppi_sweep_batch_fused", tickets)
     launches["mppi_sweep_batch_fused"] += 1
     launches[f"sweep:N={n}"] += 1
     return u_out, status, ess
+
+
+def sweep_occupancy(n: int, tiles: int = 1, device=None) -> dict:
+    """The sweep kernel on ``device``'s card at horizon ``n`` with ``tiles``
+    tiles of 256 rollouts a block: the blocks an SM holds at its dynamic
+    shared memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), its
+    registers a thread and local bytes (``cudaFuncGetAttributes``), R, and
+    the dynamic shared bytes a launch asks for as the C side computes them
+    (``shared_bytes``; ``sweep_shared_bytes`` should give the same). Raises
+    for a horizon past ``SWEEP_MAX_HORIZON``."""
+    check_built(SweepModel(CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)), n)
+    r = sweep_rollouts_a_thread(n, tiles)
+    blocks, regs, local, shared = (ctypes.c_int(0) for _ in range(4))
+    with torch.cuda.device(device):
+        _raise_on(_library().mpc_sweep_occupancy(n, r, ctypes.byref(blocks), ctypes.byref(regs), ctypes.byref(local),
+                                                 ctypes.byref(shared)), "sweep occupancy")
+    return {"n": n, "tiles": tiles, "rollouts_a_thread": r, "blocks_per_sm": blocks.value, "registers": regs.value,
+            "local_bytes": local.value, "shared_bytes": shared.value}
 
 
 # --------------------------------------------------------------------------

@@ -70,9 +70,8 @@ KERNELS = ("mppi_partials_kernel", "mppi_finalize_kernel", "fleet_finalize_kerne
 PARTIALS_RE = re.compile(r"mppi_partials_kernelILi(\d+)ENS_\d+"
                          r"(CartPoleNonlinearT|Flagship4|DoubleIntegrator|CartPoleLinear|Commu4)(?:ILb([01])EE)?ENS_\d+"
                          r"(Shaped4|Diag4|Quad2|Commu4Cost)ELb([01])ELi(\d+)E(?:Li(\d+)E)?")
-# tune's sweep (mppi_sweep_kernel<R, N>, then enable_if's 0): rollouts per
-# thread, horizon
-SWEEP_RE = re.compile(r"mppi_sweep_kernelILi(\d+)ELi(\d+)ELi0E")
+# tune's sweep: one kernel for every horizon (ops/csrc/sweep.cuh), not a template
+SWEEP_RE = re.compile(r"mpc17mppi_sweep_kernelE")
 HW_BUDGET_S = 0.06  # the HW flagship's control budget a solve (SURVEY §6)
 PRODUCTION = {("CartPoleNonlinearT", False, 1): "cartpole_exact_box-muller (mppi4-non-liner)",
               ("CartPoleNonlinearT", True, 2): "cartpole_fast_clt4 (cartpole4)",
@@ -104,9 +103,7 @@ def sass_counts(so: Path, cuobjdump: Path, sass: str | None = None) -> list[dict
                 continue
             what = PRODUCTION[key] + (f" R={m.group(7)}" if m.group(7) else "")
         elif sweep:
-            if sweep.group(2) != str(N):
-                continue  # the production sweep is tune's N = 8
-            what = f"sweep (tune) R={sweep.group(1)}"
+            what = "sweep (tune), every N"
         elif "finalize_kernel" in name:
             what = name
         else:

@@ -1,22 +1,25 @@
-"""tune's sweep launch at every horizon, on a CUDA card: what ptxas made of
-each ``mppi_sweep_kernel`` instantiation (registers, spill stores), and, at
-tune's default grid (λ ∈ {0.1, 0.5, 1.4, 2.5} × σ ∈ {1, 3, 10} × 8 seeds:
-B = 96) and ``--k`` rollouts (default 800 000, the main path's), for each N
-of ``--horizons`` (default 1-40):
+"""tune's sweep launch at any horizon, on a CUDA card: what ptxas made of
+``mppi_sweep_kernel`` (one kernel for every N: registers, spill stores,
+stack), and, at tune's default grid (λ ∈ {0.1, 0.5, 1.4, 2.5} × σ ∈ {1, 3,
+10} × 8 seeds: B = 96) and ``--k`` rollouts (default 800 000, the main
+path's), for each N of ``--horizons`` (default 1-40):
 
+- the blocks an SM holds at the launch's shared memory
+  (``mppi_cuda.sweep_occupancy``) and the tiles of 256 rollouts a block the
+  wrapper picks (``sweep_tiles``), or each count of ``--tiles``;
 - the device µs of one launch (``torch.profiler``, the median over a few
-  launches) and the CUDA-event µs of a wrapper call, box-muller at the
-  wrapper's R (R = 4 at N = 8, else 1), and at N = 8 also at R = 1;
+  launches) and the CUDA-event µs of a wrapper call, box-muller;
 - the bound: the larger of the plain version's float operations
   (``chip_smoke.flops_of``, counted on 8 of the 96 problems and multiplied
   by 12: each operation's element count is the batch's times a per-problem
   count) over the FP32 peak and the bytes the launch must move over the
   HBM rate (``chip_smoke.bound``).
 
-    python mpc_rs_tpu_torch/runtime/profile_sweep.py [--k 800000] [--horizons 1-40] [--out FILE]
+    python mpc_rs_tpu_torch/runtime/profile_sweep.py [--k 800000] [--horizons 1,8,20-23,224] \\
+        [--tiles 4,8,16] [--out FILE]
 
-One JSON line a horizon and R, each with the card's ``nvidia-smi`` name and
-power limit; ``--out`` also gets them. Needs a CUDA card and the checkout's
+One JSON line a horizon and tile count, each with the card's ``nvidia-smi`` name and power
+limit; ``--out`` also gets them. Needs a CUDA card and the checkout's
 ``chip_smoke.py`` (its timing and bound helpers).
 """
 
@@ -30,36 +33,47 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-# mppi_sweep_kernel<R, N> (then enable_if's 0): R, horizon
-SWEEP_RE = re.compile(r"mppi_sweep_kernelILi(\d+)ELi(\d+)ELi0E")
+# mppi_sweep_kernel(CartPoleNonlinearT<false>, SweepArgs): one kernel, not a template
+SWEEP_RE = re.compile(r"mpc17mppi_sweep_kernelE")
 GRID = ((0.1, 0.5, 1.4, 2.5), (1.0, 3.0, 10.0), 8)  # tune's default λ, σ and seeds
 CHUNK = 8  # problems a flop count runs on (of the grid's 96)
 
 
+def parse_horizons(spec: str) -> list[int]:
+    """'1,8,20-23' -> [1, 8, 20, 21, 22, 23]."""
+    out = []
+    for part in spec.split(","):
+        first, _, last = part.partition("-")
+        out += range(int(first), int(last or first) + 1)
+    return out
+
+
 def sweep_ptxas(log: str) -> list[dict]:
-    """{R, N, registers, spill_bytes} of each sweep instantiation in a
-    build log (ptxas -v), one row a kernel."""
-    rows, func = {}, ""
+    """{registers, spill_bytes, stack_bytes} of the sweep kernel in a build
+    log (ptxas -v): one row a kernel whose name is the sweep's."""
+    rows, func = [], ""
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
             func = line.split("'")[1] if "'" in line else line.split()[-1]
+            if "Compiling entry function" in line and SWEEP_RE.search(func):
+                rows.append({"kernel": func})
             continue
-        m = SWEEP_RE.search(func)
-        if not m:
+        if not SWEEP_RE.search(func) or not rows:
             continue
-        key = (int(m.group(1)), int(m.group(2)))
-        row = rows.setdefault(key, {"rpt": key[0], "n": key[1]})
         if (used := re.search(r"Used (\d+) registers", line)):
-            row["registers"] = int(used.group(1))
+            rows[-1]["registers"] = int(used.group(1))
         if (spill := re.search(r"(\d+) bytes spill stores", line)):
-            row["spill_bytes"] = int(spill.group(1))
-    return [rows[k] for k in sorted(rows, key=lambda k: (k[1], k[0]))]
+            rows[-1]["spill_bytes"] = int(spill.group(1))
+        if (stack := re.search(r"(\d+) bytes stack frame", line)):
+            rows[-1]["stack_bytes"] = int(stack.group(1))
+    return rows
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k", type=int, default=800_000)
-    ap.add_argument("--horizons", default="1-40", help="first-last")
+    ap.add_argument("--horizons", default="1-40", help="comma-separated N or first-last spans")
+    ap.add_argument("--tiles", help="comma-separated tiles of 256 rollouts a block to time (default: the wrapper's)")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
@@ -95,8 +109,8 @@ def main(argv=None) -> None:
     b, k = lam.numel(), args.k
     model = mppi_cuda.CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
     xs = torch.tensor(cs.X0, device=dev).repeat(b, 1)
-    first, last = (int(v) for v in args.horizons.split("-"))
-    for n in range(first, last + 1):
+    tile_counts = parse_horizons(args.tiles) if args.tiles else [mppi_cuda.sweep_tiles(k, b, dev)]
+    for n in parse_horizons(args.horizons):
         cfg = MppiConfig(n_horizon=n, n_rollouts=k, lambda_=1.0, std_dev=1.0, limit=(-20.0, 20.0))
         u0 = torch.zeros((b, n), device=dev)
         plain = lambda: mppi_cuda.mppi_sweep_batch_plain(  # noqa: E731
@@ -104,14 +118,16 @@ def main(argv=None) -> None:
         flops = cs.flops_of(plain) * (b // CHUNK)
         n_bytes = cs.nbytes(xs, u0, lam, sig, seeds) + cs.nbytes(u0) + 4 * b + 4 * b
         torch.cuda.empty_cache()
-        wrapper_r = mppi_cuda.rollouts_per_thread(k, b, mppi_cuda.SweepModel(model), n)
-        for rpt in sorted({wrapper_r, 1}):
+
+        for tiles in tile_counts:
             def call():
                 return mppi_cuda.mppi_sweep_batch_fused(cfg, model, xs, u0, lam, sig, seeds=seeds, solve=3,
-                                                        rollouts_per_thread=rpt)
+                                                        tiles_per_block=tiles)
+
             call()
-            dev_us = [t for name, t in cs.device_events(call, reps=3) if "mppi_sweep_kernel" in name]
-            emit({"kind": "sweep", "n": n, "b": b, "k": k, "rpt": rpt, "wrapper_r": wrapper_r,
+            dev_us = [t for _, t in cs.device_events(call, reps=3, keep=lambda name: "mppi_sweep_kernel" in name)]
+            emit({"kind": "sweep", "n": n, "b": b, "k": k, "wrapper_tiles": mppi_cuda.sweep_tiles(k, b, dev),
+                  **mppi_cuda.sweep_occupancy(n, tiles, dev),
                   "device_us": statistics.median(dev_us) if dev_us else None, "device_us_all": dev_us,
                   "event_us": 1e3 * cs.median_ms(call, reps=5, warmup=1), **cs.bound(flops, n_bytes)})
     if args.out:

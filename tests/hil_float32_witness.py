@@ -9,9 +9,14 @@ evaluations of one filter step land (run manually; prints JSON lines).
     python tests/hil_float32_witness.py --one-step
 
 ``--package`` runs the app ``--runs`` times, each in a process of its own
-on one CPU thread, eight at a time, and counts the runs in which a solve
-made on a finite estimate returned a status other than OK (the claim of
-``tests/test_torch_commu.py::test_mppi4_ukf_commu_sim_mcu``). ``--one-step``
+on one CPU thread, eight at a time, and counts the runs that break each of
+two claims: the old one, that every solve made on a finite estimate
+returned OK and the run reached 20 solves; and the float32 claim of
+``tests/test_torch_commu.py::test_mppi4_ukf_commu_sim_mcu``, that every
+solve made on an estimate inside the plant's physical range
+(``F32_PHYSICAL_RANGE`` there) returned OK and the run reached 20 solves
+unless the tip-over guard ended it. Each run also reports the largest
+|component| of the estimates its OK solves were made on. ``--one-step``
 records the port's first packets, takes the JAX package's jitted estimate
 after the first, and steps it over the second three ways: the JAX step
 jitted, the JAX step eager, the port's step.
@@ -31,6 +36,17 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 ARGV = ["mppi4-ukf-commu", "--sim-mcu", "--k", "1024", "--time-scale", "0.2", "--t-end", "1.0"]
+GUARD_LINE = "x[2] is over pi/2"  # both apps print it when the tip-over guard ends the run
+
+
+def physical_range() -> tuple[float, ...]:
+    """``F32_PHYSICAL_RANGE`` of tests/test_torch_commu.py, read from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("_commu_tests", os.path.join(ROOT, "tests", "test_torch_commu.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.F32_PHYSICAL_RANGE
 ONE_THREAD = {"OMP_NUM_THREADS": "1", "XLA_FLAGS": "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1"}
 
 
@@ -56,28 +72,52 @@ def _jax_run() -> dict:
         return solve_and_record
 
     commu_examples.make_mppi_solver = recording
-    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(buf):
         run.main([*ARGV, "--log-dir", d])
-    loop = seen[1:]  # past the solve made before traffic
-    finite = next((i for i, (f, _, _) in enumerate(loop) if not f), len(loop))
-    return {"solves": len(loop), "statuses": [s for _, s, _ in loop], "finite_solves": finite,
-            "x4": [x for _, _, x in loop[:finite]]}
+    return {"solves": seen[1:], "guard": GUARD_LINE in buf.getvalue()}  # past the solve made before traffic
 
 
 def _torch_run() -> dict:
-    from mpc_rs_tpu_torch.apps import run
+    import numpy as np
 
+    from mpc_rs_tpu_torch.apps import commu_examples, run
+
+    seen = []
+    real = commu_examples.make_mppi_solver
+
+    def recording(*a, **kw):
+        solve = real(*a, **kw)
+
+        def solve_and_record(seed, x, u_n):
+            out = solve(seed, x, u_n)
+            seen.append((bool(np.isfinite(np.asarray(x)).all()), int(out[1]), [float(v) for v in x]))
+            return out
+
+        return solve_and_record
+
+    commu_examples.make_mppi_solver = recording
     with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
         res = run.main([*ARGV, "--device", "cpu", "--ukf-dtype", "float32", "--log-dir", d])
-    return {"solves": res.solves, "statuses": list(res.statuses), "finite_solves": res.finite_solves, "x4": None}
+    return {"solves": seen[1:], "guard": not res.upright}
 
 
 def _child(package: str) -> None:
     out = _jax_run() if package == "jax" else _torch_run()
-    bad = [i for i, s in enumerate(out["statuses"][:out["finite_solves"]]) if s != 0]
-    print(json.dumps({"package": package, "solves": out["solves"], "finite_solves": out["finite_solves"],
+    bounds = physical_range()
+    solves = out["solves"]
+    finite = next((i for i, (f, _, _) in enumerate(solves) if not f), len(solves))
+    bad = [i for i, (_, s, _) in enumerate(solves[:finite]) if s != 0]
+    inside = [i for i, (f, _, x) in enumerate(solves) if f and all(abs(v) <= b for v, b in zip(x, bounds))]
+    bad_inside = [i for i in inside if solves[i][1] != 0]
+    ok_x = [x for f, s, x in solves if f and s == 0]
+    print(json.dumps({"package": package, "solves": len(solves), "finite_solves": finite, "guard": out["guard"],
                       "failed_on_a_finite_estimate": bad,
-                      "x4_there": [[round(v, 3) for v in out["x4"][i]] for i in bad] if out["x4"] else None}))
+                      "x4_there": [[round(v, 3) for v in solves[i][2]] for i in bad],
+                      "failed_inside_the_range": bad_inside,
+                      "old_claim": not bad and len(solves) >= 20,
+                      "f32_claim": not bad_inside and (len(solves) >= 20 or out["guard"]),
+                      "ok_estimates_max_abs": [max((abs(x[j]) for x in ok_x), default=None) for j in range(4)]}))
 
 
 def _runs(package: str, runs: int) -> None:
@@ -94,7 +134,9 @@ def _runs(package: str, runs: int) -> None:
             print(json.dumps(rows[-1]))
     failing = sum(bool(r["failed_on_a_finite_estimate"]) for r in rows)
     print(json.dumps({"package": package, "runs": len(rows), "runs_with_a_failed_solve_on_a_finite_estimate": failing,
-                      "solves": [r["solves"] for r in rows]}))
+                      "runs_breaking_the_old_claim": sum(not r["old_claim"] for r in rows),
+                      "runs_breaking_the_f32_claim": sum(not r["f32_claim"] for r in rows),
+                      "physical_range": physical_range(), "solves": [r["solves"] for r in rows]}))
 
 
 def _one_step() -> None:

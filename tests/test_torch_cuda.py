@@ -926,11 +926,12 @@ def _sweep_grid(card, lams=(0.1, 0.5, 1.4, 2.5), sigs=(1.0, 3.0, 10.0), seeds=8)
 @pytest.mark.parametrize("k", [1024, 800_000])
 @pytest.mark.parametrize("source", ["external", "box-muller"])
 def test_cuda_sweep_matches_plain(card, k, source):
-    """The sweep launch (the partials kernel with the sweep's policy) at
-    B = 96 against its float64 plain version: the statuses equal, u_n' and
-    the ESS in the f32 band, or, in the cells where the float32 problem is
-    ill-conditioned (tune's λ = 0.1 weighs one or two rollouts), within twice
-    the plain float32 version's own distance; in-kernel box-muller against
+    """The sweep launch (``mppi_sweep_kernel``) at B = 96 against its
+    float64 plain version at 1 and 4 tiles a block and the wrapper's own
+    (16 at K = 800 000): the statuses equal, u_n' and the ESS in the f32
+    band, or, in the cells where the float32 problem is ill-conditioned
+    (tune's λ = 0.1 weighs one or two rollouts), within twice the plain
+    float32 version's own distance; in-kernel box-muller against
     ``sweep_noise``'s words (each problem keyed by its seed, the tick in the
     counter)."""
     lam, sig, seeds = _sweep_grid(card)
@@ -945,12 +946,12 @@ def test_cuda_sweep_matches_plain(card, k, source):
     else:
         kw = dict(seeds=seeds, solve=7)
         noise = mppi_cuda.sweep_noise(cfg, seeds, 7, sig)
-    for rpt in (1, 4):
-        u, st, ess = mppi_cuda.mppi_sweep_batch_fused(cfg, MODEL, xs, u_ns, lam, sig, rollouts_per_thread=rpt, **kw)
+    for tiles in (1, 4, None):
+        u, st, ess = mppi_cuda.mppi_sweep_batch_fused(cfg, MODEL, xs, u_ns, lam, sig, tiles_per_block=tiles, **kw)
         want_u, want_st, want_ess = mppi_cuda.mppi_sweep_batch_plain(cfg, MODEL, xs.double(), u_ns.double(), lam, sig,
-                                                                      noise=noise, rollouts_per_thread=rpt)
+                                                                      noise=noise, tiles_per_block=tiles)
         u32, _, ess32 = mppi_cuda.mppi_sweep_batch_plain(cfg, MODEL, xs, u_ns, lam, sig, noise=noise,
-                                                         rollouts_per_thread=rpt)
+                                                         tiles_per_block=tiles)
         torch.cuda.synchronize()
         assert torch.equal(st, want_st) and bool((st == 0).all())
         for got, want, f32 in ((u, want_u, u32), (ess, want_ess, ess32)):
@@ -961,10 +962,13 @@ def test_cuda_sweep_matches_plain(card, k, source):
     assert bool((mppi_cuda.merge_tickets(card, b) == 0).all())
 
 
-SWEEP_HORIZONS = (1, 9, 30, 31, 32, 40)  # N = 30 and 31: the last row in warp 0, the first across two
-# K = 8192 gives a problem 32 blocks, whose rows one warp merges; K = 65 536
-# gives it 256, past kWarpMergeRows = 128, which the block merges (as at
-# tune's K = 800 000: 3125), at N = 31 and 40 in partials_end_wide
+# the horizons where the kernel's R changes (10/11, 20/21), the tile's
+# warps split the sums unevenly (N + 2 = 32, 33, 41, 42), box-muller's last
+# pair is half used (odd N), and past the parent's 40 up to the maximum
+SWEEP_HORIZONS = (1, 8, 9, 20, 21, 30, 31, 32, 39, 40, 41, 64, mppi_cuda.SWEEP_MAX_HORIZON)
+# K = 8192 gives a problem 32 tiles of 256, one block of 32 tiles at the
+# wrapper's 1 (32 rows merged); K = 65 536 at N = 31 and 40 gives 64 rows at the
+# wrapper's 4 tiles a block
 SWEEP_HORIZON_KS = [(n, 8192) for n in SWEEP_HORIZONS] + [(31, 65_536), (40, 65_536)]
 
 
@@ -972,13 +976,14 @@ SWEEP_HORIZON_KS = [(n, 8192) for n in SWEEP_HORIZONS] + [(31, 65_536), (40, 65_
 @pytest.mark.parametrize("source", ["external", "box-muller"])
 @pytest.mark.parametrize("n, k", SWEEP_HORIZON_KS)
 def test_cuda_sweep_at_horizons_matches_plain(card, n, k, source):
-    """The sweep launch at horizon N (R = 1, the only R built past N = 8) on
-    tune's default grid (B = 96) at K = 8192, and at N = 31 and 40 also at K
-    = 65 536 (the block merge), against its float64 plain version, as
-    ``test_cuda_sweep_matches_plain``; past N = 8 the step is 0.8 s / N and
-    λ scaled by N/8 (``tests/test_torch_tune.py::_horizon``). In-kernel
-    box-muller against ``sweep_noise``'s words, its last pair half used at
-    odd N; the launch counted under its horizon."""
+    """The sweep launch at horizon N on tune's default grid (B = 96) at K =
+    8192, and at N = 31 and 40 also at K = 65 536, against its float64
+    plain version at the wrapper's tiles a block and at 4 (R = 4 up to N =
+    10, 2 up to 20), as ``test_cuda_sweep_matches_plain``; past N = 8 the
+    step is 0.8 s / N and λ scaled by N/8
+    (``tests/test_torch_tune.py::_horizon``). In-kernel box-muller against
+    ``sweep_noise``'s words, its last pair half used at odd N; each launch
+    counted under its horizon."""
     lam, sig, seeds = _sweep_grid(card)
     dt, scale = (0.1, 1.0) if n <= N else (0.8 / n, n / N)
     lam = lam * scale
@@ -995,37 +1000,77 @@ def test_cuda_sweep_at_horizons_matches_plain(card, n, k, source):
         kw = dict(seeds=seeds, solve=5)
         noise = mppi_cuda.sweep_noise(cfg, seeds, 5, sig)
     mppi_cuda.reset_launches()
-    u, st, ess = mppi_cuda.mppi_sweep_batch_fused(cfg, model, xs, u_ns, lam, sig, **kw)
-    assert mppi_cuda.launches["mppi_sweep_batch_fused"] == mppi_cuda.launches[f"sweep:N={n}"] == 1
-    want_u, want_st, want_ess = mppi_cuda.mppi_sweep_batch_plain(cfg, model, xs.double(), u_ns.double(), lam, sig,
-                                                                  noise=noise)
-    u32, _, ess32 = mppi_cuda.mppi_sweep_batch_plain(cfg, model, xs, u_ns, lam, sig, noise=noise)
-    torch.cuda.synchronize()
-    assert u.shape == (b, n) and torch.equal(st, want_st) and bool((st == 0).all())
-    for got, want, f32 in ((u, want_u, u32), (ess, want_ess, ess32)):
-        got, want, f32 = (t.double().cpu() for t in (got, want, f32))
-        tol = torch.maximum(F32_BAND["atol"] + F32_BAND["rtol"] * want.abs(), 2.0 * (f32 - want).abs())
-        assert bool(((got - want).abs() <= tol).all()), float(((got - want).abs() / tol).max())
+    for tiles in (None, 4):
+        u, st, ess = mppi_cuda.mppi_sweep_batch_fused(cfg, model, xs, u_ns, lam, sig, tiles_per_block=tiles, **kw)
+        want_u, want_st, want_ess = mppi_cuda.mppi_sweep_batch_plain(cfg, model, xs.double(), u_ns.double(), lam, sig,
+                                                                      noise=noise, tiles_per_block=tiles)
+        u32, _, ess32 = mppi_cuda.mppi_sweep_batch_plain(cfg, model, xs, u_ns, lam, sig, noise=noise,
+                                                         tiles_per_block=tiles)
+        torch.cuda.synchronize()
+        assert u.shape == (b, n) and torch.equal(st, want_st) and bool((st == 0).all())
+        for got, want, f32 in ((u, want_u, u32), (ess, want_ess, ess32)):
+            got, want, f32 = (t.double().cpu() for t in (got, want, f32))
+            tol = torch.maximum(F32_BAND["atol"] + F32_BAND["rtol"] * want.abs(), 2.0 * (f32 - want).abs())
+            assert bool(((got - want).abs() <= tol).all()), float(((got - want).abs() / tol).max())
+    assert mppi_cuda.launches["mppi_sweep_batch_fused"] == mppi_cuda.launches[f"sweep:N={n}"] == 2
     assert bool((mppi_cuda.merge_tickets(card, b) == 0).all())
 
 
 @pytest.mark.cuda
 def test_cuda_sweep_unbuilt_horizon_or_r_raises_before_launch(card):
-    """N = 41, R = 4 past N = 8, or another sampler raise a ValueError before
+    """N past ``SWEEP_MAX_HORIZON`` (its block would not fit the card's
+    shared memory), N = 0 or a tile count below 1 raise a ValueError before
     any launch, through the wrapper and through ``make_sweep``."""
     from mpc_rs_tpu_torch.apps import tune
 
     lam, sig, seeds = _sweep_grid(card, seeds=1)
     b = lam.numel()
+    top = mppi_cuda.SWEEP_MAX_HORIZON + 1
     mppi_cuda.reset_launches()
-    for n, rpt, match in ((41, None, "horizon N=41"), (20, 4, "4 rollouts a thread with SweepModel at N=20")):
+    for n, tiles, match in ((top, None, f"horizon N={top}"), (0, None, "horizon N=0"),
+                            (20, 0, "tiles_per_block must be at least 1")):
         with pytest.raises(ValueError, match=match):
             mppi_cuda.mppi_sweep_batch_fused(_cfg(1024, n=n), MODEL, torch.zeros((b, 4), device=card),
                                              torch.zeros((b, n), device=card), lam, sig, seeds=seeds,
-                                             rollouts_per_thread=rpt)
-    with pytest.raises(ValueError, match="horizon N=41"):
-        tune.make_sweep(k=1024, n_horizon=41, device=card)
+                                             tiles_per_block=tiles)
+    with pytest.raises(ValueError, match=f"horizon N={top}"):
+        tune.make_sweep(k=1024, n_horizon=top, device=card)
     assert not any(mppi_cuda.launches.values())
+
+
+@pytest.mark.cuda
+def test_cuda_plain_step_divides_by_a_python_float_once(card):
+    """The plain cart-pole's kt·u / r_w on a CUDA tensor (``dynamics._div``)
+    is one IEEE division, bit for bit numpy's, as in the kernels
+    (``CartPoleNonlinearT``) and on the CPU; PyTorch's own tensor / float
+    on a CUDA tensor multiplies by the float32 reciprocal instead, which put
+    the plain float32 sweep an ulp off the kernel's states in most rollouts
+    at N = 224. The plain step then matches the kernel's rollout bit for
+    bit, so the band's twice-the-plain-float32 term measures the same
+    float32 function."""
+    from mpc_rs_tpu_torch.models import dynamics
+
+    a = np.random.default_rng(3).uniform(-40.0, 40.0, 1 << 20).astype(np.float32)
+    got = dynamics._div(torch.tensor(a, device=card), 0.05).cpu().numpy()
+    np.testing.assert_array_equal(got, a / np.float32(0.05))
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_occupancy_holds_at_every_horizon(card):
+    """The one kernel's registers and blocks an SM: at most 64 registers and
+    no spill at every N (one kernel), at least 4 blocks an SM up to N = 40,
+    and one block at the maximum, whose shared memory the card takes. The
+    dynamic shared bytes the C side gives a launch equal
+    ``sweep_shared_bytes`` at every N of 1-``SWEEP_MAX_HORIZON`` and every
+    R the wrapper passes."""
+    rows = [mppi_cuda.sweep_occupancy(n, 16, card) for n in (1, 8, 10, 11, 20, 21, 40)]
+    rows.append(mppi_cuda.sweep_occupancy(mppi_cuda.SWEEP_MAX_HORIZON, 1, card))
+    assert len({r["registers"] for r in rows}) == 1 and rows[0]["registers"] <= 64, rows
+    assert all(r["blocks_per_sm"] >= 4 for r in rows[:-1]) and rows[-1]["blocks_per_sm"] == 1, rows
+    for n in range(1, mppi_cuda.SWEEP_MAX_HORIZON + 1):
+        for tiles in (1, 2, 4):
+            got = mppi_cuda.sweep_occupancy(n, tiles, card)
+            assert got["shared_bytes"] == mppi_cuda.sweep_shared_bytes(n, tiles), got
 
 
 @pytest.mark.cuda
@@ -1034,10 +1079,12 @@ def test_cuda_sweep_failure_probes(card):
     xs = torch.tensor(X0, device=card).repeat(lam.numel(), 1)
     xs[0, 0] = float("nan")
     lam[1] = 0.0
-    u, st, ess = mppi_cuda.mppi_sweep_batch_fused(_cfg(512), MODEL, xs, torch.zeros((lam.numel(), N), device=card),
-                                                  lam, sig, seeds=seeds, solve=0)
-    assert st[:3].tolist() == [MppiStatus.NO_FINITE, MppiStatus.INVALID_U, MppiStatus.OK]
-    assert bool((u[:2] == 0).all()) and float(ess[0]) == 0.0 and bool(torch.isnan(ess[1]))
+    for n, k, tiles in ((N, 512, None), (N, 3000, 4), (20, 70_000, 8), (40, 512, 1)):
+        u, st, ess = mppi_cuda.mppi_sweep_batch_fused(_cfg(k, n=n), MODEL, xs,
+                                                      torch.zeros((lam.numel(), n), device=card), lam, sig,
+                                                      seeds=seeds, solve=0, tiles_per_block=tiles)
+        assert st[:3].tolist() == [MppiStatus.NO_FINITE, MppiStatus.INVALID_U, MppiStatus.OK]
+        assert bool((u[:2] == 0).all()) and float(ess[0]) == 0.0 and bool(torch.isnan(ess[1]))
 
 
 @pytest.mark.cuda

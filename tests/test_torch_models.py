@@ -88,6 +88,18 @@ def test_cartpole_nonlinear_is_explicit():
     assert float(n0) == pytest.approx(0.1) and float(n2) == pytest.approx(0.2 - 0.2)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_div_by_a_python_float_rounds_once(dtype):
+    """``dynamics._div``, the thrust term's kt·u / r_w: a tensor (or a
+    Python float) over a Python float is one IEEE division in the tensor's
+    dtype, as numpy divides (on a CUDA tensor too, where PyTorch would
+    multiply by the divisor's reciprocal: ``tests/test_torch_cuda.py`` holds
+    it there)."""
+    a = np.linspace(-40.0, 40.0, 100_003).astype(dtype)
+    np.testing.assert_array_equal(tdyn._div(torch.tensor(a), 0.05).numpy(), a / np.asarray(0.05, dtype))
+    assert tdyn._div(3.0, 0.05) == 3.0 / 0.05
+
+
 def test_cartpole_nonlinear_fast_is_not_ported():
     """The fast tier was the part of the cart-pole left to port; it now
     exists and is not the exact tier (polynomial sin/cos): the two agree

@@ -19,11 +19,13 @@
 - Common random numbers: episodes of one seed draw the same standard
   normals at a tick, whatever their σ.
 - The horizon: the JAX ``make_sweep`` takes any N, so the three checks
-  above also run at N ∈ {1, 9, 30, 31, 32, 40} beside tune's N = 8 (N = 30
-  and 31 are the last rows whose N + 2 sums fit in warp 0 on the card and
-  the first that do not; N = 1 and odd N half use a box-muller pair), and
-  the sweep's build table and its refusal on a card: N = 41 raises before
-  any launch.
+  above also run at N ∈ {1, 9, 30, 31, 32, 40, 41, 64} beside tune's N = 8
+  (N = 1 and odd N half use a box-muller pair; past 40 the horizons the
+  kernel took no more before it took N at run time), and the sweep's one
+  kernel: the horizons it runs (1 to ``SWEEP_MAX_HORIZON``, what a block's
+  shared memory holds), its refusal on a card before any launch at 0 and
+  past the maximum, the tiles a block and R the wrapper picks, and the
+  tools that read its build.
 """
 
 import contextlib
@@ -50,7 +52,7 @@ from mpc_rs_tpu_torch.ops import mppi_cuda
 from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4
 
 N = 8  # tune's horizon (the CLI's and sweep_grid's)
-HORIZONS = (1, 9, 30, 31, 32, 40)  # the other horizons the checks run at
+HORIZONS = (1, 9, 30, 31, 32, 40, 41, 64)  # the other horizons the checks run at
 MODEL = CartPoleShaped4(CartPoleParams.single_wheel(), 0.1)
 JSTEP = jdyn.make_cartpole_nonlinear(JParams.single_wheel(), 0.1)
 F32_BAND = dict(rtol=1e-3, atol=2e-4)  # tests/test_pallas.py:59
@@ -323,43 +325,47 @@ def test_tune_cli_defaults_and_card_default():
 
 
 def test_sweep_built_table_and_rollouts_per_thread():
-    """The sweep's kernel is built at every N of 1-40 for box-muller and
-    external noise at R = 1, and at N = 8 also at R = 4; the R rule takes
-    R = 1 wherever R = 4 is not built, at any K, and R = 4 at tune's N = 8
-    on its default grid at K = 800 000."""
-    assert tuple(mppi_cuda.SWEEP_HORIZONS) == tuple(range(1, 41))
+    """The sweep's one kernel runs every N of 1 to ``SWEEP_MAX_HORIZON`` =
+    224 for box-muller and external noise, at any tiles a block (the R of
+    the solves' table does not apply to it); 224 is the largest N whose
+    block fits an H100's 232 448 bytes of shared memory a block; the
+    solves' R rule is unchanged."""
+    assert mppi_cuda.SWEEP_MAX_HORIZON == 224
+    assert mppi_cuda.sweep_shared_bytes(224) <= mppi_cuda.SWEEP_SHARED_MAX < mppi_cuda.sweep_shared_bytes(225)
     sweep = mppi_cuda.SweepModel(MODEL)
-    for n in mppi_cuda.SWEEP_HORIZONS:
-        assert mppi_cuda.built_for(sweep, n) == (("external", "box-muller"), (1, 4) if n == N else (1,))
-        assert mppi_cuda.rollouts_per_thread(800_000, 96, sweep, n) == (4 if n == N else 1)
-        mppi_cuda.check_built(sweep, n, "box-muller", 1)
-        mppi_cuda.check_built(sweep, n, "external", 1)
+    for n in range(1, mppi_cuda.SWEEP_MAX_HORIZON + 1):
+        mppi_cuda.check_built(sweep, n, "box-muller")
+        mppi_cuda.check_built(sweep, n, "external")
+    assert {key[0] for key in mppi_cuda.BUILT_FOR} == {MODEL.model_id}  # serve's rows alone
     # the solve's table is not the sweep's: serve's cart-pole draws box-muller alone
     assert mppi_cuda.built_for(MODEL, 20) == (("box-muller",), (1,))
+    assert mppi_cuda.rollouts_per_thread(800_000, 96, MODEL, 8) == 4
 
 
-@pytest.mark.parametrize("model, n, source, rpt, match", [
-    (MODEL, 41, None, None, r"no sweep kernel for horizon N=41; it is built for N=1-40"),
-    (MODEL, 0, None, None, r"no sweep kernel for horizon N=0"),
-    (MODEL, 20, "clt4", 1, r"no kernel for noise source 'clt4' with SweepModel at N=20; it is built for external, "
-                           r"box-muller"),
-    (MODEL, 20, "box-muller", 4, r"no kernel at 4 rollouts a thread with SweepModel at N=20; it is built for R=\[1\]"),
-    (MODEL, 31, "external", 4, r"4 rollouts a thread with SweepModel at N=31"),
-    (CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=True), 8, None, None, "exact CartPoleShaped4"),
-    (mppi_cuda.Commu4Cost4(CartPoleParams.two_wheel(), 0.06), 20, None, None, "exact CartPoleShaped4"),
+@pytest.mark.parametrize("model, n, source, match", [
+    (MODEL, 225, None, r"no sweep kernel for horizon N=225; it runs N=1-224 \(a block's shared memory, 233328 bytes"),
+    (MODEL, 0, None, r"no sweep kernel for horizon N=0; it runs N=1-224"),
+    (MODEL, 1000, "box-muller", r"no sweep kernel for horizon N=1000"),
+    (MODEL, 20, "clt4", r"no kernel for noise source 'clt4' with SweepModel at N=20; it is built for external, "
+                        r"box-muller"),
+    (MODEL, 224, "wallace", r"no kernel for noise source 'wallace' with SweepModel at N=224"),
+    (CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=True), 8, None, "exact CartPoleShaped4"),
+    (mppi_cuda.Commu4Cost4(CartPoleParams.two_wheel(), 0.06), 20, None, "exact CartPoleShaped4"),
 ])
-def test_unbuilt_sweep_is_refused(model, n, source, rpt, match):
+def test_unbuilt_sweep_is_refused(model, n, source, match):
     """What ``mppi_sweep_batch_fused`` checks on a CUDA device before any
     launch (``check_built`` on the sweep's ``SweepModel``)."""
     with pytest.raises(ValueError, match=match):
-        mppi_cuda.check_built(mppi_cuda.SweepModel(model), n, source, rpt)
+        mppi_cuda.check_built(mppi_cuda.SweepModel(model), n, source)
 
 
 def test_make_sweep_at_n41_on_a_card_raises_before_a_launch(monkeypatch):
-    """``make_sweep(n_horizon=41)`` on a CUDA device raises a ValueError
-    when it is made, before any tensor or launch (the card is mocked: the
-    library must not be asked for); on the CPU it runs, as the JAX sweep
-    takes any N."""
+    """``make_sweep`` on a CUDA device (the card is mocked: the library must
+    not be asked for): N = 41 and 64, which the kernel took no more before it
+    took N at run time, are made without a launch as 1, 20, 40 and 224 are;
+    past ``SWEEP_MAX_HORIZON`` (225) and at 0 it raises a ValueError when it
+    is made, before any tensor or launch. On the CPU N = 225 runs, as the
+    JAX sweep takes any N."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
 
     def no_library():
@@ -367,65 +373,163 @@ def test_make_sweep_at_n41_on_a_card_raises_before_a_launch(monkeypatch):
 
     monkeypatch.setattr(mppi_cuda, "_library", no_library)
     mppi_cuda.reset_launches()
-    with pytest.raises(ValueError, match=r"no sweep kernel for horizon N=41; it is built for N=1-40"):
-        tune.make_sweep(k=64, n_horizon=41, device="cuda")
-    for n in (1, 20, 40):  # built: made without a launch
+    for n in (225, 0):
+        with pytest.raises(ValueError, match=rf"no sweep kernel for horizon N={n}; it runs N=1-224"):
+            tune.make_sweep(k=64, n_horizon=n, device="cuda")
+    for n in (1, 20, 40, 41, 64, 224):  # made without a launch
         tune.make_sweep(k=64, n_horizon=n, device="cuda")
     assert not any(mppi_cuda.launches.values())
     monkeypatch.undo()
-    surv, cost, ess = tune.make_sweep(k=64, n_horizon=41, n_ticks=2, device="cpu")([50.0], [1.0], [0])
+    surv, cost, ess = tune.make_sweep(k=64, n_horizon=225, n_ticks=2, device="cpu")([50.0], [1.0], [0])
     assert surv.shape == cost.shape == ess.shape == (1,) and bool(torch.isfinite(cost).all())
 
 
 def test_every_sweep_horizon_is_instantiated_once_in_the_sources():
-    """Each of ``build.SOURCES`` instantiates its horizons: the sweep at
-    every N of 1-40, serve's cart-pole at N = 9-40 and the rows' finalize
-    at N = 8-40, each exactly once over the sources (a missing one fails at
-    load, a second one at link time, on the card only)."""
+    """The sweep is one kernel, defined in ``sweep.cuh`` and instantiated by
+    one source of ``build.SOURCES`` (``sweep.cu``, with its C entries), not
+    a horizon at a time; serve's cart-pole at N = 9-40 and the rows'
+    finalize at N = 8-40 are each instantiated exactly once over the
+    sources (a missing one fails at load, a second one at link time, on the
+    card only)."""
     import re
 
     from mpc_rs_tpu_torch.ops import build
 
     found = {"SWEEP": [], "SERVE": [], "FINALIZE": []}
+    including = []
     for src in build.SOURCES:
-        for kind, n in re.findall(r"^MPC_(SWEEP|SERVE|FINALIZE)_HORIZON\((\d+)\)", (build.CSRC / src).read_text(),
-                                  flags=re.M):
+        text = (build.CSRC / src).read_text()
+        for kind, n in re.findall(r"^MPC_(SWEEP|SERVE|FINALIZE)_HORIZON\((\d+)\)", text, flags=re.M):
             found[kind].append(int(n))
-    assert sorted(found["SWEEP"]) == list(mppi_cuda.SWEEP_HORIZONS)
+        if re.search(r'^#include "sweep\.cuh"', text, flags=re.M):
+            including.append(src)
+    assert including == ["sweep.cu"] and "sweep.cuh" in build.HEADERS
+    assert found["SWEEP"] == []
+    # one kernel, not a template: a line of launch bounds, then its name
+    kernels = re.findall(r"^(.*)\n__global__ void __launch_bounds__\(kThreads, kSweepMinBlocks\)\nmppi_sweep_kernel\(",
+                         (build.CSRC / "sweep.cuh").read_text(), flags=re.M)
+    assert len(kernels) == 1 and not kernels[0].startswith("template")
     assert sorted(found["SERVE"]) == list(mppi_cuda.SERVE_HORIZONS)
     # MPC_SERVE_HORIZON(N) holds the finalize at N too
     assert sorted(found["FINALIZE"] + found["SERVE"]) == sorted(mppi_cuda.FINALIZE_HORIZONS)
 
 
 def test_sweep_kernel_names_are_read_by_r_and_horizon(tmp_path):
-    """The tools that read the sweep's instantiations by name: ptxas rows
-    by (R, N) (``profile_sweep.sweep_ptxas``), tune's N = 8 in the SASS
-    counts (``profile_partials.SWEEP_RE``) and in the bit comparison of two
-    checkouts (``sweep_bits``), whose comparison holds every case."""
+    """The tools that read the sweep's one kernel by name: its ptxas row
+    (``profile_sweep.sweep_ptxas``: registers, spill, stack), the SASS
+    counts (``profile_partials.SWEEP_RE``) and the comparison of two
+    checkouts (``sweep_bits``), which reads the parent's N = 8
+    instantiations too and holds each sweep case to its tolerance and each
+    solve to its bits."""
     from mpc_rs_tpu_torch.runtime import profile_partials, profile_sweep, sweep_bits
 
-    def name(r, n):
-        return (f"_ZN3mpc17mppi_sweep_kernelILi{r}ELi{n}ELi0EEEvNS_18CartPoleNonlinearTILb0EEENS_12PartialsArgsE"
-                f"NS_10PartialsIOENS_9MppiSweepE")
-
+    name = "_ZN3mpc17mppi_sweep_kernelENS_18CartPoleNonlinearTILb0EEENS_9SweepArgsE"
+    old = lambda r, n: (f"_ZN3mpc17mppi_sweep_kernelILi{r}ELi{n}ELi0EEEvNS_18CartPoleNonlinearTILb0EEENS_"  # noqa: E731
+                        f"12PartialsArgsENS_10PartialsIOENS_9MppiSweepE")
+    other = "_ZN3mpc20mppi_partials_kernelILi8ENS_18CartPoleNonlinearTILb0EEENS_7Shaped4ELb0ELi1ELi4ELi0EEEvT0_"
     log = []
-    for (r, n), regs in {(1, 8): 46, (4, 8): 64, (1, 31): 115, (1, 40): 134}.items():
-        log += [f"ptxas info    : Compiling entry function '{name(r, n)}' for 'sm_90a'",
-                f"ptxas info    : Function properties for {name(r, n)}",
+    for func, regs in ((other, 64), (name, 46)):
+        log += [f"ptxas info    : Compiling entry function '{func}' for 'sm_90a'",
+                f"ptxas info    : Function properties for {func}",
                 "    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
                 f"ptxas info    : Used {regs} registers, used 1 barriers, 32 bytes cumulative stack size"]
     rows = profile_sweep.sweep_ptxas("\n".join(log))
-    assert [(r["rpt"], r["n"], r["registers"], r["spill_bytes"]) for r in rows] == [
-        (1, 8, 46, 0), (4, 8, 64, 0), (1, 31, 115, 0), (1, 40, 134, 0)]
-    assert [bool(sweep_bits.N8_RE.search(name(r, n))) for r, n in ((1, 8), (4, 8), (1, 9), (1, 18))] == [
-        True, True, False, False]
-    assert profile_partials.SWEEP_RE.search(name(4, 8)).groups() == ("4", "8")
-    outs = {"K1024/external/R1": [torch.zeros(2, 8), torch.zeros(2, dtype=torch.int32), torch.ones(2)]}
-    for label, ess in (("a", 1.0), ("b", 1.0), ("c", 2.0)):
-        torch.save({"out": {k: [v[0], v[1], v[2] * ess] for k, v in outs.items()}, "ptxas": [], "build_s": 0.0},
-                   tmp_path / f"{label}.pt")
-    for other, equal in (("b", True), ("c", False)):
+    assert [(r["registers"], r["spill_bytes"], r["stack_bytes"]) for r in rows] == [(46, 0, 32)]
+    assert profile_partials.SWEEP_RE.search(name) and not profile_partials.SWEEP_RE.search(old(4, 8))
+    assert [bool(sweep_bits.SWEEP_RE.search(f)) for f in (name, old(1, 8), old(4, 8), old(1, 9), other)] == [
+        True, True, True, False, False]
+    assert profile_sweep.parse_horizons("1,8,20-23,224") == [1, 8, 20, 21, 22, 23, 224]
+    f64, f32 = str(torch.float64), str(torch.float32)
+    want = [torch.tensor([[1.0, 2.0]]), torch.zeros(1, dtype=torch.int32), torch.tensor([10.0])]
+    plain = {"K1024/external": {f64: want, f32: [want[0] + 1e-3, want[1], want[2] + 1e-3]}}
+    solves = {"K2": [torch.ones(8), torch.zeros((), dtype=torch.int32)]}
+    for label, du, bits in (("a", 0.0, 0.0), ("b", 1e-4, 0.0), ("c", 1e-2, 0.0), ("d", 0.0, 1e-7)):
+        out = {"K1024/external": [want[0] + du, want[1], want[2]]}
+        torch.save({"out": out, "plain": plain, "solves": {"K2": [solves["K2"][0] + bits, solves["K2"][1]]},
+                    "ptxas": [], "build_s": 0.0}, tmp_path / f"{label}.pt")
+    for label, within, solves_equal in (("b", True, True), ("c", False, True), ("d", True, False)):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            sweep_bits.compare(tmp_path / "a.pt", tmp_path / f"{other}.pt")
-        assert json.loads(buf.getvalue())["all_equal"] is equal
+            sweep_bits.compare(tmp_path / "a.pt", tmp_path / f"{label}.pt")
+        got = json.loads(buf.getvalue())
+        assert (got["sweep_within_tol"], got["solves_equal"]) == (within, solves_equal), label
+
+
+# --------------------------------------------------------------------------
+# the sweep's tiles a block, R and shared memory
+
+
+def test_sweep_tiles_keep_the_grid_and_grow_to_the_cap():
+    """The wrapper's tiles a block on an H100 (132 SMs): tune's grid (B =
+    96, K = 800 000) takes 16, 196 blocks a problem, 18 816 in all; a grid
+    that holds fewer than ``SWEEP_MIN_BLOCKS_AN_SM`` blocks an SM at one
+    tile a block takes 1; otherwise the largest power of two up to
+    ``SWEEP_MAX_TILES`` whose grid keeps them (doubling it would not)."""
+    least = mppi_cuda.SWEEP_MIN_BLOCKS_AN_SM * mppi_cuda.H100_SMS
+    assert mppi_cuda.sweep_tiles(800_000, 96) == 16
+    for k, b in ((1024, 96), (4096, 96), (800_000, 1), (65_536, 8), (1, 1)):
+        assert mppi_cuda.sweep_tiles(k, b) == 1
+    for k, b in ((800_000, 96), (800_000, 24), (10_000_000, 96), (2_000_000, 16), (65_536, 1024), (300_000, 300)):
+        t = mppi_cuda.sweep_tiles(k, b)
+        tiles = -(-k // 256)
+        assert t in (1, 2, 4, 8, 16) and t <= mppi_cuda.SWEEP_MAX_TILES
+        assert -(-tiles // t) * b >= least or t == 1
+        assert t == mppi_cuda.SWEEP_MAX_TILES or -(-tiles // (2 * t)) * b < least
+    assert mppi_cuda.sweep_tiles(10_000_000, 96) == mppi_cuda.SWEEP_MAX_TILES == 16
+    assert mppi_cuda.sweep_tiles(65_536, 96) == 4
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 3, 4, 16, 64])
+def test_sweep_shared_bytes_at_every_horizon(tiles):
+    """The kernel's dynamic shared memory at every N of 1-224 at ``tiles``
+    tiles a block, as the kernel lays it out: R (4 up to N = 10, 2 up to
+    20, else 1, where R divides the tiles) times 256 columns of N controls
+    and a score, u_n and the running Σ w v, 26 floats of scratch. Every N
+    up to the maximum stays under 232 448 bytes, N = 225 passes it; up to
+    N = 40 a block takes at most 45 240 bytes (R N ≤ 40), so that shared
+    memory holds five blocks an SM."""
+    for n in range(1, mppi_cuda.SWEEP_MAX_HORIZON + 2):
+        r = mppi_cuda.sweep_rollouts_a_thread(n, tiles)
+        assert r in (1, 2, 4) and tiles % r == 0 and (r == 1 or r * n <= 40)
+        assert r == (4 if n <= 10 and tiles % 4 == 0 else 2 if n <= 20 and tiles % 2 == 0 else 1)
+        size = mppi_cuda.sweep_shared_bytes(n, tiles)
+        assert size == 4 * (256 * r * n + 256 * r + 2 * n + 26)
+        assert (size <= 232_448) == (n <= mppi_cuda.SWEEP_MAX_HORIZON)
+        if n <= 40:
+            assert size <= 45_240
+
+
+def test_sweep_plain_rows_follow_the_blocks():
+    """The plain version's rows group the rollouts as the kernel's blocks do,
+    256 tiles a row (the last row ragged), and its answer does not depend on
+    the grouping but in the last bits (float64); a tile count below 1 is
+    refused."""
+    lam, sig, xs, u_n, noise = _grid_inputs(1000, seed=3)
+    args = (_cfg(1000), MODEL, torch.tensor(xs), torch.tensor(u_n), torch.tensor(noise), torch.tensor(lam),
+            torch.tensor(sig))
+    want = mppi_cuda.finalize_sweep_plain(mppi_cuda.sweep_partials_plain(*args, tiles_per_block=1), args[-2])
+    for tiles, rows in ((1, 4), (2, 2), (3, 2), (4, 1), (16, 1)):
+        parts = mppi_cuda.sweep_partials_plain(*args, tiles_per_block=tiles)
+        assert parts.shape == (len(GRID), rows, N + 3)
+        for g, w in zip(mppi_cuda.finalize_sweep_plain(parts, args[-2]), want):
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError, match="tiles_per_block must be at least 1"):
+        mppi_cuda.mppi_sweep_batch_fused(_cfg(1000), MODEL, *args[2:4], args[5], args[6], noise=args[4],
+                                         tiles_per_block=0)
+
+
+def test_sweep_tiles_read_the_cards_sms(monkeypatch):
+    """The wrapper's tiles a block scale with the card's SMs, read from the
+    device (an H100's 132 on the CPU): at B = 96, K = 65 536 a card of half
+    the SMs takes twice the tiles, one of twice the SMs half, up to the cap;
+    a CPU tensor's plain rows group as an H100's blocks would."""
+
+    class Props:
+        def __init__(self, sms):
+            self.multi_processor_count = sms
+
+    for sms, want in ((132, 4), (66, 8), (264, 2), (16, 16)):
+        monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev, sms=sms: Props(sms))
+        assert mppi_cuda.sweep_tiles(65_536, 96, "cuda:0") == want, sms
+    monkeypatch.undo()
+    assert mppi_cuda.sweep_tiles(800_000, 96, "cpu") == mppi_cuda.sweep_tiles(800_000, 96) == 16
