@@ -6,8 +6,9 @@
 Builds the CUDA kernels from the sources in this checkout (printing ptxas's
 registers and spills and the static SASS counts of the production partials
 instantiations beside the build seconds, and failing on a spill in a
-partials, sweep, D1 or estimator chain instantiation, or when a partials
-instantiation's registers leave ``PARTIALS_PTXAS``), holds each against its plain
+partials, sweep, horizons, finalize, D1 or estimator chain kernel, or
+when a partials instantiation's registers leave ``PARTIALS_PTXAS``), holds
+each against its plain
 PyTorch version on the card (the fast-math probe also on a misaligned view
 and a ragged count, bit for bit against its vector path), counts by
 torch.profiler the kernels a solve,
@@ -52,11 +53,13 @@ the HW chain's µs a solve against its 0.06 s budget are printed.
 
 The hardware-in-the-loop layer runs against fake MCUs behind PTYs: the
 native COBS codec (loaded, never rebuilt in place) against the Python codec
-on 1 000 seeded payloads; the cart-pole's partials kernel at every
-plan-streaming horizon of serve, N = 9-40 (single solve and the batch of 8
-robots at K = 8192, box-muller alone, serve's only sampler, at R = 1, and
-at N = 40 R = 4) against its float64 plain version, with its noise
-against ``ops/philox.py``'s words, its ptxas registers and no spill; and,
+on 1 000 seeded payloads; the cart-pole at every plan-streaming horizon
+of serve, N = 9-40, on its one kernel that takes N at run time
+(``mppi_horizons_kernel``: single solve and the batch of 8 robots at
+K = 8192, box-muller alone, serve's only sampler, at R = 1, and at N = 40
+R = 4) against its float64 plain version, with its noise against
+``ops/philox.py``'s words, its one register count
+(``HORIZONS_REGISTERS``), no spill and its blocks an SM at every N; and,
 through the CLI entry, ``uart``, ``mppi4-commu`` (K = 800 000),
 ``mppi4-ukf-commu`` (K = 800 000, N = 20, the filter in float32 and in
 float64) and ``serve`` (8 robots, K = 8192: M = 1 at depth 0 and 2, M = 4
@@ -90,7 +93,8 @@ the specs of ``tune``, ``mpc-ukf-commu``, ``uart``, ``mppi4-commu``,
 ``serve-stream`` and ``op-en2`` at seed 0; every acceptance check comes from
 ``mpc_rs_tpu_torch/apps/acceptance.py``.
 
-The multi-GPU phases hold ``fleet_finalize_kernel`` at N = 8, 20 and 40
+The multi-GPU phases hold ``fleet_finalize_kernel`` (one kernel for
+N = 8-40) at N = 8, 20 and 40
 and at serve's N = 9, 16, 31, 32 and 39 against its plain version and the
 merged-in-launch solve, run the K-sharded solve at the family's pairs past
 N = 8 (the HW flagship at N = 20, K = 800 000, bit for bit
@@ -152,11 +156,9 @@ CLT_FAMILY_SPREAD = 0.02  # cltone/cltbig/cltreg launch clt's kernel: their D1 t
 # family's 42 (linear cart-pole at N = 8, commu4 at N = 20, the double
 # integrator at N = 40) as they were built first (the linear cart-pole's
 # three at R = 4 clt4, clt4a and R = 1 clt2q as they were rebuilt with the
-# merge's merged-row output: 58, 57 and 45 registers, from 56, 59 and 44),
-# and serve's cart-pole at N = 40 (horizons_40.cu) as it was built first,
-# now box-muller alone (sampler ID 1: a row of {source ID: registers}), and
-# at N = 9-39, R = 1 (SERVE_R1_PTXAS) as they were built first. The build
-# must keep them.
+# merge's merged-row output: 58, 57 and 45 registers, from 56, 59 and 44).
+# The build must keep them. The cart-pole past N = 8 runs on one kernel,
+# mppi_horizons_kernel (HORIZONS_REGISTERS).
 PARTIALS_PTXAS = {
     ("CartPoleNonlinearT", 8, 0, 1): (44, 46, 46, 44, 45, 45, 45),
     ("CartPoleNonlinearT", 8, 0, 4): (64, 64, 64, 64, 64, 64, 64),
@@ -172,14 +174,11 @@ PARTIALS_PTXAS = {
     ("Commu4", 20, 0, 4): (123, 128, 128, 127, 128, 128, 127),
     ("DoubleIntegrator", 40, 0, 1): (127, 135, 134, 141, 130, 134, 167),
     ("DoubleIntegrator", 40, 0, 4): (255, 244, 254, 254, 254, 254, 254),
-    ("CartPoleNonlinearT", 40, 0, 1): {1: 148},
-    ("CartPoleNonlinearT", 40, 0, 4): {1: 254},
 }
-# serve's cart-pole at N = 9-39, box-muller, R = 1: {N: registers}
-SERVE_R1_PTXAS = {9: 48, 10: 48, 11: 52, 12: 54, 13: 56, 14: 60, 15: 64, 16: 64, 17: 67, 18: 70, 19: 72, 20: 80,
-                  21: 79, 22: 88, 23: 95, 24: 96, 25: 95, 26: 96, 27: 95, 28: 99, 29: 112, 30: 120, 31: 121,
-                  32: 122, 33: 127, 34: 127, 35: 127, 36: 128, 37: 128, 38: 133, 39: 145}
-PARTIALS_PTXAS.update({("CartPoleNonlinearT", n, 0, 1): {1: r} for n, r in SERVE_R1_PTXAS.items()})
+# ptxas registers of mppi_horizons_kernel (ops/csrc/horizons.cu: the
+# cart-pole at N = 9-40, one kernel that takes N at run time), with no
+# spill, at every N; its launch bounds allow at most 48
+HORIZONS_REGISTERS = 48
 # flagship6's float32 filter is ill-conditioned in a few x̂ entries at B >= 1 000:
 # two float32 evaluations in one order of operations differ past the band
 # there (PERF.md §6); at most this many K7 entries may leave it
@@ -1372,10 +1371,9 @@ def family_phases(dev: torch.device, card: dict) -> list[dict]:
     ]
 
 
-SERVE_SOURCE = "mpc_rs_tpu_torch/ops/csrc/horizons_40.cu"  # the cart-pole at serve's N = 40
-# the cart-pole at serve's N = 9-39 and fleet_finalize_kernel at N = 8-40,
-# instantiated over horizons_*.cu
-SERVE_HORIZONS_SOURCE = "mpc_rs_tpu_torch/ops/csrc/horizons.cuh"
+# the cart-pole at serve's N = 9-40 (mppi_horizons_kernel) and
+# fleet_finalize_kernel at N = 8-40, one kernel each that takes N at run time
+HORIZONS_SOURCE = "mpc_rs_tpu_torch/ops/csrc/horizons.cu"
 NATIVE_FILES = ("native/mpcio.cpp", "native/libmpcio.so", "native/libmpcio.so.src.sha256", "native/oracle.cpp",
                 "native/liboracle.so", "native/liboracle.so.src.sha256")
 
@@ -1392,13 +1390,13 @@ def ms_quantiles(seconds) -> dict:
     return {"median_ms": statistics.median(ms), "p99_ms": ms[min(len(ms) - 1, int(0.99 * len(ms)))]}
 
 
-def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
+def hil_phases(dev: torch.device, card: dict) -> list[dict]:
     """The hardware-in-the-loop layer and the serve bridge: the native COBS
     codec against the Python one; the cart-pole's partials kernel at every
     plan-streaming horizon of serve, N = 9-40, box-muller alone (single
     solve and the B = 8 batch; R = 1, and R = 4 at N = 40) against its
     float64 plain version, its noise against ``ops/philox.py``'s words, its
-    ptxas registers and spill; and, as main paths through the CLI entry
+    registers and blocks an SM; and, as main paths through the CLI entry
     (counts reset before each, read after), ``uart``, ``mppi4-commu``
     (K = 800 000), ``mppi4-ukf-commu`` (K = 800 000, N = 20) and ``serve``
     (8 robots, K = 8192; M = 1 at depth 0 and 2, M = 4 at depth 1, which
@@ -1413,7 +1411,6 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     from mpc_rs_tpu_torch.models.params import CartPoleParams
     from mpc_rs_tpu_torch.ops import mppi_cuda
     from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4
-    from mpc_rs_tpu_torch.runtime.profile_partials import ptxas_partials
 
     native_before = native_digests()
     # H1. the native codec, loaded (never rebuilt in place), against the
@@ -1438,25 +1435,23 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
     emit({"phase": "hil_io", "library": str(native.path), "built": native.built, "payloads": 1000,
           "payload_bytes": total, "seconds": time.perf_counter() - t0})
 
-    # H2. the partials kernel on the cart-pole at serve's plan-streaming
-    # horizons (horizons.cuh, horizons_*.cu), box-muller alone: K2 on one
+    # H2. the cart-pole at serve's plan-streaming horizons on its one kernel
+    # (mppi_horizons_kernel, horizons.cu), box-muller alone: K2 on one
     # problem and the batch of serve's 8 robots at K = 8192 against the
     # float64 plain version fed the kernel's noise, at λ = 20, where the f32
     # solve is well conditioned; the kernel's noise against ops/philox.py's
     # words; the statuses the plain version's; the merge tickets back at
-    # zero; ptxas's registers and no spill. N = 40 at R = 1 and 4, then
-    # N = 9-39 at R = 1 (H2b): N = 31 ends in warp 0, N = 32 spans two warps,
-    # odd N half uses its last box-muller pair. At N = 40 also serve's
-    # λ = 0.5, against twice the plain f32 version's own distance from float64.
+    # zero; its registers and local bytes, one count at every N
+    # (HORIZONS_REGISTERS), and its blocks an SM (mppi_cuda.horizons_occupancy). N = 40
+    # at R = 1 and 4, then N = 9-39 at R = 1: odd N half uses its last
+    # box-muller pair. At N = 40 also serve's λ = 0.5, against twice the
+    # plain f32 version's own distance from float64.
     k, b = 8192, 8
-    serve_ptxas = {}
-    for ln in ptxas_partials(log):
-        tag = ln.split(": ", 1)[0].split("/")
-        if tag[1] == "CartPoleNonlinearT" and int(tag[0]) > N:
-            row = serve_ptxas.setdefault((int(tag[0]), int(tag[6])), {"sampler": int(tag[5])})
-            used, spill = re.search(r"Used (\d+) registers", ln), re.search(r"(\d+) bytes spill stores", ln)
-            row.update({"registers": int(used.group(1))} if used else {})
-            row.update({"spill_store_bytes": int(spill.group(1))} if spill else {})
+    occupancy = {n: mppi_cuda.horizons_occupancy(n, dev) for n in range(9, 41)}
+    counts = {(o["registers"], o["local_bytes"]) for o in occupancy.values()}
+    check(len(counts) == 1 and occupancy[9]["registers"] == HORIZONS_REGISTERS,
+          f"mppi_horizons_kernel: (registers, local bytes) {counts} over N = 9-40, want one, "
+          f"{HORIZONS_REGISTERS} registers")
 
     def serve_model(n):
         return CartPoleShaped4(CartPoleParams.single_wheel(), 0.01 if n == 40 else 0.8 / n)
@@ -1497,16 +1492,11 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
             e = max(check_band(got_u, want_u, f"N={n} batch R={rpt} vs plain"),
                     check_band(one_u, want_u[0], f"N={n} K2 R={rpt} vs plain"))
             horizon_err[n] = max(horizon_err.get(n, 0.0), e)
-            ptx = serve_ptxas.get((n, rpt), {})
-            check(ptx.get("sampler") == 1 and "registers" in ptx and ptx.get("spill_store_bytes") == 0,
-                  f"N={n} R={rpt}: ptxas {ptx}")
             rows.append({"n": n, "rollouts_per_thread": rpt, "max_abs_err": e, "noise_max_abs_err": noise_err,
-                         "registers": ptx["registers"], "spill_store_bytes": ptx["spill_store_bytes"]})
+                         "registers": occupancy[n]["registers"], "blocks_per_sm": occupancy[n]["blocks_per_sm"]})
         tickets_zero = bool((mppi_cuda.merge_tickets(dev, 1) == 0).all()) and bool(
             (mppi_cuda.merge_tickets(dev, b) == 0).all())
         check(tickets_zero, f"N={n}: merge tickets not zero after the calls")
-    check(sorted(serve_ptxas) == sorted((n, r) for n in range(9, 41) for r in mppi_cuda.built_for(serve_model(n), n)[1]),
-          f"the cart-pole past N = 8 is built as {sorted(serve_ptxas)}: N = 40 at R = 1 and 4, N = 9-39 at R = 1")
     m40, cfg_app = serve_model(40), serve_cfg(40, 0.5)
     u40 = 0.3 * torch.randn((b, 40), generator=gen, device=dev)
     got_u, got_st = mppi_cuda.mppi_solve_batch_fused(cfg_app, m40, xs, u40, seeds=seeds, sampler="box-muller")
@@ -1518,7 +1508,7 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
           f"N=40 at serve's λ=0.5: {app_err} against twice the plain f32 distance {own}")
     emit({"phase": "family_serve_horizons", "k": k, "b": b, "lambda": 20.0, "rows": rows,
           "max_abs_err": horizon_err, "n40_app_lambda_max_abs_err": app_err, "n40_app_lambda_plain_f32_vs_f64": own,
-          "instantiations": len(serve_ptxas), "ptxas": {f"{n}/R={r}": v for (n, r), v in sorted(serve_ptxas.items())}})
+          "occupancy": occupancy})
 
     # H3-H5. the HIL apps through the CLI entry against a fake MCU
     log_dir = ["--log-dir", "logs/chip_smoke_hil"]
@@ -1638,26 +1628,20 @@ def hil_phases(dev: torch.device, card: dict, log: str) -> list[dict]:
               "plain_us": 1e3 * plain_t, **timing[nn][2], **card})
     check(native_digests() == native_before, "native/ changed during the run")
     kern, plain_t, bnd, _ = timing[40]
-    n16 = timing[16]
     streamed = {16: sum(serve_runs[label][1]["mppi_solve_batch_fused"] for label in ("m2_p050_d1", "m2_p050_d0")),
-                32: serve_runs["m4_p025"][1]["mppi_solve_batch_fused"]}
+                32: serve_runs["m4_p025"][1]["mppi_solve_batch_fused"],
+                40: serve_runs["m4_d1"][1]["mppi_solve_batch_fused"]}
     return [
-        {"name": "mppi_partials_kernel<40, CartPoleNonlinearT, Shaped4> on B problems (K5/K6, serve plan "
-                 "streaming, B=8, K=8192, box-muller)", "route": "cuda", "source": SERVE_SOURCE,
-         "replaces": f"{PALLAS}:692", "launches": serve_runs["m4_d1"][1]["mppi_solve_batch_fused"],
-         "max_abs_err": horizon_err[40], "ms": kern, "plain_ms": plain_t, "bound_ms": bnd["bound_ms"],
-         "bound_by": bnd["bound_by"], "library_ms": None},
-        {"name": "mppi_partials_kernel<N, CartPoleNonlinearT, Shaped4> at serve's N = 9-39 on B problems (K5/K6, "
-                 "B=8, K=8192, box-muller, R=1; the top-level numbers at N = 16, every N in per_n)",
-         "route": "cuda", "source": SERVE_HORIZONS_SOURCE, "replaces": f"{PALLAS}:692",
+        {"name": "mppi_horizons_kernel: the cart-pole at serve's N = 9-40, one kernel that takes N at run time, on B "
+                 "problems (K5/K6, serve plan streaming, B=8, K=8192, box-muller; the top-level numbers at N = 40, "
+                 "every N in per_n)", "route": "cuda", "source": HORIZONS_SOURCE, "replaces": f"{PALLAS}:692",
          "launches": sum(streamed.values()), "launches_by_n": streamed,
-         "max_abs_err": max(horizon_err[n_] for n_ in range(9, 40)),
-         "ms": n16[0], "plain_ms": n16[1], "bound_ms": n16[2]["bound_ms"], "bound_by": n16[2]["bound_by"],
-         "library_ms": None,
+         "max_abs_err": max(horizon_err.values()), "ms": kern, "plain_ms": plain_t, "bound_ms": bnd["bound_ms"],
+         "bound_by": bnd["bound_by"], "library_ms": None,
          "per_n": {n_: {"max_abs_err": horizon_err[n_], "device_us": timing[n_][3], "ms": timing[n_][0],
                         "plain_ms": timing[n_][1], "bound_ms": timing[n_][2]["bound_ms"],
-                        "bound_by": timing[n_][2]["bound_by"], "registers": serve_ptxas[(n_, 1)]["registers"],
-                        "spill_store_bytes": serve_ptxas[(n_, 1)]["spill_store_bytes"]} for n_ in range(9, 40)}},
+                        "bound_by": timing[n_][2]["bound_by"], "registers": occupancy[n_]["registers"],
+                        "blocks_per_sm": occupancy[n_]["blocks_per_sm"]} for n_ in range(9, 41)}},
     ]
 
 
@@ -2769,8 +2753,9 @@ def multigpu_phases(dev: torch.device, card: dict) -> list[dict]:
                              *(f"finalize:N={n}" for n in sorted(fin_timing)))}
     check(all(launches.values()), f"the multi-GPU main paths launched {launches}")
     return [
-        {"name": f"fleet_finalize_kernel<{n}> (the K-sharded solve's finalize, finalize_batch_fused at N={n})",
-         "route": "cuda", "source": SERVE_HORIZONS_SOURCE, "replaces": f"{PALLAS}:1019",
+        {"name": f"fleet_finalize_kernel at N={n}, one kernel that takes N at run time (the K-sharded solve's "
+                 f"finalize, finalize_batch_fused)",
+         "route": "cuda", "source": HORIZONS_SOURCE, "replaces": f"{PALLAS}:1019",
          "launches": launches[f"finalize:N={n}"],
          "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
          "bound_by": t["bound_by"], "library_ms": None}
@@ -3034,14 +3019,15 @@ def main() -> None:
     emit({"phase": "ptxas_estimator_chain", "ptxas": k7_ptxas})
     check(sum("registers" in ln for ln in k7_ptxas) == 3, f"K7 instantiations in the ptxas report: {k7_ptxas}")
     check(not k7_spills, f"ptxas spills in the estimator chain: {k7_spills}")
-    # the rows' finalize at each built horizon (N = 8-40; at 40 a lane
-    # holds 41 sums): registers, no spill
-    fin_ptxas = ptxas_kernel(log, "fleet_finalize_kernel")
-    fin_spills = [ln for ln in fin_ptxas if "spill stores" in ln and " 0 bytes spill stores" not in ln]
-    emit({"phase": "ptxas_finalize", "ptxas": fin_ptxas})
-    check(sum("registers" in ln for ln in fin_ptxas) == len(mppi_cuda.FINALIZE_HORIZONS),
-          f"finalize instantiations in the ptxas report: {fin_ptxas}")
-    check(not fin_spills, f"ptxas spills in the finalize kernel: {fin_spills}")
+    # the rows' finalize and the cart-pole's solves past N = 8, one kernel
+    # each for every horizon: registers (the solves' HORIZONS_REGISTERS), no spill
+    for kernel, want in (("fleet_finalize_kernel", None), ("mppi_horizons_kernel", HORIZONS_REGISTERS)):
+        lines = ptxas_kernel(log, kernel)
+        spilled = [ln for ln in lines if "spill stores" in ln and " 0 bytes spill stores" not in ln]
+        used = [int(u.group(1)) for ln in lines if (u := re.search(r"Used (\d+) registers", ln))]
+        emit({"phase": f"ptxas_{kernel}", "ptxas": lines})
+        check(len(used) == 1 and not spilled and want in (None, used[0]),
+              f"{kernel}: one kernel with no spill{f' and {want} registers' if want else ''}: {lines}")
 
     # 2b. the HIL apps of this slice at their acceptance specs, on the host's
     # clock, before any torch.profiler session of the run
@@ -3284,7 +3270,7 @@ def main() -> None:
     diag = diag_phases(dev, card)
     ukf_fidelity_phase(dev, card)
     family = family_phases(dev, card)
-    hil = hil_phases(dev, card, log)
+    hil = hil_phases(dev, card)
     multigpu = multigpu_phases(dev, card)
     sweep = tune_phases(dev, card, log)
     fleet_finish_phases(dev, card)

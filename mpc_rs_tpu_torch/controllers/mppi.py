@@ -24,6 +24,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from mpc_rs_tpu_torch.models.dynamics import _div
+
 
 class MppiStatus(enum.IntEnum):
     OK = 0
@@ -103,7 +105,7 @@ def mppi_solve(
     finite = torch.isfinite(s_k)
     any_finite = torch.any(finite)
     m = torch.max(torch.where(finite, s_k, -torch.inf))  # src/mppi.rs:65-69
-    w = torch.exp((s_k - m) / cfg.lambda_)  # src/mppi.rs:71-74
+    w = torch.exp(_div(s_k - m, cfg.lambda_))  # src/mppi.rs:71-74
     w = torch.where(finite, w, 0.0)
     w_sum = torch.sum(w)
     sum_zero = w_sum == 0.0

@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from mpc_rs_tpu_torch.models.dynamics import _div
+
 
 @dataclasses.dataclass(frozen=True)
 class PidConfig:
@@ -39,6 +41,6 @@ def pid_init(dtype=torch.float32, shape=(), device=None) -> PidState:
 def pid_update(cfg: PidConfig, state: PidState, set_point, actual, dt):
     """One tick: returns (u, new state) — pid.rs:27 ``pid.update(ref, act, DT)``."""
     e = set_point - actual
-    du = cfg.kp * (e - state.e1) + cfg.ki * e * dt + cfg.kd * (e - 2.0 * state.e1 + state.e2) / dt
+    du = cfg.kp * (e - state.e1) + cfg.ki * e * dt + _div(cfg.kd * (e - 2.0 * state.e1 + state.e2), dt)
     u = torch.clamp(state.u + du, cfg.lo, cfg.hi)
     return u, PidState(u=u, e1=e, e2=state.e1)

@@ -13,9 +13,17 @@ from __future__ import annotations
 
 import torch
 
+from mpc_rs_tpu_torch.models.dynamics import _div
+
 
 def _trace(s: torch.Tensor) -> torch.Tensor:
     return torch.diagonal(s, dim1=-2, dim2=-1).sum(dim=-1)
+
+
+def mean_diag(s: torch.Tensor) -> torch.Tensor:
+    """The mean of the diagonal of (..., n, n): the trace over n, one IEEE
+    division on every device (``models.dynamics._div``)."""
+    return _div(_trace(s), s.shape[-1])
 
 
 def chol_unrolled(s: torch.Tensor, eps_rel: float = 1e-12) -> torch.Tensor:
@@ -25,7 +33,7 @@ def chol_unrolled(s: torch.Tensor, eps_rel: float = 1e-12) -> torch.Tensor:
     ≤ eps_rel·mean-diag zeroes its whole column instead of producing a
     ~1/√eps explosion or NaNs, as the eigh root clamps its eigenvalues."""
     n = s.shape[-1]
-    floor = eps_rel * (_trace(s) / n + 1e-30)
+    floor = eps_rel * (mean_diag(s) + 1e-30)
     l = [[None] * n for _ in range(n)]
     for i in range(n):
         for j in range(i + 1):
@@ -73,7 +81,7 @@ def spd_solve_unrolled(a: torch.Tensor, b: torch.Tensor, jitter_rel: float = 0.0
     if jitter_rel:
         n = a.shape[-1]
         eye = torch.eye(n, dtype=a.dtype, device=a.device)
-        a = a + (jitter_rel * (_trace(a) / n))[..., None, None] * eye
+        a = a + (jitter_rel * mean_diag(a))[..., None, None] * eye
     return chol_solve_unrolled(chol_unrolled(a), b)
 
 

@@ -25,7 +25,7 @@ from typing import Any, Callable, Mapping, NamedTuple
 import numpy as np
 import torch
 
-from mpc_rs_tpu_torch.estimators.smallalg import chol_unrolled, eigh_jacobi_unrolled, spd_solve_unrolled
+from mpc_rs_tpu_torch.estimators.smallalg import chol_unrolled, eigh_jacobi_unrolled, mean_diag, spd_solve_unrolled
 
 
 class UkfParams(NamedTuple):
@@ -111,7 +111,7 @@ def sigma_points(params: UkfParams, x: torch.Tensor, p: torch.Tensor) -> torch.T
     s = (s + s.transpose(-1, -2)) / 2.0
     n = s.shape[-1]
     if params.sqrt_method == "cholesky":
-        jitter = 1e-6 * (torch.diagonal(s, dim1=-2, dim2=-1).sum(dim=-1) / n + 1e-30)
+        jitter = 1e-6 * (mean_diag(s) + 1e-30)
         l = chol_unrolled(s + jitter[..., None, None] * torch.eye(n, dtype=s.dtype, device=s.device))
         deltas = l.transpose(-1, -2)
         deltas = torch.where(torch.isfinite(deltas), deltas, 0.0)

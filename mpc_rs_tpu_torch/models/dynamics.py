@@ -21,7 +21,7 @@ the other makers take tensors only.
 divides once, by ``fdiv``/``freciprocal``: exact division here, the hardware
 approximate reciprocal inside the kernel.
 
-A tensor divided by a Python float goes through ``_div``: one IEEE division
+A tensor divided by a Python number goes through ``_div``: one IEEE division
 on every device, as in the kernels and the JAX reference.
 """
 
@@ -34,10 +34,10 @@ import torch
 
 def _div(a, b: float):
     """a / b, rounded once, for a tensor or a Python float ``a`` and a
-    Python float ``b``. On a CUDA tensor PyTorch would multiply by the
-    float32 reciprocal of a Python-float divisor, which is an ulp off for
-    many quotients (about one in five for the wheel radius); a 0-d tensor on
-    the same device makes it divide."""
+    Python number ``b``. On a CUDA tensor PyTorch would multiply by the
+    reciprocal of a Python-number divisor, which is an ulp off for many
+    quotients (about one in five for the wheel radius) unless b is a power
+    of two; a 0-d tensor on the same device makes it divide."""
     if isinstance(a, torch.Tensor) and a.is_cuda:
         return a / a.new_full((), b)
     return a / b

@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from mpc_rs_tpu_torch.models.dynamics import _div
 from mpc_rs_tpu_torch.models.params import CartPoleParams
 
 _RAD2DEG = 180.0 / math.pi
@@ -52,7 +53,7 @@ def make_hx_imu6(p: CartPoleParams, gear: float = 36.0):
         th, dth, ddth = x[..., 3], x[..., 4], x[..., 5]
         ax = p.g * torch.sin(th) + ddx * torch.cos(th) + p.l * ddth
         az = p.g * torch.cos(th) - ddx * torch.sin(th) + p.l * dth * dth
-        return torch.stack([k * dx, -k * dx, dth * _RAD2DEG, az / p.g, ax / p.g], dim=-1)
+        return torch.stack([k * dx, -k * dx, dth * _RAD2DEG, _div(az, p.g), _div(ax, p.g)], dim=-1)
 
     return hx
 
@@ -68,7 +69,7 @@ def make_hx_force6(p: CartPoleParams):
         th, dth, ddth = x[..., 3], x[..., 4], x[..., 5]
         v = p.m2 * p.g * torch.cos(th) + p.m2 * ddx * torch.sin(th) - p.m2 * p.l * dth * dth
         h = -p.m2 * p.g * torch.sin(th) + p.m2 * ddx * torch.cos(th) + p.m2 * p.l * ddth
-        return torch.stack(torch.broadcast_tensors(k * dx, k * dx, dth * _RAD2DEG, v / p.g, h / p.g), dim=-1)
+        return torch.stack(torch.broadcast_tensors(k * dx, k * dx, dth * _RAD2DEG, _div(v, p.g), _div(h, p.g)), dim=-1)
 
     return hx
 

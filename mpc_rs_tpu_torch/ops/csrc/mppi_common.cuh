@@ -640,6 +640,45 @@ __device__ __forceinline__ float merge_rows_warp(const float* rows, int nb, floa
   return m_all;
 }
 
+// merge_rows_warp at a horizon n given at run time, with the same bits:
+// the n + 1 sums are taken C at a time, this warp's chunks first_chunk,
+// first_chunk + chunk_step, ... (several warps of a block take a chunk
+// each, one pass over the rows), each chunk folding the lane's rows by
+// lse_fold (whose factors, and so m, do not depend on the sum), so no array
+// of n floats is held. The warp's lanes get m_all (a warp with no chunk
+// gets kNegBig); sum i of its chunks goes to tot[i], i <= n (written by one
+// lane; the caller syncs before reading it). Folding once a chunk, rather
+// than taking m in a pass of its own first, kept the one-row merge at the
+// launch's own time on an H100 (PERF.md §6).
+template <int C>
+__device__ __forceinline__ float merge_rows_warp_n(const float* rows, int nb, int n, float inv_lambda, float* tot,
+                                                   int first_chunk, int chunk_step) {
+  const int lane = threadIdx.x & 31, sums = n + 1, row_len = n + 2;
+  float m_all = kNegBig;
+  for (int c = first_chunk * C; c < sums; c += chunk_step * C) {
+    float fm = kNegBig;
+    float acc[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[j] = 0.0f;
+    for (int r = lane; r < nb; r += 32) {
+      const float* row = rows + (size_t)r * row_len;
+      const float m_r = __ldcg(row);
+      float vals[C];
+#pragma unroll
+      for (int j = 0; j < C; ++j) vals[j] = c + j < sums ? __ldcg(row + 1 + c + j) : 0.0f;
+      if (m_r > kNoFiniteBelow) lse_fold<C>(fm, acc, m_r, vals, inv_lambda);
+    }
+    m_all = warp_max(fm);
+    const float scale = fm > kNoFiniteBelow ? expf((fm - m_all) * inv_lambda) : 0.0f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const float t = warp_sum(acc[j] * scale);
+      if (lane == j % 32 && c + j < sums) tot[c + j] = t;
+    }
+  }
+  return m_all;
+}
+
 // The same merge by the whole block, for the rows of many blocks (K1/K2 at
 // large K): every thread gets m_all; tot[0..N] (shared) is filled after the
 // final barrier.

@@ -6,10 +6,11 @@
 // (diag_kernels.cuh, whose notes say what they replace and what bounds them).
 //
 // Replaces the Pallas TPU kernels of mpc_rs_tpu/ops/mppi_pallas.py. Every
-// solve is one launch of one kernel, mppi_partials_kernel (mppi_common.cuh),
-// on a grid (ceil(K/(256 R)), P) of P problems, R rollouts a thread; the
-// last block of each problem to finish merges the problem's rows and
-// finishes the solve inside the launch:
+// solve is one launch of one kernel, mppi_partials_kernel (mppi_common.cuh;
+// for the cart-pole past N = 8, mppi_horizons_kernel, horizons.cu, with the
+// same grid, rows and words), on a grid (ceil(K/(256 R)), P) of P problems,
+// R rollouts a thread; the last block of each problem to finish merges the
+// problem's rows and finishes the solve inside the launch:
 //   - K2 (mppi_pallas_partials / _make_kernel + finalize_partials): P = 1,
 //     the solve index in the Philox counter word, either tier, any sampler
 //     or external noise: one launch a solve;
@@ -97,7 +98,7 @@
 //
 // The partials kernel is instantiated for each (model, N) pair a path
 // runs, each at the seven noise sources (external noise and the six
-// samplers) and R = 1 and 4, but where a path draws fewer. Here, at the main
+// samplers) and R = 1 and 4. Here, at the main
 // paths' N = kN = 8 (mpc_rs_tpu/apps/mppi_examples.py:49, apps/fleet.py),
 // for the two models of the fleets and of mppi4-non-liner(-s/-ukf)
 // (cart-pole + shaped4, flagship4 + diag4) in both tiers: 56
@@ -107,17 +108,18 @@
 // double integrator + quad2 at N = 40 (mppi2), the linear cart-pole +
 // shaped4 at N = 8 (mppi4), commu4 + commu4 at N = 20 (the HW flagship).
 // serve's plan-streaming horizons, the cart-pole + shaped4 at N = 9-40,
-// box-muller alone (serve's only sampler), at R = 1 and, at N = 40 only,
-// R = 4: 33 instantiations over the horizons_*.cu sources
-// (horizons.cuh). The estimator chain is instantiated once per fleet
+// box-muller alone (serve's only sampler), at R = 1 and 4, run on one
+// kernel that takes N at run time, mppi_horizons_kernel (horizons.cu, in
+// the tile layout of tune's sweep, tile_solve.cuh), which the C entries
+// reach through launch_cartpole_horizon. The estimator chain is instantiated once per fleet
 // model, and for flagship6 once more on the observations scaled by 1/σ
 // (obs_normalize, HxScaled); K4's probe once per function at 4 and at 1
 // elements a thread (14); D1's kernel (partials_body with D1's policy) once
 // per MixMode at R = 1 and 4 (16), D2's chain for float and bf16 pairs at
-// 16 and 32 values a thread. Outside this source: fleet_finalize_kernel at
-// each horizon of launch_model's pairs, N = 8-40 (33), in the horizons_*.cu
-// sources (horizons.cuh); tune's sweep, one kernel for every horizon, in
-// sweep.cu (sweep.cuh, with its C entries).
+// 16 and 32 values a thread. Outside this source: fleet_finalize_kernel,
+// one kernel for every horizon of launch_model's pairs, N = 8-40, in
+// horizons.cu; tune's sweep, one kernel for every horizon, in sweep.cu
+// (sweep.cuh, with its C entries).
 //
 // C interface (loaded with ctypes): every function returns the
 // cudaGetLastError() value after its last launch (0 on success), -1 when no
@@ -126,9 +128,6 @@
 // the horizons of those pairs, N = 8-40), -2 for an unknown sampler or one the
 // pair is not built for, -3 for an unknown model or function or an R the
 // pair is not built for, -4 for a batch the grid cannot hold.
-
-#include <array>
-#include <utility>
 
 #include "diag_kernels.cuh"
 #include "estimator_chain.cuh"
@@ -154,28 +153,10 @@ enum ModelId : int {
   kCommu4Cost4 = 4
 };
 
-// Tables indexed by N - first of the instantiations that horizons.cuh
-// defines and the horizons_*.cu sources instantiate:
-// serve's cart-pole at N = kServeFirst..kServeLast, the rows' finalize at
-// every horizon of launch_model's pairs, N = kN..kServeLast.
-template <int... I>
-constexpr std::array<int (*)(const SolveCall&), sizeof...(I)> serve_table(std::integer_sequence<int, I...>) {
-  return {&launch_cartpole_shaped4<kServeFirst + I>...};
-}
-
-using Finalizer = int (*)(int, int, float, const float*, float*, int*, cudaStream_t);
-template <int... I>
-constexpr std::array<Finalizer, sizeof...(I)> finalize_table(std::integer_sequence<int, I...>) {
-  return {&launch_finalize<kN + I>...};
-}
-
-constexpr auto kServeLaunchers = serve_table(std::make_integer_sequence<int, kServeLast - kServeFirst + 1>{});
-constexpr auto kFinalizers = finalize_table(std::make_integer_sequence<int, kServeLast - kN + 1>{});
-
 // A call of model model_id at horizon n in tier fast, on the instantiations
 // built for it: the N = kN models in both tiers here, each family model at
 // its own N in the exact tier (its source), and the cart-pole at serve's
-// N = 9-40 in the exact tier (kServeLaunchers); -1 for any other
+// N = 9-40 in the exact tier (launch_cartpole_horizon); -1 for any other
 // (model, N, tier), -3 for an unknown model.
 template <bool Fast>
 int launch_model_tier(int model_id, int n, const SolveCall& c) {
@@ -183,8 +164,8 @@ int launch_model_tier(int model_id, int n, const SolveCall& c) {
   const float* cc = c.cost_consts;
   if (model_id == kCartPoleShaped4) {
     if (n == kN) return launch_call<kN, Fast>(make_model<Fast>(mc), Shaped4{}, c);
-    if (Fast || n < kServeFirst || n > kServeLast) return -1;
-    return kServeLaunchers[n - kServeFirst](c);  // serve's plan streaming
+    if (Fast) return -1;
+    return launch_cartpole_horizon(n, c);  // serve's plan streaming
   }
   if (model_id == kFlagship4Diag4) {
     return n == kN ? launch_call<kN, Fast>(Flagship4<Fast>{flagship_consts(mc)},
@@ -305,8 +286,8 @@ extern "C" {
 // launches may share them, concurrent streams may not.
 
 // model: 0 cart-pole + shaped4 (9 constants, CartPoleNonlinearT order;
-// N = 8, either tier; N = 9-40, the exact tier, box-muller at R = 1, and
-// at N = 40 also R = 4), 1 flagship4 + diag4 (17 constants, Flagship4Consts
+// N = 8, either tier; N = 9-40, the exact tier, box-muller at R = 1 and
+// 4), 1 flagship4 + diag4 (17 constants, Flagship4Consts
 // order, and 4 cost coefficients; N = 8, either tier), 2 double integrator
 // + quad2 (dt; N = 40, two states), 3 linear cart-pole + shaped4 (5
 // constants, CartPoleLinear order; N = 8), 4 commu4 + commu4 (11
@@ -439,13 +420,12 @@ int mpc_estimator_chain(int model, int n_sub, int obs_scaled, const float* plant
 }
 
 // Merge (B, nb, N+2) partials per scenario; writes u_out (B, N), status (B).
-// N: a horizon of launch_model's pairs, 8-40 (kFinalizers).
+// N: a horizon of launch_model's pairs, 8-40 (fleet_finalize_kernel, horizons.cu).
 int mpc_fleet_finalize(int n, int n_scen, int nb, float inv_lambda, const float* partials,
                        float* u_out, int* status, void* stream) {
   if (n < kN || n > kServeLast) return -1;
   if (n_scen < 1 || nb < 1) return -4;
-  return kFinalizers[n - kN](n_scen, nb, inv_lambda, partials, u_out, status,
-                             static_cast<cudaStream_t>(stream));
+  return launch_finalize(n, n_scen, nb, inv_lambda, partials, u_out, status, static_cast<cudaStream_t>(stream));
 }
 
 // out[i] = f(a[i]) for fn 0 fsin, 1 fcos, 2 flog, 3 frsqrt, 4 fsqrt,

@@ -55,8 +55,26 @@ int mpc_mppi_sweep(const float* model_consts, int n, int n_scen, int k, int tile
   if (int err = allow_shared(bytes)) return err;
   const float* m = model_consts;
   const CartPoleNonlinearT<false> model{m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8]};
-  const SweepArgs a{n, k, tiles, r, lo, hi, x, u_n, noise, noise != nullptr ? nullptr : seeds, tick,
-                    inv_lambdas, sigmas, invs, partials, tickets, u_out, status, ess};
+  TileArgs a{};
+  a.n = n;
+  a.k = k;
+  a.tiles = tiles;
+  a.r = r;
+  a.lo = lo;
+  a.hi = hi;
+  a.x = x;
+  a.u_n = u_n;
+  a.noise = noise;
+  a.seeds = noise != nullptr ? nullptr : seeds;
+  a.word0 = tick;
+  a.inv_lambdas = inv_lambdas;
+  a.sigmas = sigmas;
+  a.invs = invs;
+  a.partials = partials;
+  a.tickets = tickets;
+  a.u_out = u_out;
+  a.status = status;
+  a.ess = ess;
   const int tiles_total = (k + kThreads - 1) / kThreads;
   const dim3 grid((tiles_total + tiles - 1) / tiles, n_scen);
   mppi_sweep_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(model, a);

@@ -24,6 +24,11 @@ problem at its own (λ, σ), returning the ESS, at any horizon N from 1 to
 ``SWEEP_MAX_HORIZON`` (the JAX ``tune`` runs a vmap of ``mppi_solve`` at
 any N, no Pallas kernel): one launch of a kernel of its own,
 ``mppi_sweep_kernel`` (``ops/csrc/sweep.cuh``), that takes N at run time.
+The cart-pole's solves past N = 8 run the same way: every wrapper above
+launches ``mppi_horizons_kernel`` (``ops/csrc/horizons.cu``) for it, one
+kernel for N = 9-40 in the sweep's tile layout (``tile_solve.cuh``), with
+the partials kernel's grid, rows and Philox words; and
+``finalize_batch_fused`` is one kernel for N = 8-40.
 
 Each wrapper takes tensors on one device. On CPU tensors it runs the plain
 version beside it (the CPU tests use it); on CUDA tensors it launches the
@@ -89,7 +94,9 @@ NOISE_SOURCES = ("external", *philox.SAMPLERS)  # external noise (B, K, N), or a
 # R = 1 and 4 (mppi_kernels.cu, family_mppi2.cu, family_mppi4.cu,
 # family_commu4.cu), but serve's cart-pole, which draws box-muller alone
 # (apps/serve.py): at N = 40 at R = 1 and 4, at N = 9-39 at R = 1 (R = 4
-# would need K >= 66 561 at 8 robots); ops/csrc/horizons_*.cu.
+# would need K >= 66 561 at 8 robots). One kernel runs them all
+# (mppi_horizons_kernel, ops/csrc/horizons.cu: R tiles of 256 rollouts a
+# block).
 BUILT_FOR = {(0, n): (("box-muller",), (1, 4) if n == 40 else (1,)) for n in SERVE_HORIZONS}
 MIN_BLOCKS = 4 * 132  # four blocks on each of an H100's 132 SMs
 
@@ -100,7 +107,7 @@ MIN_BLOCKS = 4 * 132  # four blocks on each of an H100's 132 SMs
 # sweep_rollouts_a_thread, decided here and passed to the launch). A block's
 # shared memory holds the tile's controls (256 R N floats) and scores (256
 # R), u_n and the running Σ w v (N each) and the reductions' scratch (26
-# floats, kSweepRed): 4 (256 R (N + 1) + 2 N + 26) bytes
+# floats, kTileRed): 4 (256 R (N + 1) + 2 N + 26) bytes
 # (sweep_shared_bytes; the C side sizes the launch by the same formula, and
 # the card tests hold the two equal through sweep_occupancy), which one
 # block of an H100 may take up to 232 448 (227 KB, SWEEP_SHARED_MAX). At R =
@@ -183,11 +190,11 @@ def rollouts_per_thread(k: int, b: int = 1, model=None, n: int = FLEET_HORIZON) 
     whose grid, ceil(K/(256 R)) blocks a problem, keeps at least
     ``MIN_BLOCKS`` blocks (the reductions then run once per 256 R rollouts);
     1 when none does, where R = 4 would leave SMs idle (K1 at K = 10 240).
-    The same threshold past N = 8, where R = 4 holds fewer blocks an SM (2
-    at N = 20, 1 at N = 40): measured there, a grid of one short wave at
-    R = 4 loses to R = 1 (PERF.md §6). With a ``model``, only the R its
-    kernel at horizon ``n`` is built for (``built_for``): 1 wherever R = 4 is
-    not built, as for serve's cart-pole at N = 9-39, at any K."""
+    The same threshold past N = 8, where the family's R = 4 holds fewer
+    blocks an SM (2 at N = 20, 1 at N = 40): measured there, a grid of one
+    short wave at R = 4 loses to R = 1 (PERF.md §6). With a ``model``, only
+    the R its kernel at horizon ``n`` is built for (``built_for``): 1
+    wherever R = 4 is not, as for serve's cart-pole at N = 9-39, at any K."""
     fits = [r for r in built_for(model, n)[1] if -(-k // (BLOCK * r)) * b >= MIN_BLOCKS]
     return max(fits, default=1)
 
@@ -893,9 +900,10 @@ def finalize_batch_fused(cfg: MppiConfig, partials: torch.Tensor
     """Merge each scenario's (nb, N+2) rows and apply the status ladder
     (``fleet_finalize_kernel``, one warp a scenario): returns
     (u_n' (B, N), status (B,) int32). For rows merged outside the partials
-    launch; ``mppi_solve_batch_fused`` merges inside it. Built at every
-    horizon of ``BUILT`` (``FINALIZE_HORIZONS``); ``launches`` also counts
-    its calls a horizon (``finalize:N=<n>``)."""
+    launch; ``mppi_solve_batch_fused`` merges inside it. One kernel, which
+    takes N at run time, for every horizon of ``BUILT``
+    (``FINALIZE_HORIZONS``); ``launches`` also counts its calls a horizon
+    (``finalize:N=<n>``)."""
     if partials.device.type == "cpu":
         return finalize_batch_plain(cfg, partials)
     b, nb, width = partials.shape
@@ -1169,6 +1177,22 @@ def sweep_occupancy(n: int, tiles: int = 1, device=None) -> dict:
                                                  ctypes.byref(shared)), "sweep occupancy")
     return {"n": n, "tiles": tiles, "rollouts_a_thread": r, "blocks_per_sm": blocks.value, "registers": regs.value,
             "local_bytes": local.value, "shared_bytes": shared.value}
+
+
+def horizons_occupancy(n: int, device=None) -> dict:
+    """``mppi_horizons_kernel`` (the cart-pole's solves at N = 9-40) on
+    ``device``'s card at horizon ``n``: the blocks an SM holds at its dynamic
+    shared memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), its
+    registers a thread and local bytes (``cudaFuncGetAttributes``: one kernel,
+    the same at every N) and the dynamic shared bytes a launch asks for."""
+    if n not in SERVE_HORIZONS:
+        raise ValueError(f"the horizons kernel runs N={SERVE_HORIZONS.start}-{SERVE_HORIZONS.stop - 1}, got {n}")
+    blocks, regs, local, shared = (ctypes.c_int(0) for _ in range(4))
+    with torch.cuda.device(device):
+        _raise_on(_library().mpc_horizons_occupancy(n, ctypes.byref(blocks), ctypes.byref(regs), ctypes.byref(local),
+                                                    ctypes.byref(shared)), "horizons occupancy")
+    return {"n": n, "blocks_per_sm": blocks.value, "registers": regs.value, "local_bytes": local.value,
+            "shared_bytes": shared.value}
 
 
 # --------------------------------------------------------------------------

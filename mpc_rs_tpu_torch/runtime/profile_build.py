@@ -1,10 +1,8 @@
 """Time the kernels' build: each source's ``nvcc`` and the build's wall, for
-one or more checkouts in turns, and, with ``--per-horizon``, one ``nvcc`` a
-horizon of serve's cart-pole (``ops/csrc/horizons.cuh``), to choose the
-split of the ``horizons_*.cu`` sources.
+one or more checkouts in turns, to order ``ops/build.py``'s ``SOURCES``.
 
     python mpc_rs_tpu_torch/runtime/profile_build.py --root _cmp/parent --label parent \\
-        --root . --label change --turns 2 --per-horizon --out logs/profile_build.jsonl
+        --root . --label change --turns 2 --out logs/profile_build.jsonl
 
 A turn builds every checkout once, in the order given (the second turn in
 the reverse order, so two turns run A, B, B, A): every source of the
@@ -14,11 +12,9 @@ checkout's ``ops/build.py`` (``SOURCES``, its flags) compiled by its own
 scratch directory (the checkout's ``_build/`` is not touched). For each
 source: the wall from its start to its ``nvcc``'s exit, and the CPU seconds
 of that ``nvcc`` and its children (user + system, ``os.wait4``), which vary
-less than the wall when the sources share the host's cores. With
-``--per-horizon`` each N of ``--horizons`` (default 9-40) is compiled alone
-from a one-line source that instantiates that horizon, ``--jobs`` at a
-time. One JSON line a build and a horizon, with the host's core count and
-``nvidia-smi``'s name and power limit. Needs ``nvcc``; imports no torch.
+less than the wall when the sources share the host's cores. One JSON
+line a build, with the host's core count and ``nvidia-smi``'s name and
+power limit. Needs ``nvcc``; imports no torch.
 """
 
 from __future__ import annotations
@@ -97,30 +93,11 @@ def build_once(root: Path, label: str, scratch: Path) -> dict:
             "slowest": max(sources, key=lambda s: sources[s]["wall_s"]), "failed": failed}
 
 
-def per_horizon(root: Path, horizons: list[int], width: int, scratch: Path) -> list[dict]:
-    """One nvcc a horizon: a source holding ``MPC_SERVE_HORIZON(N)`` alone."""
-    b = load_build(root, "horizons")
-    nvcc = b.find_nvcc()
-    work = Path(tempfile.mkdtemp(dir=scratch, prefix="horizon_"))
-    jobs = []
-    for n in horizons:
-        src = work / f"n{n}.cu"
-        src.write_text(f'#include "{b.CSRC / "horizons.cuh"}"\n\nMPC_SERVE_HORIZON({n})\n')
-        jobs.append((f"n{n}", [nvcc, *b.NVCC_FLAGS, "-c", "-o", str(work / f"n{n}.o"), str(src)]))
-    res = run_jobs(jobs, work, width)
-    rows = [{"kind": "horizon", "n": n, "jobs": width, **res[f"n{n}"]} for n in horizons]
-    shutil.rmtree(work, ignore_errors=True)
-    return rows
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", action="append", type=Path, required=True, help="a checkout (repeat)")
     ap.add_argument("--label", action="append", required=True, help="a label a --root, in order")
     ap.add_argument("--turns", type=int, default=1)
-    ap.add_argument("--per-horizon", action="store_true")
-    ap.add_argument("--horizons", default="9-40", help="first-last")
-    ap.add_argument("--jobs", type=int, default=os.cpu_count() or 1)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
     if len(args.root) != len(args.label):
@@ -138,11 +115,6 @@ def main(argv=None) -> None:
         for turn in range(args.turns):
             for root, label in order if turn % 2 == 0 else order[::-1]:
                 lines.append({**build_once(root.resolve(), label, scratch), "turn": turn, **host})
-                print(json.dumps(lines[-1]), flush=True)
-        if args.per_horizon:
-            first, last = (int(v) for v in args.horizons.split("-"))
-            for row in per_horizon(args.root[-1].resolve(), list(range(first, last + 1)), args.jobs, scratch):
-                lines.append({**row, **host})
                 print(json.dumps(lines[-1]), flush=True)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)

@@ -37,6 +37,20 @@ For that checkout it measures:
   time, by CUDA events over a chain of J, and by the host-clock marginal of
   two chain lengths (J = 64 and 320), with the headroom.
 
+``--serve`` measures the cart-pole's solves past N = 8 instead: after the
+build, for each N of ``--horizons`` (default 8-40), serve's batch (B = 8
+robots, K = 8 192, box-muller, λ = 0.5, the wrapper's R; one launch), K2 at
+K = 8 192, the K-sharded solve's merged rows of that batch
+(``mppi_batch_partials_merged_fused``), the rows-only launch
+(``mppi_batch_partials_fused``) and the finalize of its rows
+(``finalize_batch_fused``; these four at ``SERVE_DETAIL_N``): device
+µs by kernel, kernels a call and CUDA-event µs; and the kernel's registers
+and blocks an SM at that N (``mppi_cuda.horizons_occupancy`` where the
+checkout has the one kernel; else ptxas's registers of the N's
+instantiation and the blocks an SM its registers leave, ``regs_blocks``).
+Run it once a checkout, in turns (parent, change, change, parent), in one
+call.
+
 Prints one JSON line per measurement, each with ``--label`` and the card's
 ``nvidia-smi`` name and power limit, and writes them to ``--out``. Needs a
 CUDA card. ``--u-out FILE`` also saves every path's outputs (u_n', the
@@ -63,7 +77,7 @@ from torch.autograd import DeviceType
 
 N = 8
 X0 = (0.5, 0.0, 0.1, 0.0)
-KERNELS = ("mppi_partials_kernel", "mppi_finalize_kernel", "fleet_finalize_kernel")
+KERNELS = ("mppi_partials_kernel", "mppi_horizons_kernel", "mppi_finalize_kernel", "fleet_finalize_kernel")
 # mangled partials instantiation: horizon, model (and its tier where it is a
 # template), cost, tier, sampler ID, then the rollouts per thread where the
 # kernel has that parameter
@@ -256,6 +270,62 @@ def hw_budget(emit, mppi_cuda, MppiConfig, CartPoleParams, dev) -> None:
               "headroom": HW_BUDGET_S * 1e6 / us})
 
 
+def regs_blocks(regs: int) -> int:
+    """Blocks of 256 threads an H100 SM holds by registers alone: 65 536
+    registers, allocated 8 a thread at a time (at most 32 blocks)."""
+    return min(32, 65_536 // (-(-regs // 8) * 8 * 256))
+
+
+# the horizons at which --serve also times K2, the merged rows and the finalize
+SERVE_DETAIL_N = (8, 9, 16, 20, 31, 32, 37, 38, 39, 40)
+
+
+def serve_times(emit, mppi_cuda, MppiConfig, CartPoleParams, log: str, horizons: list[int], dev) -> None:
+    """The ``--serve`` measurements (the module's notes; K2, the merged rows
+    and the finalize at the horizons of ``SERVE_DETAIL_N`` alone), one line
+    a path and N."""
+    b, k = 8, 8192
+    seeds = torch.arange(b, dtype=torch.int32, device=dev) * 31 + 5
+    xs = torch.zeros((b, 4), device=dev)
+    xs[:, 2] = torch.linspace(-0.1, 0.1, b, device=dev)
+    regs = {}
+    for ln in ptxas_partials(log):
+        tag = ln.split(": ", 1)[0].split("/")
+        used = re.search(r"Used (\d+) registers", ln)
+        if used and tag[1] == "CartPoleNonlinearT" and tag[4] == "0" and tag[5] == "1":
+            regs[(int(tag[0]), int(tag[6]) if tag[6] != "-" else 1)] = int(used.group(1))
+    for n in horizons:
+        dt = 0.1 if n == 8 else 0.01 if n == 40 else 0.8 / n  # the smoke's serve timings' models
+        model = mppi_cuda.CartPoleShaped4(CartPoleParams.single_wheel(), dt)
+        cfg = MppiConfig(n_horizon=n, n_rollouts=k, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+        u = torch.zeros((b, n), device=dev)
+        rpt = mppi_cuda.rollouts_per_thread(k, b, model, n)
+        if n > 8 and hasattr(mppi_cuda, "horizons_occupancy"):
+            occ = {"kernel": "mppi_horizons_kernel", **mppi_cuda.horizons_occupancy(n, dev)}
+        else:
+            r = regs.get((n, rpt))
+            occ = {"kernel": "mppi_partials_kernel", "registers": r, "blocks_per_sm": regs_blocks(r) if r else None}
+        paths = {
+            "serve batch": lambda: mppi_cuda.mppi_solve_batch_fused(cfg, model, xs, u, seeds=seeds,
+                                                                    sampler="box-muller"),
+            "K2": lambda: mppi_cuda.mppi_solve_fused(cfg, model, xs[0], u[0], seed=5, solve=1),
+            "merged rows": lambda: mppi_cuda.mppi_batch_partials_merged_fused(cfg, model, xs, u, seeds=seeds,
+                                                                              sampler="box-muller"),
+        }
+        paths["rows only"] = lambda: mppi_cuda.mppi_batch_partials_fused(cfg, model, xs, u, seeds=seeds,
+                                                                          sampler="box-muller")
+        rows = paths["rows only"]()
+        paths["finalize"] = lambda: mppi_cuda.finalize_batch_fused(cfg, rows)
+        if n not in SERVE_DETAIL_N:
+            paths = {"serve batch": paths["serve batch"]}
+        for name, call in paths.items():
+            by_kernel, launches = device_us(call, 20)
+            emit({"phase": "serve", "path": name, "n": n, "b": b, "k": k, "rollouts_per_thread": rpt,
+                  "finalize_rows": list(rows.shape) if name == "finalize" else None, **occ,
+                  "device_us": by_kernel, "device_us_total": sum(by_kernel.values()), "kernels_per_call": launches,
+                  "event_us": event_us(call, 50)})
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
@@ -265,6 +335,9 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--compare-u", nargs=2, metavar=("A", "B"), help="compare two --u-out files and exit")
     ap.add_argument("--hw-only", action="store_true",
                     help="build, then measure the HW-flagship chain and the family's K2 paths only")
+    ap.add_argument("--serve", action="store_true",
+                    help="build, then measure the cart-pole's solves and the finalize at --horizons only")
+    ap.add_argument("--horizons", default="8-40", help="comma-separated N or first-last spans, for --serve")
     args = ap.parse_args(argv)
     if args.compare_u:
         same = compare_outputs(*args.compare_u)
@@ -294,10 +367,17 @@ def main(argv=None) -> list[dict]:
     log = so.with_suffix(".log").read_text() if so.with_suffix(".log").is_file() else ""
     emit({"phase": "build", "build_s": build_s, "build_wall_s": time.perf_counter() - t0,
           "package": str(Path(mppi_cuda.__file__).resolve()), "ptxas_partials": ptxas_partials(log)})
+    dev = torch.device("cuda", 0)
+    if args.serve:
+        spans = [part.partition("-") for part in args.horizons.split(",")]
+        horizons = [n for first, _, last in spans for n in range(int(first), int(last or first) + 1)]
+        serve_times(emit, mppi_cuda, MppiConfig, CartPoleParams, log, horizons, dev)
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in lines))
+        return lines
     for row in sass_counts(so, Path(build.find_nvcc()).parent / "cuobjdump"):
         emit({"phase": "sass", **row})
 
-    dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(5)
     cart = {fast: CartPoleShaped4(CartPoleParams.single_wheel(), 0.1, fast=fast) for fast in (False, True)}
     x, u0 = torch.tensor(X0, device=dev), torch.zeros(N, device=dev)

@@ -33,7 +33,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-# mppi_sweep_kernel(CartPoleNonlinearT<false>, SweepArgs): one kernel, not a template
+# mppi_sweep_kernel(CartPoleNonlinearT<false>, TileArgs): one kernel, not a template
 SWEEP_RE = re.compile(r"mpc17mppi_sweep_kernelE")
 GRID = ((0.1, 0.5, 1.4, 2.5), (1.0, 3.0, 10.0), 8)  # tune's default λ, σ and seeds
 CHUNK = 8  # problems a flop count runs on (of the grid's 96)

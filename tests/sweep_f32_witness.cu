@@ -1,6 +1,6 @@
 // The sweep kernel's rollout, one problem at a time, with every step's
-// state kept (tests/sweep_f32_witness.py): the statements of sweep_rollout
-// (ops/csrc/sweep.cuh), box-muller keyed `key` with counter word `tick`,
+// state kept (tests/sweep_f32_witness.py): the statements of tile_rollout
+// (ops/csrc/tile_solve.cuh), box-muller keyed `key` with counter word `tick`,
 // the stage costs and the control term summed one after another, or with
 // Kahan's compensation (`kahan`), to set the two orders side by side.
 #include "sweep.cuh"

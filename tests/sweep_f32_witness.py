@@ -6,7 +6,7 @@ band (the f32 band, or twice the plain float32 version's own distance),
 with the plain cart-pole dividing kt·u / r_w once (``dynamics._div``) or as
 PyTorch divides a CUDA tensor by a Python float (a multiply by the float32
 reciprocal); and each problem's rollouts as the kernel steps them
-(``tests/sweep_f32_witness.cu``: the statements of ``sweep_rollout``, its
+(``tests/sweep_f32_witness.cu``: the statements of ``tile_rollout``, its
 sums taken one after another or with Kahan's compensation) against the
 plain float32 states (run manually; prints JSON lines).
 

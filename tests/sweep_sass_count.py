@@ -18,7 +18,7 @@ import sys
 from collections import Counter
 from pathlib import Path
 
-# mppi_sweep_kernel(CartPoleNonlinearT<false>, SweepArgs): one kernel, not a template
+# mppi_sweep_kernel(CartPoleNonlinearT<false>, TileArgs): one kernel, not a template
 SWEEP_RE = re.compile(r"mpc17mppi_sweep_kernelE")
 SASS_PRED_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);")
 PHILOX_M0 = ("0xd2511f53", "-0x2daee0ad")  # Philox's first multiplier, unsigned or signed

@@ -1056,6 +1056,74 @@ def test_cuda_plain_step_divides_by_a_python_float_once(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("site", ["imu6", "force6", "mean_diag", "ukf_jitter", "mppi_lambda", "pid_dt"])
+def test_cuda_sensor_filter_and_controller_steps_divide_once(card, site, monkeypatch):
+    """The other plain steps that divide a CUDA tensor by a Python number
+    (``dynamics._div``), each an IEEE division bit for bit numpy's, as in K7's
+    sensor (``estimator_chain.cuh``) and the JAX package: imu6's az/g and
+    ax/g and force6's v/g and h/g, against the same numerators divided by
+    numpy; the mean diagonal of the unrolled Cholesky's floor and
+    ``spd_solve_unrolled``'s jitter (``smallalg.mean_diag``), and through it
+    the AoS UKF's Cholesky jitter (every ``mean_diag`` that ``sigma_points``
+    makes), against the trace divided by numpy; the plain MPPI controller's
+    (s - m)/λ and the PID's kd·Δ²e/dt, each recorded at its ``_div``."""
+    from mpc_rs_tpu_torch.controllers import mppi as tmppi
+    from mpc_rs_tpu_torch.controllers import pid as tpid
+    from mpc_rs_tpu_torch.estimators import smallalg, ukf
+    from mpc_rs_tpu_torch.models import costs, dynamics, observation
+
+    p = CartPoleParams.single_wheel()
+    rng = np.random.default_rng(11)
+    g32 = np.float32(p.g)
+    if site in ("imu6", "force6"):
+        x = torch.tensor(rng.uniform(-1.0, 1.0, (1 << 16, 6)), dtype=torch.float32, device=card)
+        dx, ddx, th, dth, ddth = x[:, 1], x[:, 2], x[:, 3], x[:, 4], x[:, 5]
+        if site == "imu6":
+            got = observation.make_hx_imu6(p)(x)[:, 3:].cpu().numpy()
+            num = [p.g * torch.cos(th) - ddx * torch.sin(th) + p.l * dth * dth,
+                   p.g * torch.sin(th) + ddx * torch.cos(th) + p.l * ddth]
+        else:
+            got = observation.make_hx_force6(p)(x)[:, 3:].cpu().numpy()
+            num = [p.m2 * p.g * torch.cos(th) + p.m2 * ddx * torch.sin(th) - p.m2 * p.l * dth * dth,
+                   -p.m2 * p.g * torch.sin(th) + p.m2 * ddx * torch.cos(th) + p.m2 * p.l * ddth]
+        want = np.stack([t.cpu().numpy() / g32 for t in num], axis=-1)
+        np.testing.assert_array_equal(got, want)
+        return
+    seen = []
+    for module in (smallalg, tmppi, tpid):
+        real = module._div
+
+        def recording(a, b, real=real):
+            out = real(a, b)
+            seen.append((a.detach().cpu().numpy(), b, out.detach().cpu().numpy()))
+            return out
+
+        monkeypatch.setattr(module, "_div", recording)
+    if site == "mean_diag":
+        for n in (3, 5, 6):
+            a = rng.standard_normal((4096, n, n))
+            smallalg.mean_diag(torch.tensor(a @ a.transpose(0, 2, 1), dtype=torch.float32, device=card))
+    elif site == "ukf_jitter":
+        a = rng.standard_normal((512, 6, 6))
+        s = torch.tensor(a @ a.transpose(0, 2, 1) + 0.1 * np.eye(6), dtype=torch.float32, device=card)
+        wm, wc, c = ukf.merwe_weights(6, alpha=1.0, device=card)
+        ukf.sigma_points(ukf.UkfParams(wm=wm, wc=wc, c=c, n=6, n_obs=5, sqrt_method="cholesky"), s[:, 0], s)
+    elif site == "mppi_lambda":
+        cfg = MppiConfig(n_horizon=8, n_rollouts=4096, lambda_=0.7, std_dev=3.0, limit=(-20.0, 20.0))
+        noise = torch.tensor(3.0 * rng.standard_normal((4096, 8)), dtype=torch.float32, device=card)
+        x4 = tuple(torch.tensor(v, device=card) for v in (0.3, 0.0, 0.1, 0.0))
+        tmppi.mppi_solve(cfg, dynamics.make_cartpole_nonlinear(p, 0.1), costs.shaped4, None, x4,
+                         torch.zeros(8, device=card), noise=noise)
+    else:
+        e = torch.tensor(rng.standard_normal(1 << 16), dtype=torch.float32, device=card)
+        tpid.pid_update(tpid.PidConfig(kp=2.0, ki=0.5, kd=0.3), tpid.PidState(u=0 * e, e1=0.5 * e, e2=0.25 * e),
+                        e, 0.5 * e, 0.03)
+    assert seen, site
+    for a, b, out in seen:
+        np.testing.assert_array_equal(out, a / np.asarray(b, dtype=a.dtype))
+
+
+@pytest.mark.cuda
 def test_cuda_sweep_occupancy_holds_at_every_horizon(card):
     """The one kernel's registers and blocks an SM: at most 64 registers and
     no spill at every N (one kernel), at least 4 blocks an SM up to N = 40,

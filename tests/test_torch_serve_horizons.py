@@ -2,8 +2,9 @@
 port's ``serve`` picks against the JAX ``serve``'s own lines, the kernels'
 build table (``BUILT``, ``BUILT_FOR``) and the refusal rule the wrappers
 apply on a CUDA device, the R rule at N = 9-39, the plain box-muller words
-at odd N, the warm start's advance at N = 16 and a ``serve`` run at N = 16
-through the CLI. The batch solver against the JAX ``mppi_solve`` at these
+at odd N, the warm start's advance at N = 16, a ``serve`` run at N = 16
+through the CLI, and what pipeline depth 1 does to the robots at N = 16 in
+both packages (a property of the reference, ROADMAP §3). The batch solver against the JAX ``mppi_solve`` at these
 horizons is ``tests/test_torch_commu.py``'s
 ``test_serve_batch_solver_matches_jax_robot_by_robot``.
 """
@@ -19,9 +20,15 @@ import pytest
 import torch
 
 from mpc_rs_tpu.apps import serve as jserve
+from mpc_rs_tpu.controllers.mppi import MppiConfig as JaxMppiConfig
+from mpc_rs_tpu.models import costs as jcosts
+from mpc_rs_tpu.models import dynamics as jdynamics
+from mpc_rs_tpu.models.params import CartPoleParams as JaxCartPoleParams
 from mpc_rs_tpu_torch.apps import run as cli
 from mpc_rs_tpu_torch.apps import serve as tserve
+from mpc_rs_tpu_torch.apps.commu_examples import float_step
 from mpc_rs_tpu_torch.controllers.mppi import MppiConfig
+from mpc_rs_tpu_torch.models import dynamics
 from mpc_rs_tpu_torch.models.params import CartPoleParams
 from mpc_rs_tpu_torch.ops import mppi_cuda, philox
 from mpc_rs_tpu_torch.ops.mppi_cuda import CartPoleShaped4, Commu4Cost4, Flagship4Diag4
@@ -185,3 +192,55 @@ def test_serve_cli_at_a_plan_streaming_horizon():
     assert summary["ticks"] > 5 and summary["dispatches"] >= 2
     assert all(n > 0 for n in summary["rx"]) and all(n > 0 for n in summary["tx"])
     assert summary["bad_frames"] == 0 and "robots upright" in buf.getvalue()
+
+
+def serve_closed_loop(package: str, depth: int, *, robots: int = 2, k: int = 2048, dispatches: int = 12,
+                      seed: int = 3) -> float:
+    """The largest |θ| of ``serve``'s robots at N = 16 (``--ticks-per-dispatch
+    2 --control-period 0.05``) over ``dispatches`` dispatches, with no link
+    and no clock: each dispatch solves from the robots' states with the
+    package's batch solver and warm start (the JAX ``serve``'s verbatim, the
+    port's advanced by the M = 2 plan steps between two snapshots), and its
+    plan's first two entries are applied over the next two ticks, or, at
+    ``depth`` 1, over the two ticks after those (the plan a dispatch
+    returns is sent after the next dispatch's snapshot). The robots are the
+    fake MCU's plant (``float_step`` at 1 ms) from [0, 0, 0.05, 0]."""
+    n, dt, m = 16, 0.05, 2
+    if package == "jax":
+        cfg = JaxMppiConfig(n_horizon=n, n_rollouts=k, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+        solve = jserve.make_batch_solver(cfg, jdynamics.make_cartpole_nonlinear(JaxCartPoleParams.single_wheel(), dt),
+                                         jcosts.shaped4, 4, "vmap")
+    else:
+        cfg = MppiConfig(n_horizon=n, n_rollouts=k, lambda_=0.5, std_dev=3.0, limit=(-20.0, 20.0))
+        model = CartPoleShaped4(SW, dt)
+    plant = dynamics.make_cartpole_nonlinear(SW, None)
+    xs = np.tile(np.array([0.0, 0.0, 0.05, 0.0]), (robots, 1))
+    u_n = np.zeros((robots, n), np.float32)
+    in_flight, max_theta = [], 0.0
+    for d in range(dispatches):
+        seeds = np.int32(seed) + np.int32(d * robots) + np.arange(robots, dtype=np.int32)
+        if package == "jax":
+            u_n = np.asarray(solve(seeds, xs.astype(np.float32), u_n)[0])
+        else:
+            u_n = tserve._solve(cfg, model, "box-muller", True, torch.from_numpy(seeds),
+                                torch.from_numpy(xs.astype(np.float32)), torch.from_numpy(u_n), m if d else 0)[0].numpy()
+        in_flight.append(u_n)
+        plan = in_flight.pop(0) if len(in_flight) > depth else np.zeros_like(u_n)
+        for j in range(m):
+            for i in range(robots):
+                for _ in range(round(dt / 1e-3)):
+                    xs[i] = float_step(plant, xs[i], float(plan[i, j]), 1e-3)
+            max_theta = max(max_theta, float(np.abs(xs[:, 2]).max()))
+    return max_theta
+
+
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_depth1_plan_lateness_tips_the_robots_in_both_packages(package):
+    """At N = 16 with a 0.05 s tick (M = 2) the robots stay upright when each
+    plan is sent as it returns (depth 0) and tip past 60° when it is sent a
+    dispatch later (depth 1: 0.1 s late), with the JAX ``serve``'s solver and
+    warm start as with the port's: the falls of ``serve`` at
+    ``--pipeline-depth 1`` there are the reference's
+    (``tests/serve_depth_witness.py`` counts them through both CLIs)."""
+    assert serve_closed_loop(package, 0) < np.radians(15.0)
+    assert serve_closed_loop(package, 1) > np.radians(60.0)

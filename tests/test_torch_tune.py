@@ -387,10 +387,10 @@ def test_make_sweep_at_n41_on_a_card_raises_before_a_launch(monkeypatch):
 def test_every_sweep_horizon_is_instantiated_once_in_the_sources():
     """The sweep is one kernel, defined in ``sweep.cuh`` and instantiated by
     one source of ``build.SOURCES`` (``sweep.cu``, with its C entries), not
-    a horizon at a time; serve's cart-pole at N = 9-40 and the rows'
-    finalize at N = 8-40 are each instantiated exactly once over the
-    sources (a missing one fails at load, a second one at link time, on the
-    card only)."""
+    a horizon at a time; so are serve's cart-pole at N = 9-40 and the rows'
+    finalize at N = 8-40, one kernel each that takes N at run time, defined
+    once in ``horizons.cu`` (a source of ``build.SOURCES``), with no
+    instantiation a horizon left in any source."""
     import re
 
     from mpc_rs_tpu_torch.ops import build
@@ -409,9 +409,14 @@ def test_every_sweep_horizon_is_instantiated_once_in_the_sources():
     kernels = re.findall(r"^(.*)\n__global__ void __launch_bounds__\(kThreads, kSweepMinBlocks\)\nmppi_sweep_kernel\(",
                          (build.CSRC / "sweep.cuh").read_text(), flags=re.M)
     assert len(kernels) == 1 and not kernels[0].startswith("template")
-    assert sorted(found["SERVE"]) == list(mppi_cuda.SERVE_HORIZONS)
-    # MPC_SERVE_HORIZON(N) holds the finalize at N too
-    assert sorted(found["FINALIZE"] + found["SERVE"]) == sorted(mppi_cuda.FINALIZE_HORIZONS)
+    assert found == {"SWEEP": [], "SERVE": [], "FINALIZE": []}
+    assert "horizons.cu" in build.SOURCES and not any(src.startswith("horizons_") for src in build.SOURCES)
+    horizons = (build.CSRC / "horizons.cu").read_text()
+    for name in ("mppi_horizons_kernel", "fleet_finalize_kernel"):
+        defined = re.findall(rf"^(.*)\n__global__ void __launch_bounds__\(kThreads[^)]*\)\n{name}\(", horizons,
+                             flags=re.M)
+        assert len(defined) == 1 and not defined[0].startswith("template"), name
+        assert all(f"{name}(" not in (build.CSRC / src).read_text() for src in build.SOURCES if src != "horizons.cu")
 
 
 def test_sweep_kernel_names_are_read_by_r_and_horizon(tmp_path):
@@ -423,7 +428,7 @@ def test_sweep_kernel_names_are_read_by_r_and_horizon(tmp_path):
     solve to its bits."""
     from mpc_rs_tpu_torch.runtime import profile_partials, profile_sweep, sweep_bits
 
-    name = "_ZN3mpc17mppi_sweep_kernelENS_18CartPoleNonlinearTILb0EEENS_9SweepArgsE"
+    name = "_ZN3mpc17mppi_sweep_kernelENS_18CartPoleNonlinearTILb0EEENS_8TileArgsE"
     old = lambda r, n: (f"_ZN3mpc17mppi_sweep_kernelILi{r}ELi{n}ELi0EEEvNS_18CartPoleNonlinearTILb0EEENS_"  # noqa: E731
                         f"12PartialsArgsENS_10PartialsIOENS_9MppiSweepE")
     other = "_ZN3mpc20mppi_partials_kernelILi8ENS_18CartPoleNonlinearTILb0EEENS_7Shaped4ELb0ELi1ELi4ELi0EEEvT0_"
